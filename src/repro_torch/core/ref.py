@@ -1,0 +1,36 @@
+"""Pure host oracle for WCSD: constrained BFS, deliberately simple
+(deque-based) so it is an independent check on the index and the device
+engines. Used for spot checks of answers served from the card."""
+from __future__ import annotations
+
+from collections import deque
+
+import numpy as np
+
+from .graph import Graph, INF_DIST
+
+
+def wcsd_bfs(g: Graph, s: int, t: int, w_level: int) -> int:
+    """w-constrained distance via textbook BFS (paper Algorithm 1)."""
+    if s == t:
+        return 0
+    if w_level >= g.num_levels:
+        return int(INF_DIST)
+    visited = np.zeros(g.num_nodes, dtype=bool)
+    visited[s] = True
+    q = deque([s])
+    dist = 0
+    while q:
+        dist += 1
+        for _ in range(len(q)):
+            u = q.popleft()
+            beg, end = g.indptr[u], g.indptr[u + 1]
+            for v, lvl in zip(g.nbr[beg:end], g.nbr_level[beg:end]):
+                if lvl < w_level or visited[v]:
+                    continue
+                if v == t:
+                    return dist
+                visited[v] = True
+                q.append(int(v))
+    return int(INF_DIST)
+

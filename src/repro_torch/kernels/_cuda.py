@@ -1,0 +1,130 @@
+"""Build, load and launch bookkeeping for the port's CUDA kernels.
+
+Each source in `repro_torch/csrc/` is compiled by `nvcc` into a shared
+library with a plain C interface and loaded with `ctypes`. The build runs
+at first use, from the sources in the checkout only, into `build/` at the
+repository root; the library's file name carries a hash of its source and
+flags, so an edited source is rebuilt and an unchanged one is reused.
+Nothing here runs at import time: CPU-only hosts import every module.
+"""
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+
+import torch
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
+SOURCES = ("wcsd_query", "frontier")
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
+              "-O3", "-shared", "-Xcompiler", "-fPIC")
+
+# launches per kernel wrapper: each wrapper adds one where it launches its
+# kernel, and nowhere else (the smoke run resets and reads these)
+LAUNCHES = {"wcsd_query_ragged": 0, "wcsd_profile_ragged": 0,
+            "wc_prune_emit_batched": 0, "wc_relax_batched": 0}
+
+_libs: dict[str, ctypes.CDLL] = {}
+_lock = threading.Lock()
+
+
+def reset_launch_counts() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def nvcc_path() -> str:
+    for cand in (os.environ.get("CUDA_HOME"), "/usr/local/cuda"):
+        if cand and (Path(cand) / "bin" / "nvcc").exists():
+            return str(Path(cand) / "bin" / "nvcc")
+    found = shutil.which("nvcc")
+    if found is None:
+        raise RuntimeError("nvcc not found (set CUDA_HOME); the port's CUDA "
+                           "kernels are built on the machine with the card")
+    return found
+
+
+def _lib_path(name: str) -> Path:
+    src = (CSRC / f"{name}.cu").read_bytes()
+    key = hashlib.sha256(src + " ".join(NVCC_FLAGS).encode()).hexdigest()[:16]
+    return BUILD_DIR / f"lib{name}_{key}.so"
+
+
+def build(names=SOURCES) -> None:
+    """Compile every named source that has no up-to-date library, one
+    `nvcc` per source, all started together."""
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    todo = {n: _lib_path(n) for n in names if not _lib_path(n).exists()}
+    if not todo:
+        return
+    nvcc = nvcc_path()
+    procs = {}
+    for name, out in todo.items():
+        tmp = out.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [nvcc, *NVCC_FLAGS, "-o", str(tmp), str(CSRC / f"{name}.cu")]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT), tmp, out)
+    errors = []
+    for name, (proc, tmp, out) in procs.items():
+        log, _ = proc.communicate()
+        if proc.returncode != 0:
+            errors.append(f"nvcc {name}.cu failed:\n{log.decode()}")
+        else:
+            os.replace(tmp, out)
+    if errors:
+        raise RuntimeError("\n".join(errors))
+
+
+def library(name: str) -> ctypes.CDLL:
+    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    with _lock:
+        if name not in _libs:
+            build((name,))
+            _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+        return _libs[name]
+
+
+def check_launch(err: int, what: str) -> None:
+    if err != 0:
+        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+
+
+def stream_ptr(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def check_cuda_args(what: str, device: torch.device, **tensors) -> None:
+    """Validate the tensors a kernel takes: same CUDA device, int32,
+    contiguous. The kernels index flat memory and take no strides."""
+    if device.type != "cuda":
+        raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors, got "
+                         f"{device}")
+    for name, x in tensors.items():
+        if x.device != device:
+            raise ValueError(f"{what}: {name} is on {x.device}, expected "
+                             f"{device}")
+        if x.dtype != torch.int32:
+            raise TypeError(f"{what}: {name} must be int32, got {x.dtype}")
+        if not x.is_contiguous():
+            raise ValueError(f"{what}: {name} must be contiguous")
+
+
+def resolve_device(device=None) -> torch.device:
+    """The device an entry point runs on: ``None`` means the card. Asking
+    for the card where there is none raises — the port never falls back
+    to the CPU on its own; tests pass ``device="cpu"``."""
+    dev = torch.device("cuda" if device is None else device)
+    if dev.type == "cuda" and not torch.cuda.is_available():
+        raise RuntimeError("no CUDA device is available; pass device='cpu' "
+                           "to run the plain PyTorch path on the CPU")
+    if dev.type not in ("cuda", "cpu"):
+        raise ValueError(f"unsupported device {dev}")
+    if dev.type == "cuda" and dev.index is None:
+        dev = torch.device("cuda", torch.cuda.current_device())
+    return dev

@@ -1,0 +1,142 @@
+"""Rank-batched construction kernels (K3 `wc_prune_emit_batched`, K4
+`wc_relax_batched`): the CUDA launchers and, beside each, its plain
+PyTorch version.
+
+One synchronized round of the device-resident builder
+(`core.wc_index_batched.build_wc_index_batched_packed`) for a batch of B
+roots: K3 prunes the frontier against the partial index and emits the
+surviving labels, K4 relaxes the emitted frontier over the padded
+adjacency. The CUDA source is `repro_torch/csrc/frontier.cu`; the plain
+versions translate the reference package's
+`kernels/ref.py:wc_prune_emit_batched_ref` / `wc_relax_batched_ref` line
+by line, chunked over (root, vertex) blocks so that the ``[B, V, cap]``
+and ``[B, V, D]`` intermediates stay bounded on the card.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from . import _cuda
+
+DEV_INF = 1 << 29
+INF_DIST = 1 << 30
+_CHUNK_CELLS = 1 << 25  # gathered cells per chunk of the plain versions
+_CHUNK_ROWS = 64        # most vertices per chunk of the plain prune
+
+
+def _vchunk(B: int, width: int) -> int:
+    return max(1, _CHUNK_CELLS // max(B * width, 1))
+
+
+def wc_prune_emit_batched_plain(F, T, hub, dist, wlev, d: int):
+    """Plain version of K3: F [B, V], T [B, V, W+1], hub/dist/wlev [V, cap]
+    (pads hub -1, dist INF_DIST, wlev -1), d the round. Returns emit
+    [B, V] int32: F where the partial index does not already cover the
+    frontier distance, else -1."""
+    B, V = F.shape
+    W1 = T.shape[2]
+    cap = hub.shape[1]
+    out = torch.empty_like(F)
+    Tflat = T.reshape(-1)
+    brow = torch.arange(B, device=F.device)[:, None, None] * (V * W1)
+    step = min(_vchunk(B, cap), _CHUNK_ROWS)
+    for a in range(0, V, step):
+        Fa = F[:, a:a + step]
+        if not bool((Fa >= 0).any()):   # no active frontier: all -1
+            out[:, a:a + step] = -1
+            continue
+        ha, da, wa = hub[a:a + step], dist[a:a + step], wlev[a:a + step]
+        fw = Fa.clamp(0, W1 - 1)
+        # T[b, clip(hub), fw] as one flat gather
+        tv = Tflat[brow + ha.clamp(0, V - 1).long()[None] * W1
+                   + fw[:, :, None]]                          # [B, n, cap]
+        feas = (ha >= 0)[None] & (wa[None] >= fw[:, :, None])
+        cand = torch.where(feas, da.clamp_max(DEV_INF)[None]
+                           + tv.clamp_max(DEV_INF), INF_DIST)
+        q = cand.amin(dim=2)
+        survive = (Fa >= 0) & (q > d)
+        out[:, a:a + step] = torch.where(survive, Fa, -1)
+    return out
+
+
+def wc_relax_batched_plain(emit_w, nbr_pad, lvl_pad, rank, root_ranks, R):
+    """Plain version of K4: emit_w/R [B, V], nbr_pad/lvl_pad [V, D] (pads
+    -1), rank [V], root_ranks [B]. Returns (newF, newR), both [B, V]."""
+    B, V = emit_w.shape
+    D = nbr_pad.shape[1]
+    newF = torch.empty_like(R)
+    newR = torch.empty_like(R)
+    step = _vchunk(B, D)
+    for a in range(0, V, step):
+        na, la = nbr_pad[a:a + step], lvl_pad[a:a + step]
+        fwn = emit_w[:, na.clamp(0, V - 1)]                   # [B, n, D]
+        fwn = torch.where(na[None] >= 0, fwn, -1)
+        wp = torch.minimum(fwn, la[None])
+        cand = wp.amax(dim=2)
+        cand = torch.where(rank[None, a:a + step] > root_ranks[:, None],
+                           cand, -1)
+        Ra = R[:, a:a + step]
+        newF[:, a:a + step] = torch.where(cand > Ra, cand, -1)
+        newR[:, a:a + step] = torch.maximum(Ra, cand)
+    return newF, newR
+
+
+def wc_prune_emit_batched_cuda(F, T, hub, dist, wlev, d: int):
+    """Launch K3 on the current stream. Same contract as the plain
+    version; label rows must be filled row-prefix first (pads at the
+    tail), as the builder's partial index is."""
+    what = "wc_prune_emit_batched"
+    _cuda.check_cuda_args(what, F.device, F=F, T=T, hub=hub, dist=dist,
+                          wlev=wlev)
+    B, V = F.shape
+    W1 = T.shape[2] if T.dim() == 3 else -1
+    cap = hub.shape[1]
+    if T.shape != (B, V, W1) or W1 < 1:
+        raise ValueError(f"{what}: T must be [B, V, W+1] = [{B}, {V}, *]")
+    if hub.shape != (V, cap) or dist.shape != (V, cap) \
+            or wlev.shape != (V, cap):
+        raise ValueError(f"{what}: hub/dist/wlev must be [V, cap]")
+    emit = torch.empty_like(F)
+    fn = _cuda.library("frontier").wc_prune_emit_launch
+    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(F.data_ptr(), T.data_ptr(), hub.data_ptr(), dist.data_ptr(),
+             wlev.data_ptr(), emit.data_ptr(), B, V, W1, cap, int(d),
+             _cuda.stream_ptr(F.device))
+    _cuda.check_launch(err, what)
+    _cuda.LAUNCHES[what] += 1
+    return emit
+
+
+def wc_relax_batched_cuda(emit_w, nbr_pad, lvl_pad, rank, root_ranks, R):
+    """Launch K4 on the current stream. Same contract as the plain
+    version; adjacency rows must be filled row-prefix first
+    (`Graph.padded_adjacency`)."""
+    what = "wc_relax_batched"
+    _cuda.check_cuda_args(what, emit_w.device, emit_w=emit_w,
+                          nbr_pad=nbr_pad, lvl_pad=lvl_pad, rank=rank,
+                          root_ranks=root_ranks, R=R)
+    B, V = emit_w.shape
+    D = nbr_pad.shape[1]
+    if R.shape != (B, V) or nbr_pad.shape != (V, D) \
+            or lvl_pad.shape != (V, D):
+        raise ValueError(f"{what}: expected emit_w/R [B, V], nbr_pad/"
+                         "lvl_pad [V, D]")
+    if rank.shape != (V,) or root_ranks.shape != (B,):
+        raise ValueError(f"{what}: expected rank [V], root_ranks [B]")
+    newF = torch.empty_like(R)
+    newR = torch.empty_like(R)
+    fn = _cuda.library("frontier").wc_relax_batched_launch
+    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(emit_w.data_ptr(), nbr_pad.data_ptr(), lvl_pad.data_ptr(),
+             rank.data_ptr(), root_ranks.data_ptr(), R.data_ptr(),
+             newF.data_ptr(), newR.data_ptr(), B, V, D,
+             _cuda.stream_ptr(emit_w.device))
+    _cuda.check_launch(err, what)
+    _cuda.LAUNCHES[what] += 1
+    return newF, newR

@@ -1,0 +1,89 @@
+"""Wrappers the engines call for the four kernels of the main path.
+
+Each wrapper chooses by the device of the tensors it is given: a CPU
+tensor gets the kernel's plain PyTorch version, a CUDA tensor the CUDA
+kernel (which raises if it cannot launch — there is no fallback). The
+wrappers also own the post-processing the reference package's
+`kernels/ops.py` does around its kernels: ``>= DEV_INF`` maps to
+INF_DIST, and profile bucket minima become staircases by a suffix min.
+"""
+from __future__ import annotations
+
+import torch
+
+from . import frontier as _frontier
+from . import wcsd_query as _wq
+
+DEV_INF = 1 << 29
+INF_DIST = 1 << 30
+
+
+def _on_card(x: torch.Tensor, what: str) -> bool:
+    if x.device.type == "cuda":
+        return True
+    if x.device.type == "cpu":
+        return False
+    raise ValueError(f"{what}: unsupported device {x.device}")
+
+
+def _to_inf_dist(x: torch.Tensor) -> torch.Tensor:
+    return torch.where(x >= DEV_INF, INF_DIST, x).to(torch.int32)
+
+
+def wcsd_query_ragged(hub, dist, wlev, tile_lo, tile_hi, qidx, stile, ttile,
+                      first, wq):
+    """One ragged flush: every query of the batch in a single launch over
+    the lane-tiled arena (worklist contract: `core.query.
+    emit_ragged_worklist`). ``first`` is part of the worklist contract but
+    neither version needs it. Returns [Q] int32 distances (INF_DIST when
+    no feasible path)."""
+    del first
+    if _on_card(hub, "wcsd_query_ragged"):
+        best = _wq.wcsd_query_ragged_cuda(hub, dist, wlev, tile_lo, tile_hi,
+                                          qidx, stile, ttile, wq)
+    else:
+        best = _wq.wcsd_query_ragged_plain(hub, dist, wlev, qidx, stile,
+                                           ttile, wq)
+    return _to_inf_dist(best)
+
+
+def wcsd_profile_ragged(hub, dist, wlev, tile_lo, tile_hi, qidx, stile,
+                        ttile, first, *, num_rows: int, num_levels: int):
+    """Ragged PROFILE flush: per-pair-level bucket minima from one launch,
+    turned into staircases by the suffix min over levels. Returns
+    [num_rows, num_levels + 1] int32 (INF_DIST where infeasible)."""
+    del first
+    if _on_card(hub, "wcsd_profile_ragged"):
+        bucket = _wq.wcsd_profile_ragged_cuda(
+            hub, dist, wlev, tile_lo, tile_hi, qidx, stile, ttile,
+            num_rows=num_rows, num_levels=num_levels)
+    else:
+        bucket = _wq.wcsd_profile_ragged_plain(
+            hub, dist, wlev, qidx, stile, ttile, num_rows=num_rows,
+            num_levels=num_levels)
+    # torch has no reverse cummin: flip, cummin, flip back
+    prof = torch.flip(torch.cummin(torch.flip(bucket, (1,)), dim=1).values,
+                      (1,))
+    return _to_inf_dist(prof)
+
+
+def wc_prune_emit(F, T, hub, dist, wlev, d: int, *, do_prune: bool = True):
+    """Fused partial-index prune + emission for a batch of roots. F [B, V]
+    frontier levels (-1 inactive); T [B, V, W+1] per-root hub tables;
+    hub/dist/wlev [V, cap] partial index; d the round. Returns emit_w
+    [B, V]. With do_prune=False (round 0) the whole frontier emits."""
+    if not do_prune:
+        return F
+    if _on_card(F, "wc_prune_emit"):
+        return _frontier.wc_prune_emit_batched_cuda(F, T, hub, dist, wlev, d)
+    return _frontier.wc_prune_emit_batched_plain(F, T, hub, dist, wlev, d)
+
+
+def wc_relax_batched(emit_w, nbr_pad, lvl_pad, rank, root_ranks, R):
+    """One batched relaxation round. emit_w/R [B, V]; nbr_pad/lvl_pad
+    [V, D] (pads -1); rank [V]; root_ranks [B]. Returns (newF, newR)."""
+    if _on_card(emit_w, "wc_relax_batched"):
+        return _frontier.wc_relax_batched_cuda(emit_w, nbr_pad, lvl_pad,
+                                               rank, root_ranks, R)
+    return _frontier.wc_relax_batched_plain(emit_w, nbr_pad, lvl_pad, rank,
+                                            root_ranks, R)

@@ -1,0 +1,168 @@
+"""The port stands alone: `repro_torch` and `chip_smoke.py` import neither
+`jax` nor the reference package `repro`; entry points default to the card
+and raise where there is none; the CUDA launchers refuse CPU tensors; and
+the features not ported yet raise `NotImplementedError`."""
+import os
+import pkgutil
+import re
+import subprocess
+import sys
+
+import pytest
+import torch
+
+REPO = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..")
+SRC = os.path.join(REPO, "src")
+PORT = os.path.join(SRC, "repro_torch")
+
+
+def _port_modules():
+    import repro_torch
+    names = ["repro_torch"]
+    for info in pkgutil.walk_packages(repro_torch.__path__, "repro_torch."):
+        names.append(info.name)
+    return names
+
+
+def test_import_every_module_without_jax_or_repro():
+    mods = _port_modules()
+    assert len(mods) >= 16, mods
+    code = ("import importlib, sys\n"
+            f"for m in {mods!r}: importlib.import_module(m)\n"
+            "bad = sorted(m for m in sys.modules if m == 'jax' or "
+            "m.startswith('jax.') or m == 'repro' or "
+            "m.startswith('repro.'))\n"
+            "assert not bad, bad\n"
+            "print('ok', len(sys.modules))\n")
+    env = dict(os.environ, PYTHONPATH=SRC)
+    r = subprocess.run([sys.executable, "-c", code], env=env,
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode == 0, r.stderr
+    assert r.stdout.startswith("ok")
+
+
+_BANNED = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
+                     r"from\s+repro(\.|\s)|import\s+repro(\.|\s|$))", re.M)
+
+
+def test_source_scan_finds_no_jax_or_repro_import():
+    files = [os.path.join(REPO, "chip_smoke.py")]
+    for root, _, names in os.walk(PORT):
+        files += [os.path.join(root, n) for n in names if n.endswith(".py")]
+    assert len(files) >= 15
+    for path in files:
+        with open(path) as f:
+            text = f.read()
+        assert not _BANNED.search(text), path
+    # the pattern does catch the reference package, and spares the port
+    assert _BANNED.search("from repro.core import graph")
+    assert _BANNED.search("import repro.kernels.ops")
+    assert _BANNED.search("import jax.numpy as jnp")
+    assert not _BANNED.search("from repro_torch.core import graph")
+    assert not _BANNED.search("import repro_torch")
+
+
+def _tiny():
+    from repro_torch.core.generators import erdos_renyi
+    from repro_torch.core.wc_index_batched import \
+        build_wc_index_batched_packed
+    g = erdos_renyi(12, 2.0, num_levels=2, seed=0)
+    idx, _ = build_wc_index_batched_packed(g, device="cpu")
+    return g, idx
+
+
+def test_entry_points_default_to_the_card_and_raise_without_one():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default is valid here")
+    from repro_torch.core.query import DeviceQueryEngine
+    from repro_torch.core.serve import WCSDServer
+    from repro_torch.core.wc_index_batched import \
+        build_wc_index_batched_packed
+    g, idx = _tiny()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        build_wc_index_batched_packed(g)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        DeviceQueryEngine(idx)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WCSDServer(idx)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WCSDServer(idx, device="cuda")
+
+
+def test_cuda_launchers_refuse_cpu_tensors():
+    """A launcher never runs the plain version: given CPU tensors it
+    raises before any build or launch."""
+    from repro_torch.kernels import frontier as kfr
+    from repro_torch.kernels import wcsd_query as kwq
+    z = torch.zeros((4, 8), dtype=torch.int32)
+    v = torch.zeros(4, dtype=torch.int32)
+    with pytest.raises(ValueError, match="CUDA"):
+        kwq.wcsd_query_ragged_cuda(z, z, z, v, v, v, v, v, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        kwq.wcsd_profile_ragged_cuda(z, z, z, v, v, v, v, v, 5, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        kfr.wc_prune_emit_batched_cuda(z, torch.zeros((4, 8, 3),
+                                                      dtype=torch.int32),
+                                       z, z, z, 1)
+    with pytest.raises(ValueError, match="CUDA"):
+        kfr.wc_relax_batched_cuda(z, z, z, torch.zeros(8, dtype=torch.int32),
+                                  v, z)
+
+
+def test_wrappers_choose_by_device():
+    """ops wrappers: CPU tensors take the plain version (no launch is
+    counted); a device that is neither CPU nor CUDA is refused."""
+    from repro_torch.kernels import _cuda, ops
+    F = torch.full((2, 5), -1, dtype=torch.int32)
+    rank = torch.arange(5, dtype=torch.int32)
+    nbr = torch.full((5, 2), -1, dtype=torch.int32)
+    _cuda.reset_launch_counts()
+    newF, newR = ops.wc_relax_batched(F, nbr, nbr, rank,
+                                      torch.zeros(2, dtype=torch.int32), F)
+    assert (newF == -1).all() and (newR == -1).all()
+    assert sum(_cuda.LAUNCHES.values()) == 0
+    meta = torch.empty((2, 5), dtype=torch.int32, device="meta")
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.wc_relax_batched(meta, nbr, nbr, rank, rank, meta)
+
+
+def test_unported_engine_features_raise():
+    from repro_torch.core.query import DeviceQueryEngine
+    _, idx = _tiny()
+    for kw, name in ((dict(layout="padded"), "padded"),
+                     (dict(dispatch="bucket_pair"), "bucket_pair"),
+                     (dict(compressed=True), "compressed")):
+        with pytest.raises(NotImplementedError, match=name):
+            DeviceQueryEngine(idx, device="cpu", **kw)
+    with pytest.raises(ValueError, match="cap"):
+        DeviceQueryEngine(idx, device="cpu", cap=4)
+
+
+def test_kernel_library_is_keyed_on_its_source():
+    """The build writes `build/lib<name>_<hash>.so` at the repo root; the
+    hash covers the source and the nvcc flags."""
+    from repro_torch.kernels import _cuda
+    p = _cuda._lib_path("wcsd_query")
+    assert p.parent == _cuda.BUILD_DIR
+    assert os.path.samefile(_cuda.BUILD_DIR.parent, REPO)
+    assert p.name.startswith("libwcsd_query_") and p.suffix == ".so"
+    assert p != _cuda._lib_path("frontier")
+    assert "sm_90a" in " ".join(_cuda.NVCC_FLAGS)
+
+
+def test_chip_smoke_refuses_without_a_card():
+    """chip_smoke.py exits non-zero and prints no result where there is
+    no CUDA device."""
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present")
+    r = subprocess.run([sys.executable, os.path.join(REPO, "chip_smoke.py")],
+                       capture_output=True, text=True, timeout=300)
+    assert r.returncode != 0
+    assert '"ok"' not in r.stdout
+
+
+def test_resolve_device():
+    from repro_torch.kernels._cuda import resolve_device
+    assert resolve_device("cpu") == torch.device("cpu")
+    with pytest.raises(ValueError):
+        resolve_device("meta")
