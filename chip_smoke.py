@@ -3,23 +3,37 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Builds the four CUDA kernels from `src/repro_torch/csrc/` (one `nvcc` per
-source, started together), then drives the port's main path once on the
-card: `scale_free(2^17, m=4, num_levels=5, seed=0)` -> the rank-batched
-device builder -> `WCSDServer` serving 2^20 random queries and 2^16
-profile queries, once in epoch flushes and once under continuous
-batching. Launch counts are reset just before that run and read just
-after it. Then every kernel is held against its plain PyTorch version on
-inputs captured from that run (exact int32 equality) and timed with CUDA
-events; every served flush is checked against the plain path, 64 pairs
-against the host BFS at every level, and a 2,000-vertex build on the card
-against the same build on the CPU, byte for byte.
+Builds the eight CUDA kernels from the two sources in
+`src/repro_torch/csrc/` (one `nvcc` per source, started together), then
+drives three paths of the port on the card, each with the launch counts
+reset just before it and read just after it:
 
-Prints one JSON object per phase (toolchain, kernels, build, serve),
-the card's name and power limit, and as its last line
-``{"ok": true, "device": {...}}``. Exits non-zero, printing no result,
-if there is no CUDA device, a kernel does not build or launch, or any
-check fails.
+1. the main path: `scale_free(2^17, m=4, num_levels=5, seed=0)` -> the
+   rank-batched device builder (K3, K4) -> `WCSDServer` serving 2^20
+   random queries and 2^16 profile queries (K1, K2), once in epoch
+   flushes and once under continuous batching;
+2. compressed serving: `scale_free(2^15, ...)`, the largest V of the
+   family whose hub deltas all fit int16, served through
+   `WCSDServer(compressed=True)` (K5, K6) in epoch flushes;
+3. bucket-pair serving: the V = 2^17 index served through
+   `WCSDServer(dispatch="bucket_pair")` (K7, K8) in epoch flushes.
+
+Then every kernel is held against its plain PyTorch version on inputs
+captured from its path (exact int32 equality) and timed with CUDA
+events; every served flush (every sub-batch, for bucket-pair) is checked
+against the plain path; the compressed answers equal an uncompressed
+server's on the same index, and the bucket-pair answers the ragged
+server's over the whole stream; 64 pairs are checked against the host
+BFS at every level, and a 2,000-vertex build on the card against the
+same build on the CPU, byte for byte. The V = 2^17 store's compressed
+arena is built too: its overflowed tiles are counted and, where there are
+any, an engine asked for ``compressed=True`` must serve it uncompressed
+and say so.
+
+Prints one JSON object per phase, the card's name and power limit, and
+as its last line ``{"ok": true, "device": {...}}``. Exits non-zero,
+printing no result, if there is no CUDA device, a kernel does not build
+or launch, or any check fails.
 """
 from __future__ import annotations
 
@@ -46,6 +60,8 @@ LOG2_V = 17          # build: scale_free(2^17, m=4, num_levels=5, seed=0)
 BATCH = 32           # roots per build batch
 LOG2_QUERIES = 20    # served scalar queries
 LOG2_PROFILES = 16   # served profile queries
+LOG2_V_COMPRESSED = 15  # compressed serving: every hub delta fits int16
+BF16_EXACT = 256     # distances bf16 holds exactly
 MAX_BATCH = 4096     # server flush size
 CHECK_V = 2000       # vertices of the card-vs-CPU build identity check
 BFS_PAIRS = 64       # served pairs checked against the host BFS
@@ -84,6 +100,29 @@ def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     to = nops / INT32_OPS_PER_S * 1e3
     return (tb, "bytes") if tb >= to else (to, "operations")
+
+
+def hub_meets(hs, ht, chunk_cells: int = 1 << 26) -> int:
+    """Cell pairs of real hubs (>= 0) that meet, summed over the row pairs
+    ``hs[i]`` x ``ht[i]`` ([n, Ws] and [n, Wt] on the card)."""
+    import torch
+    n, Ws = hs.shape
+    step = max(1, chunk_cells // max(Ws * ht.shape[1], 1))
+    total = torch.zeros((), dtype=torch.int64, device=hs.device)
+    for a in range(0, n, step):
+        x, y = hs[a:a + step], ht[a:a + step]
+        total += ((x[:, :, None] == y[:, None, :])
+                  & (x >= 0)[:, :, None]).sum()
+    return int(total.item())
+
+
+def join_ops(cells: int, meets: int, profile: bool) -> int:
+    """The least int32 operations of a join over hub-sorted rows: a merge
+    join takes one hub compare per cell of either side (``cells``), then
+    per meet an add and a min, and for a profile also the pair level's
+    min (the bin). The kernels compare every cell pair instead; that is
+    their cost, not the function's."""
+    return cells + (3 if profile else 2) * meets
 
 
 # ----------------------------------------------------------------- phases
@@ -202,9 +241,9 @@ def record_flushes(engine, log: list) -> None:
     engine.query_profile_async = query_profile_async
 
 
-def serve_epoch(idx, qs, ps, max_batch, log, device):
+def serve_epoch(idx, qs, ps, max_batch, log, device, **engine_kw):
     from repro_torch.core.serve import WCSDServer
-    srv = WCSDServer(idx, max_batch=max_batch, device=device)
+    srv = WCSDServer(idx, max_batch=max_batch, device=device, **engine_kw)
     record_flushes(srv.engine, log)
     t0 = time.perf_counter()
     out = srv.query_many(*qs)
@@ -257,21 +296,54 @@ def flush_inputs(engine, rec):
 
 
 def plain_flush(engine, rec) -> np.ndarray:
-    """The plain PyTorch path for one recorded flush, chunked, on the card."""
+    """The plain PyTorch path for one recorded ragged flush (compressed or
+    not), chunked, on the card."""
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import wcsd_query as kwq
     hub, dist, wlev, lo, hi, qidx, stile, ttile, wq, rows = \
         flush_inputs(engine, rec)
     n = len(rec[1])
+    if engine.compressed:
+        arena = (hub, dist, wlev, lo)
+        query = kwq.wcsd_query_ragged_compressed_plain
+        profile = kwq.wcsd_profile_ragged_compressed_plain
+    else:
+        arena = (hub, dist, wlev)
+        query = kwq.wcsd_query_ragged_plain
+        profile = kwq.wcsd_profile_ragged_plain
     if rec[0] == "query":
-        best = kwq.wcsd_query_ragged_plain(hub, dist, wlev, qidx, stile,
-                                           ttile, wq)
+        best = query(*arena, qidx, stile, ttile, wq)
         return kops._to_inf_dist(best)[:n].cpu().numpy()
+    b = profile(*arena, qidx, stile, ttile, rows, engine.num_levels)
+    return kops._staircase(b)[:n].cpu().numpy()
+
+
+def sub_batches(engine, rec):
+    """The planned sub-batches of one recorded bucket-pair flush, staged
+    on the card as the engine stages them: (sub, [3 or 2, n] staging,
+    the six bucket tiles)."""
     import torch
-    b = kwq.wcsd_profile_ragged_plain(hub, dist, wlev, qidx, stile, ttile,
-                                      rows, engine.num_levels)
-    prof = torch.flip(torch.cummin(torch.flip(b, (1,)), 1).values, (1,))
-    return kops._to_inf_dist(prof)[:n].cpu().numpy()
+    from repro_torch.core.query import plan_query_batch, stage_sub_batch
+    kind, s, t, wl, _ = rec
+    out = []
+    for sub in plan_query_batch(engine._bucket_of, s, t,
+                                num_buckets=engine.num_buckets):
+        stq = torch.from_numpy(stage_sub_batch(
+            engine._slot_of, sub.positions, s, t, wl)).to(engine.device)
+        out.append((sub, stq, engine._tiles[sub.bucket_s]
+                    + engine._tiles[sub.bucket_t]))
+    return out
+
+
+def plain_sub_batch(engine, kind, stq, tiles):
+    """The plain PyTorch path for one bucket-pair sub-batch, on the card."""
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import wcsd_segmented as kseg
+    if kind == "query":
+        return kops._to_inf_dist(kseg.wcsd_query_segmented_plain(
+            *tiles, stq[0], stq[1], stq[2])).cpu().numpy()
+    return kops._staircase(kseg.wcsd_profile_segmented_plain(
+        *tiles, stq[0], stq[1], engine.num_levels)).cpu().numpy()
 
 
 _BFS_GRAPH = None
@@ -289,55 +361,162 @@ def _bfs_row(pair):
 
 
 # ------------------------------------------------------- kernel phases
+RAGGED_KERNELS = {  # (profile, compressed) -> name, TPU kernel it replaces
+    (False, False): ("wcsd_query_ragged",
+                     "src/repro/kernels/wcsd_query.py:283"),
+    (True, False): ("wcsd_profile_ragged",
+                    "src/repro/kernels/wcsd_query.py:371"),
+    (False, True): ("wcsd_query_ragged_compressed",
+                    "src/repro/kernels/wcsd_query.py:456"),
+    (True, True): ("wcsd_profile_ragged_compressed",
+                   "src/repro/kernels/wcsd_query.py:529"),
+}
+
+
 def ragged_kernel_phase(engine, rec, profile: bool, launches: int,
                         iters: int) -> dict:
+    """K1/K2, or K5/K6 where the engine serves the compressed arena."""
     import torch
     from repro_torch.kernels import wcsd_query as kwq
     hub, dist, wlev, lo, hi, qidx, stile, ttile, wq, rows = \
         flush_inputs(engine, rec)
     lane = hub.shape[1]
     L = engine.num_levels
+    comp = engine.compressed
+    name, replaces = RAGGED_KERNELS[(profile, comp)]
+    if comp:
+        kq, kp = (kwq.wcsd_query_ragged_compressed_cuda,
+                  kwq.wcsd_profile_ragged_compressed_cuda)
+        pq, pp = (kwq.wcsd_query_ragged_compressed_plain,
+                  kwq.wcsd_profile_ragged_compressed_plain)
+        plain_arena = (hub, dist, wlev, lo)
+    else:
+        kq, kp = kwq.wcsd_query_ragged_cuda, kwq.wcsd_profile_ragged_cuda
+        pq, pp = kwq.wcsd_query_ragged_plain, kwq.wcsd_profile_ragged_plain
+        plain_arena = (hub, dist, wlev)
     if profile:
         def kern():
-            return kwq.wcsd_profile_ragged_cuda(hub, dist, wlev, lo, hi, qidx,
-                                                stile, ttile, rows, L)
+            return kp(hub, dist, wlev, lo, hi, qidx, stile, ttile, rows, L)
 
         def plain():
-            return kwq.wcsd_profile_ragged_plain(hub, dist, wlev, qidx,
-                                                 stile, ttile, rows, L)
+            return pp(*plain_arena, qidx, stile, ttile, rows, L)
     else:
         def kern():
-            return kwq.wcsd_query_ragged_cuda(hub, dist, wlev, lo, hi, qidx,
-                                              stile, ttile, wq)
+            return kq(hub, dist, wlev, lo, hi, qidx, stile, ttile, wq)
 
         def plain():
-            return kwq.wcsd_query_ragged_plain(hub, dist, wlev, qidx, stile,
-                                               ttile, wq)
+            return pq(*plain_arena, qidx, stile, ttile, wq)
     a, b = kern(), plain()
     torch.cuda.synchronize()
     err = int((a.long() - b.long()).abs().max().item())
     # data-dependent work: only real items (not pads, which feed the trash
-    # row rows - 1) whose tile hub spans meet are joined
+    # row rows - 1) whose tile hub spans meet are joined, each a merge of
+    # two tiles plus its hub meets
     real = qidx < rows - 1
     meet = real & (lo[stile] <= hi[ttile]) & (lo[ttile] <= hi[stile])
     n_meet = int(meet.sum().item())
     tiles = torch.unique(torch.cat([stile[meet], ttile[meet]]))
     all_tiles = torch.unique(torch.cat([stile[real], ttile[real]]))
     WL = qidx.shape[0]
-    nbytes = (12 * WL + 8 * all_tiles.numel() + 12 * lane * tiles.numel()
+    cell = (hub.element_size() + dist.element_size() + wlev.element_size())
+    nbytes = (12 * WL + 8 * all_tiles.numel() + cell * lane * tiles.numel()
               + 4 * b.numel() + (4 * wq.numel() if wq is not None else 0))
-    nops = (4 if profile else 3) * lane * lane * n_meet
-    bms, by = bound_ms(nbytes, nops)
-    return {"name": "wcsd_profile_ragged" if profile else "wcsd_query_ragged",
+    hs, ht = hub[stile[meet]], hub[ttile[meet]]
+    if comp:                    # decode the hub deltas as the kernel does
+        hs = torch.where(hs >= 0, lo[stile[meet]][:, None] + hs.int(), -1)
+        ht = torch.where(ht >= 0, lo[ttile[meet]][:, None] + ht.int(), -1)
+    meets = hub_meets(hs, ht)
+    bms, by = bound_ms(nbytes, join_ops(2 * lane * n_meet, meets, profile))
+    return {"name": name,
             "route": "cuda", "source": "src/repro_torch/csrc/wcsd_query.cu",
-            "replaces": ("src/repro/kernels/wcsd_query.py:371"
-                         if profile else "src/repro/kernels/wcsd_query.py:283"),
+            "replaces": replaces,
             "launches": launches, "max_abs_err": err,
             "ms": cuda_ms(kern, iters), "plain_ms": cuda_ms(plain, 2),
             "bound_ms": bms, "bound_by": by, "library_ms": None,
             "shape": {"worklist": WL, "pad_items": WL - int(real.sum()),
-                      "meeting_items": n_meet, "lane": lane,
-                      "queries": rows - 1}}
+                      "meeting_items": n_meet, "hub_meets": meets,
+                      "lane": lane,
+                      "bytes_per_cell": cell, "queries": rows - 1}}
+
+
+def segmented_kernel_phase(engine, rec, profile: bool, launches: int,
+                           iters: int) -> dict:
+    """K7/K8 on the sub-batches of one recorded bucket-pair flush: every
+    sub-batch held against the plain version; the heaviest (most cell
+    pairs compared) timed alone, and the whole flush's launches timed back to
+    back."""
+    import torch
+    from repro_torch.kernels import wcsd_segmented as kseg
+    L = engine.num_levels
+    subs = sub_batches(engine, rec)
+
+    def kern(stq, tiles):
+        if profile:
+            return kseg.wcsd_profile_segmented_cuda(*tiles, stq[0], stq[1], L)
+        return kseg.wcsd_query_segmented_cuda(*tiles, stq[0], stq[1],
+                                              stq[2])
+
+    def plain(stq, tiles):
+        if profile:
+            return kseg.wcsd_profile_segmented_plain(*tiles, stq[0], stq[1],
+                                                     L)
+        return kseg.wcsd_query_segmented_plain(*tiles, stq[0], stq[1],
+                                               stq[2])
+
+    err = 0
+    for _, stq, tiles in subs:
+        a, b = kern(stq, tiles), plain(stq, tiles)
+        err = max(err, int((a.long() - b.long()).abs().max().item()))
+    torch.cuda.synchronize()
+
+    def work(sub, stq, tiles):
+        """(bytes, ops, hub meets) of one launch: each distinct row read
+        once, the row ids and levels, the output; a merge of each query's
+        two rows plus its hub meets."""
+        n = len(sub.positions)
+        Ws, Wt = tiles[0].shape[1], tiles[3].shape[1]
+        if sub.bucket_s == sub.bucket_t:
+            rows = torch.unique(torch.cat([stq[0], stq[1]])).numel()
+            row_bytes = 12 * Ws * rows
+        else:
+            row_bytes = 12 * (Ws * torch.unique(stq[0]).numel()
+                              + Wt * torch.unique(stq[1]).numel())
+        out = 4 * n * ((L + 1) if profile else 1)
+        nbytes = row_bytes + (8 if profile else 12) * n + out
+        meets = hub_meets(tiles[0][stq[0]], tiles[3][stq[1]])
+        return nbytes, join_ops(n * (Ws + Wt), meets, profile), meets
+
+    works = [work(*x) for x in subs]
+
+    def pairs(i):          # cell pairs the kernel compares
+        return (len(subs[i][0].positions) * subs[i][2][0].shape[1]
+                * subs[i][2][3].shape[1])
+
+    heavy = max(range(len(subs)), key=pairs)
+    sub, stq, tiles = subs[heavy]
+    bms, by = bound_ms(*works[heavy][:2])
+    fbms, fby = bound_ms(sum(w[0] for w in works), sum(w[1] for w in works))
+    flush_ms = cuda_ms(lambda: [kern(q, t_) for _, q, t_ in subs],
+                       max(1, iters // 10))
+    return {"name": ("wcsd_profile_segmented" if profile
+                     else "wcsd_query_segmented"),
+            "route": "cuda", "source": "src/repro_torch/csrc/wcsd_query.cu",
+            "replaces": ("src/repro/kernels/wcsd_query.py:588" if profile
+                         else "src/repro/kernels/wcsd_query.py:119"),
+            "launches": launches, "max_abs_err": err,
+            "ms": cuda_ms(lambda: kern(stq, tiles), iters),
+            "plain_ms": cuda_ms(lambda: plain(stq, tiles), 2),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "flush_ms": flush_ms, "flush_bound_ms": fbms,
+            "flush_bound_by": fby,
+            "shape": {"sub_batches": len(subs), "queries": len(rec[1]),
+                      "heaviest": {"bucket_s": sub.bucket_s,
+                                   "bucket_t": sub.bucket_t,
+                                   "n": len(sub.positions),
+                                   "Ws": tiles[0].shape[1],
+                                   "Wt": tiles[3].shape[1],
+                                   "hub_meets": works[heavy][2]},
+                      "flush_hub_meets": sum(w[2] for w in works)}}
 
 
 def prune_kernel_phase(cap3, launches: int, step_s: float,
@@ -420,6 +599,207 @@ def relax_kernel_phase(cap4, launches: int, step_s: float,
                       "scanned_neighbours": scanned}}
 
 
+# ------------------------------------------ compressed and bucket-pair
+MAIN_PATH = ("wcsd_query_ragged", "wcsd_profile_ragged",
+             "wc_prune_emit_batched", "wc_relax_batched")
+COMPRESSED_PATH = ("wcsd_query_ragged_compressed",
+                   "wcsd_profile_ragged_compressed")
+BUCKET_PAIR_PATH = ("wcsd_query_segmented", "wcsd_profile_segmented")
+
+
+def check_path_launches(what: str, launches: dict, path, expect: dict):
+    """Every kernel of the path ran; none outside it did; where ``expect``
+    names a count, the kernel ran exactly that often."""
+    for k, n in launches.items():
+        if k in path and n == 0:
+            fail(f"{what}: kernel {k} was not launched")
+        if k not in path and n != 0:
+            fail(f"{what}: kernel {k} outside the path launched {n} times")
+        if k in expect and n != expect[k]:
+            fail(f"{what}: kernel {k} launched {n} times, expected "
+                 f"{expect[k]}")
+
+
+def serve_summary(srv, wall, n_req, log) -> dict:
+    lat = srv.latency_summary()
+    return {"wall_s": wall, "requests_per_s": n_req / wall,
+            "server_flushes": srv.stats.batches,
+            "query_dispatches": sum(1 for r in log if r[0] == "query"),
+            "profile_dispatches": sum(1 for r in log if r[0] == "profile"),
+            "dispatch_s": srv.stats.dispatch_time_s,
+            "drain_wait_s": srv.stats.drain_wait_s,
+            "p50_us": lat["p50_us"], "p99_us": lat["p99_us"],
+            "memo_hits": srv.stats.memo_hits,
+            "max_batch_seen": srv.stats.max_batch}
+
+
+def compressed_fallback_phase(idx, engine, qrec, prec, device) -> dict:
+    """The V = 2^17 store's compressed arena: its size and overflowed
+    tiles. Where any tile overflows, an engine asked for compressed=True
+    must serve the uncompressed arena, say so, and answer as the
+    uncompressed engine did on the recorded flushes."""
+    from repro_torch.core.query import DeviceQueryEngine
+    t0 = time.perf_counter()
+    comp = idx.labels.compressed_arena()
+    encode_s = time.perf_counter() - t0
+    ar = engine.arena
+    out = {"phase": "compressed_fallback", "V": idx.num_nodes,
+           "tiles": comp.num_tiles,
+           "overflow_tiles": comp.num_overflow_tiles,
+           "overflow_share": comp.num_overflow_tiles / comp.num_tiles,
+           "max_tile_hub_span": int((ar.tile_hi - ar.tile_lo).max()),
+           "arena_bytes": ar.memory_bytes(),
+           "compressed_bytes": comp.memory_bytes(),
+           "bytes_ratio": ar.memory_bytes() / comp.memory_bytes(),
+           "encode_s": encode_s}
+    eng = DeviceQueryEngine(idx, compressed=True, device=device)
+    out.update(engine_compressed=eng.compressed,
+               compression_overflow=eng.compression_overflow)
+    if comp.num_overflow_tiles:
+        if eng.compressed or not eng.compression_overflow:
+            fail("an overflowing store was served compressed")
+        if not (np.array_equal(eng.query(*qrec[1:4]), qrec[4].wait())
+                and np.array_equal(eng.query_profile(*prec[1:3]),
+                                   prec[4].wait())):
+            fail("the compressed=True fallback engine differs from the "
+                 "uncompressed engine")
+        out["fallback_equals_uncompressed"] = True
+    elif not eng.compressed:
+        fail("a store with no overflowed tile was not served compressed")
+    return out
+
+
+def compressed_serve_phase(device) -> tuple[dict, list]:
+    """Path 2: V = 2^15, served through WCSDServer(compressed=True) in
+    epoch flushes, against an uncompressed server on the same index.
+    Returns the phase record and the K5/K6 kernel phases."""
+    import torch
+    from repro_torch.core.generators import random_queries, scale_free
+    from repro_torch.core.wc_index_batched import \
+        build_wc_index_batched_packed
+    from repro_torch.kernels import _cuda
+    V = 1 << LOG2_V_COMPRESSED
+    g = scale_free(V, m=4, num_levels=5, seed=0)
+    t0 = time.perf_counter()
+    idx, _ = build_wc_index_batched_packed(g, batch_size=BATCH,
+                                           device=device)
+    build_s = time.perf_counter() - t0
+    qs = random_queries(g, 1 << LOG2_QUERIES, seed=1)
+    ps = random_queries(g, 1 << LOG2_PROFILES, seed=2)[:2]
+    ar = idx.labels.arena()
+    max_dist = int(ar.dist[ar.hub >= 0].max())
+    if max_dist > BF16_EXACT:
+        fail(f"V = 2^{LOG2_V_COMPRESSED}: largest distance {max_dist} is "
+             f"past bf16's exact range {BF16_EXACT}")
+    progress(f"compressed path: V={V} built in {build_s:.1f} s")
+    _, out_u, prof_u, _ = serve_epoch(idx, qs, ps, MAX_BATCH, [], device)
+    log = []
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    srv, out, prof, wall = serve_epoch(idx, qs, ps, MAX_BATCH, log, device,
+                                       compressed=True)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    if srv.engine.compressed is not True:
+        fail(f"V = 2^{LOG2_V_COMPRESSED} was not served compressed "
+             f"(overflow: {srv.engine.compression_overflow})")
+    summ = serve_summary(srv, wall, len(qs[0]) + len(ps[0]), log)
+    check_path_launches("compressed serving", launches, COMPRESSED_PATH, {
+        "wcsd_query_ragged_compressed": summ["query_dispatches"],
+        "wcsd_profile_ragged_compressed": summ["profile_dispatches"]})
+    bad = sum(1 for rec in log
+              if not np.array_equal(rec[4].wait(), plain_flush(srv.engine,
+                                                               rec)))
+    if bad:
+        fail(f"compressed serving: {bad} flushes differ from the plain path")
+    if not (np.array_equal(out, out_u) and np.array_equal(prof, prof_u)):
+        fail("compressed serving differs from the uncompressed server")
+    comp = idx.labels.compressed_arena()
+    progress(f"compressed serving {wall:.1f} s, equal to uncompressed")
+    phase = {"phase": "compressed_serve", "V": V, "edges": g.num_edges,
+             "build_s": build_s, "entries": idx.size_entries(),
+             "max_finite_dist": max_dist, "bf16_exact_to": BF16_EXACT,
+             "arena_bytes": ar.memory_bytes(),
+             "compressed_bytes": comp.memory_bytes(),
+             "bytes_ratio": ar.memory_bytes() / comp.memory_bytes(),
+             "overflow_tiles": comp.num_overflow_tiles,
+             "engine_compressed": True, "queries": len(qs[0]),
+             "profile_queries": len(ps[0]), "max_batch": MAX_BATCH,
+             "launches": {k: launches[k] for k in COMPRESSED_PATH},
+             "flushes_equal_plain": True, "equal_uncompressed": True,
+             **summ}
+    qrec = next(r for r in log if r[0] == "query")
+    prec = next(r for r in log if r[0] == "profile")
+    kernels = [ragged_kernel_phase(srv.engine, qrec, False,
+                                   launches[COMPRESSED_PATH[0]], 50),
+               ragged_kernel_phase(srv.engine, prec, True,
+                                   launches[COMPRESSED_PATH[1]], 50)]
+    return phase, kernels
+
+
+def bucket_pair_phase(idx, qs, ps, out_ragged, prof_ragged, device
+                      ) -> tuple[dict, list]:
+    """Path 3: the V = 2^17 index through WCSDServer(dispatch=
+    "bucket_pair") in epoch flushes. One K7/K8 launch per planned
+    sub-batch, every sub-batch equal to its plain path, the whole
+    stream equal to the ragged server's. Returns the phase record and
+    the K7/K8 kernel phases."""
+    import torch
+    from repro_torch.kernels import _cuda
+    log = []
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    srv, out, prof, wall = serve_epoch(idx, qs, ps, MAX_BATCH, log, device,
+                                       dispatch="bucket_pair")
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    progress(f"bucket-pair serving {wall:.1f} s")
+    planned = {"query": 0, "profile": 0}
+    per_flush, bad = [], 0
+    for rec in log:
+        got = rec[4].wait()
+        subs = sub_batches(srv.engine, rec)
+        planned[rec[0]] += len(subs)
+        per_flush.append(len(subs))
+        for sub, stq, tiles in subs:
+            if not np.array_equal(got[sub.positions],
+                                  plain_sub_batch(srv.engine, rec[0], stq,
+                                                  tiles)):
+                bad += 1
+    check_path_launches("bucket-pair serving", launches, BUCKET_PAIR_PATH, {
+        "wcsd_query_segmented": planned["query"],
+        "wcsd_profile_segmented": planned["profile"]})
+    if bad:
+        fail(f"bucket-pair serving: {bad} sub-batches differ from the "
+             "plain path")
+    if not (np.array_equal(out, out_ragged)
+            and np.array_equal(prof, prof_ragged)):
+        fail("bucket-pair serving differs from the ragged server")
+    progress("bucket-pair answers equal the plain path and the ragged "
+             "server")
+    packed = srv.engine.packed
+    phase = {"phase": "bucket_pair_serve", "V": idx.num_nodes,
+             "bucket_widths": packed.bucket_widths.tolist(),
+             "bucket_rows": [len(m) for m in packed.bucket_vertices],
+             "tile_bytes": sum(int(x.numel()) * 4 for tl in srv.engine._tiles
+                               for x in tl),
+             "queries": len(qs[0]), "profile_queries": len(ps[0]),
+             "max_batch": MAX_BATCH,
+             "sub_batches": planned,
+             "sub_batches_per_flush": float(np.mean(per_flush)),
+             "max_sub_batches_per_flush": int(max(per_flush)),
+             "launches": {k: launches[k] for k in BUCKET_PAIR_PATH},
+             "sub_batches_equal_plain": True, "equal_ragged": True,
+             **serve_summary(srv, wall, len(qs[0]) + len(ps[0]), log)}
+    qrec = next(r for r in log if r[0] == "query")
+    prec = next(r for r in log if r[0] == "profile")
+    kernels = [segmented_kernel_phase(srv.engine, qrec, False,
+                                      launches[BUCKET_PAIR_PATH[0]], 20),
+               segmented_kernel_phase(srv.engine, prec, True,
+                                      launches[BUCKET_PAIR_PATH[1]], 20)]
+    return phase, kernels
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -468,9 +848,7 @@ def main() -> int:
     torch.cuda.synchronize()
     launches = dict(_cuda.LAUNCHES)
     progress(f"continuous serving {wall_c:.1f} s; launches {launches}")
-    for k, n in launches.items():
-        if n == 0:
-            fail(f"kernel {k} was not launched on the main path")
+    check_path_launches("main path", launches, MAIN_PATH, {})
 
     # ------------------------------------------------- build phase checks
     ar = srv_e.engine.arena
@@ -571,11 +949,19 @@ def main() -> int:
     serve["bfs_levels"] = W + 1
     serve["bfs_equal"] = True
 
+    # --------------------- compressed fallback, compressed, bucket-pair
+    qrec = next(r for r in flushes_epoch if r[0] == "query")
+    prec = next(r for r in flushes_epoch if r[0] == "profile")
+    fallback = compressed_fallback_phase(idx, srv_e.engine, qrec, prec, dev)
+    progress(f"V={V} compressed arena: {fallback['overflow_tiles']} of "
+             f"{fallback['tiles']} tiles overflow")
+    comp_serve, comp_kernels = compressed_serve_phase(dev)
+    bp_serve, bp_kernels = bucket_pair_phase(idx, (s, t, wl), (ps, pt),
+                                             out_e, prof_e, dev)
+
     # ----------------------------------------- kernels vs plain, timed
     if cap.k3 is None or cap.k4 is None:
         fail("no build round was captured for the kernel phases")
-    qrec = next(r for r in flushes_epoch if r[0] == "query")
-    prec = next(r for r in flushes_epoch if r[0] == "profile")
     kernels = [
         ragged_kernel_phase(srv_e.engine, qrec, False,
                             launches["wcsd_query_ragged"], 50),
@@ -585,7 +971,7 @@ def main() -> int:
                            steps["wc_prune_emit"], 50),
         relax_kernel_phase(cap.k4, launches["wc_relax_batched"],
                            steps["wc_relax_batched"], 50),
-    ]
+    ] + comp_kernels + bp_kernels
     for k in kernels:
         if k["max_abs_err"] != 0:
             fail(f"kernel {k['name']} differs from its plain version "
@@ -596,6 +982,9 @@ def main() -> int:
         emit({"phase": "kernel", **k})
     emit(build)
     emit(serve)
+    emit(fallback)
+    emit(comp_serve)
+    emit(bp_serve)
     emit({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

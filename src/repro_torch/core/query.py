@@ -1,21 +1,31 @@
-"""Device-side batched WCSD query engine (ragged dispatch over the CSR
-store's lane-tiled arena).
+"""Device-side batched WCSD query engine over the CSR label store.
 
 Port of the reference package's `core/query.py` for
-``DeviceQueryEngine(layout="csr", dispatch="ragged")``: a batch of
-(s, t, w_level) queries becomes a flat (query, s_tile, t_tile) worklist
-emitted on the device (`emit_ragged_worklist`), and the whole batch is
-answered by ONE kernel launch (K1 `wcsd_query_ragged`, or K2
-`wcsd_profile_ragged` for all-level profiles).
+``DeviceQueryEngine(layout="csr")``, in its two dispatch modes:
+
+  * ``dispatch="ragged"`` (default): a batch of (s, t, w_level) queries
+    becomes a flat (query, s_tile, t_tile) worklist emitted on the device
+    (`emit_ragged_worklist`), and the whole batch is answered by ONE
+    kernel launch over the lane-tiled arena (K1 `wcsd_query_ragged`, or
+    K2 `wcsd_profile_ragged` for all-level profiles). With
+    ``compressed=True`` the arena is the `CompressedArena` and the
+    launch is K5 / K6, which decode the narrow cells in the kernel.
+  * ``dispatch="bucket_pair"``: the host planner (`plan_query_batch`)
+    groups the batch by (bucket(s), bucket(t)), and each group is one
+    launch over that bucket pair's padded tiles (K7
+    `wcsd_query_segmented`, K8 `wcsd_profile_segmented`). The reference
+    keeps it as the ragged path's differential oracle.
 """
 from __future__ import annotations
+
+import dataclasses
 
 import numpy as np
 import torch
 
 from ..kernels import ops as kops
 from ..kernels._cuda import resolve_device
-from .wc_index import LANE, PackedWCIndex
+from .wc_index import FLOAT_DTYPES, LANE, PackedWCIndex
 
 TRASH_LEVEL = 1 << 20  # no stored wlev reaches it: infeasible everywhere
 
@@ -61,35 +71,82 @@ def ragged_worklist_len(tile_cnt: np.ndarray, s: np.ndarray, t: np.ndarray
 
 
 def ragged_query_batch(hub, dist, wlev, tile_lo, tile_hi, tile_base,
-                       tile_cnt, stq, *, worklist_len: int):
+                       tile_cnt, stq, *, worklist_len: int,
+                       compressed: bool = False):
     """Plan + launch: emit the worklist from the staged queries and answer
-    every query with one K1 launch. stq: [3, Q] staged (s, t, w_level).
-    Returns [Q] int32 distances (INF_DIST when no feasible path)."""
+    every query with one K1 launch (K5 with ``compressed=True``, where
+    hub/dist/wlev are the `CompressedArena` trio and the index tables are
+    shared). stq: [3, Q] staged (s, t, w_level). Returns [Q] int32
+    distances (INF_DIST when no feasible path)."""
     s, t, wl = stq[0], stq[1], stq[2]
     qidx, stile, ttile, first = emit_ragged_worklist(
         tile_base, tile_cnt, s, t, worklist_len=worklist_len)
     # one trash output row for worklist pads, at an infeasible level
     wq = torch.cat([wl, torch.full((1,), TRASH_LEVEL, dtype=torch.int32,
                                    device=wl.device)])
-    out = kops.wcsd_query_ragged(hub, dist, wlev, tile_lo, tile_hi, qidx,
-                                 stile, ttile, first, wq)
+    op = (kops.wcsd_query_ragged_compressed if compressed
+          else kops.wcsd_query_ragged)
+    out = op(hub, dist, wlev, tile_lo, tile_hi, qidx, stile, ttile, first,
+             wq)
     return out[: s.shape[0]]
 
 
 def ragged_profile_batch(hub, dist, wlev, tile_lo, tile_hi, tile_base,
                          tile_cnt, stq, *, worklist_len: int,
-                         num_levels: int):
+                         num_levels: int, compressed: bool = False):
     """Profile twin of `ragged_query_batch`: stq is [2, Q] staged (s, t);
-    every level of every query comes from one K2 launch. Returns
-    [Q, num_levels + 1] staircases."""
+    every level of every query comes from one K2 launch (K6 with
+    ``compressed=True``). Returns [Q, num_levels + 1] staircases."""
     s, t = stq[0], stq[1]
     qidx, stile, ttile, first = emit_ragged_worklist(
         tile_base, tile_cnt, s, t, worklist_len=worklist_len)
-    out = kops.wcsd_profile_ragged(hub, dist, wlev, tile_lo, tile_hi, qidx,
-                                   stile, ttile, first,
-                                   num_rows=int(s.shape[0]) + 1,
-                                   num_levels=num_levels)
+    op = (kops.wcsd_profile_ragged_compressed if compressed
+          else kops.wcsd_profile_ragged)
+    out = op(hub, dist, wlev, tile_lo, tile_hi, qidx, stile, ttile, first,
+             num_rows=int(s.shape[0]) + 1, num_levels=num_levels)
     return out[: s.shape[0]]
+
+
+@dataclasses.dataclass
+class QuerySubBatch:
+    """One bucket-pair slice of an incoming batch (see `plan_query_batch`)."""
+    bucket_s: int
+    bucket_t: int
+    positions: np.ndarray  # [n] indices into the original batch
+
+
+def plan_query_batch(bucket_of: np.ndarray, s: np.ndarray, t: np.ndarray,
+                     num_buckets: int | None = None) -> list[QuerySubBatch]:
+    """Group a (s, t) batch by the (bucket(s), bucket(t)) pair (host
+    numpy). Sub-batches come back in (bucket_s, bucket_t) order, and
+    their position arrays partition ``arange(len(s))`` (stable within a
+    pair). ``num_buckets`` (the store's bucket count) spares the O(V)
+    ``bucket_of.max()`` scan."""
+    bucket_of = np.asarray(bucket_of)
+    bs = bucket_of[np.asarray(s)]
+    bt = bucket_of[np.asarray(t)]
+    if num_buckets is not None:
+        nb = int(num_buckets)
+    else:
+        nb = int(bucket_of.max()) + 1 if len(bucket_of) else 1
+    key = bs.astype(np.int64) * nb + bt
+    order = np.argsort(key, kind="stable")
+    uniq, starts = np.unique(key[order], return_index=True)
+    bounds = np.append(starts, len(order))
+    return [QuerySubBatch(bucket_s=int(k // nb), bucket_t=int(k % nb),
+                          positions=order[a:b])
+            for k, a, b in zip(uniq, bounds[:-1], bounds[1:])]
+
+
+def stage_sub_batch(slot_of, pos, s, t, w_level=None) -> np.ndarray:
+    """The queries at ``pos`` as one staging array: [3, n] (srow, trow,
+    wq), or [2, n] (srow, trow) for profiles (``w_level`` None). This is
+    the reference's `_pad_sub_batch` without its pad lanes, which exist
+    only to bound jit shapes: the kernels take any batch size."""
+    rows = [slot_of[s[pos]], slot_of[t[pos]]]
+    if w_level is not None:
+        rows.append(w_level[pos])
+    return np.stack(rows).astype(np.int32)
 
 
 class PendingResult:
@@ -98,7 +155,8 @@ class PendingResult:
     The device work is already enqueued when the handle is created;
     `wait()` copies the answers to the host (once — the handle caches).
     `ready()` probes without blocking: on the card it queries a CUDA event
-    recorded right after the launch; on the CPU the work is already done.
+    recorded right after the batch's last launch; on the CPU the work is
+    already done.
     """
 
     def __init__(self, finalize, event=None):
@@ -119,22 +177,35 @@ class PendingResult:
         return self._out
 
 
-def _pending(res: torch.Tensor, n: int) -> PendingResult:
+def _pending(res: torch.Tensor, finalize) -> PendingResult:
+    """A handle over ``res``, the batch's last device result: one CUDA
+    event recorded after it on the current stream."""
     event = None
     if res.device.type == "cuda":
         event = torch.cuda.Event()
         event.record(torch.cuda.current_stream(res.device))
-    return PendingResult(lambda: res[:n].cpu().numpy(), event)
+    return PendingResult(finalize, event)
 
 
 class DeviceQueryEngine:
-    """Holds the label arena on the device and answers query batches: each
-    flush is ONE kernel launch over the lane-tiled `LabelArena`, planned by
-    a device-emitted tile-pair worklist.
+    """Holds the CSR label store on the device and answers query batches.
+
+    ``dispatch="ragged"`` (default): each flush is ONE kernel launch over
+    the lane-tiled `LabelArena`, planned by a device-emitted tile-pair
+    worklist. ``compressed=True`` serves the `CompressedArena` instead
+    (int16 hub deltas, bfloat16 distances, int8 levels, decoded in the
+    kernel); a store with any tile the format cannot hold is served
+    uncompressed, with ``compressed`` False and ``compression_overflow``
+    True.
+
+    ``dispatch="bucket_pair"``: the host planner groups each flush by
+    (bucket(s), bucket(t)) and launches one kernel per group over the
+    padded bucket tiles; the answers come back in batch order from one
+    handle. It does not take ``compressed=True`` (ValueError), as in the
+    reference.
 
     Runs on the card unless ``device="cpu"`` (the kernels' plain
-    versions). Only ``layout="csr"`` with ``dispatch="ragged"``,
-    uncompressed, is ported; the other engine configurations raise
+    versions). ``layout="padded"`` is not ported and raises
     `NotImplementedError`.
     """
 
@@ -145,30 +216,52 @@ class DeviceQueryEngine:
         if layout != "csr":
             raise NotImplementedError(f"layout={layout!r} (padded store) is "
                                       "not ported yet; use layout='csr'")
-        if dispatch != "ragged":
-            raise NotImplementedError(f"dispatch={dispatch!r} (bucket-pair "
-                                      "dispatch) is not ported yet")
-        if compressed:
-            raise NotImplementedError("compressed=True (compressed arena) is "
-                                      "not ported yet")
+        if dispatch not in ("ragged", "bucket_pair"):
+            raise ValueError(f"unknown dispatch: {dispatch!r}")
         if cap is not None:
             raise ValueError("cap (label-row trimming) only applies to the "
                              "padded layout; the CSR store keeps exact rows")
+        if compressed and dispatch != "ragged":
+            raise ValueError("compressed=True requires layout='csr' with "
+                             "dispatch='ragged' (only the arena kernels "
+                             "decode the compressed tile format)")
         self.device = resolve_device(device)
         self.layout = layout
         self.dispatch = dispatch
         self.num_levels = idx.num_levels
+        self.compressed = False
+        self.compression_overflow = False
         lane = LANE if lane is None else int(lane)
         self.lane = lane
         packed = idx.packed(lane=lane)
         self.packed = packed
+        self._bucket_of = packed.bucket_of
+        self._slot_of = packed.slot_of
+        self.num_buckets = packed.num_buckets
+        if dispatch == "bucket_pair":
+            self._tiles = [tuple(torch.from_numpy(a).to(self.device)
+                                 for a in packed.bucket_tiles(b))
+                           for b in range(packed.num_buckets)]
+            return
         ar = packed.arena(lane=lane)
         self.arena = ar
         self._tile_cnt_np = ar.tile_cnt
-        self._arena = tuple(
-            torch.from_numpy(a).to(self.device)
-            for a in (ar.hub, ar.dist, ar.wlev, ar.tile_lo, ar.tile_hi,
-                      ar.tile_base, ar.tile_cnt))
+        trio = (ar.hub, ar.dist, ar.wlev)
+        if compressed:
+            comp = packed.compressed_arena(lane=lane)
+            if comp.num_overflow_tiles:
+                # the store does not fit the format (hub-delta / level /
+                # distance range): serve uncompressed and say so
+                self.compression_overflow = True
+            else:
+                self.compressed = True
+                trio = (comp.hub_delta, comp.dist.view(np.int16), comp.wlev)
+        arena = [torch.from_numpy(a).to(self.device)
+                 for a in trio + (ar.tile_lo, ar.tile_hi, ar.tile_base,
+                                  ar.tile_cnt)]
+        if self.compressed:   # the uint16 bit patterns, seen as floats
+            arena[1] = arena[1].view(FLOAT_DTYPES[comp.dist_dtype])
+        self._arena = tuple(arena)
 
     def _stage_ragged(self, s, t, w_level=None):
         """One [3 or 2, B] staging array for a ragged flush: exactly the
@@ -185,16 +278,19 @@ class DeviceQueryEngine:
         return self.query_async(s, t, w_level).wait()
 
     def query_async(self, s, t, w_level) -> PendingResult:
-        """Enqueue a batch without waiting: the worklist emission and the
-        one kernel launch are issued when this returns."""
+        """Enqueue a batch without waiting: every launch of the flush is
+        issued when this returns."""
         s = np.asarray(s, np.int32)
         t = np.asarray(t, np.int32)
         w_level = np.asarray(w_level, np.int32)
+        if self.dispatch == "bucket_pair":
+            return self._query_segmented_async(s, t, w_level)
         stq = self._stage_ragged(s, t, w_level)
         wl_len = ragged_worklist_len(self._tile_cnt_np, stq[0], stq[1])
         res = ragged_query_batch(*self._arena, self._put(stq),
-                                 worklist_len=wl_len)
-        return _pending(res, len(s))
+                                 worklist_len=wl_len,
+                                 compressed=self.compressed)
+        return _pending(res, lambda: res.cpu().numpy())
 
     def query_profile(self, s, t) -> np.ndarray:
         """[B, W + 1] staircases: ``out[b, w] == query(s, t, w)[b]`` for
@@ -204,12 +300,57 @@ class DeviceQueryEngine:
     def query_profile_async(self, s, t) -> PendingResult:
         s = np.asarray(s, np.int32)
         t = np.asarray(t, np.int32)
+        if self.dispatch == "bucket_pair":
+            return self._profile_segmented_async(s, t)
         stq = self._stage_ragged(s, t)
         wl_len = ragged_worklist_len(self._tile_cnt_np, stq[0], stq[1])
         res = ragged_profile_batch(*self._arena, self._put(stq),
                                    worklist_len=wl_len,
-                                   num_levels=self.num_levels)
-        return _pending(res, len(s))
+                                   num_levels=self.num_levels,
+                                   compressed=self.compressed)
+        return _pending(res, lambda: res.cpu().numpy())
+
+    # ------------------------------------------------ bucket-pair dispatch
+    def _plan_segmented(self, s, t, w_level, dispatch) -> PendingResult:
+        """Plan on the host, stage every sub-batch (exactly, no pads) into
+        one [3 or 2, B] array in plan order (one host-to-device copy), and
+        launch ``dispatch(sub, stq_slice)`` per sub-batch. The results are
+        concatenated on the device and scattered back into batch order on
+        `wait()`; one event after the concatenation covers them all."""
+        plan = plan_query_batch(self._bucket_of, s, t,
+                                num_buckets=self.num_buckets)
+        shape = ((len(s),) if w_level is not None
+                 else (len(s), self.num_levels + 1))
+        if not plan:
+            return PendingResult(lambda: np.zeros(shape, np.int32))
+        pos = np.concatenate([sub.positions for sub in plan])
+        dev = self._put(stage_sub_batch(self._slot_of, pos, s, t, w_level))
+        parts, a = [], 0
+        for sub in plan:
+            n = len(sub.positions)
+            parts.append(dispatch(sub, dev[:, a:a + n]))
+            a += n
+        res = torch.cat(parts)
+
+        def assemble():
+            out = np.empty(shape, np.int32)
+            out[pos] = res.cpu().numpy()
+            return out
+        return _pending(res, assemble)
+
+    def _query_segmented_async(self, s, t, w_level) -> PendingResult:
+        def dispatch(sub, stq):
+            return kops.wcsd_query_segmented(
+                *self._tiles[sub.bucket_s], *self._tiles[sub.bucket_t],
+                stq[0], stq[1], stq[2])
+        return self._plan_segmented(s, t, w_level, dispatch)
+
+    def _profile_segmented_async(self, s, t) -> PendingResult:
+        def dispatch(sub, stq):
+            return kops.wcsd_profile_segmented(
+                *self._tiles[sub.bucket_s], *self._tiles[sub.bucket_t],
+                stq[0], stq[1], num_levels=self.num_levels)
+        return self._plan_segmented(s, t, None, dispatch)
 
     def query_from_quality(self, s, t, w: np.ndarray, levels: np.ndarray):
         """Real-valued thresholds -> levels (exact canonicalization)."""

@@ -1,8 +1,11 @@
 """WCSD serving: request batching over the device query engine.
 
 Port of the core of the reference package's `core/serve.py`
-(`WCSDServer` with ``backend="device"``, csr + ragged): requests
-accumulate into batches that one kernel launch answers, with
+(`WCSDServer` with ``backend="device"``, csr layout): requests
+accumulate into batches that the engine answers -- one kernel launch per
+flush with ``dispatch="ragged"`` (over the compressed arena with
+``compressed=True``), one launch per populated bucket pair with
+``dispatch="bucket_pair"`` -- with
 
   * an LRU memo (symmetric ``(s <= t)`` keys when ``undirected``) and
     piggyback dedup: a key already pending or in flight occupies one

@@ -1,9 +1,11 @@
 """Host side of the WC-Index (paper §IV): the CSR-packed label store, the
-lane-tiled arena the query kernels read, the incremental builder the
-device-resident construction streams into, and the packed index.
+lane-tiled arena the query kernels read (and its compressed form), the
+incremental builder the device-resident construction streams into, and
+the packed index.
 
 Host-side numpy, ported from the reference package's `core/wc_index.py`
-(`PackedLabels`, `LabelArena`, `PackedLabelsBuilder`, `PackedWCIndex`).
+(`PackedLabels`, `LabelArena`, `CompressedArena`, `PackedLabelsBuilder`,
+`PackedWCIndex`).
 Label entry layout, per vertex:
   hub_rank  rank of the hub; rows are hub-sorted and close with the self
             entry (rank[v], 0, num_levels).
@@ -19,6 +21,7 @@ import dataclasses
 import zlib
 
 import numpy as np
+import torch
 
 from .graph import INF_DIST
 from .resilience import IndexIntegrityError
@@ -106,6 +109,37 @@ class PackedLabels:
         if lane not in cache:
             cache[lane] = LabelArena.from_packed(self, lane=lane)
         return cache[lane]
+
+    def compressed_arena(self, lane: int = LANE,
+                         dtype: str = "bfloat16") -> "CompressedArena":
+        """Compressed view of `arena` (cached per (lane, dtype)); see
+        `CompressedArena`."""
+        cache = self.__dict__.setdefault("_carena_cache", {})
+        key = (lane, dtype)
+        if key not in cache:
+            cache[key] = CompressedArena.from_arena(self.arena(lane=lane),
+                                                    dtype=dtype)
+        return cache[key]
+
+    def bucket_tiles(self, b: int):
+        """Bucket b as padded [n_b, W_b] (hub, dist, wlev) int32 tiles, the
+        rows the bucket-pair kernels read. Pad cells carry hub -1, dist
+        INF_DIST, wlev -1: a pad never passes the ``wlev >= w`` mask and
+        falls below every profile level."""
+        members = self.bucket_vertices[b]
+        W = int(self.bucket_widths[b])
+        n = len(members)
+        hub = np.full((n, W), -1, dtype=np.int32)
+        dist = np.full((n, W), INF_DIST, dtype=np.int32)
+        wlev = np.full((n, W), -1, dtype=np.int32)
+        lens = (self.offsets[members + 1] - self.offsets[members])
+        rows = np.repeat(np.arange(n, dtype=np.int64), lens)
+        cols = _concat_ranges(lens)
+        flat = np.repeat(self.offsets[members], lens) + cols
+        hub[rows, cols] = self.hub_rank[flat]
+        dist[rows, cols] = self.dist[flat]
+        wlev[rows, cols] = self.wlev[flat]
+        return hub, dist, wlev
 
 
 @dataclasses.dataclass
@@ -195,6 +229,147 @@ class LabelArena:
                 "arrays no longer match their recorded CRC32 baseline; "
                 "refusing to serve")
         return sums
+
+
+# any stored distance at or above the kernels' DEV_INF is "no path" and
+# decodes back to INF_DIST
+_DEV_INF = 1 << 29
+_I16_MAX = int(np.iinfo(np.int16).max)   # 32767: hub-delta ceiling
+_I8_MAX = int(np.iinfo(np.int8).max)     # 127: wlev ceiling
+_F16_MAX_DIST = 65000                    # fp16 finite headroom
+# the compressed distance formats, by the name `CompressedArena.dist_dtype`
+# carries
+FLOAT_DTYPES = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def float16_bits(x: np.ndarray, dtype: str) -> np.ndarray:
+    """float64 values -> the uint16 bit patterns of ``dtype`` ("bfloat16"
+    or "float16"), rounded to nearest even straight from float64 by
+    torch's cast (values past the format's range become +inf)."""
+    t = torch.from_numpy(np.ascontiguousarray(x, dtype=np.float64))
+    return t.to(FLOAT_DTYPES[dtype]).view(torch.int16).numpy() \
+        .view(np.uint16)
+
+
+@dataclasses.dataclass
+class CompressedArena:
+    """Compressed lane-tiled arena: the tile geometry of `LabelArena` at
+    5 bytes per cell instead of 12, decoded inside the compressed ragged
+    kernels (K5, K6).
+
+    Per-cell encoding (the reference package's docs/index-format.md §6):
+
+      hub_delta : [T, lane] int16 -- ``hub - tile_lo[t]`` for real cells
+                  (rows are hub-sorted, so deltas are non-negative); pad
+                  cells keep -1, so the sign is the pad flag.
+      dist      : [T, lane] uint16 -- the bit patterns of ``dist_dtype``
+                  ("bfloat16" or "float16"): real distances rounded to
+                  the float format; INF_DIST pads and any value >= DEV_INF
+                  encode as +inf, which the decoder clamps to DEV_INF.
+                  (numpy has no bfloat16: on the card the array is viewed
+                  as ``torch.bfloat16`` / ``torch.float16``.)
+      wlev      : [T, lane] int8 -- quality levels; pads keep -1.
+
+    A tile the narrow encoding cannot hold -- a real hub more than 32,767
+    ranks above ``tile_lo``, a level past 127, or (float16 only) a finite
+    distance past 65,000 -- is flagged in ``overflow`` and kept verbatim
+    in the int32 side tables (``side_*``, one row per flagged tile, found
+    through ``side_slot``). `decode` restores it exactly; the engine
+    refuses to serve a store with any flagged tile compressed and serves
+    the uncompressed arena instead.
+
+    Distance precision: bfloat16 is exact up to 256 and within 2^-8
+    relative error beyond; float16 exact up to 2048, 2^-11 beyond.
+    """
+
+    hub_delta: np.ndarray  # [T, lane] int16
+    dist: np.ndarray       # [T, lane] uint16 bit patterns of dist_dtype
+    dist_dtype: str        # "bfloat16" | "float16"
+    wlev: np.ndarray       # [T, lane] int8
+    tile_base: np.ndarray  # [V] int32
+    tile_cnt: np.ndarray   # [V] int32
+    tile_lo: np.ndarray    # [T] int32
+    tile_hi: np.ndarray    # [T] int32
+    overflow: np.ndarray   # [T] bool: the tile lives in the side tables
+    side_slot: np.ndarray  # [T] int32: row in side_* (0 where not flagged)
+    side_hub: np.ndarray   # [n_overflow, lane] int32
+    side_dist: np.ndarray  # [n_overflow, lane] int32
+    side_wlev: np.ndarray  # [n_overflow, lane] int32
+
+    @property
+    def num_tiles(self) -> int:
+        return int(self.hub_delta.shape[0])
+
+    @property
+    def lane(self) -> int:
+        return int(self.hub_delta.shape[1])
+
+    @property
+    def num_overflow_tiles(self) -> int:
+        return int(self.side_hub.shape[0])
+
+    def memory_bytes(self) -> int:
+        """Device-resident footprint: compressed cells + index tables +
+        whatever side tables the overflowed tiles forced."""
+        return int(self.hub_delta.nbytes + self.dist.nbytes
+                   + self.wlev.nbytes + self.tile_base.nbytes
+                   + self.tile_cnt.nbytes + self.tile_lo.nbytes
+                   + self.tile_hi.nbytes + self.overflow.nbytes
+                   + self.side_slot.nbytes + self.side_hub.nbytes
+                   + self.side_dist.nbytes + self.side_wlev.nbytes)
+
+    @staticmethod
+    def from_arena(ar: "LabelArena",
+                   dtype: str = "bfloat16") -> "CompressedArena":
+        if dtype not in FLOAT_DTYPES:
+            raise ValueError(f"unsupported compressed dist dtype: {dtype!r}")
+        hub, dist, wlev = ar.hub, ar.dist, ar.wlev
+        pad = hub < 0
+        real = ~pad
+        delta = hub.astype(np.int64) - ar.tile_lo[:, None].astype(np.int64)
+        no_path = dist >= _DEV_INF
+        ovf = ((real & (delta > _I16_MAX)).any(axis=1)
+               | (real & (wlev > _I8_MAX)).any(axis=1))
+        if dtype == "float16":
+            ovf |= (real & ~no_path & (dist > _F16_MAX_DIST)).any(axis=1)
+        hub_delta = np.where(pad, -1, np.clip(delta, 0, _I16_MAX)
+                             ).astype(np.int16)
+        dist_c = float16_bits(np.where(no_path, np.inf,
+                                       dist.astype(np.float64)), dtype)
+        wlev_c = np.clip(wlev, -1, _I8_MAX).astype(np.int8)
+        slots = np.flatnonzero(ovf)
+        side_slot = np.zeros(hub.shape[0], dtype=np.int32)
+        side_slot[slots] = np.arange(len(slots), dtype=np.int32)
+        return CompressedArena(
+            hub_delta=hub_delta, dist=dist_c, dist_dtype=dtype, wlev=wlev_c,
+            tile_base=ar.tile_base, tile_cnt=ar.tile_cnt,
+            tile_lo=ar.tile_lo, tile_hi=ar.tile_hi,
+            overflow=ovf, side_slot=side_slot,
+            side_hub=hub[slots].copy(), side_dist=dist[slots].copy(),
+            side_wlev=wlev[slots].copy())
+
+    def decode(self) -> "LabelArena":
+        """Inverse of the encoding: hub ids and levels bit-exact, distances
+        within the float bound above, flagged tiles verbatim from the side
+        tables."""
+        d16 = self.hub_delta.astype(np.int32)
+        hub = np.where(d16 >= 0, self.tile_lo[:, None] + d16,
+                       -1).astype(np.int32)
+        df = torch.from_numpy(self.dist.view(np.int16)).view(
+            FLOAT_DTYPES[self.dist_dtype]).to(torch.float64).numpy()
+        inf = ~np.isfinite(df) | (df >= float(_DEV_INF))
+        dist = np.where(inf, INF_DIST,
+                        np.rint(np.where(inf, 0.0, df))).astype(np.int32)
+        wlev = self.wlev.astype(np.int32)
+        if self.overflow.any():
+            rows = np.flatnonzero(self.overflow)
+            slot = self.side_slot[rows]
+            hub[rows] = self.side_hub[slot]
+            dist[rows] = self.side_dist[slot]
+            wlev[rows] = self.side_wlev[slot]
+        return LabelArena(hub=hub, dist=dist, wlev=wlev,
+                          tile_base=self.tile_base, tile_cnt=self.tile_cnt,
+                          tile_lo=self.tile_lo, tile_hi=self.tile_hi)
 
 
 class PackedLabelsBuilder:

@@ -28,7 +28,10 @@ NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
 # launches per kernel wrapper: each wrapper adds one where it launches its
 # kernel, and nowhere else (the smoke run resets and reads these)
 LAUNCHES = {"wcsd_query_ragged": 0, "wcsd_profile_ragged": 0,
-            "wc_prune_emit_batched": 0, "wc_relax_batched": 0}
+            "wc_prune_emit_batched": 0, "wc_relax_batched": 0,
+            "wcsd_query_ragged_compressed": 0,
+            "wcsd_profile_ragged_compressed": 0,
+            "wcsd_query_segmented": 0, "wcsd_profile_segmented": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
@@ -99,18 +102,26 @@ def stream_ptr(device: torch.device) -> int:
     return torch.cuda.current_stream(device).cuda_stream
 
 
-def check_cuda_args(what: str, device: torch.device, **tensors) -> None:
-    """Validate the tensors a kernel takes: same CUDA device, int32,
-    contiguous. The kernels index flat memory and take no strides."""
+def check_cuda_args(what: str, device: torch.device, *,
+                    dtypes: dict | None = None, **tensors) -> None:
+    """Validate the tensors a kernel takes: same CUDA device, contiguous,
+    and of the expected dtype -- int32 unless ``dtypes`` names another
+    (or a tuple of accepted ones) for that tensor. The kernels index flat
+    memory and take no strides."""
     if device.type != "cuda":
         raise ValueError(f"{what}: the CUDA kernel takes CUDA tensors, got "
                          f"{device}")
+    dtypes = dtypes or {}
     for name, x in tensors.items():
         if x.device != device:
             raise ValueError(f"{what}: {name} is on {x.device}, expected "
                              f"{device}")
-        if x.dtype != torch.int32:
-            raise TypeError(f"{what}: {name} must be int32, got {x.dtype}")
+        want = dtypes.get(name, torch.int32)
+        want = want if isinstance(want, tuple) else (want,)
+        if x.dtype not in want:
+            raise TypeError(f"{what}: {name} must be "
+                            f"{' or '.join(str(w) for w in want)}, got "
+                            f"{x.dtype}")
         if not x.is_contiguous():
             raise ValueError(f"{what}: {name} must be contiguous")
 

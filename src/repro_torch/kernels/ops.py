@@ -1,4 +1,4 @@
-"""Wrappers the engines call for the four kernels of the main path.
+"""Wrappers the engines call for the port's kernels.
 
 Each wrapper chooses by the device of the tensors it is given: a CPU
 tensor gets the kernel's plain PyTorch version, a CUDA tensor the CUDA
@@ -13,6 +13,7 @@ import torch
 
 from . import frontier as _frontier
 from . import wcsd_query as _wq
+from . import wcsd_segmented as _seg
 
 DEV_INF = 1 << 29
 INF_DIST = 1 << 30
@@ -28,6 +29,15 @@ def _on_card(x: torch.Tensor, what: str) -> bool:
 
 def _to_inf_dist(x: torch.Tensor) -> torch.Tensor:
     return torch.where(x >= DEV_INF, INF_DIST, x).to(torch.int32)
+
+
+def _staircase(bucket: torch.Tensor) -> torch.Tensor:
+    """Per-pair-level bucket minima -> staircases: the suffix min over
+    levels (torch has no reverse cummin: flip, cummin, flip back), then
+    ``>= DEV_INF`` -> INF_DIST."""
+    prof = torch.flip(torch.cummin(torch.flip(bucket, (1,)), dim=1).values,
+                      (1,))
+    return _to_inf_dist(prof)
 
 
 def wcsd_query_ragged(hub, dist, wlev, tile_lo, tile_hi, qidx, stile, ttile,
@@ -61,10 +71,71 @@ def wcsd_profile_ragged(hub, dist, wlev, tile_lo, tile_hi, qidx, stile,
         bucket = _wq.wcsd_profile_ragged_plain(
             hub, dist, wlev, qidx, stile, ttile, num_rows=num_rows,
             num_levels=num_levels)
-    # torch has no reverse cummin: flip, cummin, flip back
-    prof = torch.flip(torch.cummin(torch.flip(bucket, (1,)), dim=1).values,
-                      (1,))
-    return _to_inf_dist(prof)
+    return _staircase(bucket)
+
+
+def wcsd_query_ragged_compressed(hub_delta, dist, wlev, tile_lo, tile_hi,
+                                 qidx, stile, ttile, first, wq):
+    """`wcsd_query_ragged` over the compressed arena (`CompressedArena`
+    fields: int16 hub deltas, bfloat16/float16 distances, int8 levels,
+    decoded in the kernel). Same worklist and output contract; callers
+    route stores with overflowed tiles to the uncompressed path."""
+    del first
+    if _on_card(hub_delta, "wcsd_query_ragged_compressed"):
+        best = _wq.wcsd_query_ragged_compressed_cuda(
+            hub_delta, dist, wlev, tile_lo, tile_hi, qidx, stile, ttile, wq)
+    else:
+        best = _wq.wcsd_query_ragged_compressed_plain(
+            hub_delta, dist, wlev, tile_lo, qidx, stile, ttile, wq)
+    return _to_inf_dist(best)
+
+
+def wcsd_profile_ragged_compressed(hub_delta, dist, wlev, tile_lo, tile_hi,
+                                   qidx, stile, ttile, first, *,
+                                   num_rows: int, num_levels: int):
+    """`wcsd_profile_ragged` over the compressed arena."""
+    del first
+    if _on_card(hub_delta, "wcsd_profile_ragged_compressed"):
+        bucket = _wq.wcsd_profile_ragged_compressed_cuda(
+            hub_delta, dist, wlev, tile_lo, tile_hi, qidx, stile, ttile,
+            num_rows=num_rows, num_levels=num_levels)
+    else:
+        bucket = _wq.wcsd_profile_ragged_compressed_plain(
+            hub_delta, dist, wlev, tile_lo, qidx, stile, ttile,
+            num_rows=num_rows, num_levels=num_levels)
+    return _staircase(bucket)
+
+
+def wcsd_query_segmented(hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t,
+                         srow, trow, w_level):
+    """One bucket-pair sub-batch: [Ns, Ws] s-side and [Nt, Wt] t-side
+    bucket tiles (pads hub -1, wlev -1), row ids and levels [B]. Returns
+    [B] int32 distances (INF_DIST when no feasible path)."""
+    if _on_card(srow, "wcsd_query_segmented"):
+        best = _seg.wcsd_query_segmented_cuda(hub_s, dist_s, wlev_s, hub_t,
+                                              dist_t, wlev_t, srow, trow,
+                                              w_level)
+    else:
+        best = _seg.wcsd_query_segmented_plain(hub_s, dist_s, wlev_s, hub_t,
+                                               dist_t, wlev_t, srow, trow,
+                                               w_level)
+    return _to_inf_dist(best)
+
+
+def wcsd_profile_segmented(hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t,
+                           srow, trow, *, num_levels: int):
+    """One bucket-pair sub-batch of profiles: both rows read once, every
+    level answered. Returns [B, num_levels + 1] int32 staircases
+    (INF_DIST where infeasible)."""
+    if _on_card(srow, "wcsd_profile_segmented"):
+        bucket = _seg.wcsd_profile_segmented_cuda(
+            hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t, srow, trow,
+            num_levels=num_levels)
+    else:
+        bucket = _seg.wcsd_profile_segmented_plain(
+            hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t, srow, trow,
+            num_levels=num_levels)
+    return _staircase(bucket)
 
 
 def wc_prune_emit(F, T, hub, dist, wlev, d: int, *, do_prune: bool = True):

@@ -1,15 +1,22 @@
-"""Ragged WCSD query kernels (K1 `wcsd_query_ragged`, K2
-`wcsd_profile_ragged`): the CUDA launchers and, beside each, its plain
-PyTorch version.
+"""Ragged WCSD query kernels: K1 `wcsd_query_ragged`, K2
+`wcsd_profile_ragged`, and their twins over the compressed arena, K5
+`wcsd_query_ragged_compressed` and K6 `wcsd_profile_ragged_compressed`.
+The CUDA launchers and, beside each, its plain PyTorch version.
 
-Both read the lane-tiled label arena (`core.wc_index.LabelArena`) through
-a flat ``(qidx, s_tile, t_tile)`` worklist (`core.query.
-emit_ragged_worklist`) and answer a whole flush in one launch. The CUDA
-sources are `repro_torch/csrc/wcsd_query.cu`; the plain versions are
-line-by-line translations of the reference package's
-`kernels/ref.py:wcsd_query_ragged_ref` / `wcsd_profile_ragged_ref`,
-chunked over the worklist so that the ``[items, lane, lane]`` join never
-exceeds a fixed number of cells.
+All four read the lane-tiled label arena (`core.wc_index.LabelArena`, or
+`CompressedArena` for K5/K6) through a flat ``(qidx, s_tile, t_tile)``
+worklist (`core.query.emit_ragged_worklist`) and answer a whole flush in
+one launch. The CUDA sources are `repro_torch/csrc/wcsd_query.cu`; the
+plain versions are line-by-line translations of the reference package's
+`kernels/ref.py` oracles (`wcsd_query_ragged_ref`,
+`wcsd_profile_ragged_ref` and their `_compressed` twins), chunked over
+the worklist so that the ``[items, lane, lane]`` join never exceeds a
+fixed number of cells.
+
+Compressed cells decode as the reference's `_decode_cells` does: hub =
+``tile_lo + delta`` where ``delta >= 0`` (the sign is the pad flag), else
+-1; dist = ``int(min(float32(x), DEV_INF) + 0.5)``, truncating; wlev
+widened from int8.
 """
 from __future__ import annotations
 
@@ -21,32 +28,50 @@ from . import _cuda
 
 DEV_INF = 1 << 29
 MAX_LANE = 1024         # one thread per s-side cell, one block per item
-MAX_LEVELS1 = 32        # per-thread level minima of the profile kernel
+MAX_LEVELS1 = 32        # per-thread level minima of the profile kernels
 _CHUNK_CELLS = 1 << 25  # join cells per chunk of the plain versions
+_DIST_DTYPES = (torch.bfloat16, torch.float16)
 
 
 def _chunk(lane: int) -> int:
     return max(1, _CHUNK_CELLS // max(lane * lane, 1))
 
 
-def wcsd_query_ragged_plain(hub, dist, wlev, qidx, stile, ttile, wq):
-    """Plain version of K1: gather each work item's two arena tiles, join,
-    scatter-min into the output row. Returns [Q] int32 (>= DEV_INF means
-    infeasible). The tile_lo/tile_hi early-out is a kernel optimization,
-    not semantics: every item is joined."""
-    lane = hub.shape[1]
+def _tiles_plain(hub, dist, wlev):
+    """Tile gather of the int32 arena: (hub, dist clamped to DEV_INF,
+    wlev) of the given tiles."""
+    def gather(tiles):
+        return hub[tiles], dist[tiles].clamp_max(DEV_INF), wlev[tiles]
+    return gather
+
+
+def _tiles_compressed(hub_delta, dist, wlev, tile_lo):
+    """Tile gather + decode of the compressed arena (the reference's
+    `_decode_tiles_ref`)."""
+    def gather(tiles):
+        hd = hub_delta[tiles].to(torch.int32)
+        h = torch.where(hd >= 0, tile_lo[tiles][:, None] + hd, -1)
+        d = (dist[tiles].float().clamp_max(float(DEV_INF)) + 0.5
+             ).to(torch.int32)
+        return h, d, wlev[tiles].to(torch.int32)
+    return gather
+
+
+def _query_items(gather, lane, qidx, stile, ttile, wq):
+    """Join every work item, mask by its query's level, scatter-min into
+    the output row. Returns [Q] int32 (>= DEV_INF means infeasible). The
+    tile_lo/tile_hi early-out is a kernel optimization, not semantics:
+    every item is joined."""
     out = torch.full((wq.shape[0],), DEV_INF, dtype=torch.int32,
-                     device=hub.device)
+                     device=wq.device)
     step = _chunk(lane)
     for a in range(0, qidx.shape[0], step):
         qi, st, tt = qidx[a:a + step], stile[a:a + step], ttile[a:a + step]
         wqe = wq[qi].long()                                   # [n]
-        hs, ws = hub[st], wlev[st]                            # [n, lane]
-        ht, wt = hub[tt], wlev[tt]
-        ds = torch.where(ws >= wqe[:, None],
-                         dist[st].clamp_max(DEV_INF), DEV_INF)
-        dt = torch.where(wt >= wqe[:, None],
-                         dist[tt].clamp_max(DEV_INF), DEV_INF)
+        hs, ds, ws = gather(st)                               # [n, lane]
+        ht, dt, wt = gather(tt)
+        ds = torch.where(ws >= wqe[:, None], ds, DEV_INF)
+        dt = torch.where(wt >= wqe[:, None], dt, DEV_INF)
         eq = hs[:, :, None] == ht[:, None, :]
         best = torch.where(eq, ds[:, :, None] + dt[:, None, :],
                            DEV_INF).amin(dim=(1, 2)).to(torch.int32)
@@ -54,22 +79,18 @@ def wcsd_query_ragged_plain(hub, dist, wlev, qidx, stile, ttile, wq):
     return out
 
 
-def wcsd_profile_ragged_plain(hub, dist, wlev, qidx, stile, ttile,
-                              num_rows: int, num_levels: int):
-    """Plain version of K2: per work item, bin hub meets by pair level
-    ``min(wlev_s, wlev_t)`` and scatter-min the [num_levels + 1] bucket
-    rows into the output. Returns [num_rows, num_levels + 1] int32."""
-    lane = hub.shape[1]
+def _profile_items(gather, lane, qidx, stile, ttile, num_rows, num_levels):
+    """Per work item, bin hub meets by pair level ``min(wlev_s, wlev_t)``
+    and scatter-min the [num_levels + 1] bucket rows into the output.
+    Returns [num_rows, num_levels + 1] int32."""
     L1 = int(num_levels) + 1
     out = torch.full((num_rows, L1), DEV_INF, dtype=torch.int32,
-                     device=hub.device)
+                     device=qidx.device)
     step = _chunk(lane)
     for a in range(0, qidx.shape[0], step):
         qi, st, tt = qidx[a:a + step], stile[a:a + step], ttile[a:a + step]
-        hs, ws = hub[st], wlev[st]
-        ht, wt = hub[tt], wlev[tt]
-        ds = dist[st].clamp_max(DEV_INF)
-        dt = dist[tt].clamp_max(DEV_INF)
+        hs, ds, ws = gather(st)
+        ht, dt, wt = gather(tt)
         eq = hs[:, :, None] == ht[:, None, :]
         dsum = torch.where(eq, ds[:, :, None] + dt[:, None, :], DEV_INF)
         mw = torch.minimum(ws[:, :, None], wt[:, None, :])
@@ -81,12 +102,45 @@ def wcsd_profile_ragged_plain(hub, dist, wlev, qidx, stile, ttile,
     return out
 
 
+def wcsd_query_ragged_plain(hub, dist, wlev, qidx, stile, ttile, wq):
+    """Plain version of K1: gather each work item's two arena tiles, join,
+    scatter-min into the output row. Returns [Q] int32 (>= DEV_INF means
+    infeasible)."""
+    return _query_items(_tiles_plain(hub, dist, wlev), hub.shape[1], qidx,
+                        stile, ttile, wq)
+
+
+def wcsd_profile_ragged_plain(hub, dist, wlev, qidx, stile, ttile,
+                              num_rows: int, num_levels: int):
+    """Plain version of K2: per-item pair-level bucket minima,
+    scatter-min'd. Returns [num_rows, num_levels + 1] int32."""
+    return _profile_items(_tiles_plain(hub, dist, wlev), hub.shape[1], qidx,
+                          stile, ttile, num_rows, num_levels)
+
+
+def wcsd_query_ragged_compressed_plain(hub_delta, dist, wlev, tile_lo, qidx,
+                                       stile, ttile, wq):
+    """Plain version of K5: decode each work item's two compressed tiles,
+    then K1's join. ``dist`` is bfloat16 or float16."""
+    return _query_items(_tiles_compressed(hub_delta, dist, wlev, tile_lo),
+                        hub_delta.shape[1], qidx, stile, ttile, wq)
+
+
+def wcsd_profile_ragged_compressed_plain(hub_delta, dist, wlev, tile_lo,
+                                         qidx, stile, ttile, num_rows: int,
+                                         num_levels: int):
+    """Plain version of K6: decode, then K2's binned join."""
+    return _profile_items(_tiles_compressed(hub_delta, dist, wlev, tile_lo),
+                          hub_delta.shape[1], qidx, stile, ttile, num_rows,
+                          num_levels)
+
+
 def _arena_checks(what, hub, dist, wlev, tile_lo, tile_hi, qidx, stile,
-                  ttile, extra: dict):
+                  ttile, extra: dict, dtypes: dict | None = None):
     dev = hub.device
-    _cuda.check_cuda_args(what, dev, hub=hub, dist=dist, wlev=wlev,
-                          tile_lo=tile_lo, tile_hi=tile_hi, qidx=qidx,
-                          stile=stile, ttile=ttile, **extra)
+    _cuda.check_cuda_args(what, dev, dtypes=dtypes, hub=hub, dist=dist,
+                          wlev=wlev, tile_lo=tile_lo, tile_hi=tile_hi,
+                          qidx=qidx, stile=stile, ttile=ttile, **extra)
     T, lane = hub.shape
     if dist.shape != (T, lane) or wlev.shape != (T, lane):
         raise ValueError(f"{what}: hub/dist/wlev must all be [T, lane]")
@@ -98,6 +152,66 @@ def _arena_checks(what, hub, dist, wlev, tile_lo, tile_hi, qidx, stile,
         raise ValueError(f"{what}: lane {lane} outside [1, {MAX_LANE}]")
 
 
+_COMPRESSED_DTYPES = {"hub": torch.int16, "dist": _DIST_DTYPES,
+                      "wlev": torch.int8}
+
+
+def _levels1(what, num_levels) -> int:
+    L1 = int(num_levels) + 1
+    if not 1 <= L1 <= MAX_LEVELS1:
+        raise ValueError(f"{what}: num_levels + 1 = {L1} outside "
+                         f"[1, {MAX_LEVELS1}]")
+    return L1
+
+
+def _launch_query(what, symbol, hub, dist, wlev, tile_lo, tile_hi, qidx,
+                  stile, ttile, wq, extra_args=()):
+    """Shared launch of K1/K5: output pre-filled with DEV_INF, one
+    atomicMin per meeting work item."""
+    if wq.dim() != 1:
+        raise ValueError(f"{what}: wq must be [Q]")
+    out = torch.full((wq.shape[0],), DEV_INF, dtype=torch.int32,
+                     device=hub.device)
+    if qidx.shape[0] == 0:                # an empty worklist launches nothing
+        return out
+    fn = getattr(_cuda.library("wcsd_query"), symbol)
+    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int]
+                   + [ctypes.c_int] * len(extra_args) + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = fn(hub.data_ptr(), dist.data_ptr(), wlev.data_ptr(),
+             tile_lo.data_ptr(), tile_hi.data_ptr(), qidx.data_ptr(),
+             stile.data_ptr(), ttile.data_ptr(), wq.data_ptr(),
+             out.data_ptr(), qidx.shape[0], hub.shape[1], *extra_args,
+             _cuda.stream_ptr(hub.device))
+    _cuda.check_launch(err, what)
+    _cuda.LAUNCHES[what] += 1
+    return out
+
+
+def _launch_profile(what, symbol, hub, dist, wlev, tile_lo, tile_hi, qidx,
+                    stile, ttile, num_rows, num_levels, extra_args=()):
+    """Shared launch of K2/K6: [num_rows, L1] pre-filled with DEV_INF
+    (trash row included), one atomicMin per level per meeting item."""
+    L1 = _levels1(what, num_levels)
+    out = torch.full((int(num_rows), L1), DEV_INF, dtype=torch.int32,
+                     device=hub.device)
+    if qidx.shape[0] == 0:                # an empty worklist launches nothing
+        return out
+    fn = getattr(_cuda.library("wcsd_query"), symbol)
+    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int,
+                                            ctypes.c_int]
+                   + [ctypes.c_int] * len(extra_args) + [ctypes.c_void_p])
+    fn.restype = ctypes.c_int
+    err = fn(hub.data_ptr(), dist.data_ptr(), wlev.data_ptr(),
+             tile_lo.data_ptr(), tile_hi.data_ptr(), qidx.data_ptr(),
+             stile.data_ptr(), ttile.data_ptr(), out.data_ptr(),
+             qidx.shape[0], hub.shape[1], L1, *extra_args,
+             _cuda.stream_ptr(hub.device))
+    _cuda.check_launch(err, what)
+    _cuda.LAUNCHES[what] += 1
+    return out
+
+
 def wcsd_query_ragged_cuda(hub, dist, wlev, tile_lo, tile_hi, qidx, stile,
                            ttile, wq):
     """Launch K1 on the current stream. Returns [Q] int32 best sums
@@ -106,24 +220,8 @@ def wcsd_query_ragged_cuda(hub, dist, wlev, tile_lo, tile_hi, qidx, stile,
     what = "wcsd_query_ragged"
     _arena_checks(what, hub, dist, wlev, tile_lo, tile_hi, qidx, stile,
                   ttile, {"wq": wq})
-    if wq.dim() != 1:
-        raise ValueError(f"{what}: wq must be [Q]")
-    out = torch.full((wq.shape[0],), DEV_INF, dtype=torch.int32,
-                     device=hub.device)
-    if qidx.shape[0] == 0:                # an empty worklist launches nothing
-        return out
-    fn = _cuda.library("wcsd_query").wcsd_query_ragged_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(hub.data_ptr(), dist.data_ptr(), wlev.data_ptr(),
-             tile_lo.data_ptr(), tile_hi.data_ptr(), qidx.data_ptr(),
-             stile.data_ptr(), ttile.data_ptr(), wq.data_ptr(),
-             out.data_ptr(), qidx.shape[0], hub.shape[1],
-             _cuda.stream_ptr(hub.device))
-    _cuda.check_launch(err, what)
-    _cuda.LAUNCHES[what] += 1
-    return out
+    return _launch_query(what, "wcsd_query_ragged_launch", hub, dist, wlev,
+                         tile_lo, tile_hi, qidx, stile, ttile, wq)
 
 
 def wcsd_profile_ragged_cuda(hub, dist, wlev, tile_lo, tile_hi, qidx, stile,
@@ -133,22 +231,32 @@ def wcsd_profile_ragged_cuda(hub, dist, wlev, tile_lo, tile_hi, qidx, stile,
     what = "wcsd_profile_ragged"
     _arena_checks(what, hub, dist, wlev, tile_lo, tile_hi, qidx, stile,
                   ttile, {})
-    L1 = int(num_levels) + 1
-    if not 1 <= L1 <= MAX_LEVELS1:
-        raise ValueError(f"{what}: num_levels + 1 = {L1} outside "
-                         f"[1, {MAX_LEVELS1}]")
-    out = torch.full((int(num_rows), L1), DEV_INF, dtype=torch.int32,
-                     device=hub.device)
-    if qidx.shape[0] == 0:                # an empty worklist launches nothing
-        return out
-    fn = _cuda.library("wcsd_query").wcsd_profile_ragged_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(hub.data_ptr(), dist.data_ptr(), wlev.data_ptr(),
-             tile_lo.data_ptr(), tile_hi.data_ptr(), qidx.data_ptr(),
-             stile.data_ptr(), ttile.data_ptr(), out.data_ptr(),
-             qidx.shape[0], hub.shape[1], L1, _cuda.stream_ptr(hub.device))
-    _cuda.check_launch(err, what)
-    _cuda.LAUNCHES[what] += 1
-    return out
+    return _launch_profile(what, "wcsd_profile_ragged_launch", hub, dist,
+                           wlev, tile_lo, tile_hi, qidx, stile, ttile,
+                           num_rows, num_levels)
+
+
+def wcsd_query_ragged_compressed_cuda(hub_delta, dist, wlev, tile_lo,
+                                      tile_hi, qidx, stile, ttile, wq):
+    """Launch K5 on the current stream: K1 over the compressed arena
+    (int16 hub deltas, bfloat16 or float16 distances, int8 levels)."""
+    what = "wcsd_query_ragged_compressed"
+    _arena_checks(what, hub_delta, dist, wlev, tile_lo, tile_hi, qidx, stile,
+                  ttile, {"wq": wq}, _COMPRESSED_DTYPES)
+    return _launch_query(what, "wcsd_query_ragged_compressed_launch",
+                         hub_delta, dist, wlev, tile_lo, tile_hi, qidx,
+                         stile, ttile, wq,
+                         (int(dist.dtype == torch.float16),))
+
+
+def wcsd_profile_ragged_compressed_cuda(hub_delta, dist, wlev, tile_lo,
+                                        tile_hi, qidx, stile, ttile,
+                                        num_rows: int, num_levels: int):
+    """Launch K6 on the current stream: K2 over the compressed arena."""
+    what = "wcsd_profile_ragged_compressed"
+    _arena_checks(what, hub_delta, dist, wlev, tile_lo, tile_hi, qidx, stile,
+                  ttile, {}, _COMPRESSED_DTYPES)
+    return _launch_profile(what, "wcsd_profile_ragged_compressed_launch",
+                           hub_delta, dist, wlev, tile_lo, tile_hi, qidx,
+                           stile, ttile, num_rows, num_levels,
+                           (int(dist.dtype == torch.float16),))

@@ -110,3 +110,160 @@ def test_build_on_card_equals_cpu_and_serves(card, built):
     np.testing.assert_array_equal(got, ref.query_many(s, t, wl))
     np.testing.assert_array_equal(srv.query_profile_many(s[:500], t[:500]),
                                   ref.query_profile_many(s[:500], t[:500]))
+
+
+def _worklist(eng, s, t, wl=None):
+    stq = eng._stage_ragged(s, t, wl)
+    L = ragged_worklist_len(eng._tile_cnt_np, stq[0], stq[1])
+    st = torch.from_numpy(stq).to(eng.device)
+    base, cnt = eng._arena[5], eng._arena[6]
+    q, si, ti, _ = emit_ragged_worklist(base, cnt, st[0], st[1],
+                                        worklist_len=L)
+    return st, q, si, ti
+
+
+@pytest.mark.parametrize("lane,dtype", [(128, "bfloat16"), (48, "bfloat16"),
+                                        (128, "float16")])
+def test_compressed_kernels_equal_plain(card, built, lane, dtype):
+    """K5/K6 against their plain versions on the card, both float
+    formats, at multi-tile lanes."""
+    g, idx = built
+    eng = DeviceQueryEngine(idx, lane=lane, device=card)
+    comp = idx.labels.compressed_arena(lane=lane, dtype=dtype)
+    assert comp.num_overflow_tiles == 0
+    fdt = torch.bfloat16 if dtype == "bfloat16" else torch.float16
+    hd = torch.from_numpy(comp.hub_delta).to(card)
+    dist = torch.from_numpy(comp.dist.view(np.int16)).to(card).view(fdt)
+    wlev = torch.from_numpy(comp.wlev).to(card)
+    lo, hi = eng._arena[3], eng._arena[4]
+    s, t, wl = random_queries(g, 1000, seed=lane + 1)
+    st, q, si, ti = _worklist(eng, s, t, wl)
+    wq = torch.cat([st[2], torch.tensor([TRASH_LEVEL], dtype=torch.int32,
+                                        device=card)])
+    a = kwq.wcsd_query_ragged_compressed_cuda(hd, dist, wlev, lo, hi, q, si,
+                                              ti, wq)
+    b = kwq.wcsd_query_ragged_compressed_plain(hd, dist, wlev, lo, q, si,
+                                               ti, wq)
+    assert torch.equal(a, b)
+    # exact distances here: the compressed join equals K1's
+    assert torch.equal(a, kwq.wcsd_query_ragged_cuda(*eng._arena[:5], q, si,
+                                                     ti, wq))
+    rows = st.shape[1] + 1
+    a = kwq.wcsd_profile_ragged_compressed_cuda(hd, dist, wlev, lo, hi, q,
+                                                si, ti, rows, g.num_levels)
+    b = kwq.wcsd_profile_ragged_compressed_plain(hd, dist, wlev, lo, q, si,
+                                                 ti, rows, g.num_levels)
+    assert torch.equal(a, b)
+
+
+def test_compressed_decode_on_card_rounds_as_the_plain_version(card):
+    """Large and fractional-free distances across the bf16/fp16 range,
+    +inf pads, hub deltas up to int16 max: K5 equals its plain version
+    cell for cell (one single-cell tile per work item)."""
+    rng = np.random.default_rng(0)
+    lane, T = 1, 4096
+    d = np.concatenate([np.arange(2048), rng.integers(2048, 1 << 29,
+                                                      T - 2049),
+                        [np.inf]]).astype(np.float64)
+    for fdt in (torch.bfloat16, torch.float16):
+        dist = torch.from_numpy(d).to(fdt).reshape(T, lane).to(card)
+        hd = torch.from_numpy(rng.integers(-1, 32768, (T, lane)).astype(
+            np.int16)).to(card)
+        wlev = torch.from_numpy(rng.integers(-1, 4, (T, lane)).astype(
+            np.int8)).to(card)
+        lo = torch.from_numpy(rng.integers(0, 1000, T).astype(
+            np.int32)).to(card)
+        hi = torch.full((T,), 1 << 20, dtype=torch.int32, device=card)
+        k = torch.arange(T, dtype=torch.int32, device=card)
+        wq = torch.zeros(T, dtype=torch.int32, device=card)
+        a = kwq.wcsd_query_ragged_compressed_cuda(hd, dist, wlev, lo, hi, k,
+                                                  k, k, wq)
+        b = kwq.wcsd_query_ragged_compressed_plain(hd, dist, wlev, lo, k, k,
+                                                   k, wq)
+        assert torch.equal(a, b)
+
+
+def _skewed_index(V=300, W=4, lane=128, seed=0):
+    """A synthetic hub-sorted store with a few rows past 2,048 entries, so
+    the bucket widths reach past the segmented kernels' t-chunk."""
+    from repro_torch.core.wc_index import PackedLabels, PackedWCIndex
+    rng = np.random.default_rng(seed)
+    lens = rng.integers(1, lane + 1, V)
+    lens[:4] = [300, 900, 2500, 5000]
+    hub = np.concatenate([np.sort(rng.choice(20000, k, replace=False))
+                          for k in lens]).astype(np.int32)
+    offsets = np.zeros(V + 1, np.int64)
+    np.cumsum(lens, out=offsets[1:])
+    dist = rng.integers(0, 1000, len(hub)).astype(np.int32)
+    wlev = rng.integers(0, W + 1, len(hub)).astype(np.int32)
+    store = PackedLabels.from_flat(hub, dist, wlev, offsets, lane=lane)
+    ar = np.arange(V, dtype=np.int32)
+    return PackedWCIndex(order=ar, rank=ar.copy(),
+                         levels=np.arange(W, dtype=np.float64), labels=store)
+
+
+@pytest.mark.parametrize("store", ["built-128", "built-16", "skewed"])
+def test_segmented_kernels_equal_plain(card, built, store):
+    """K7/K8 against their plain versions on every populated bucket pair
+    of a flush; the skewed store has rows wider than the t-chunk."""
+    from repro_torch.core.query import plan_query_batch, stage_sub_batch
+    from repro_torch.kernels import wcsd_segmented as kseg
+    if store == "skewed":
+        idx, lane, W = _skewed_index(), 128, 4
+        rng = np.random.default_rng(1)
+        s = rng.integers(0, idx.num_nodes, 2000).astype(np.int32)
+        t = rng.integers(0, idx.num_nodes, 2000).astype(np.int32)
+        wl = rng.integers(0, W + 1, 2000).astype(np.int32)
+        s[:16], t[:16] = np.repeat(np.arange(4), 4), np.tile(np.arange(4), 4)
+    else:
+        g, idx = built
+        lane, W = int(store.split("-")[1]), g.num_levels
+        s, t, wl = random_queries(g, 2000, seed=lane + 2)
+    eng = DeviceQueryEngine(idx, lane=lane, dispatch="bucket_pair",
+                            device=card)
+    plan = plan_query_batch(eng._bucket_of, s, t)
+    if store != "built-128":
+        assert len(plan) > 1
+    for sub in plan:
+        stq = torch.from_numpy(stage_sub_batch(eng._slot_of, sub.positions,
+                                               s, t, wl)).to(card)
+        tiles = eng._tiles[sub.bucket_s] + eng._tiles[sub.bucket_t]
+        a = kseg.wcsd_query_segmented_cuda(*tiles, stq[0], stq[1], stq[2])
+        b = kseg.wcsd_query_segmented_plain(*tiles, stq[0], stq[1], stq[2])
+        assert torch.equal(a, b)
+        a = kseg.wcsd_profile_segmented_cuda(*tiles, stq[0], stq[1], W)
+        b = kseg.wcsd_profile_segmented_plain(*tiles, stq[0], stq[1], W)
+        assert torch.equal(a, b)
+    if store == "skewed":
+        assert int(eng.packed.bucket_widths.max()) > 2048
+        ref = DeviceQueryEngine(idx, lane=lane, device="cpu")
+        np.testing.assert_array_equal(eng.query(s, t, wl),
+                                      ref.query(s, t, wl))
+        np.testing.assert_array_equal(eng.query_profile(s, t),
+                                      ref.query_profile(s, t))
+
+
+def test_compressed_and_bucket_pair_servers_on_card(card, built):
+    """Both new serving modes on the card: one K5/K6 launch per dispatch,
+    one K7/K8 launch per planned sub-batch, answers equal to the ragged
+    server's on the CPU."""
+    from repro_torch.core.query import plan_query_batch
+    g, idx = built
+    s, t, wl = random_queries(g, 3000, seed=9)
+    ref = WCSDServer(idx, max_batch=1024, device="cpu")
+    exp, exp_p = ref.query_many(s, t, wl), ref.query_profile_many(s, t)
+    _cuda.reset_launch_counts()
+    srv = WCSDServer(idx, max_batch=1024, compressed=True, device=card)
+    assert srv.engine.compressed is True
+    np.testing.assert_array_equal(srv.query_many(s, t, wl), exp)
+    np.testing.assert_array_equal(srv.query_profile_many(s, t), exp_p)
+    assert _cuda.LAUNCHES["wcsd_query_ragged_compressed"] == 3
+    assert _cuda.LAUNCHES["wcsd_profile_ragged_compressed"] == 3
+    assert _cuda.LAUNCHES["wcsd_query_ragged"] == 0
+    bp = DeviceQueryEngine(idx, dispatch="bucket_pair", device=card)
+    _cuda.reset_launch_counts()
+    np.testing.assert_array_equal(bp.query(s, t, wl), exp)
+    np.testing.assert_array_equal(bp.query_profile(s, t), exp_p)
+    n = len(plan_query_batch(bp._bucket_of, s, t))
+    assert _cuda.LAUNCHES["wcsd_query_segmented"] == n
+    assert _cuda.LAUNCHES["wcsd_profile_segmented"] == n

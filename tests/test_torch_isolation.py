@@ -1,7 +1,8 @@
 """The port stands alone: `repro_torch` and `chip_smoke.py` import neither
 `jax` nor the reference package `repro`; entry points default to the card
 and raise where there is none; the CUDA launchers refuse CPU tensors; and
-the features not ported yet raise `NotImplementedError`."""
+the features not ported yet raise `NotImplementedError` (the engine
+configurations the reference refuses raise `ValueError`)."""
 import os
 import pkgutil
 import re
@@ -107,6 +108,47 @@ def test_cuda_launchers_refuse_cpu_tensors():
     with pytest.raises(ValueError, match="CUDA"):
         kfr.wc_relax_batched_cuda(z, z, z, torch.zeros(8, dtype=torch.int32),
                                   v, z)
+    from repro_torch.kernels import wcsd_segmented as kseg
+    h16 = torch.zeros((4, 8), dtype=torch.int16)
+    d16 = torch.zeros((4, 8), dtype=torch.bfloat16)
+    w8 = torch.zeros((4, 8), dtype=torch.int8)
+    with pytest.raises(ValueError, match="CUDA"):
+        kwq.wcsd_query_ragged_compressed_cuda(h16, d16, w8, v, v, v, v, v,
+                                              v)
+    with pytest.raises(ValueError, match="CUDA"):
+        kwq.wcsd_profile_ragged_compressed_cuda(h16, d16, w8, v, v, v, v, v,
+                                                5, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        kseg.wcsd_query_segmented_cuda(z, z, z, z, z, z, v, v, v)
+    with pytest.raises(ValueError, match="CUDA"):
+        kseg.wcsd_profile_segmented_cuda(z, z, z, z, z, z, v, v, 3)
+
+
+def test_cuda_arg_checks_take_a_dtype_per_tensor():
+    """`check_cuda_args` holds each tensor to its own dtype (int32 unless
+    named): the compressed kernels take int16 / bf16 or fp16 / int8."""
+    from repro_torch.kernels._cuda import check_cuda_args
+    meta = torch.device("meta")
+    with pytest.raises(ValueError, match="CUDA"):
+        check_cuda_args("k", meta, x=torch.zeros(2, device=meta))
+    # the dtype checks, reached through a stand-in device object
+    dev = torch.device("cuda", 0)
+
+    class Fake:
+        def __init__(self, dtype):
+            self.device, self.dtype = dev, dtype
+
+        def is_contiguous(self):
+            return True
+
+    check_cuda_args("k", dev, dtypes={"d": (torch.bfloat16, torch.float16)},
+                    a=Fake(torch.int32), d=Fake(torch.float16))
+    with pytest.raises(TypeError, match="int32"):
+        check_cuda_args("k", dev, a=Fake(torch.int16))
+    with pytest.raises(TypeError, match="bfloat16"):
+        check_cuda_args("k", dev, dtypes={"d": (torch.bfloat16,
+                                                torch.float16)},
+                        d=Fake(torch.float32))
 
 
 def test_wrappers_choose_by_device():
@@ -127,13 +169,20 @@ def test_wrappers_choose_by_device():
 
 
 def test_unported_engine_features_raise():
+    """The padded layout is not ported; bucket-pair dispatch and the
+    compressed arena are, but not together (as in the reference)."""
     from repro_torch.core.query import DeviceQueryEngine
     _, idx = _tiny()
-    for kw, name in ((dict(layout="padded"), "padded"),
-                     (dict(dispatch="bucket_pair"), "bucket_pair"),
-                     (dict(compressed=True), "compressed")):
-        with pytest.raises(NotImplementedError, match=name):
-            DeviceQueryEngine(idx, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="padded"):
+        DeviceQueryEngine(idx, device="cpu", layout="padded")
+    assert DeviceQueryEngine(idx, device="cpu",
+                             dispatch="bucket_pair").dispatch == "bucket_pair"
+    assert DeviceQueryEngine(idx, device="cpu", compressed=True).compressed
+    with pytest.raises(ValueError, match="compressed"):
+        DeviceQueryEngine(idx, device="cpu", dispatch="bucket_pair",
+                          compressed=True)
+    with pytest.raises(ValueError, match="dispatch"):
+        DeviceQueryEngine(idx, device="cpu", dispatch="dense")
     with pytest.raises(ValueError, match="cap"):
         DeviceQueryEngine(idx, device="cpu", cap=4)
 

@@ -158,13 +158,21 @@ def test_bulk_apis_match_reference(world):
 
 
 def test_unported_features_raise(world):
+    """What is not ported raises `NotImplementedError`; the compressed
+    arena and bucket-pair dispatch are ported, but not together (the
+    reference raises `ValueError` for that pair too)."""
     g, idx, tidx, _ = world
     for kw, name in ((dict(backend="sharded"), "sharded"),
                      (dict(graph=g), "graph="),
                      (dict(wal_path="x.wal"), "WAL"),
                      (dict(flush_timeout_ms=5.0), "watchdog"),
-                     (dict(compressed=True), "compressed"),
-                     (dict(dispatch="bucket_pair"), "bucket_pair"),
                      (dict(layout="padded"), "padded")):
         with pytest.raises(NotImplementedError, match=name):
             TServer(tidx, device="cpu", **kw)
+    assert TServer(tidx, device="cpu", compressed=True).engine.compressed
+    assert TServer(tidx, device="cpu",
+                   dispatch="bucket_pair").engine.dispatch == "bucket_pair"
+    with pytest.raises(ValueError, match="compressed"):
+        TServer(tidx, device="cpu", compressed=True, dispatch="bucket_pair")
+    with pytest.raises(ValueError, match="compressed"):
+        JServer(idx, layout="csr", compressed=True, dispatch="bucket_pair")
