@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Builds the eight CUDA kernels from the two sources in
+Builds the ten CUDA kernels from the two sources in
 `src/repro_torch/csrc/` (one `nvcc` per source, started together), then
-drives three paths of the port on the card, each with the launch counts
+drives six paths of the port on the card, each with the launch counts
 reset just before it and read just after it:
 
 1. the main path: `scale_free(2^17, m=4, num_levels=5, seed=0)` -> the
@@ -15,20 +15,30 @@ reset just before it and read just after it:
 2. compressed serving: `scale_free(2^15, ...)`, the largest V of the
    family whose hub deltas all fit int16, served through
    `WCSDServer(compressed=True)` (K5, K6) in epoch flushes;
-3. bucket-pair serving: the V = 2^17 index served through
-   `WCSDServer(dispatch="bucket_pair")` (K7, K8) in epoch flushes.
+3. the fallback ladder on the V = 2^15 store: a compressed server under
+   the flush watchdog whose engines a `FaultyEngine` makes raise and hang
+   on a fixed schedule, walked down every rung (K5/K6, K1/K2, K7/K8, the
+   plain padded oracle) and promoted back to the top;
+4. bucket-pair serving: the V = 2^17 index served through
+   `WCSDServer(dispatch="bucket_pair")` (K7, K8) in epoch flushes;
+5. padded serving: the V = 2^17 index from the padded ``[V, L]`` store,
+   `WCSDServer(layout="padded", use_pallas=True)` (K9; plain profiles),
+   in epoch flushes;
+6. single-root constrained BFS at V = 2^17 through `ops.frontier_relax`
+   (K10), round by round, from three roots.
 
 Then every kernel is held against its plain PyTorch version on inputs
 captured from its path (exact int32 equality) and timed with CUDA
 events; every served flush (every sub-batch, for bucket-pair) is checked
 against the plain path; the compressed answers equal an uncompressed
-server's on the same index, and the bucket-pair answers the ragged
-server's over the whole stream; 64 pairs are checked against the host
-BFS at every level, and a 2,000-vertex build on the card against the
-same build on the CPU, byte for byte. The V = 2^17 store's compressed
-arena is built too: its overflowed tiles are counted and, where there are
-any, an engine asked for ``compressed=True`` must serve it uncompressed
-and say so.
+server's on the same index, the ladder's the compressed server's, and
+the bucket-pair and padded answers the ragged server's over the whole
+stream; every BFS round equals the plain version and the final levels the
+host BFS at every level; 64 pairs are checked against the host BFS at
+every level, and a 2,000-vertex build on the card against the same build
+on the CPU, byte for byte. The V = 2^17 store's compressed arena is built
+too: its overflowed tiles are counted and, where there are any, an engine
+asked for ``compressed=True`` must serve it uncompressed and say so.
 
 Prints one JSON object per phase, the card's name and power limit, and
 as its last line ``{"ok": true, "device": {...}}``. Exits non-zero,
@@ -65,6 +75,11 @@ BF16_EXACT = 256     # distances bf16 holds exactly
 MAX_BATCH = 4096     # server flush size
 CHECK_V = 2000       # vertices of the card-vs-CPU build identity check
 BFS_PAIRS = 64       # served pairs checked against the host BFS
+BFS_ROOTS = 3        # single-root relaxation runs (K10)
+LADDER_PER = 512     # scalar requests per ladder flush (and a quarter as
+                     # many profiles)
+LADDER_TIMEOUT_MS = 2000.0  # the ladder server's flush deadline
+INF_DIST = 1 << 30
 
 
 def emit(obj) -> None:
@@ -669,10 +684,11 @@ def compressed_fallback_phase(idx, engine, qrec, prec, device) -> dict:
     return out
 
 
-def compressed_serve_phase(device) -> tuple[dict, list]:
+def compressed_serve_phase(device) -> tuple[dict, list, tuple]:
     """Path 2: V = 2^15, served through WCSDServer(compressed=True) in
     epoch flushes, against an uncompressed server on the same index.
-    Returns the phase record and the K5/K6 kernel phases."""
+    Returns the phase record, the K5/K6 kernel phases and (index, queries,
+    profiles, answers, staircases) for the ladder phase."""
     import torch
     from repro_torch.core.generators import random_queries, scale_free
     from repro_torch.core.wc_index_batched import \
@@ -734,7 +750,7 @@ def compressed_serve_phase(device) -> tuple[dict, list]:
                                    launches[COMPRESSED_PATH[0]], 50),
                ragged_kernel_phase(srv.engine, prec, True,
                                    launches[COMPRESSED_PATH[1]], 50)]
-    return phase, kernels
+    return phase, kernels, (idx, qs, ps, out, prof)
 
 
 def bucket_pair_phase(idx, qs, ps, out_ragged, prof_ragged, device
@@ -798,6 +814,373 @@ def bucket_pair_phase(idx, qs, ps, out_ragged, prof_ragged, device
                segmented_kernel_phase(srv.engine, prec, True,
                                       launches[BUCKET_PAIR_PATH[1]], 20)]
     return phase, kernels
+
+
+# ------------------------------------------------------- padded layout
+PADDED_PATH = ("wcsd_query_gathered",)
+FRONTIER_PATH = ("frontier_relax_gathered",)
+
+
+def gathered_kernel_phase(engine, rec, launches: int, iters: int) -> dict:
+    """K9 on the gathered rows of one recorded padded flush."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import wcsd_query as kwq
+    _, s, t, wl, _ = rec
+    st = torch.from_numpy(np.stack([s, t, wl]).astype(np.int32)).to(
+        engine.device)
+    hs, ds, ht, dt = kops.gather_padded_rows(
+        engine.hub, engine.dist, engine.wlev, engine.count, st[0], st[1],
+        st[2])
+    a = kwq.wcsd_query_gathered_cuda(hs, ds, ht, dt)
+    b = kwq.wcsd_query_gathered_plain(hs, ds, ht, dt)
+    torch.cuda.synchronize()
+    err = int((a.long() - b.long()).abs().max().item())
+    B, L = hs.shape
+    meets = hub_meets(hs, ht)
+    # the four gathered rows once and the output; a merge join over the
+    # store's hub-sorted rows (2L compares a query) plus the meets
+    bms, by = bound_ms(4 * 4 * B * L + 4 * B,
+                       join_ops(2 * L * B, meets, False))
+    return {"name": "wcsd_query_gathered", "route": "cuda",
+            "source": "src/repro_torch/csrc/wcsd_query.cu",
+            "replaces": "src/repro/kernels/wcsd_query.py:55",
+            "launches": launches, "max_abs_err": err,
+            "ms": cuda_ms(lambda: kwq.wcsd_query_gathered_cuda(
+                hs, ds, ht, dt), iters),
+            "plain_ms": cuda_ms(lambda: kwq.wcsd_query_gathered_plain(
+                hs, ds, ht, dt), 2),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "shape": {"B": B, "L": L, "hub_meets": meets,
+                      "cell_pairs": B * L * L}}
+
+
+def padded_serve_phase(idx, qs, ps, out_ragged, prof_ragged, device
+                       ) -> tuple[dict, list]:
+    """Path 5: the V = 2^17 index from the padded store through
+    WCSDServer(layout="padded", use_pallas=True) in epoch flushes: one K9
+    launch per scalar dispatch and no other kernel (profiles are the
+    plain padded join), the whole stream equal to the ragged server's,
+    served at "primary" with no demotion. Returns the phase record and
+    the K9 kernel phase."""
+    import torch
+    from repro_torch.core.query import padded_chunk_rows
+    from repro_torch.kernels import _cuda
+    log = []
+    t0 = time.perf_counter()
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    srv, out, prof, wall = serve_epoch(idx, qs, ps, MAX_BATCH, log, device,
+                                       layout="padded", use_pallas=True)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    total_s = time.perf_counter() - t0
+    summ = serve_summary(srv, wall, len(qs[0]) + len(ps[0]), log)
+    check_path_launches("padded serving", launches, PADDED_PATH, {
+        "wcsd_query_gathered": summ["query_dispatches"]})
+    if srv.mode != "primary" or srv.stats.demotions:
+        fail(f"padded serving ran at {srv.mode!r} with "
+             f"{srv.stats.demotions} demotions")
+    if not (np.array_equal(out, out_ragged)
+            and np.array_equal(prof, prof_ragged)):
+        fail("padded serving differs from the ragged server")
+    eng = srv.engine
+    L = int(eng.hub.shape[1])
+    progress(f"padded serving {wall:.1f} s (L = {L}), equal to ragged")
+    phase = {"phase": "padded_serve", "V": idx.num_nodes, "L": L,
+             "padded_bytes": eng.padded_bytes,
+             "arena_bytes": idx.labels.arena().memory_bytes(),
+             "store_build_s": total_s - wall,
+             "profile_chunk_rows": padded_chunk_rows(L),
+             "queries": len(qs[0]), "profile_queries": len(ps[0]),
+             "max_batch": MAX_BATCH, "mode": srv.mode,
+             "demotions": srv.stats.demotions,
+             "launches": {k: launches[k] for k in PADDED_PATH},
+             "equal_ragged": True, **summ}
+    qrec = next(r for r in log if r[0] == "query")
+    return phase, [gathered_kernel_phase(eng, qrec,
+                                         launches[PADDED_PATH[0]], 10)]
+
+
+# --------------------------------------------------------- ladder phase
+LADDER = ("primary", "uncompressed", "bucket_pair", "oracle")
+RUNG_KERNELS = {"primary": {"wcsd_query_ragged_compressed",
+                            "wcsd_profile_ragged_compressed"},
+                "uncompressed": {"wcsd_query_ragged",
+                                 "wcsd_profile_ragged"},
+                "bucket_pair": {"wcsd_query_segmented",
+                                "wcsd_profile_segmented"},
+                "oracle": set()}
+
+
+def rung_of(engine) -> str:
+    if engine.layout == "padded":
+        return "oracle"
+    if engine.dispatch == "bucket_pair":
+        return "bucket_pair"
+    return "primary" if engine.compressed else "uncompressed"
+
+
+class RungLaunches:
+    """Engine wrapper attributing every dispatch's kernel launches to the
+    ladder rung the wrapped engine serves (launches are counted when a
+    wrapper enqueues them, inside the dispatch)."""
+
+    def __init__(self, engine, rung: str, per_rung: dict):
+        self._engine, self._rung, self._per_rung = engine, rung, per_rung
+
+    def __getattr__(self, name):
+        return getattr(self._engine, name)
+
+    def _count(self, fn, *args):
+        from repro_torch.kernels import _cuda
+        before = dict(_cuda.LAUNCHES)
+        try:
+            return fn(*args)
+        finally:
+            acc = self._per_rung.setdefault(self._rung, {})
+            for k, n in _cuda.LAUNCHES.items():
+                if n != before[k]:
+                    acc[k] = acc.get(k, 0) + n - before[k]
+
+    def query_async(self, s, t, wl):
+        return self._count(self._engine.query_async, s, t, wl)
+
+    def query_profile_async(self, s, t):
+        return self._count(self._engine.query_profile_async, s, t)
+
+
+def ladder_walk(demotions: int) -> dict:
+    """`FaultSchedule` ``fixed`` draws that walk a server whose flushes
+    carry a scalar and a profile batch down ``demotions`` rungs of its
+    fallback ladder, with ``max_retries=1``: a healthy flush takes two
+    draws (scalar, then profile); a raise-raise exhausts the budget and
+    demotes, and the batch is served by the next draw; one hang after the
+    first demotion costs a timeout retry and one redispatch draw. Healthy
+    flushes follow, so ``probe_interval`` of them promote it back."""
+    fixed, k = {}, 2                     # flush 1 is healthy
+    for i in range(demotions):
+        fixed[k] = fixed[k + 1] = "engine_raise"
+        k += 4
+        if i == 0:
+            fixed[k] = "flush_hang"
+            k += 3
+    return fixed
+
+
+def ladder_phase(idx, qs, ps, out_comp, prof_comp, device) -> dict:
+    """Path 3: the V = 2^15 store through a compressed WCSDServer under the
+    flush watchdog, its engines wrapped in a `FaultyEngine` whose fixed
+    draws walk it down every rung and a hang the deadline absorbs; then
+    healthy flushes promote it back to "primary". Every rung serves going
+    down and going up, launching only its own kernels (none at the
+    oracle); every answer equals the compressed server's and is
+    delivered once, stamped with its rung; the retry counters match the
+    schedule."""
+    import torch
+    from repro_torch.checkpoint.fault import FaultSchedule, FaultyEngine
+    from repro_torch.core.resilience import UnknownRequestError
+    from repro_torch.core.serve import WCSDServer
+    from repro_torch.kernels import _cuda
+    demotions = len(LADDER) - 1
+    flushes = 4 + 3 * demotions
+    per, pper = LADDER_PER, LADDER_PER // 4
+    sched = FaultSchedule(fixed=ladder_walk(demotions))
+    per_rung: dict = {}
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    srv = WCSDServer(
+        idx, max_batch=1 << 20, compressed=True, device=device,
+        flush_timeout_ms=LADDER_TIMEOUT_MS, max_retries=1, probe_interval=2,
+        backoff_base_ms=1.0, retry_seed=0, memo_capacity=0,
+        engine_wrapper=lambda e: RungLaunches(FaultyEngine(e, sched),
+                                              rung_of(e), per_rung))
+    if [n for n, _ in srv._ladder] != list(LADDER):
+        fail(f"ladder {[n for n, _ in srv._ladder]} is not {list(LADDER)}")
+    rebuilds = []
+    build = srv._build_engine
+
+    def timed_build(cfg):
+        t0 = time.perf_counter()
+        eng = build(cfg)
+        torch.cuda.synchronize()
+        rebuilds.append({"rung": srv.mode,
+                         "s": time.perf_counter() - t0})
+        return eng
+
+    srv._build_engine = timed_build
+    s, t, wl = qs
+    flush_modes, got, gotp = [], [], []
+    t0 = time.perf_counter()
+    for f in range(flushes):
+        rids = [srv.submit(int(a), int(b), int(c)) for a, b, c in zip(
+            s[f * per:(f + 1) * per], t[f * per:(f + 1) * per],
+            wl[f * per:(f + 1) * per])]
+        prids = [srv.submit_profile(int(a), int(b)) for a, b in zip(
+            ps[0][f * pper:(f + 1) * pper], ps[1][f * pper:(f + 1) * pper])]
+        srv.flush()
+        res = [srv.result_with_mode(r) for r in rids]
+        pres = [srv.profile_result_with_mode(r) for r in prids]
+        modes = {m for _, m in res} | {m for _, m in pres}
+        if len(modes) != 1:
+            fail(f"ladder flush {f}: answers stamped with {sorted(modes)}")
+        flush_modes.append(modes.pop())
+        got += [v for v, _ in res]
+        gotp += [v for v, _ in pres]
+        for r in rids[:1] + prids[:1]:       # read-once
+            try:
+                srv.result(r) if r in rids else srv.profile_result(r)
+                fail(f"ladder: rid {r} was delivered twice")
+            except UnknownRequestError:
+                pass
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    n, npf = flushes * per, flushes * pper
+    if srv.results or srv.profile_results or len(got) != n \
+            or len(gotp) != npf:
+        fail("ladder: a request was lost or delivered twice")
+    if not (np.array_equal(np.array(got, np.int32), out_comp[:n])
+            and np.array_equal(np.stack(gotp), prof_comp[:npf])):
+        fail("ladder answers differ from the compressed server")
+    path = [m for i, m in enumerate(flush_modes)
+            if i == 0 or m != flush_modes[i - 1]]
+    if path != list(LADDER) + list(LADDER[-2::-1]):
+        fail(f"ladder: the flushes walked {path}")
+    for rung in LADDER:
+        ran = set(per_rung.get(rung, {}))
+        if ran != RUNG_KERNELS[rung]:
+            fail(f"ladder: at {rung!r} the kernels {sorted(ran)} ran, "
+                 f"expected {sorted(RUNG_KERNELS[rung])}")
+    st = srv.stats
+    want = {"timeout_retries": 1, "error_retries": demotions,
+            "exhausted": demotions, "demotions": demotions,
+            "promotions": demotions}
+    counters = {k: getattr(st, k) for k in want}
+    if counters != want or srv.mode != "primary":
+        fail(f"ladder counters {counters} (mode {srv.mode!r}), expected "
+             f"{want} and 'primary'")
+    kinds = sorted({k for _, k in sched.injected})
+    if len(sched.injected) != 2 * demotions + 1:
+        fail(f"ladder: {sched.injected} injected")
+    progress(f"ladder walked {path} in {wall:.1f} s")
+    return {"phase": "ladder", "V": idx.num_nodes, "flushes": flushes,
+            "queries": n, "profile_queries": npf,
+            "flush_timeout_ms": LADDER_TIMEOUT_MS, "rungs": list(LADDER),
+            "flush_modes": flush_modes, "walk": path,
+            "launches_per_rung": per_rung, "counters": counters,
+            "injected": len(sched.injected), "injected_kinds": kinds,
+            "draws": sched.draws, "rebuilds": rebuilds, "wall_s": wall,
+            "equal_compressed": True, "delivered_once": True}
+
+
+# ------------------------------------------------- single-root BFS (K10)
+def _bfs_levels(task):
+    from repro_torch.core.ref import wcsd_bfs_all
+    root, w = task
+    return wcsd_bfs_all(_BFS_GRAPH, root, w) < INF_DIST
+
+
+def relax_plain(nbr, lvl, F, R):
+    """The plain path of `ops.frontier_relax`: the same gather (-1 at pad
+    neighbours), then K10's plain version. Returns (fw_nbr, (newF,
+    newR))."""
+    import torch
+    from repro_torch.kernels import frontier as kfr
+    fw = F[nbr.clamp(0, F.shape[0] - 1).long()]
+    fw = torch.where(nbr >= 0, fw, -1).to(torch.int32)
+    return fw, kfr.frontier_relax_gathered_plain(fw, lvl, R)
+
+
+def frontier_relax_phase(g, device) -> tuple[dict, list]:
+    """Path 6: single-root constrained BFS over the V = 2^17 padded
+    adjacency through `ops.frontier_relax`, round by round until no
+    vertex is active, from the highest-degree vertex and two seeded
+    roots. One K10 launch per round; every round equal to the plain
+    version; the final R equal to the host BFS at every level. Returns
+    the phase record and the K10 kernel phase (the round with the most
+    active vertices)."""
+    import torch
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import frontier as kfr
+    from repro_torch.kernels import ops as kops
+    t0 = time.perf_counter()
+    nbr, lvl = (torch.from_numpy(a).to(device)
+                for a in g.padded_adjacency())
+    V, D = nbr.shape
+    W = g.num_levels
+    setup_s = time.perf_counter() - t0
+    rng = np.random.default_rng(4)
+    roots = [int(np.argmax(g.degree()))] + [
+        int(x) for x in rng.integers(0, V, BFS_ROOTS - 1)]
+    finals, rounds, bad, heavy = [], [], 0, None
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    for root in roots:
+        F = torch.full((V,), -1, dtype=torch.int32, device=device)
+        F[root] = W
+        R = F.clone()
+        n = 0
+        while True:
+            active = int((F >= 0).sum().item())
+            if not active:
+                break
+            newF, newR = kops.frontier_relax(nbr, lvl, F, R)
+            fw, (pF, pR) = relax_plain(nbr, lvl, F, R)
+            if not (torch.equal(newF, pF) and torch.equal(newR, pR)):
+                bad += 1
+            if heavy is None or active > heavy[0]:
+                heavy = (active, fw, R)
+            F, R = newF, newR
+            n += 1
+        rounds.append(n)
+        finals.append(R.cpu().numpy())
+    torch.cuda.synchronize()
+    loop_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    check_path_launches("frontier relaxation", launches, FRONTIER_PATH,
+                        {"frontier_relax_gathered": sum(rounds)})
+    if bad:
+        fail(f"frontier relaxation: {bad} rounds differ from the plain "
+             "version")
+    ctx = multiprocessing.get_context("spawn")
+    tasks = [(r, w) for r in roots for w in range(W + 1)]
+    with concurrent.futures.ProcessPoolExecutor(
+            8, mp_context=ctx, initializer=_bfs_init, initargs=(g,)) as pool:
+        reach = list(pool.map(_bfs_levels, tasks))
+    for (root, w), rc in zip(tasks, reach):
+        Rf = finals[roots.index(root)]
+        if not np.array_equal(Rf >= w, rc):
+            fail(f"frontier relaxation from {root}: R >= {w} differs from "
+                 "the host BFS")
+    progress(f"frontier relaxation: {sum(rounds)} rounds equal the plain "
+             "version and the host BFS")
+    phase = {"phase": "frontier_relax", "V": V, "D": D, "levels": W,
+             "roots": roots, "root_degrees": [int(g.degree()[r])
+                                              for r in roots],
+             "rounds": rounds, "setup_s": setup_s, "loop_s": loop_s,
+             "reached": [int((f >= 0).sum()) for f in finals],
+             "launches": {k: launches[k] for k in FRONTIER_PATH},
+             "rounds_equal_plain": True, "bfs_equal": True}
+    active, fw, R = heavy
+    a = kfr.frontier_relax_gathered_cuda(fw, lvl, R)
+    b = kfr.frontier_relax_gathered_plain(fw, lvl, R)
+    torch.cuda.synchronize()
+    err = max(int((x.long() - y.long()).abs().max().item())
+              for x, y in zip(a, b))
+    # fw_nbr, lvl and R read once, newF and newR written; 2 ops a cell
+    bms, by = bound_ms(4 * (2 * V * D + 3 * V), 2 * V * D)
+    kern = {"name": "frontier_relax_gathered", "route": "cuda",
+            "source": "src/repro_torch/csrc/frontier.cu",
+            "replaces": "src/repro/kernels/frontier.py:62",
+            "launches": launches[FRONTIER_PATH[0]], "max_abs_err": err,
+            "ms": cuda_ms(lambda: kfr.frontier_relax_gathered_cuda(
+                fw, lvl, R), 50),
+            "plain_ms": cuda_ms(lambda: kfr.frontier_relax_gathered_plain(
+                fw, lvl, R), 5),
+            "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "shape": {"V": V, "D": D, "active": active}}
+    return phase, [kern]
 
 
 # ------------------------------------------------------------------- main
@@ -955,9 +1338,16 @@ def main() -> int:
     fallback = compressed_fallback_phase(idx, srv_e.engine, qrec, prec, dev)
     progress(f"V={V} compressed arena: {fallback['overflow_tiles']} of "
              f"{fallback['tiles']} tiles overflow")
-    comp_serve, comp_kernels = compressed_serve_phase(dev)
+    comp_serve, comp_kernels, comp_world = compressed_serve_phase(dev)
+    ladder = ladder_phase(*comp_world, dev)
+    del comp_world
     bp_serve, bp_kernels = bucket_pair_phase(idx, (s, t, wl), (ps, pt),
                                              out_e, prof_e, dev)
+
+    # ------------------------------------ padded layout, single-root BFS
+    pad_serve, pad_kernels = padded_serve_phase(idx, (s, t, wl), (ps, pt),
+                                                out_e, prof_e, dev)
+    relax, relax_kernels = frontier_relax_phase(g, dev)
 
     # ----------------------------------------- kernels vs plain, timed
     if cap.k3 is None or cap.k4 is None:
@@ -971,7 +1361,7 @@ def main() -> int:
                            steps["wc_prune_emit"], 50),
         relax_kernel_phase(cap.k4, launches["wc_relax_batched"],
                            steps["wc_relax_batched"], 50),
-    ] + comp_kernels + bp_kernels
+    ] + comp_kernels + bp_kernels + pad_kernels + relax_kernels
     for k in kernels:
         if k["max_abs_err"] != 0:
             fail(f"kernel {k['name']} differs from its plain version "
@@ -984,7 +1374,10 @@ def main() -> int:
     emit(serve)
     emit(fallback)
     emit(comp_serve)
+    emit(ladder)
     emit(bp_serve)
+    emit(pad_serve)
+    emit(relax)
     emit({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

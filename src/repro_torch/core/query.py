@@ -1,20 +1,34 @@
-"""Device-side batched WCSD query engine over the CSR label store.
+"""Device-side batched WCSD query engine over the CSR label store and
+the padded ``[V, cap]`` store.
 
-Port of the reference package's `core/query.py` for
-``DeviceQueryEngine(layout="csr")``, in its two dispatch modes:
+Port of the reference package's `core/query.py` for `DeviceQueryEngine`:
 
-  * ``dispatch="ragged"`` (default): a batch of (s, t, w_level) queries
-    becomes a flat (query, s_tile, t_tile) worklist emitted on the device
-    (`emit_ragged_worklist`), and the whole batch is answered by ONE
-    kernel launch over the lane-tiled arena (K1 `wcsd_query_ragged`, or
-    K2 `wcsd_profile_ragged` for all-level profiles). With
-    ``compressed=True`` the arena is the `CompressedArena` and the
-    launch is K5 / K6, which decode the narrow cells in the kernel.
-  * ``dispatch="bucket_pair"``: the host planner (`plan_query_batch`)
-    groups the batch by (bucket(s), bucket(t)), and each group is one
-    launch over that bucket pair's padded tiles (K7
+  * ``layout="csr"``, ``dispatch="ragged"`` (default): a batch of (s, t,
+    w_level) queries becomes a flat (query, s_tile, t_tile) worklist
+    emitted on the device (`emit_ragged_worklist`), and the whole batch is
+    answered by ONE kernel launch over the lane-tiled arena (K1
+    `wcsd_query_ragged`, or K2 `wcsd_profile_ragged` for all-level
+    profiles). With ``compressed=True`` the arena is the
+    `CompressedArena` and the launch is K5 / K6, which decode the narrow
+    cells in the kernel.
+  * ``layout="csr"``, ``dispatch="bucket_pair"``: the host planner
+    (`plan_query_batch`) groups the batch by (bucket(s), bucket(t)), and
+    each group is one launch over that bucket pair's padded tiles (K7
     `wcsd_query_segmented`, K8 `wcsd_profile_segmented`). The reference
     keeps it as the ragged path's differential oracle.
+  * ``layout="padded"``: one ``[V, L]`` store, every query pays the
+    longest row's width. ``use_pallas=True`` answers a batch with one K9
+    `wcsd_query_gathered` launch (`kernels.ops.wcsd_query`);
+    ``use_pallas=False`` runs `query_batch_torch`, the plain masked outer
+    join -- the fallback ladder's oracle rung. Profiles run
+    `profile_batch_torch` for either setting, as in the reference.
+
+The plain padded joins (`query_batch_torch`, `profile_batch_torch`,
+`query_batch_sorted_torch`) are the reference's XLA functions
+(`query_batch_jnp`, ...) as torch ops. They materialise ``[b, L, L]``
+intermediates, so they walk the batch in chunks of
+`padded_chunk_rows(L, chunk_bytes)` queries (one int32 intermediate holds
+at most ``chunk_bytes``); the answers do not depend on the chunk size.
 """
 from __future__ import annotations
 
@@ -25,9 +39,118 @@ import torch
 
 from ..kernels import ops as kops
 from ..kernels._cuda import resolve_device
-from .wc_index import FLOAT_DTYPES, LANE, PackedWCIndex
+from .graph import INF_DIST
+from .wc_index import FLOAT_DTYPES, LANE, PackedWCIndex, round_to_lane
 
 TRASH_LEVEL = 1 << 20  # no stored wlev reaches it: infeasible everywhere
+DEV_INF = 1 << 29
+PADDED_CHUNK_BYTES = 1 << 30  # one int32 [b, L, L] intermediate, at most
+
+
+def padded_chunk_rows(L: int, chunk_bytes: int = PADDED_CHUNK_BYTES) -> int:
+    """Queries per chunk of the plain padded joins: an int32 ``[b, L, L]``
+    intermediate fits ``chunk_bytes`` (at least one query)."""
+    return max(1, int(chunk_bytes) // (4 * max(int(L), 1) ** 2))
+
+
+def query_batch_torch(hub, dist, wlev, count, s, t, w_level, *,
+                      chunk_bytes: int = PADDED_CHUNK_BYTES):
+    """[B] w-constrained distances by the masked outer join over the
+    padded store (reference `query_batch_jnp`), chunked over the batch.
+    hub/dist/wlev [V, L], count [V], s/t/w_level [B]. Returns [B] int32
+    (INF_DIST where no feasible path)."""
+    B, L = s.shape[0], hub.shape[1]
+    out = torch.empty((B,), dtype=torch.int32, device=hub.device)
+    step = padded_chunk_rows(L, chunk_bytes)
+    for a in range(0, B, step):
+        wl = w_level[a:a + step]
+        hs, ds, _ = kops.padded_rows(hub, dist, wlev, count, s[a:a + step], wl)
+        ht, dt, _ = kops.padded_rows(hub, dist, wlev, count, t[a:a + step], wl)
+        eq = hs[:, :, None] == ht[:, None, :]
+        dsum = ds[:, :, None] + dt[:, None, :]
+        out[a:a + step] = kops._to_inf_dist(torch.where(
+            eq, dsum, DEV_INF).amin(dim=(1, 2)))
+    return out
+
+
+def _staircase_from_rows(hs, ds, ws, ht, dt, wt, num_levels: int):
+    """[b, *] masked label rows -> [b, W + 1] profile staircases
+    (reference `_staircase_from_rows`): a hub meet (i, j) is feasible at
+    exactly the levels <= min(ws[i], wt[j]), so its sum lands in one
+    pair-level bucket, and the suffix min over buckets is the staircase.
+    ds/dt clamped to DEV_INF, ws/wt -1 at pads."""
+    eq = hs[:, :, None] == ht[:, None, :]
+    dsum = torch.where(eq, ds[:, :, None] + dt[:, None, :], DEV_INF)
+    mw = torch.minimum(ws[:, :, None], wt[:, None, :])
+    bucket = torch.stack([torch.where(mw == lev, dsum, DEV_INF).amin(
+        dim=(1, 2)) for lev in range(num_levels + 1)], dim=1)
+    return kops._staircase(bucket)
+
+
+def profile_batch_torch(hub, dist, wlev, count, s, t, *, num_levels: int,
+                        chunk_bytes: int = PADDED_CHUNK_BYTES):
+    """[B, W + 1] staircases by one masked outer join per query over the
+    padded store (reference `profile_batch_jnp`), chunked over the batch:
+    ``out[:, w] == query_batch_torch(..., w)`` pointwise."""
+    B, L = s.shape[0], hub.shape[1]
+    out = torch.empty((B, num_levels + 1), dtype=torch.int32,
+                      device=hub.device)
+    step = padded_chunk_rows(L, chunk_bytes)
+    for a in range(0, B, step):
+        out[a:a + step] = _staircase_from_rows(
+            *kops.padded_rows(hub, dist, wlev, count, s[a:a + step]),
+            *kops.padded_rows(hub, dist, wlev, count, t[a:a + step]),
+            num_levels)
+    return out
+
+
+def query_batch_sorted_torch(hub, dist, wlev, count, s, t, w_level, *,
+                             chunk_bytes: int = PADDED_CHUNK_BYTES):
+    """Theorem-3 variant of `query_batch_torch` (reference
+    `query_batch_sorted_jnp`): each hub-sorted row is first reduced to the
+    minimum feasible distance per hub run, kept at the run's last entry
+    (DEV_INF elsewhere), then joined. Same answers."""
+    B, L = s.shape[0], hub.shape[1]
+    out = torch.empty((B,), dtype=torch.int32, device=hub.device)
+    step = padded_chunk_rows(L, chunk_bytes)
+
+    def reduce_side(v, wl):
+        h, d, _ = kops.padded_rows(hub, dist, wlev, count, v, wl)
+        n = h.shape[0]
+        first = torch.ones_like(h, dtype=torch.bool)
+        first[:, 1:] = h[:, 1:] != h[:, :-1]
+        last = torch.ones_like(h, dtype=torch.bool)
+        last[:, :-1] = h[:, :-1] != h[:, 1:]
+        run = torch.cumsum(first.to(torch.int64), dim=1) - 1   # run id
+        run_min = torch.full((n, L), DEV_INF, dtype=d.dtype, device=d.device)
+        run_min.scatter_reduce_(1, run, d, reduce="amin")
+        return h, torch.where(last, run_min.gather(1, run), DEV_INF)
+
+    for a in range(0, B, step):
+        wl = w_level[a:a + step]
+        hs, ds = reduce_side(s[a:a + step], wl)
+        ht, dt = reduce_side(t[a:a + step], wl)
+        eq = hs[:, :, None] == ht[:, None, :]
+        out[a:a + step] = kops._to_inf_dist(torch.where(
+            eq, ds[:, :, None] + dt[:, None, :], DEV_INF).amin(dim=(1, 2)))
+    return out
+
+
+def _build_padded_store(idx, cap, lane_pad: bool):
+    """[V, L] padded label arrays (hub, dist, wlev, count); with
+    ``lane_pad`` the width is rounded up to a multiple of 128, as the
+    reference ships it to its kernel (pads hub -1, dist INF_DIST,
+    wlev -1). K9 itself needs no pad: it only adds join work where the
+    longest row is not already a multiple of 128."""
+    h, d, w, c = idx.padded_device_arrays(cap)
+    L = h.shape[1]
+    Lp = round_to_lane(L) if lane_pad else L
+    if Lp != L:
+        pad = ((0, 0), (0, Lp - L))
+        h = np.pad(h, pad, constant_values=-1)
+        d = np.pad(d, pad, constant_values=INF_DIST)
+        w = np.pad(w, pad, constant_values=-1)
+    return h, d, w, c
 
 
 def emit_ragged_worklist(tile_base, tile_cnt, s, t, *, worklist_len: int):
@@ -163,6 +286,9 @@ class PendingResult:
         self._finalize = finalize
         self._event = event
         self._out = None
+        # absolute `time.monotonic()` seconds, stamped by the server's
+        # flush watchdog at dispatch (None: no deadline)
+        self.deadline = None
 
     def ready(self) -> bool:
         if self._finalize is None or self._event is None:
@@ -188,49 +314,69 @@ def _pending(res: torch.Tensor, finalize) -> PendingResult:
 
 
 class DeviceQueryEngine:
-    """Holds the CSR label store on the device and answers query batches.
+    """Holds a label store on the device and answers query batches.
 
-    ``dispatch="ragged"`` (default): each flush is ONE kernel launch over
-    the lane-tiled `LabelArena`, planned by a device-emitted tile-pair
-    worklist. ``compressed=True`` serves the `CompressedArena` instead
-    (int16 hub deltas, bfloat16 distances, int8 levels, decoded in the
-    kernel); a store with any tile the format cannot hold is served
-    uncompressed, with ``compressed`` False and ``compression_overflow``
-    True.
+    ``layout="csr"`` (default), ``dispatch="ragged"``: each flush is ONE
+    kernel launch over the lane-tiled `LabelArena`, planned by a
+    device-emitted tile-pair worklist. ``compressed=True`` serves the
+    `CompressedArena` instead (int16 hub deltas, bfloat16 distances, int8
+    levels, decoded in the kernel); a store with any tile the format
+    cannot hold is served uncompressed, with ``compressed`` False and
+    ``compression_overflow`` True.
 
-    ``dispatch="bucket_pair"``: the host planner groups each flush by
-    (bucket(s), bucket(t)) and launches one kernel per group over the
-    padded bucket tiles; the answers come back in batch order from one
-    handle. It does not take ``compressed=True`` (ValueError), as in the
-    reference.
+    ``layout="csr"``, ``dispatch="bucket_pair"``: the host planner groups
+    each flush by (bucket(s), bucket(t)) and launches one kernel per group
+    over the padded bucket tiles; the answers come back in batch order
+    from one handle. It does not take ``compressed=True`` (ValueError),
+    as in the reference.
+
+    ``layout="padded"``: the ``[V, L]`` store (``cap`` trims rows, see
+    `PackedLabels.to_padded`; ``dispatch`` reads "dense"). A batch is one
+    K9 launch with ``use_pallas=True``, the plain `query_batch_torch` with
+    ``use_pallas=False``; profiles are `profile_batch_torch` either way.
+    The CSR layouts run only their kernels: ``use_pallas=False`` with
+    ``layout="csr"`` raises ValueError (``device="cpu"`` is how their
+    plain versions run).
 
     Runs on the card unless ``device="cpu"`` (the kernels' plain
-    versions). ``layout="padded"`` is not ported and raises
-    `NotImplementedError`.
+    versions). The reference defaults to ``layout="padded"``; the port
+    defaults to ``"csr"`` (same answers).
     """
 
     def __init__(self, idx: PackedWCIndex, layout: str = "csr",
                  dispatch: str = "ragged", lane: int | None = None,
                  compressed: bool = False, cap: int | None = None,
-                 device=None):
-        if layout != "csr":
-            raise NotImplementedError(f"layout={layout!r} (padded store) is "
-                                      "not ported yet; use layout='csr'")
+                 use_pallas: bool = True, device=None):
+        if layout not in ("padded", "csr"):
+            raise ValueError(f"unknown layout: {layout!r}")
         if dispatch not in ("ragged", "bucket_pair"):
             raise ValueError(f"unknown dispatch: {dispatch!r}")
-        if cap is not None:
+        if layout == "csr" and cap is not None:
             raise ValueError("cap (label-row trimming) only applies to the "
                              "padded layout; the CSR store keeps exact rows")
-        if compressed and dispatch != "ragged":
+        if layout == "csr" and not use_pallas:
+            raise ValueError("use_pallas=False runs the plain padded join: "
+                             "it needs layout='padded' (the CSR layouts run "
+                             "their kernels; device='cpu' runs their plain "
+                             "versions)")
+        if compressed and (layout, dispatch) != ("csr", "ragged"):
             raise ValueError("compressed=True requires layout='csr' with "
                              "dispatch='ragged' (only the arena kernels "
                              "decode the compressed tile format)")
         self.device = resolve_device(device)
         self.layout = layout
-        self.dispatch = dispatch
+        self.use_pallas = bool(use_pallas)
         self.num_levels = idx.num_levels
         self.compressed = False
         self.compression_overflow = False
+        if layout == "padded":
+            self.dispatch = "dense"
+            store = _build_padded_store(idx, cap, lane_pad=self.use_pallas)
+            self.padded_bytes = sum(int(a.nbytes) for a in store)
+            self.hub, self.dist, self.wlev, self.count = (
+                torch.from_numpy(a).to(self.device) for a in store)
+            return
+        self.dispatch = dispatch
         lane = LANE if lane is None else int(lane)
         self.lane = lane
         packed = idx.packed(lane=lane)
@@ -264,9 +410,10 @@ class DeviceQueryEngine:
         self._arena = tuple(arena)
 
     def _stage_ragged(self, s, t, w_level=None):
-        """One [3 or 2, B] staging array for a ragged flush: exactly the
-        batch, no pad lanes (the reference pads the batch to a power of
-        two to bound its jit shapes; the kernels here take any size)."""
+        """One [3 or 2, B] staging array for a ragged (or padded-layout)
+        flush: exactly the batch, no pad lanes (the reference pads the
+        batch to a power of two to bound its jit shapes; the kernels here
+        take any size)."""
         rows = (s, t) if w_level is None else (s, t, w_level)
         return np.stack([np.asarray(r, np.int32) for r in rows])
 
@@ -286,6 +433,9 @@ class DeviceQueryEngine:
         if self.dispatch == "bucket_pair":
             return self._query_segmented_async(s, t, w_level)
         stq = self._stage_ragged(s, t, w_level)
+        if self.dispatch == "dense":
+            res = self._query_dense(self._put(stq))
+            return _pending(res, lambda: res.cpu().numpy())
         wl_len = ragged_worklist_len(self._tile_cnt_np, stq[0], stq[1])
         res = ragged_query_batch(*self._arena, self._put(stq),
                                  worklist_len=wl_len,
@@ -303,12 +453,29 @@ class DeviceQueryEngine:
         if self.dispatch == "bucket_pair":
             return self._profile_segmented_async(s, t)
         stq = self._stage_ragged(s, t)
+        if self.dispatch == "dense":
+            res = self._profile_dense(self._put(stq))
+            return _pending(res, lambda: res.cpu().numpy())
         wl_len = ragged_worklist_len(self._tile_cnt_np, stq[0], stq[1])
         res = ragged_profile_batch(*self._arena, self._put(stq),
                                    worklist_len=wl_len,
                                    num_levels=self.num_levels,
                                    compressed=self.compressed)
         return _pending(res, lambda: res.cpu().numpy())
+
+    # ------------------------------------------------------ padded layout
+    def _query_dense(self, stq: torch.Tensor) -> torch.Tensor:
+        store = (self.hub, self.dist, self.wlev, self.count)
+        if self.use_pallas:
+            return kops.wcsd_query(*store, stq[0], stq[1], stq[2])
+        return query_batch_torch(*store, stq[0], stq[1], stq[2])
+
+    def _profile_dense(self, stq: torch.Tensor) -> torch.Tensor:
+        # the padded layout profiles with the plain join for either
+        # setting, as the reference does (its XLA path)
+        return profile_batch_torch(self.hub, self.dist, self.wlev,
+                                   self.count, stq[0], stq[1],
+                                   num_levels=self.num_levels)
 
     # ------------------------------------------------ bucket-pair dispatch
     def _plan_segmented(self, s, t, w_level, dispatch) -> PendingResult:

@@ -1,6 +1,7 @@
 """Pure host oracle for WCSD: constrained BFS, deliberately simple
 (deque-based) so it is an independent check on the index and the device
-engines. Used for spot checks of answers served from the card."""
+engines. Used for spot checks of answers served from the card, and of the
+single-root relaxation rounds (`wcsd_bfs_all`)."""
 from __future__ import annotations
 
 from collections import deque
@@ -34,3 +35,25 @@ def wcsd_bfs(g: Graph, s: int, t: int, w_level: int) -> int:
                 q.append(int(v))
     return int(INF_DIST)
 
+
+def wcsd_bfs_all(g: Graph, s: int, w_level: int) -> np.ndarray:
+    """[V] w-constrained distances from ``s`` to every vertex: the BFS of
+    `wcsd_bfs` run to exhaustion (INF_DIST where unreachable; only ``s``
+    itself is reached at ``w_level >= num_levels``)."""
+    out = np.full(g.num_nodes, INF_DIST, dtype=np.int32)
+    out[s] = 0
+    if w_level >= g.num_levels:
+        return out
+    q = deque([s])
+    dist = 0
+    while q:
+        dist += 1
+        for _ in range(len(q)):
+            u = q.popleft()
+            beg, end = g.indptr[u], g.indptr[u + 1]
+            for v, lvl in zip(g.nbr[beg:end], g.nbr_level[beg:end]):
+                if lvl < w_level or out[v] != INF_DIST:
+                    continue
+                out[v] = dist
+                q.append(int(v))
+    return out

@@ -1,11 +1,11 @@
 """WCSD serving: request batching over the device query engine.
 
-Port of the core of the reference package's `core/serve.py`
-(`WCSDServer` with ``backend="device"``, csr layout): requests
-accumulate into batches that the engine answers -- one kernel launch per
-flush with ``dispatch="ragged"`` (over the compressed arena with
-``compressed=True``), one launch per populated bucket pair with
-``dispatch="bucket_pair"`` -- with
+Port of the reference package's `core/serve.py` (`WCSDServer` with
+``backend="device"``): requests accumulate into batches that the engine
+answers -- one kernel launch per flush with ``dispatch="ragged"`` (over
+the compressed arena with ``compressed=True``), one launch per populated
+bucket pair with ``dispatch="bucket_pair"``, one K9 launch per flush over
+the padded store with ``layout="padded"`` -- with
 
   * an LRU memo (symmetric ``(s <= t)`` keys when ``undirected``) and
     piggyback dedup: a key already pending or in flight occupies one
@@ -18,11 +18,26 @@ flush with ``dispatch="ragged"`` (over the compressed arena with
     free or finished, or when the oldest queued request has waited
     ``max_wait_us`` (checked on every submit and on `poll`);
   * read-once results, profile (all-level staircase) requests riding the
-    same flush, `ServeStats` counters and p50/p99 enqueue→deliver latency.
+    same flush, `ServeStats` counters and p50/p99 enqueue→deliver latency;
+  * the flush watchdog and the fallback ladder (`core/resilience.py`): a
+    dispatch that raises, or a handle not ready by its deadline
+    (``flush_timeout_ms``), is retried with exponential backoff and
+    jitter; an exhausted retry budget demotes the server one rung down
+    its ladder (compressed -> uncompressed -> bucket_pair -> the plain
+    padded oracle), rebuilding the engine; ``probe_interval`` healthy
+    flushes promote it one rung back. At the bottom rung exhaustion
+    raises `FlushRetryExhausted` with the batch re-queued: no request is
+    dropped. Every answer is stamped with the rung that computed it
+    (`result_with_mode`); ``engine_wrapper`` wraps every engine built
+    (fault injection, `checkpoint/fault.py`). A kernel that does not
+    build, load or launch (`kernels._cuda.KernelError`) and a CUDA error
+    are not engine faults: they propagate at once, with the batch
+    re-queued, and never demote the server to a plain rung.
 
 Not ported yet (the constructor raises `NotImplementedError`): the
-sharded backend, the dynamic index (``graph=``), the update WAL and the
-flush watchdog with its fallback ladder.
+sharded backend, the dynamic index (``graph=``) and the update WAL
+(``wal_path=``). Until the dynamic index is, every answer's graph version
+is 0, as the reference gives for a static index.
 """
 from __future__ import annotations
 
@@ -33,8 +48,10 @@ from typing import Optional
 
 import numpy as np
 
+from ..kernels._cuda import NOT_RETRYABLE, resolve_device
 from .query import DeviceQueryEngine, PendingResult
-from .resilience import UnknownRequestError
+from .resilience import (FlushRetryExhausted, RetryPolicy,
+                         UnknownRequestError, build_fallback_ladder)
 from .wc_index import PackedWCIndex
 
 
@@ -49,20 +66,27 @@ class ServeStats:
     max_batch: int = 0
     deadline_flushes: int = 0     # flushes fired by the max_wait_us deadline
     opportunistic_flushes: int = 0  # flushes fired by a free in-flight slot
+    # flush watchdog: per-cause retry counters
+    timeout_retries: int = 0      # handle missed its deadline, re-dispatched
+    error_retries: int = 0        # dispatch/wait raised, re-dispatched
+    exhausted: int = 0            # a retry budget ran out (demote or raise)
+    demotions: int = 0            # fallback-ladder steps down
+    promotions: int = 0           # healthy probe windows stepping back up
 
 
 class _Lane:
     """Queue state of one request kind (scalar or profile): the pending
     batch with its dedup table and piggyback riders, and the in-flight
-    batch with the same."""
+    batch with the same, plus what the watchdog needs to re-dispatch it
+    (its request tuples and dispatch closure)."""
 
     def __init__(self):
         self.pending: list[tuple] = []           # (rid, s, t[, wl])
         self.pending_rids: set[int] = set()
         self.pending_pos: dict[tuple, int] = {}  # key -> pending position
         self.pending_extra: list[tuple[int, int]] = []  # (rid, position)
-        self.inflight: Optional[tuple[PendingResult, list, list]] = None
-        self.inflight_rids: set[int] = set()
+        self.inflight: Optional[tuple] = None    # (handle, batch, keys,
+        self.inflight_rids: set[int] = set()     #  dispatch)
         self.inflight_pos: dict[tuple, int] = {}
         self.inflight_extra: list[tuple[int, int]] = []
 
@@ -82,10 +106,11 @@ class _Lane:
         self.pending_rids.add(rid)
         return "new"
 
-    def launch(self, handle: PendingResult, keys: list) -> int:
-        """Move the pending batch in flight under ``handle``."""
+    def launch(self, handle: PendingResult, keys: list, dispatch) -> int:
+        """Move the pending batch in flight under ``handle``; ``dispatch``
+        re-issues it on a retry."""
         batch = self.pending
-        self.inflight = (handle, [b[0] for b in batch], keys)
+        self.inflight = (handle, batch, keys, dispatch)
         self.inflight_rids = ({b[0] for b in batch}
                               | {r for r, _ in self.pending_extra})
         self.inflight_pos = {k: i for i, k in enumerate(keys)}
@@ -95,44 +120,93 @@ class _Lane:
         return len(batch)
 
     def land(self):
-        """Take the in-flight batch: (handle, rids, keys, extra) or None."""
+        """Take the in-flight batch: (handle, batch, keys, dispatch, extra)
+        or None."""
         if self.inflight is None:
             return None
-        handle, rids, keys = self.inflight
-        extra = self.inflight_extra
+        landed = self.inflight + (self.inflight_extra,)
         self.inflight = None
         self.inflight_rids, self.inflight_pos = set(), {}
         self.inflight_extra = []
-        return handle, rids, keys, extra
+        return landed
+
+    def requeue(self, batch: list, keys: list, extra: list) -> None:
+        """Put a terminally failed in-flight batch back at the FRONT of the
+        pending queue (nothing is dropped): the queued positions and their
+        piggybacks shift by the batch length, the failed batch's own
+        piggybacks keep their positions. On a duplicate key the queued copy
+        wins (its piggybacks already point at its shifted position)."""
+        n = len(batch)
+        self.pending = list(batch) + self.pending
+        shifted = {k: p + n for k, p in self.pending_pos.items()}
+        for i, k in enumerate(keys):
+            shifted.setdefault(k, i)
+        self.pending_pos = shifted
+        self.pending_extra = (list(extra)
+                              + [(r, p + n) for r, p in self.pending_extra])
+        self.pending_rids |= {b[0] for b in batch} | {r for r, _ in extra}
 
 
 class WCSDServer:
-    def __init__(self, idx: PackedWCIndex, max_batch: int = 1024,
-                 memo_capacity: int = 65536, layout: str = "csr",
-                 undirected: bool = True, backend: str = "device",
-                 dispatch: str = "ragged", compressed: bool = False,
-                 graph=None, max_wait_us: float | None = None,
+    def __init__(self, idx: PackedWCIndex | None = None,
+                 max_batch: int = 1024, memo_capacity: int = 65536,
+                 layout: str = "csr", undirected: bool = True,
+                 backend: str = "device", dispatch: str = "ragged",
+                 compressed: bool = False, use_pallas: bool = True,
+                 engine=None, graph=None, max_wait_us: float | None = None,
                  min_batch: int = 1, wal_path: str | None = None,
-                 flush_timeout_ms: float | None = None, device=None):
+                 flush_timeout_ms: float | None = None,
+                 max_retries: int = 3, backoff_base_ms: float = 1.0,
+                 backoff_factor: float = 2.0, jitter: float = 0.5,
+                 probe_interval: int = 8, retry_seed: int = 0,
+                 engine_wrapper=None, device=None):
         # undirected=False disables the symmetric memo canonicalization
         # for indices over directed graphs. max_wait_us/min_batch turn on
         # continuous batching; max_wait_us=None keeps epoch flushes
         # (a flush when max_batch requests are queued, or on demand).
-        if backend != "device":
-            raise NotImplementedError(f"backend={backend!r} (the sharded "
+        # flush_timeout_ms/max_retries/backoff_*/jitter/probe_interval arm
+        # the flush watchdog and the fallback ladder; engine= serves a
+        # prebuilt engine (no ladder: mode "injected").
+        if backend == "sharded":
+            raise NotImplementedError("backend='sharded' (the sharded "
                                       "engine) is not ported yet")
+        if backend != "device":
+            raise ValueError(f"unknown backend: {backend!r} (expected "
+                             "'device')")
         if graph is not None:
             raise NotImplementedError("graph= (dynamic index serving) is not "
                                       "ported yet")
         if wal_path is not None:
             raise NotImplementedError("wal_path= (update WAL) is not ported "
                                       "yet")
-        if flush_timeout_ms is not None:
-            raise NotImplementedError("flush_timeout_ms= (flush watchdog and "
-                                      "fallback ladder) is not ported yet")
-        self.engine = DeviceQueryEngine(idx, layout=layout, dispatch=dispatch,
-                                        compressed=compressed, device=device)
+        self.retry_policy = RetryPolicy(
+            flush_timeout_ms=flush_timeout_ms, max_retries=int(max_retries),
+            backoff_base_ms=float(backoff_base_ms),
+            backoff_factor=float(backoff_factor), jitter=float(jitter),
+            probe_interval=int(probe_interval))
+        self._retry_rng = np.random.default_rng(retry_seed)
+        self._engine_wrapper = engine_wrapper
+        self._ladder = None          # injected engines have no fallback
+        self.mode_index = 0
+        self._healthy = 0            # consecutive retry-free drains
+        self._retry_snapshot = 0     # retry-event total at last drain
+        self._retrying = False       # a drain is mid-retry: poll() backs off
         self.index = idx
+        if engine is not None:
+            self.engine = engine
+        elif idx is None:
+            raise ValueError("WCSDServer needs an index (idx=) or a "
+                             "prebuilt engine (engine=)")
+        else:
+            self.device = resolve_device(device)
+            # the reference's engine config keys, so that the ladder is
+            # the reference's for the same settings
+            self._engine_config = dict(
+                backend=backend, use_pallas=use_pallas, interpret=None,
+                layout=layout, dispatch=dispatch, compressed=compressed,
+                mesh=None, device_budget_bytes=None, multi_pod=False)
+            self._ladder = build_fallback_ladder(self._engine_config)
+            self.engine = self._make_engine()
         self.max_batch = int(max_batch)
         self.max_wait_us = None if max_wait_us is None else float(max_wait_us)
         self.min_batch = max(1, int(min_batch))
@@ -146,6 +220,10 @@ class WCSDServer:
         self._profile = _Lane()
         self.results: dict[int, int] = {}
         self.profile_results: dict[int, np.ndarray] = {}
+        # the ladder rung each answer was computed under ("memo" for cache
+        # hits); popped with the answer, read via result_with_mode
+        self.result_modes: dict[int, str] = {}
+        self.profile_result_modes: dict[int, str] = {}
         self._next_rid = 0
         # enqueue→deliver latency: stamped per rid at submit, recorded
         # (µs) the moment the answer lands in the result dict
@@ -153,6 +231,136 @@ class WCSDServer:
         self.latencies_us: list[float] = []
         self._pending_since: float | None = None  # oldest queued enqueue
         self.stats = ServeStats()
+
+    # ----------------------------------------------------------- engines
+    def _make_engine(self):
+        eng = self._build_engine(self._ladder[self.mode_index][1])
+        if self._engine_wrapper is not None:
+            eng = self._engine_wrapper(eng)
+        return eng
+
+    def _build_engine(self, cfg: dict) -> DeviceQueryEngine:
+        return DeviceQueryEngine(
+            self.index, layout=cfg["layout"], dispatch=cfg["dispatch"],
+            compressed=cfg["compressed"], use_pallas=cfg["use_pallas"],
+            device=self.device)
+
+    @property
+    def graph_version(self) -> int:
+        return 0   # static index: the dynamic slice is not ported yet
+
+    # -------------------------------------------------------- resilience
+    @property
+    def mode(self) -> str:
+        """The fallback-ladder rung serving now ("primary" when healthy;
+        "injected" for engine= servers, which have no ladder)."""
+        if self._ladder is None:
+            return "injected"
+        return self._ladder[self.mode_index][0]
+
+    def _demote(self) -> bool:
+        """Step one rung down the ladder (rebuilding the engine) after an
+        exhausted retry budget. False at the bottom. The memos survive:
+        every rung serves the same index."""
+        if self._ladder is None or self.mode_index >= len(self._ladder) - 1:
+            return False
+        self.mode_index += 1
+        self.stats.demotions += 1
+        self._healthy = 0
+        self.engine = self._make_engine()
+        return True
+
+    def _stamp_deadline(self, handle) -> None:
+        p = self.retry_policy
+        if p.flush_timeout_ms is not None:
+            try:
+                handle.deadline = (time.monotonic()
+                                   + p.flush_timeout_ms / 1e3)
+            except AttributeError:
+                pass  # foreign handle type without the attribute
+
+    def _dispatch_with_retry(self, dispatch):
+        """Run a zero-arg dispatch closure under the watchdog: a raise is
+        retried with backoff up to ``max_retries``; an exhausted budget
+        demotes one rung (resetting the budget) or, at the bottom of the
+        ladder, raises `FlushRetryExhausted` with the queue intact. The
+        closure reads ``self.engine`` at call time, so a retry after a
+        demotion uses the new engine. `NOT_RETRYABLE` failures propagate
+        as they are."""
+        p = self.retry_policy
+        attempt = 0
+        while True:
+            try:
+                handle = dispatch()
+            except NOT_RETRYABLE:
+                raise
+            except Exception as err:
+                attempt += 1
+                if attempt > p.max_retries:
+                    self.stats.exhausted += 1
+                    if self._demote():
+                        attempt = 0
+                    else:
+                        raise FlushRetryExhausted(
+                            f"dispatch failed after {p.max_retries} "
+                            f"retries at mode {self.mode!r} (bottom of "
+                            "the fallback ladder); the requests are "
+                            "still queued") from err
+                else:
+                    self.stats.error_retries += 1
+                time.sleep(p.backoff_s(max(attempt, 1), self._retry_rng))
+                continue
+            self._stamp_deadline(handle)
+            return handle
+
+    def _await_handle(self, handle, redispatch):
+        """`handle.wait()` under the watchdog. A handle past its deadline
+        that still is not ready is abandoned (its result is never read)
+        and the SAME batch re-dispatched via ``redispatch``; a raising
+        wait() retries the same way. Exhaustion demotes one rung and
+        resets the budget; at the bottom it raises `FlushRetryExhausted`
+        (the caller re-queues the batch); `NOT_RETRYABLE` failures
+        propagate as they are. On the card `ready()` queries the CUDA event
+        recorded after the batch's last launch. The redispatch goes to the
+        same (current) stream, so this recovers from a handle that never
+        reports ready while the card moves on (`FaultyEngine`'s injected
+        hang), not from a kernel that really hangs: every later launch,
+        the oracle's plain ops included, queues behind it, and the server
+        ends in `FlushRetryExhausted`."""
+        p = self.retry_policy
+        attempt = 0
+        while True:
+            timed_out, err = False, None
+            deadline = getattr(handle, "deadline", None)
+            if deadline is not None:
+                while not handle.ready():
+                    if time.monotonic() > deadline:
+                        timed_out = True
+                        break
+                    time.sleep(1e-4)
+            if not timed_out:
+                try:
+                    return handle.wait()
+                except NOT_RETRYABLE:
+                    raise
+                except Exception as e:
+                    err = e
+            attempt += 1
+            if attempt > p.max_retries:
+                self.stats.exhausted += 1
+                if self._demote():
+                    attempt = 0
+                else:
+                    raise FlushRetryExhausted(
+                        f"flush failed after {p.max_retries} retries at "
+                        f"mode {self.mode!r} (bottom of the fallback "
+                        "ladder); the batch has been re-queued") from err
+            elif timed_out:
+                self.stats.timeout_retries += 1
+            else:
+                self.stats.error_retries += 1
+            time.sleep(p.backoff_s(max(attempt, 1), self._retry_rng))
+            handle = redispatch()
 
     # ------------------------------------------------------------- keys
     def _memo_key(self, s: int, t: int, w_level: int) -> tuple:
@@ -203,13 +411,15 @@ class WCSDServer:
         if key in self.memo:
             self.memo.move_to_end(key)
             self.results[rid] = self.memo[key]
+            self.result_modes[rid] = "memo"
             self.stats.memo_hits += 1
             self._deliver(rid)
         elif (pkey in self.profile_memo
-              and 0 <= w_level <= self.engine.num_levels):
+              and 0 <= w_level <= getattr(self.engine, "num_levels", -1)):
             # a cached profile answers every level of its pair
             self.profile_memo.move_to_end(pkey)
             self.results[rid] = int(self.profile_memo[pkey][w_level])
+            self.result_modes[rid] = "memo"
             self._memo_put(key, self.results[rid])
             self.stats.memo_hits += 1
             self._deliver(rid)
@@ -228,6 +438,7 @@ class WCSDServer:
         if key in self.profile_memo:
             self.profile_memo.move_to_end(key)
             self.profile_results[rid] = self.profile_memo[key].copy()
+            self.profile_result_modes[rid] = "memo"
             self.stats.memo_hits += 1
             self._deliver(rid)
         else:
@@ -243,7 +454,11 @@ class WCSDServer:
     def _maybe_flush(self) -> None:
         """Continuous-batching admission: flush at the hard cap, or — with
         ``max_wait_us`` set and at least ``min_batch`` queued — when the
-        in-flight slot is free/finished or the oldest request is overdue."""
+        in-flight slot is free/finished or the oldest request is overdue.
+        No-op while a retry is in progress (a new batch would race the
+        half-retried slot)."""
+        if self._retrying:
+            return
         npend = self._queued()
         if npend >= self.max_batch:
             self.flush_async()
@@ -262,18 +477,22 @@ class WCSDServer:
 
     def poll(self) -> None:
         """Deadline tick for continuous batching: harvest the in-flight
-        batch if its device work is done, then re-check the triggers."""
+        batch if its device work is done, then re-check the triggers. A
+        no-op while the watchdog is mid-retry: the retrying drain
+        delivers."""
+        if self._retrying:
+            return
         if self._slot_done():
             self._drain()
         self._maybe_flush()
 
     def latency_summary(self) -> dict:
         """p50/p99 (µs) of enqueue→deliver latency over every delivered
-        request so far (memo hits included)."""
+        request so far (memo hits included); zeros before any."""
         if not self.latencies_us:
-            return {"count": 0, "p50_us": 0.0, "p99_us": 0.0}
+            return {"count": 0, "n": 0, "p50_us": 0.0, "p99_us": 0.0}
         arr = np.asarray(self.latencies_us)
-        return {"count": int(arr.size),
+        return {"count": int(arr.size), "n": int(arr.size),
                 "p50_us": float(np.percentile(arr, 50)),
                 "p99_us": float(np.percentile(arr, 99))}
 
@@ -282,11 +501,38 @@ class WCSDServer:
         if len(self.memo) > self.memo_capacity:
             self.memo.popitem(last=False)
 
+    def _dispatch_closure(self, batch: list, profile: bool):
+        """A zero-arg closure that dispatches ``batch`` to whatever engine
+        serves when it is called (a retry after a demotion reaches the
+        new engine)."""
+        s = np.array([b[1] for b in batch], dtype=np.int32)
+        t = np.array([b[2] for b in batch], dtype=np.int32)
+        if profile:
+            def dispatch():
+                qa = getattr(self.engine, "query_profile_async", None)
+                if qa is not None:
+                    return qa(s, t)
+                res = self.engine.query_profile(s, t)
+                return PendingResult(lambda: res)
+            return dispatch
+        wl = np.array([b[3] for b in batch], dtype=np.int32)
+
+        def dispatch():
+            qa = getattr(self.engine, "query_async", None)
+            if qa is not None:
+                return qa(s, t, wl)
+            # an engine with only a blocking query
+            res = self.engine.query(s, t, wl)
+            return PendingResult(lambda: res)
+        return dispatch
+
     def flush_async(self) -> None:
         """Enqueue the pending batches (scalar and profile; either may be
         empty) on the card without waiting for their results. At most one
-        batch is in flight, so this first drains the previous one. The
-        pending queue is cleared only after its dispatch returned."""
+        batch is in flight, so this first drains the previous one. Each
+        dispatch runs under the watchdog, and the pending queue is cleared
+        only after its dispatch returned: a `FlushRetryExhausted` leaves
+        every queued request pending."""
         if not self._queued():
             return
         self._drain()
@@ -295,82 +541,165 @@ class WCSDServer:
             batch = lane.pending
             if not batch:
                 continue
-            s = np.array([b[1] for b in batch], dtype=np.int32)
-            t = np.array([b[2] for b in batch], dtype=np.int32)
+            dispatch = self._dispatch_closure(batch, profile)
+            handle = self._dispatch_with_retry(dispatch)
             if profile:
-                handle = self.engine.query_profile_async(s, t)
                 keys = [self._profile_key(b[1], b[2]) for b in batch]
             else:
-                wl = np.array([b[3] for b in batch], dtype=np.int32)
-                handle = self.engine.query_async(s, t, wl)
                 keys = [self._memo_key(b[1], b[2], b[3]) for b in batch]
-            n = lane.launch(handle, keys)
+            n = lane.launch(handle, keys, dispatch)
             self.stats.max_batch = max(self.stats.max_batch, n)
         self._pending_since = None
         self.stats.batches += 1
         self.stats.dispatch_time_s += time.perf_counter() - t0
 
+    def _land(self, lane: _Lane):
+        """Wait for a lane's in-flight batch under the watchdog: (output,
+        rids, keys, extra), or None when nothing is in flight. A terminal
+        failure re-queues the batch and propagates."""
+        landed = lane.land()
+        if landed is None:
+            return None
+        handle, batch, keys, dispatch, extra = landed
+        try:
+            out = self._await_handle(
+                handle, lambda: self._dispatch_with_retry(dispatch))
+        except Exception:
+            lane.requeue(batch, keys, extra)
+            if self._pending_since is None:
+                self._pending_since = time.perf_counter()
+            raise
+        return (np.asarray(out)[:len(batch)], [b[0] for b in batch], keys,
+                extra)
+
     def _drain(self) -> None:
-        """Materialize the in-flight batch into results + memos."""
+        """Materialize the in-flight batch into results + memos, under the
+        watchdog. The ``_retrying`` guard makes the drain non-reentrant:
+        a `poll()` issued during a retry must not harvest the
+        half-retried slot. A drain with no new retry event is a healthy
+        flush; ``probe_interval`` of them in a row promote a degraded
+        server one rung."""
+        if self._retrying:
+            return
         if self._scalar.inflight is None and self._profile.inflight is None:
             return
         t0 = time.perf_counter()
-        landed = self._scalar.land()
-        if landed is not None:
-            handle, rids, keys, extra = landed
-            out = handle.wait()[:len(rids)]
-            for rid, key, d in zip(rids, keys, out.tolist()):
-                self.results[rid] = d
-                self._memo_put(key, d)
-                self._deliver(rid)
-            for rid, pos in extra:  # duplicates riding a batch slot
-                self.results[rid] = int(out[pos])
-                self._deliver(rid)
-        landed = self._profile.land()
-        if landed is not None:
-            handle, rids, keys, extra = landed
-            out = np.asarray(handle.wait())[:len(rids)]
-            for rid, key, prof in zip(rids, keys, out):
-                # np.array COPIES: the memo owns its staircase
-                arr = np.array(prof, dtype=np.int32)
-                self.profile_results[rid] = arr.copy()
-                self.profile_memo[key] = arr
-                if len(self.profile_memo) > self.memo_capacity:
-                    self.profile_memo.popitem(last=False)
-                self._deliver(rid)
-            for rid, pos in extra:
-                self.profile_results[rid] = np.array(out[pos],
-                                                     dtype=np.int32)
-                self._deliver(rid)
+        self._retrying = True
+        try:
+            landed = self._land(self._scalar)
+            if landed is not None:
+                out, rids, keys, extra = landed
+                mode = self.mode
+                for rid, key, d in zip(rids, keys, out.tolist()):
+                    self.results[rid] = d
+                    self.result_modes[rid] = mode
+                    self._memo_put(key, d)
+                    self._deliver(rid)
+                for rid, pos in extra:  # duplicates riding a batch slot
+                    self.results[rid] = int(out[pos])
+                    self.result_modes[rid] = mode
+                    self._deliver(rid)
+            landed = self._land(self._profile)
+            if landed is not None:
+                out, rids, keys, extra = landed
+                mode = self.mode
+                for rid, key, prof in zip(rids, keys, out):
+                    # np.array COPIES: the memo owns its staircase
+                    arr = np.array(prof, dtype=np.int32)
+                    self.profile_results[rid] = arr.copy()
+                    self.profile_result_modes[rid] = mode
+                    self.profile_memo[key] = arr
+                    if len(self.profile_memo) > self.memo_capacity:
+                        self.profile_memo.popitem(last=False)
+                    self._deliver(rid)
+                for rid, pos in extra:
+                    self.profile_results[rid] = np.array(out[pos],
+                                                         dtype=np.int32)
+                    self.profile_result_modes[rid] = mode
+                    self._deliver(rid)
+        finally:
+            self._retrying = False
         self.stats.drain_wait_s += time.perf_counter() - t0
+        events = (self.stats.timeout_retries + self.stats.error_retries
+                  + self.stats.exhausted)
+        self._healthy = self._healthy + 1 if events == self._retry_snapshot \
+            else 0
+        self._retry_snapshot = events
+        if (self._ladder is not None and self.mode_index > 0
+                and self._healthy >= self.retry_policy.probe_interval):
+            self.mode_index -= 1
+            self.stats.promotions += 1
+            self._healthy = 0
+            self.engine = self._make_engine()
 
     def flush(self) -> None:
         """Synchronous flush: dispatch anything pending and drain."""
         self.flush_async()
         self._drain()
 
-    def result(self, rid: int) -> int:
-        """Deliver (and evict) the answer for ``rid`` (read-once)."""
+    # ---------------------------------------------------------- results
+    def _pop_result(self, rid: int):
         if rid not in self.results:
             if rid in self._scalar.inflight_rids:
                 self._drain()
             elif rid in self._scalar.pending_rids:
                 self.flush()
         if rid in self.results:
-            return self.results.pop(rid)
+            return (self.results.pop(rid), self.graph_version,
+                    self.result_modes.pop(rid, self.mode))
         raise UnknownRequestError(rid)
 
-    def profile_result(self, rid: int) -> np.ndarray:
-        """Deliver (and evict) the ``[num_levels + 1]`` staircase for a
-        `submit_profile` rid (read-once; the array is the caller's)."""
+    def _pop_profile_result(self, rid: int):
         if rid not in self.profile_results:
             if rid in self._profile.inflight_rids:
                 self._drain()
             elif rid in self._profile.pending_rids:
                 self.flush()
         if rid in self.profile_results:
-            return self.profile_results.pop(rid)
+            return (self.profile_results.pop(rid), self.graph_version,
+                    self.profile_result_modes.pop(rid, self.mode))
         raise UnknownRequestError(rid)
+
+    def result(self, rid: int) -> int:
+        """Deliver (and evict) the answer for ``rid`` (read-once)."""
+        return self._pop_result(rid)[0]
+
+    def result_with_mode(self, rid: int):
+        """``(value, mode)``: the answer and the ladder rung that computed
+        it ("primary", "uncompressed", "bucket_pair", "oracle", or "memo"
+        for a cache hit)."""
+        value, _ver, mode = self._pop_result(rid)
+        return value, mode
+
+    def result_full(self, rid: int):
+        """``(value, graph_version, mode)``: the answer and everything
+        stamped on it."""
+        return self._pop_result(rid)
+
+    def result_with_staleness(self, rid: int):
+        """``(value, stale)``: stale iff the answer predates the served
+        graph version (never, for a static index)."""
+        value, ver, _mode = self._pop_result(rid)
+        return value, ver < self.graph_version
+
+    def profile_result(self, rid: int) -> np.ndarray:
+        """Deliver (and evict) the ``[num_levels + 1]`` staircase for a
+        `submit_profile` rid (read-once; the array is the caller's)."""
+        return self._pop_profile_result(rid)[0]
+
+    def profile_result_with_mode(self, rid: int):
+        """`profile_result` + the producing mode (see `result_with_mode`)."""
+        value, _ver, mode = self._pop_profile_result(rid)
+        return value, mode
+
+    def profile_result_full(self, rid: int):
+        """``(staircase, graph_version, mode)`` (see `result_full`)."""
+        return self._pop_profile_result(rid)
+
+    def profile_result_with_staleness(self, rid: int):
+        """`profile_result` + the staleness flag."""
+        value, ver, _mode = self._pop_profile_result(rid)
+        return value, ver < self.graph_version
 
     def query_many(self, s, t, w_level) -> np.ndarray:
         rids = [self.submit(int(a), int(b), int(c))

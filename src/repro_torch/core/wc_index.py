@@ -4,8 +4,8 @@ incremental builder the device-resident construction streams into, and
 the packed index.
 
 Host-side numpy, ported from the reference package's `core/wc_index.py`
-(`PackedLabels`, `LabelArena`, `CompressedArena`, `PackedLabelsBuilder`,
-`PackedWCIndex`).
+(`PackedLabels` with its padded ``[V, cap]`` mirror, `LabelArena`,
+`CompressedArena`, `PackedLabelsBuilder`, `PackedWCIndex`).
 Label entry layout, per vertex:
   hub_rank  rank of the hub; rows are hub-sorted and close with the self
             entry (rank[v], 0, num_levels).
@@ -27,6 +27,12 @@ from .graph import INF_DIST
 from .resilience import IndexIntegrityError
 
 LANE = 128  # arena tile width; bucket widths are multiples of this
+
+
+def round_to_lane(n: int, lane: int = LANE) -> int:
+    """Smallest multiple of ``lane`` >= max(n, 1): the width the padded
+    store is shipped at when it is served through the K9 kernel."""
+    return max(lane, -(-int(n) // lane) * lane)
 
 
 def _concat_ranges(lengths: np.ndarray) -> np.ndarray:
@@ -140,6 +146,34 @@ class PackedLabels:
         dist[rows, cols] = self.dist[flat]
         wlev[rows, cols] = self.wlev[flat]
         return hub, dist, wlev
+
+    def to_padded(self, cap: int | None = None):
+        """The padded ``[V, cap]`` mirror of the store: (hub_rank, dist,
+        wlev, count), pads hub -1, dist INF_DIST, wlev -1. ``cap=None`` is
+        the longest row (at least 1). A row longer than ``cap`` keeps its
+        first ``cap - 1`` entries plus its trailing self entry (dropping
+        it would answer every ``s == t`` query wrongly), and count is
+        clamped to ``cap``."""
+        V = self.num_nodes
+        count = (self.offsets[1:] - self.offsets[:-1]).astype(np.int32)
+        c = int(cap if cap is not None else max(int(count.max()), 1))
+        hub = np.full((V, c), -1, dtype=np.int32)
+        dist = np.full((V, c), INF_DIST, dtype=np.int32)
+        wlev = np.full((V, c), -1, dtype=np.int32)
+        lens = np.minimum(count.astype(np.int64), c)
+        rows = np.repeat(np.arange(V, dtype=np.int64), lens)
+        cols = _concat_ranges(lens)
+        flat = np.repeat(self.offsets[:-1], lens) + cols
+        hub[rows, cols] = self.hub_rank[flat]
+        dist[rows, cols] = self.dist[flat]
+        wlev[rows, cols] = self.wlev[flat]
+        over = np.flatnonzero(count > c)
+        if len(over):
+            last = self.offsets[over + 1] - 1        # the self entry
+            hub[over, c - 1] = self.hub_rank[last]
+            dist[over, c - 1] = self.dist[last]
+            wlev[over, c - 1] = self.wlev[last]
+        return hub, dist, wlev, np.minimum(count, c).astype(np.int32)
 
 
 @dataclasses.dataclass
@@ -480,6 +514,11 @@ class PackedWCIndex:
                                           self.labels.dist, self.labels.wlev,
                                           self.labels.offsets, lane=lane)
         return self.labels
+
+    def padded_device_arrays(self, cap: int | None = None):
+        """(hub_rank, dist, wlev, count) of the padded ``[V, cap]`` store
+        (see `PackedLabels.to_padded`)."""
+        return self.labels.to_padded(cap)
 
 
 def packed_index_from_arrays(arrays: dict) -> PackedWCIndex:

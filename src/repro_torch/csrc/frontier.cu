@@ -1,7 +1,9 @@
-// Rank-batched construction rounds of the WC-Index build.
+// Constrained-BFS rounds: the rank-batched construction rounds of the
+// WC-Index build and the single-root relaxation.
 //
-// Replaces: src/repro/kernels/frontier.py:wc_prune_emit_batched (K3) and
-//           src/repro/kernels/frontier.py:wc_relax_batched (K4).
+// Replaces: src/repro/kernels/frontier.py:wc_prune_emit_batched (K3),
+//           src/repro/kernels/frontier.py:wc_relax_batched (K4) and
+//           src/repro/kernels/frontier.py:frontier_relax_gathered (K10).
 //
 // K3, per (root b, vertex v) with an active frontier level f = F[b, v]:
 //   q = min_i min(dist[v,i], DEV_INF) + min(T[b, hub[v,i], f], DEV_INF)
@@ -40,7 +42,23 @@
 //    over 32 neighbours measured slower on the H100 at V = 2^17).
 //  * The round d and the root ranks, scalar-prefetched on the TPU, are a
 //    plain int argument and a device pointer.
+//
+// K10, per vertex v: cand = max_j min(fw_nbr[v,j], lvl[v,j]) over the
+//   whole [V, D] row (the wrapper gathered Fw[nbr], -1 at pads);
+//   newF = cand if cand > R else -1, newR = max(R, cand). It is K4 for
+//   one root without the rank mask. The Pallas kernel tiles V into
+//   [256, D] VMEM blocks and pads R with 1 << 20 to fill its grid; here
+//   any V is taken and the last block masks its edge. Bound by bytes: two
+//   int32 per cell, two operations. The padded adjacency of a BA graph is
+//   almost all pads (D is the max degree, ~1,000 at V = 2^17, against a
+//   mean of ~8), and the contract does not promise row-prefix fill, so
+//   every cell is read. One warp owns a row and its lanes read
+//   consecutive cells (coalesced), then max-reduce with shuffles. A
+//   thread per row, walking its D cells alone with neighbouring threads
+//   D cells apart, measured slower on the H100 at V = 2^17 and was not
+//   kept (the opposite of K4, whose rows end at their first pad).
 #include <cuda_runtime.h>
+#include <limits.h>
 #include <stdint.h>
 
 #define DEV_INF (1 << 29)
@@ -106,6 +124,27 @@ __global__ void wc_relax_batched_kernel(
   newR[idx] = max(r, cand);
 }
 
+__global__ void frontier_relax_gathered_kernel(
+    const int* __restrict__ fw_nbr, const int* __restrict__ lvl,
+    const int* __restrict__ R, int* __restrict__ newF,
+    int* __restrict__ newR, int V, int D) {
+  const int64_t v =
+      (int64_t)blockIdx.x * (blockDim.x >> 5) + (threadIdx.x >> 5);
+  if (v >= V) return;  // warp-uniform
+  const int lane = threadIdx.x & 31;
+  const int64_t row = v * (int64_t)D;
+  int cand = INT_MIN;
+  for (int j = lane; j < D; j += 32)
+    cand = max(cand, min(fw_nbr[row + j], lvl[row + j]));
+  for (int off = 16; off > 0; off >>= 1)
+    cand = max(cand, __shfl_xor_sync(FULL_MASK, cand, off));
+  if (lane == 0) {
+    const int r = R[v];
+    newF[v] = cand > r ? cand : -1;
+    newR[v] = max(r, cand);
+  }
+}
+
 static const int kThreads = 256;
 
 extern "C" int wc_prune_emit_launch(const void* F, const void* T,
@@ -134,5 +173,21 @@ extern "C" int wc_relax_batched_launch(const void* emit, const void* nbr,
       (const int*)emit, (const int*)nbr, (const int*)lvl, (const int*)rank,
       (const int*)root_ranks, (const int*)R, (int*)newF, (int*)newR, B, V,
       D);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int frontier_relax_gathered_launch(const void* fw_nbr,
+                                              const void* lvl, const void* R,
+                                              void* newF, void* newR, int V,
+                                              int D, void* stream) {
+  if (V <= 0) return 0;
+  if (D < 1) return (int)cudaErrorInvalidValue;
+  const int rows_per_block = kThreads / 32;
+  const unsigned blocks = (unsigned)((V + rows_per_block - 1) /
+                                     rows_per_block);
+  frontier_relax_gathered_kernel<<<blocks, kThreads, 0,
+                                   (cudaStream_t)stream>>>(
+      (const int*)fw_nbr, (const int*)lvl, (const int*)R, (int*)newF,
+      (int*)newR, V, D);
   return (int)cudaGetLastError();
 }

@@ -1,13 +1,15 @@
 // WCSD query kernels: the ragged kernels over the lane-tiled label arena
-// (plain and compressed) and the bucket-pair kernels over padded bucket
-// tiles, all on one join body.
+// (plain and compressed), the bucket-pair kernels over padded bucket
+// tiles and the gathered-row kernel of the padded store, all on one join
+// body.
 //
 // Replaces: src/repro/kernels/wcsd_query.py:wcsd_query_ragged (K1),
 //           ...:wcsd_profile_ragged (K2),
 //           ...:wcsd_query_ragged_compressed (K5),
 //           ...:wcsd_profile_ragged_compressed (K6),
-//           ...:wcsd_query_segmented (K7) and
-//           ...:wcsd_profile_segmented (K8).
+//           ...:wcsd_query_segmented (K7),
+//           ...:wcsd_profile_segmented (K8) and
+//           ...:wcsd_query_gathered (K9).
 //
 // The join: the min over hub meets hub_s[i] == hub_t[j] of dist_s[i] +
 // dist_t[j], both clamped to DEV_INF. The scalar kernels (K1, K5, K7)
@@ -21,6 +23,9 @@
 // through a cell reader, so the join is written once:
 //
 // - Int32Cells: int32 hub / dist / wlev (the arena, the bucket tiles).
+// - GatheredCells: K9's pre-gathered rows, distances already masked to
+//   DEV_INF and clamped by the wrapper: read as they are, every cell
+//   feasible.
 // - CompressedCells<F>: the compressed arena (int16 hub deltas, bf16 or
 //   fp16 distances, int8 levels: 5 bytes a cell instead of 12), decoded
 //   in registers as each cell is loaded, exactly as the reference's
@@ -52,6 +57,19 @@
 // bound masks the ragged edge). There is no span test: every cell pair of
 // the two padded rows is joined, as in the reference.
 //
+// Gathered (K9), per query b of a [B, L] batch: the join of row b of hs/ds
+// with row b of ht/dt. The Pallas kernel walks a (query block, t-block)
+// grid and carries the min across t-blocks in its output block, which
+// it initialises to DEV_INF; the wrapper pads B to 8 and L to 128. Here,
+// as for K7, one block owns one query and stages its t-row in chunks of
+// T_CHUNK cells, so any B and L are taken as they are. The accumulator
+// starts at DEV_INF, so the output never exceeds it, and since ds and dt
+// lie in [0, DEV_INF] no sum overflows int32. Rows need not be
+// hub-sorted (the contract does not promise it), so this is the
+// all-pairs join. On the padded store every query pays the global
+// longest row's L^2 compares: that is the layout's cost, not the
+// kernel's.
+//
 // Every kernel compares all cell pairs it joins (lane^2 per tile pair,
 // Ws x Wt per query). Rows are hub-sorted with repeated hubs, so a merge
 // join would do O(Ws + Wt) steps plus the meets; it is later work. The
@@ -79,6 +97,16 @@ struct Int32Cells {
     return min(dist[x], DEV_INF);
   }
   __device__ __forceinline__ int wlev_at(int64_t x) const { return wlev[x]; }
+};
+
+struct GatheredCells {
+  const int* __restrict__ hub;
+  const int* __restrict__ dist;
+  __device__ __forceinline__ int hub_at(int64_t x, int) const {
+    return hub[x];
+  }
+  __device__ __forceinline__ int dist_at(int64_t x) const { return dist[x]; }
+  __device__ __forceinline__ int wlev_at(int64_t) const { return 0; }
 };
 
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -302,6 +330,25 @@ __global__ void wcsd_profile_segmented_kernel(
     out[b * levels1 + threadIdx.x] = lev_min[threadIdx.x];
 }
 
+// ------------------------------------------------------------ gathered (K9)
+__global__ void wcsd_query_gathered_kernel(GatheredCells cs, GatheredCells ct,
+                                           int* __restrict__ out, int L) {
+  __shared__ int sh_hub[T_CHUNK];
+  __shared__ int sh_dist[T_CHUNK];
+  __shared__ int red[32];
+  const int64_t base = (int64_t)blockIdx.x * L;
+  int best = DEV_INF;
+  for (int c0 = 0; c0 < L; c0 += T_CHUNK) {
+    const int n = min(T_CHUNK, L - c0);
+    __syncthreads();  // the previous chunk is fully scanned
+    stage_masked(ct, base + c0, n, 0, 0, sh_hub, sh_dist);
+    __syncthreads();
+    best = join_masked(cs, base, L, 0, 0, sh_hub, sh_dist, n, best);
+  }
+  best = block_min(best, red);
+  if (threadIdx.x == 0) out[blockIdx.x] = best;
+}
+
 // ------------------------------------------------------------- launchers
 static int block_threads(int cells, int most) {
   const int th = ((cells + 31) / 32) * 32;
@@ -431,5 +478,19 @@ extern "C" int wcsd_profile_segmented_launch(
                                   (cudaStream_t)stream>>>(
       int32_cells(hub_s, dist_s, wlev_s), int32_cells(hub_t, dist_t, wlev_t),
       (const int*)srow, (const int*)trow, (int*)out, Ws, Wt, levels1);
+  return (int)cudaGetLastError();
+}
+
+extern "C" int wcsd_query_gathered_launch(const void* hs, const void* ds,
+                                          const void* ht, const void* dt,
+                                          void* out, long long batch, int L,
+                                          void* stream) {
+  if (batch <= 0) return 0;
+  if (L < 1) return (int)cudaErrorInvalidValue;
+  wcsd_query_gathered_kernel<<<(unsigned)batch,
+                               block_threads(L, MAX_THREADS_SEG), 0,
+                               (cudaStream_t)stream>>>(
+      GatheredCells{(const int*)hs, (const int*)ds},
+      GatheredCells{(const int*)ht, (const int*)dt}, (int*)out, L);
   return (int)cudaGetLastError();
 }

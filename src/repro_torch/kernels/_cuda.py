@@ -31,10 +31,24 @@ LAUNCHES = {"wcsd_query_ragged": 0, "wcsd_profile_ragged": 0,
             "wc_prune_emit_batched": 0, "wc_relax_batched": 0,
             "wcsd_query_ragged_compressed": 0,
             "wcsd_profile_ragged_compressed": 0,
-            "wcsd_query_segmented": 0, "wcsd_profile_segmented": 0}
+            "wcsd_query_segmented": 0, "wcsd_profile_segmented": 0,
+            "wcsd_query_gathered": 0, "frontier_relax_gathered": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
+
+
+class KernelError(RuntimeError):
+    """A port kernel did not build, load or launch. Not a transient engine
+    fault: the server re-raises it instead of retrying or demoting, so a
+    broken kernel is never hidden behind a plain rung of the ladder."""
+
+
+# failures the server's watchdog must not absorb: a kernel that does not
+# build, load or launch, and a CUDA error, which leaves the context
+# unusable for every rung alike
+NOT_RETRYABLE = (KernelError,) + tuple(
+    e for e in (getattr(torch, "AcceleratorError", None),) if e is not None)
 
 
 def reset_launch_counts() -> None:
@@ -48,8 +62,8 @@ def nvcc_path() -> str:
             return str(Path(cand) / "bin" / "nvcc")
     found = shutil.which("nvcc")
     if found is None:
-        raise RuntimeError("nvcc not found (set CUDA_HOME); the port's CUDA "
-                           "kernels are built on the machine with the card")
+        raise KernelError("nvcc not found (set CUDA_HOME); the port's CUDA "
+                          "kernels are built on the machine with the card")
     return found
 
 
@@ -81,7 +95,7 @@ def build(names=SOURCES) -> None:
         else:
             os.replace(tmp, out)
     if errors:
-        raise RuntimeError("\n".join(errors))
+        raise KernelError("\n".join(errors))
 
 
 def library(name: str) -> ctypes.CDLL:
@@ -89,13 +103,17 @@ def library(name: str) -> ctypes.CDLL:
     with _lock:
         if name not in _libs:
             build((name,))
-            _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+            try:
+                _libs[name] = ctypes.CDLL(str(_lib_path(name)))
+            except OSError as err:
+                raise KernelError(f"loading {name}.cu's library: {err}") \
+                    from err
         return _libs[name]
 
 
 def check_launch(err: int, what: str) -> None:
     if err != 0:
-        raise RuntimeError(f"{what}: CUDA launch failed with error {err}")
+        raise KernelError(f"{what}: CUDA launch failed with error {err}")
 
 
 def stream_ptr(device: torch.device) -> int:

@@ -1,6 +1,7 @@
-"""Rank-batched construction kernels (K3 `wc_prune_emit_batched`, K4
-`wc_relax_batched`): the CUDA launchers and, beside each, its plain
-PyTorch version.
+"""Constrained-BFS kernels: the rank-batched construction kernels (K3
+`wc_prune_emit_batched`, K4 `wc_relax_batched`) and the single-root
+relaxation K10 `frontier_relax_gathered`. The CUDA launchers and, beside
+each, its plain PyTorch version.
 
 One synchronized round of the device-resident builder
 (`core.wc_index_batched.build_wc_index_batched_packed`) for a batch of B
@@ -11,6 +12,13 @@ versions translate the reference package's
 `kernels/ref.py:wc_prune_emit_batched_ref` / `wc_relax_batched_ref` line
 by line, chunked over (root, vertex) blocks so that the ``[B, V, cap]``
 and ``[B, V, D]`` intermediates stay bounded on the card.
+
+K10 is one round of a single-root constrained BFS over a padded adjacency
+whose frontier levels are already gathered per neighbour
+(`kernels.ops.frontier_relax` gathers ``Fw[nbr]``): per vertex v,
+``cand = max_j min(fw_nbr[v, j], lvl[v, j])``, ``newF = cand if cand >
+R[v] else -1``, ``newR = max(R[v], cand)`` -- K4 with one root and no
+rank mask.
 """
 from __future__ import annotations
 
@@ -80,6 +88,42 @@ def wc_relax_batched_plain(emit_w, nbr_pad, lvl_pad, rank, root_ranks, R):
         Ra = R[:, a:a + step]
         newF[:, a:a + step] = torch.where(cand > Ra, cand, -1)
         newR[:, a:a + step] = torch.maximum(Ra, cand)
+    return newF, newR
+
+
+def frontier_relax_gathered_plain(fw_nbr, lvl_pad, R):
+    """Plain version of K10 (the reference's `frontier_relax_gathered_ref`):
+    fw_nbr/lvl_pad [V, D], R [V]. Returns (newF, newR), both [V]."""
+    cand = torch.minimum(fw_nbr, lvl_pad).amax(dim=1)
+    return torch.where(cand > R, cand, -1), torch.maximum(R, cand)
+
+
+def frontier_relax_gathered_cuda(fw_nbr, lvl_pad, R):
+    """Launch K10 on the current stream: one warp per vertex. Same
+    contract as the plain version."""
+    what = "frontier_relax_gathered"
+    _cuda.check_cuda_args(what, R.device, fw_nbr=fw_nbr, lvl_pad=lvl_pad,
+                          R=R)
+    V = R.shape[0] if R.dim() == 1 else -1
+    if fw_nbr.dim() != 2 or fw_nbr.shape[0] != V \
+            or lvl_pad.shape != fw_nbr.shape:
+        raise ValueError(f"{what}: expected fw_nbr/lvl_pad [V, D], R [V]")
+    D = fw_nbr.shape[1]
+    if D < 1:
+        raise ValueError(f"{what}: empty adjacency rows")
+    newF = torch.empty_like(R)
+    newR = torch.empty_like(R)
+    if V == 0:                            # no vertex launches nothing
+        return newF, newR
+    fn = _cuda.library("frontier").frontier_relax_gathered_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
+        ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(fw_nbr.data_ptr(), lvl_pad.data_ptr(), R.data_ptr(),
+             newF.data_ptr(), newR.data_ptr(), V, D,
+             _cuda.stream_ptr(R.device))
+    _cuda.check_launch(err, what)
+    _cuda.LAUNCHES[what] += 1
     return newF, newR
 
 

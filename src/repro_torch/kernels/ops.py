@@ -40,6 +40,48 @@ def _staircase(bucket: torch.Tensor) -> torch.Tensor:
     return _to_inf_dist(prof)
 
 
+def padded_rows(hub, dist, wlev, count, v, w_level=None):
+    """Rows ``v`` of the padded store [V, L], masked: (hub, dist clamped to
+    DEV_INF and set to DEV_INF past the row's count -- and below the
+    query's ``w_level`` where given --, wlev set to -1 past the count)."""
+    v = v.long()
+    col = torch.arange(hub.shape[1], device=hub.device)
+    m = col[None, :] < count[v][:, None]
+    w = torch.where(m, wlev[v], -1)
+    if w_level is not None:
+        m = m & (wlev[v] >= w_level[:, None])
+    return hub[v], torch.where(m, dist[v].clamp_max(DEV_INF), DEV_INF), w
+
+
+def gather_padded_rows(hub, dist, wlev, count, s, t, w_level):
+    """The K9 inputs of a padded-store batch: both label rows of every
+    query, ``[B, L]`` each, masked by count and level (`padded_rows`).
+    Returns (hs, ds, ht, dt). The store's pad cells keep hub -1 on both
+    sides; their meets sum to 2^30, which never beats a DEV_INF
+    accumulator."""
+    hs, ds, _ = padded_rows(hub, dist, wlev, count, s, w_level)
+    ht, dt, _ = padded_rows(hub, dist, wlev, count, t, w_level)
+    return hs, ds, ht, dt
+
+
+def wcsd_query(hub, dist, wlev, count, s, t, w_level):
+    """Batched queries against the padded store (reference `ops.py:
+    wcsd_query`): hub/dist/wlev [V, L], count [V], s/t/w_level [B].
+    Gathers and masks the rows, runs K9 (plain version on the CPU), and
+    returns [B] int32 distances (INF_DIST when no feasible path). K9
+    takes any B and L and pads nothing itself; the padded engine's store
+    comes lane-padded to a multiple of 128 with ``use_pallas=True``, as
+    the reference ships it, and those pad cells are masked here like the
+    row's own."""
+    hs, ds, ht, dt = gather_padded_rows(hub, dist, wlev, count, s, t,
+                                        w_level)
+    if _on_card(hub, "wcsd_query"):
+        best = _wq.wcsd_query_gathered_cuda(hs, ds, ht, dt)
+    else:
+        best = _wq.wcsd_query_gathered_plain(hs, ds, ht, dt)
+    return _to_inf_dist(best)
+
+
 def wcsd_query_ragged(hub, dist, wlev, tile_lo, tile_hi, qidx, stile, ttile,
                       first, wq):
     """One ragged flush: every query of the batch in a single launch over
@@ -158,3 +200,16 @@ def wc_relax_batched(emit_w, nbr_pad, lvl_pad, rank, root_ranks, R):
                                                rank, root_ranks, R)
     return _frontier.wc_relax_batched_plain(emit_w, nbr_pad, lvl_pad, rank,
                                             root_ranks, R)
+
+
+def frontier_relax(nbr_pad, lvl_pad, Fw, R):
+    """One single-root constrained-relaxation round over a padded
+    adjacency (reference `ops.py:frontier_relax`): nbr_pad/lvl_pad [V, D]
+    (pads nbr -1, lvl -1), Fw/R [V]. Gathers ``Fw[nbr]`` (-1 at pad
+    neighbours), then K10 (plain version on the CPU). Returns (newF,
+    newR), both [V]."""
+    fw_nbr = Fw[nbr_pad.clamp(0, Fw.shape[0] - 1).long()]
+    fw_nbr = torch.where(nbr_pad >= 0, fw_nbr, -1).to(torch.int32)
+    if _on_card(R, "frontier_relax"):
+        return _frontier.frontier_relax_gathered_cuda(fw_nbr, lvl_pad, R)
+    return _frontier.frontier_relax_gathered_plain(fw_nbr, lvl_pad, R)

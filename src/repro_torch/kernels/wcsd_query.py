@@ -1,17 +1,24 @@
-"""Ragged WCSD query kernels: K1 `wcsd_query_ragged`, K2
-`wcsd_profile_ragged`, and their twins over the compressed arena, K5
-`wcsd_query_ragged_compressed` and K6 `wcsd_profile_ragged_compressed`.
-The CUDA launchers and, beside each, its plain PyTorch version.
+"""WCSD query kernels over the arena and the padded store: K1
+`wcsd_query_ragged`, K2 `wcsd_profile_ragged`, their twins over the
+compressed arena, K5 `wcsd_query_ragged_compressed` and K6
+`wcsd_profile_ragged_compressed`, and K9 `wcsd_query_gathered`. The CUDA
+launchers and, beside each, its plain PyTorch version.
 
-All four read the lane-tiled label arena (`core.wc_index.LabelArena`, or
-`CompressedArena` for K5/K6) through a flat ``(qidx, s_tile, t_tile)``
-worklist (`core.query.emit_ragged_worklist`) and answer a whole flush in
-one launch. The CUDA sources are `repro_torch/csrc/wcsd_query.cu`; the
-plain versions are line-by-line translations of the reference package's
-`kernels/ref.py` oracles (`wcsd_query_ragged_ref`,
-`wcsd_profile_ragged_ref` and their `_compressed` twins), chunked over
-the worklist so that the ``[items, lane, lane]`` join never exceeds a
-fixed number of cells.
+K9 joins pre-gathered, pre-masked ``[B, L]`` label rows of the padded
+store (`kernels.ops.gather_padded_rows`): per query, the min over every
+cell pair with ``hs[i] == ht[j]`` of ``ds[i] + dt[j]``, capped at DEV_INF
+as the Pallas kernel's DEV_INF-initialised accumulator caps it. Rows need
+not be hub-sorted: the join is all-pairs.
+
+K1, K2, K5 and K6 read the lane-tiled label arena
+(`core.wc_index.LabelArena`, or `CompressedArena` for K5/K6) through a
+flat ``(qidx, s_tile, t_tile)`` worklist (`core.query.
+emit_ragged_worklist`) and answer a whole flush in one launch. The CUDA
+sources are `repro_torch/csrc/wcsd_query.cu`; the plain versions are
+line-by-line translations of the reference package's `kernels/ref.py`
+oracles (`wcsd_query_ragged_ref`, `wcsd_profile_ragged_ref` and their
+`_compressed` twins), chunked over the worklist so that the
+``[items, lane, lane]`` join never exceeds a fixed number of cells.
 
 Compressed cells decode as the reference's `_decode_cells` does: hub =
 ``tile_lo + delta`` where ``delta >= 0`` (the sign is the pad flag), else
@@ -133,6 +140,46 @@ def wcsd_profile_ragged_compressed_plain(hub_delta, dist, wlev, tile_lo,
     return _profile_items(_tiles_compressed(hub_delta, dist, wlev, tile_lo),
                           hub_delta.shape[1], qidx, stile, ttile, num_rows,
                           num_levels)
+
+
+def wcsd_query_gathered_plain(hs, ds, ht, dt):
+    """Plain version of K9 (the reference's `wcsd_query_gathered_ref`,
+    chunked over the batch): [B, L] rows -> [B] int32 min over equal hubs
+    of ``ds + dt``, capped at DEV_INF."""
+    B, L = hs.shape
+    out = torch.empty((B,), dtype=torch.int32, device=hs.device)
+    step = max(1, _CHUNK_CELLS // max(L * ht.shape[1], 1))
+    for a in range(0, B, step):
+        eq = hs[a:a + step, :, None] == ht[a:a + step, None, :]
+        dsum = ds[a:a + step, :, None] + dt[a:a + step, None, :]
+        out[a:a + step] = torch.where(eq, dsum, DEV_INF).amin(
+            dim=(1, 2)).clamp_max(DEV_INF)
+    return out
+
+
+def wcsd_query_gathered_cuda(hs, ds, ht, dt):
+    """Launch K9 on the current stream: one block per query. hs/ds/ht/dt
+    [B, L] int32, ds/dt in [0, DEV_INF]. Returns [B] int32 best sums
+    (DEV_INF means no meet)."""
+    what = "wcsd_query_gathered"
+    _cuda.check_cuda_args(what, hs.device, hs=hs, ds=ds, ht=ht, dt=dt)
+    if hs.dim() != 2 or not (hs.shape == ds.shape == ht.shape == dt.shape):
+        raise ValueError(f"{what}: hs/ds/ht/dt must all be one [B, L] shape")
+    B, L = hs.shape
+    out = torch.empty((B,), dtype=torch.int32, device=hs.device)
+    if B == 0:                            # an empty batch launches nothing
+        return out
+    if L < 1:
+        raise ValueError(f"{what}: empty label rows")
+    fn = _cuda.library("wcsd_query").wcsd_query_gathered_launch
+    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
+                                           ctypes.c_void_p]
+    fn.restype = ctypes.c_int
+    err = fn(hs.data_ptr(), ds.data_ptr(), ht.data_ptr(), dt.data_ptr(),
+             out.data_ptr(), B, L, _cuda.stream_ptr(hs.device))
+    _cuda.check_launch(err, what)
+    _cuda.LAUNCHES[what] += 1
+    return out
 
 
 def _arena_checks(what, hub, dist, wlev, tile_lo, tile_hi, qidx, stile,

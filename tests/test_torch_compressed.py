@@ -411,5 +411,9 @@ def test_compressed_requires_ragged_dispatch():
     with pytest.raises(ValueError, match="csr"):
         WCSDServer(tidx, dispatch="bucket_pair", compressed=True,
                    device="cpu")
-    with pytest.raises(NotImplementedError, match="padded"):
+    # the padded layout is ported; like the reference it refuses the
+    # compressed arena
+    with pytest.raises(ValueError, match="csr"):
         TEngine(tidx, layout="padded", compressed=True, device="cpu")
+    with pytest.raises(ValueError, match="csr"):
+        JEngine(build_wc_index(g), layout="padded", compressed=True)

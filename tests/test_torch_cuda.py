@@ -267,3 +267,61 @@ def test_compressed_and_bucket_pair_servers_on_card(card, built):
     n = len(plan_query_batch(bp._bucket_of, s, t))
     assert _cuda.LAUNCHES["wcsd_query_segmented"] == n
     assert _cuda.LAUNCHES["wcsd_profile_segmented"] == n
+
+
+@pytest.mark.parametrize("B,L", [(1, 7), (5, 130), (64, 256), (33, 2500),
+                                 (0, 128)])
+def test_gathered_kernel_equals_plain(card, B, L):
+    """K9 against its plain version: any B (0 launches nothing) and any L,
+    past one shared-memory chunk; unsorted hubs, -2 t-side pads."""
+    rng = np.random.default_rng(B + L)
+    hs = rng.integers(-1, 60, (B, L)).astype(np.int32)
+    ht = rng.integers(-2, 60, (B, L)).astype(np.int32)
+    ds = np.where(rng.random((B, L)) < 0.2, 1 << 29,
+                  rng.integers(0, 100, (B, L))).astype(np.int32)
+    dt = rng.integers(0, 1 << 29, (B, L)).astype(np.int32)
+    x = [torch.from_numpy(a).to(card) for a in (hs, ds, ht, dt)]
+    _cuda.reset_launch_counts()
+    a = kwq.wcsd_query_gathered_cuda(*x)
+    assert _cuda.LAUNCHES["wcsd_query_gathered"] == (1 if B else 0)
+    assert torch.equal(a, kwq.wcsd_query_gathered_plain(*x))
+
+
+@pytest.mark.parametrize("V,D", [(1, 1), (100, 7), (513, 33), (300, 1100)])
+def test_frontier_relax_kernel_equals_plain(card, V, D):
+    rng = np.random.default_rng(V + D)
+    fw = rng.integers(-1, 7, (V, D)).astype(np.int32)
+    lvl = np.where(rng.random((V, D)) < 0.5, -1,
+                   rng.integers(0, 6, (V, D))).astype(np.int32)
+    R = rng.integers(-1, 7, V).astype(np.int32)
+    x = [torch.from_numpy(a).to(card) for a in (fw, lvl, R)]
+    _cuda.reset_launch_counts()
+    a = kfr.frontier_relax_gathered_cuda(*x)
+    assert _cuda.LAUNCHES["frontier_relax_gathered"] == 1
+    b = kfr.frontier_relax_gathered_plain(*x)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+
+
+def test_padded_server_and_ladder_on_card(card, built):
+    """The padded layout on the card (one K9 launch per scalar dispatch,
+    plain profiles) and the ladder's rungs from the compressed primary
+    down to the plain oracle, each equal to the CPU ragged server."""
+    from repro_torch.checkpoint.fault import FaultSchedule, FaultyEngine
+    g, idx = built
+    s, t, wl = random_queries(g, 3000, seed=10)
+    ref = WCSDServer(idx, max_batch=1024, device="cpu")
+    exp, exp_p = ref.query_many(s, t, wl), ref.query_profile_many(s, t)
+    _cuda.reset_launch_counts()
+    srv = WCSDServer(idx, max_batch=1024, layout="padded", device=card)
+    np.testing.assert_array_equal(srv.query_many(s, t, wl), exp)
+    np.testing.assert_array_equal(srv.query_profile_many(s, t), exp_p)
+    assert _cuda.LAUNCHES["wcsd_query_gathered"] == 3
+    assert sum(_cuda.LAUNCHES.values()) == 3
+    sched = FaultSchedule(fixed={k: "engine_raise" for k in range(6)})
+    lad = WCSDServer(idx, max_batch=4096, compressed=True, max_retries=1,
+                     backoff_base_ms=0.01, flush_timeout_ms=10000.0,
+                     engine_wrapper=lambda e: FaultyEngine(e, sched),
+                     device=card)
+    np.testing.assert_array_equal(lad.query_many(s, t, wl), exp)
+    assert lad.mode == "oracle" and lad.stats.demotions == 3
+    np.testing.assert_array_equal(lad.query_profile_many(s, t), exp_p)

@@ -27,7 +27,8 @@ def _port_modules():
 
 def test_import_every_module_without_jax_or_repro():
     mods = _port_modules()
-    assert len(mods) >= 16, mods
+    assert len(mods) >= 20, mods
+    assert "repro_torch.checkpoint.fault" in mods
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -50,7 +51,7 @@ def test_source_scan_finds_no_jax_or_repro_import():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 15
+    assert len(files) >= 21
     for path in files:
         with open(path) as f:
             text = f.read()
@@ -122,6 +123,10 @@ def test_cuda_launchers_refuse_cpu_tensors():
         kseg.wcsd_query_segmented_cuda(z, z, z, z, z, z, v, v, v)
     with pytest.raises(ValueError, match="CUDA"):
         kseg.wcsd_profile_segmented_cuda(z, z, z, z, z, z, v, v, 3)
+    with pytest.raises(ValueError, match="CUDA"):
+        kwq.wcsd_query_gathered_cuda(z, z, z, z)
+    with pytest.raises(ValueError, match="CUDA"):
+        kfr.frontier_relax_gathered_cuda(z, z, v)
 
 
 def test_cuda_arg_checks_take_a_dtype_per_tensor():
@@ -169,22 +174,41 @@ def test_wrappers_choose_by_device():
 
 
 def test_unported_engine_features_raise():
-    """The padded layout is not ported; bucket-pair dispatch and the
-    compressed arena are, but not together (as in the reference)."""
+    """The padded layout is ported and builds; ``cap`` and
+    ``use_pallas=False`` with the CSR layout raise `ValueError`;
+    bucket-pair dispatch and the compressed arena are ported, but not
+    together (as in the reference); the sharded backend, ``graph=`` and
+    ``wal_path=`` still raise `NotImplementedError`."""
     from repro_torch.core.query import DeviceQueryEngine
-    _, idx = _tiny()
-    with pytest.raises(NotImplementedError, match="padded"):
-        DeviceQueryEngine(idx, device="cpu", layout="padded")
+    from repro_torch.core.serve import WCSDServer
+    g, idx = _tiny()
+    eng = DeviceQueryEngine(idx, device="cpu", layout="padded")
+    assert eng.dispatch == "dense" and eng.use_pallas
+    assert eng.hub.shape[1] % 128 == 0        # lane pad for the kernel
+    plain = DeviceQueryEngine(idx, device="cpu", layout="padded",
+                              use_pallas=False, cap=2)
+    assert plain.hub.shape[1] == 2
     assert DeviceQueryEngine(idx, device="cpu",
                              dispatch="bucket_pair").dispatch == "bucket_pair"
     assert DeviceQueryEngine(idx, device="cpu", compressed=True).compressed
     with pytest.raises(ValueError, match="compressed"):
         DeviceQueryEngine(idx, device="cpu", dispatch="bucket_pair",
                           compressed=True)
+    with pytest.raises(ValueError, match="compressed"):
+        DeviceQueryEngine(idx, device="cpu", layout="padded",
+                          compressed=True)
     with pytest.raises(ValueError, match="dispatch"):
         DeviceQueryEngine(idx, device="cpu", dispatch="dense")
+    with pytest.raises(ValueError, match="layout"):
+        DeviceQueryEngine(idx, device="cpu", layout="arena")
     with pytest.raises(ValueError, match="cap"):
         DeviceQueryEngine(idx, device="cpu", cap=4)
+    with pytest.raises(ValueError, match="use_pallas"):
+        DeviceQueryEngine(idx, device="cpu", use_pallas=False)
+    for kw, name in ((dict(backend="sharded"), "sharded"),
+                     (dict(graph=g), "graph="), (dict(wal_path="x"), "WAL")):
+        with pytest.raises(NotImplementedError, match=name):
+            WCSDServer(idx, device="cpu", **kw)
 
 
 def test_kernel_library_is_keyed_on_its_source():

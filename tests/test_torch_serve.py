@@ -160,13 +160,12 @@ def test_bulk_apis_match_reference(world):
 def test_unported_features_raise(world):
     """What is not ported raises `NotImplementedError`; the compressed
     arena and bucket-pair dispatch are ported, but not together (the
-    reference raises `ValueError` for that pair too)."""
+    reference raises `ValueError` for that pair too); the flush watchdog
+    and the padded layout are ported and build."""
     g, idx, tidx, _ = world
     for kw, name in ((dict(backend="sharded"), "sharded"),
                      (dict(graph=g), "graph="),
-                     (dict(wal_path="x.wal"), "WAL"),
-                     (dict(flush_timeout_ms=5.0), "watchdog"),
-                     (dict(layout="padded"), "padded")):
+                     (dict(wal_path="x.wal"), "WAL")):
         with pytest.raises(NotImplementedError, match=name):
             TServer(tidx, device="cpu", **kw)
     assert TServer(tidx, device="cpu", compressed=True).engine.compressed
@@ -176,3 +175,7 @@ def test_unported_features_raise(world):
         TServer(tidx, device="cpu", compressed=True, dispatch="bucket_pair")
     with pytest.raises(ValueError, match="compressed"):
         JServer(idx, layout="csr", compressed=True, dispatch="bucket_pair")
+    srv = TServer(tidx, device="cpu", flush_timeout_ms=5.0)
+    assert srv.retry_policy.flush_timeout_ms == 5.0 and srv.mode == "primary"
+    assert TServer(tidx, device="cpu", layout="padded").engine.dispatch \
+        == "dense"
