@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Builds the ten CUDA kernels from the two sources in
+Builds the eleven CUDA kernels from the three sources in
 `src/repro_torch/csrc/` (one `nvcc` per source, started together), then
-drives six paths of the port on the card, each with the launch counts
+drives seven paths of the port on the card, each with the launch counts
 reset just before it and read just after it:
 
 1. the main path: `scale_free(2^17, m=4, num_levels=5, seed=0)` -> the
@@ -25,12 +25,23 @@ reset just before it and read just after it:
    `WCSDServer(layout="padded", use_pallas=True)` (K9; plain profiles),
    in epoch flushes;
 6. single-root constrained BFS at V = 2^17 through `ops.frontier_relax`
-   (K10), round by round, from three roots.
+   (K10), round by round, from three roots;
+7. xDeepFM serving at full width (`configs.xdeepfm_arch.get_config()`:
+   8,031,232 embedding rows, CIN 200-200-200, MLP 400-400, random
+   weights from seed 0): 256 `serve_p99` batches of 512 and 4
+   `serve_bulk` batches of 262,144 from `CTRStream`, host to host, and
+   one `retrieval_cand` query against 1,000,000 candidates; one K11
+   launch per CIN layer of every forward.
 
 Then every kernel is held against its plain PyTorch version on inputs
-captured from its path (exact int32 equality) and timed with CUDA
-events; every served flush (every sub-batch, for bucket-pair) is checked
-against the plain path; the compressed answers equal an uncompressed
+captured from its path (exact int32 equality; K11, an fp32 sum taken in
+another order, within 1e-4 of each layer's max |ref| on the model's own
+activations and at the reference test's tolerance on unit-normal
+inputs, and 8 rows of one batch against the plain forward in float64 on
+the CPU) and timed with CUDA events; every served flush (every
+sub-batch, for bucket-pair) is checked against the plain path; every
+served logit is finite and the retrieval top 100 equals float64's on
+the host; the compressed answers equal an uncompressed
 server's on the same index, the ladder's the compressed server's, and
 the bucket-pair and padded answers the ragged server's over the whole
 stream; every BFS round equals the plain version and the final levels the
@@ -62,6 +73,7 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
+FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores (same)
 # int32 ALU ops/s: 132 SMs x 64 INT32 lanes x 1.98 GHz boost. The data
 # sheet's 67 TFLOP/s fp32 is the same clock on 128 FP32 lanes x 2 (FMA).
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -1183,12 +1195,309 @@ def frontier_relax_phase(g, device) -> tuple[dict, list]:
     return phase, [kern]
 
 
+# ------------------------------------------------------ xDeepFM serving
+XDEEPFM_PATH = ("cin_layer",)
+P99_BATCH, P99_BATCHES = 512, 256      # serve_p99: batches served
+BULK_BATCH, BULK_BATCHES = 262144, 4   # serve_bulk
+N_CAND, TOP_K = 1_000_000, 100         # retrieval_cand (top 100 fixed)
+WARMUP_BATCHES = 2                     # serve_p99 batches before the clock
+# K11 timing: iterations at serve_p99 (kernel, plain and einsum), then
+# at serve_bulk, where one H = 200 call takes ~0.3-0.4 s
+P99_ITERS, P99_PLAIN_ITERS, BULK_ITERS, BULK_PLAIN_ITERS = 50, 5, 3, 1
+ANCHOR_ROWS = 8                        # rows checked against float64 (CPU)
+# CIN at the model's init scale: max |out| ~1e-3, 1e-4, 1e-5 by layer, so
+# every comparison there is relative to the layer's own max |ref|. fp32
+# sums of H*M = 7,800 terms in another order err by ~sqrt(H*M) * 2^-24 ~
+# 5e-6 of that; 1e-4 leaves 20x. Logits (the CIN share is ~1e-4 of them)
+# are checked beside cin_feat, not instead of it.
+CIN_REL_TOL = 1e-4
+LOGIT_REL_TOL = 1e-5
+
+
+def rel_err(got, exp) -> float:
+    """max |got - exp| / max |exp| (float64, on the host)."""
+    g = got.detach().double().cpu()
+    e = exp.detach().double().cpu()
+    return float((g - e).abs().max() / e.abs().max())
+
+
+def layer_rel_errs(got, exp, widths) -> list:
+    """`rel_err` of each layer's columns of pooled CIN features."""
+    out, a = [], 0
+    for k in widths:
+        out.append(rel_err(got[:, a:a + k], exp[:, a:a + k]))
+        a += k
+    return out
+
+
+def cin_inputs(model, emb) -> list:
+    """(x1, x0, w) of every CIN layer of one forward over ``emb``, the
+    layers' inputs made by K11 as the forward makes them."""
+    from repro_torch.kernels import cin_fuse as kcin
+    xs, xk, i = [], emb, 0
+    while hasattr(model.cin, f"w{i}"):
+        w = getattr(model.cin, f"w{i}")
+        xs.append((xk, emb, w))
+        xk = kcin.cin_layer_cuda(xk, emb, w)
+        i += 1
+    return xs
+
+
+def cin_layer_timing(cfg, layer: int, x1, x0, w, iters: int,
+                     plain_iters: int) -> dict:
+    """K11, its plain version and one `torch.einsum` on one layer's
+    inputs. The einsum builds the [B, H, M, D] outer product, so where B
+    passes the plain version's chunk it is timed on a chunk's rows
+    (``library_rows``) and ``library_ms`` is null."""
+    import torch
+    from repro_torch.configs.xdeepfm_arch import cin_flops
+    from repro_torch.kernels import cin_fuse as kcin
+    B, H, M, D, K = kcin.cin_shapes(x1, x0, w)
+    flop = cin_flops(cfg, B)[layer]
+    nbytes = x1.element_size() * (x1.numel() + x0.numel() + w.numel()) \
+        + 4 * B * K * D
+    to = flop / FP32_FLOPS_PER_S * 1e3
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    rows = min(B, kcin.cin_chunk_rows(H, M, D))
+    lib = cuda_ms(lambda: torch.einsum("bhd,bmd,khm->bkd", x1[:rows],
+                                       x0[:rows], w), plain_iters)
+    ms = cuda_ms(lambda: kcin.cin_layer_cuda(x1, x0, w), iters)
+    return {"layer": layer, "B": B, "H": H, "M": M, "D": D, "K": K,
+            "flop": flop, "bytes": nbytes, "ms": ms,
+            "tflop_per_s": flop / ms * 1e-9,
+            "plain_ms": cuda_ms(lambda: kcin.cin_layer_plain(x1, x0, w),
+                                plain_iters),
+            "bound_ms": max(to, tb),
+            "bound_by": "operations" if to >= tb else "bytes",
+            "library_ms": lib if rows == B else None,
+            "library_rows": rows, "library_rows_ms": lib}
+
+
+def xdeepfm_phase(cfg, device, p99=(P99_BATCH, P99_BATCHES),
+                  bulk=(BULK_BATCH, BULK_BATCHES), n_cand=N_CAND,
+                  ) -> tuple[dict, list]:
+    """Path 7: the xDeepFM serving path at ``cfg``'s widths: `XDeepFM`
+    from a seeded CUDA generator serving ``p99`` = (batch, batches) and
+    ``bulk`` from `CTRStream`, host to host (numpy ids in, numpy logits
+    out; the stream's generation off the clock), and one query against
+    ``n_cand`` candidates. One K11 launch per CIN layer of each forward,
+    no other kernel. Then K11 is held against its plain version on
+    unit-normal inputs (at the reference test's tolerance), on the real
+    activations of every layer of one serve_p99 batch and one bulk
+    chunk, and through the pooled ``cin_feat`` (relative to each layer's
+    max), and 8 rows against the plain forward in float64 on the CPU;
+    the retrieval top 100 against float64 on the host. Returns the phase
+    record and K11's kernel record."""
+    import copy
+    import dataclasses
+    import torch
+    from repro_torch.configs.xdeepfm_arch import _SHAPE_SPECS
+    from repro_torch.data.recsys import CTRStream
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import cin_fuse as kcin
+    from repro_torch.models import xdeepfm as X
+    # full fp32 in every product, on both sides of every comparison
+    # (these are PyTorch's defaults for matmul; cuDNN's is True)
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    widths, L = cfg.cin_layers, len(cfg.cin_layers)
+    t0 = phase_t0 = time.perf_counter()
+    model = X.XDeepFM(cfg, device=device, seed=0)
+    torch.cuda.synchronize()
+    setup_s = time.perf_counter() - t0
+    pbytes = {n: p.numel() * p.element_size()
+              for n, p in model.named_parameters()}
+    progress(f"xdeepfm: {cfg.total_rows} embedding rows, "
+             f"{sum(pbytes.values())} parameter bytes, set up in "
+             f"{setup_s:.1f} s")
+
+    # ------------------------- the serving path, launches counted
+    finite = True
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    forwards = 0
+    with torch.inference_mode():
+        stream = CTRStream(cfg.field_vocabs, cfg.field_offsets, p99[0],
+                           seed=0)
+        for _ in range(WARMUP_BATCHES):
+            model(stream.next_batch()["ids"]).cpu()
+            forwards += 1
+        lat = []
+        for _ in range(p99[1]):
+            ids = stream.next_batch()["ids"]
+            t1 = time.perf_counter()
+            out = model(ids).cpu().numpy()
+            lat.append(time.perf_counter() - t1)
+            forwards += 1
+            finite &= bool(np.isfinite(out).all())
+        check_ids = ids
+        logits_k, feat_k = model(check_ids, return_cin=True)
+        forwards += 1
+        torch.cuda.synchronize()
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()  # earlier phases' and weights
+        bstream = CTRStream(cfg.field_vocabs, cfg.field_offsets, bulk[0],
+                            seed=1)
+        bulk_s = []
+        for _ in range(bulk[1]):
+            ids = bstream.next_batch()["ids"]
+            t1 = time.perf_counter()
+            out = model(ids).cpu().numpy()
+            bulk_s.append(time.perf_counter() - t1)
+            forwards += 1
+            finite &= bool(np.isfinite(out).all())
+        bulk_ids = ids
+        peak = torch.cuda.max_memory_allocated()
+        cand = torch.from_numpy(np.random.default_rng(2).standard_normal(
+            (n_cand, cfg.embed_dim)).astype(np.float32)).to(device)
+        qids = check_ids[:1]
+        X.retrieval_scores(model, qids, cand)            # warm-up
+        t1 = time.perf_counter()
+        _, (_, top_i) = X.retrieval_scores(model, qids, cand)
+        top_i = top_i.cpu().numpy()
+        retrieval_ms = (time.perf_counter() - t1) * 1e3
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    check_path_launches("xdeepfm", launches, XDEEPFM_PATH,
+                        {"cin_layer": L * forwards})
+    if not finite:
+        fail("xdeepfm: a served logit is not finite")
+    lat_us = np.asarray(lat) * 1e6
+    progress(f"xdeepfm: serve_p99 p50 {np.percentile(lat_us, 50):.0f} us, "
+             f"p99 {np.percentile(lat_us, 99):.0f} us; serve_bulk "
+             f"{np.median(bulk_s) * 1e3:.1f} ms a batch; retrieval "
+             f"{retrieval_ms:.2f} ms; {launches['cin_layer']} K11 launches "
+             f"= {L} x {forwards} forwards")
+
+    # ------------------------- K11 against its plain version
+    checks = {"tf32": False, "cin_rel_tol": CIN_REL_TOL,
+              "logit_rel_tol": LOGIT_REL_TOL}
+    g = torch.Generator(device=device)
+    g.manual_seed(5)
+    M, D, K = cfg.n_sparse, cfg.embed_dim, widths[0]
+    unit = []
+    for B, H in ((p99[0], widths[0]), (p99[0], M),
+                 (kcin.cin_chunk_rows(widths[0], M, D), widths[0])):
+        x = [torch.randn(s, generator=g, device=device)
+             for s in ((B, H, D), (B, M, D), (K, H, M))]
+        a, b = kcin.cin_layer_cuda(*x), kcin.cin_layer_plain(*x)
+        atol = 1e-5 * H * M ** 0.5   # tests/test_kernels.py's tolerance
+        err = (a - b).abs()
+        if not bool((err <= atol + 1e-4 * b.abs()).all()):
+            fail(f"xdeepfm: K11 differs from its plain version on "
+                 f"unit-normal inputs at (B, H, M, D, K) = "
+                 f"{(B, H, M, D, K)}: max abs err {float(err.max())}")
+        unit.append({"B": B, "H": H, "M": M, "D": D, "K": K,
+                     "max_abs_err": float(err.max()), "atol": atol,
+                     "rtol": 1e-4})
+    checks["unit_normal"] = unit
+    emb, lin = model.embed_rows(check_ids)
+    p99_in = cin_inputs(model, emb)
+    real = []
+    for x1, x0, w in p99_in:
+        real.append(rel_err(kcin.cin_layer_cuda(x1, x0, w),
+                            kcin.cin_layer_plain(x1, x0, w)))
+    xk, pooled = emb, []
+    for i in range(L):
+        xk = kcin.cin_layer_plain(xk, emb, getattr(model.cin, f"w{i}"))
+        pooled.append(xk.sum(-1))
+    feat_rel = layer_rel_errs(feat_k, torch.cat(pooled, -1), widths)
+    n = ANCHOR_ROWS
+    cin64 = copy.deepcopy(model.cin).to("cpu", torch.float64)
+    mlp64 = copy.deepcopy(model.mlp).to("cpu", torch.float64)
+    log64, feat64 = X.head(cin64, mlp64, model.bias.double().cpu(),
+                           emb[:n].double().cpu(), lin[:n].double().cpu())
+    anchor_feat = layer_rel_errs(feat_k[:n], feat64, widths)
+    anchor_logits = rel_err(logits_k[:n], log64)
+    q64 = model.embed[torch.as_tensor(qids[0], device=device).long()]
+    s64 = cand.double().cpu().numpy() @ q64.double().cpu().numpy().mean(0)
+    top64 = np.argsort(-s64, kind="stable")[:TOP_K]
+    checks.update(real_activations_rel=real, cin_feat_rel=feat_rel,
+                  anchor_rows=n, anchor_cin_feat_rel=anchor_feat,
+                  anchor_logits_rel=anchor_logits,
+                  retrieval_top_equal=bool(np.array_equal(top_i, top64)),
+                  logits_finite=finite)
+    if max(real + feat_rel + anchor_feat) > CIN_REL_TOL:
+        fail(f"xdeepfm: CIN outside {CIN_REL_TOL} of the layer's max: "
+             f"real activations {real}, cin_feat {feat_rel}, float64 "
+             f"anchor {anchor_feat}")
+    if anchor_logits > LOGIT_REL_TOL:
+        fail(f"xdeepfm: logits {anchor_logits} from the float64 anchor")
+    if not checks["retrieval_top_equal"]:
+        fail("xdeepfm: the retrieval top 100 differs from float64")
+    progress(f"xdeepfm: K11 equals its plain version (real activations "
+             f"{max(real):.2e}, cin_feat {max(feat_rel):.2e}, anchor "
+             f"{max(anchor_feat):.2e} of the layer max); top "
+             f"{TOP_K} equal")
+
+    # ------------------------- K11 timed at both serve shapes
+    p99_rec = [cin_layer_timing(cfg, i, *xs, P99_ITERS, P99_PLAIN_ITERS)
+               for i, xs in enumerate(p99_in)]
+    bemb, _ = model.embed_rows(bulk_ids)
+    bulk_in = cin_inputs(model, bemb)
+    x1, x0, w = bulk_in[1 if L > 1 else 0]
+    rows = kcin.cin_chunk_rows(x1.shape[1], M, D)
+    checks["bulk_chunk_rel"] = rel_err(
+        kcin.cin_layer_cuda(x1[:rows].contiguous(), x0[:rows].contiguous(),
+                            w), kcin.cin_layer_plain(x1[:rows], x0[:rows], w))
+    if checks["bulk_chunk_rel"] > CIN_REL_TOL:
+        fail(f"xdeepfm: K11 on a bulk chunk is {checks['bulk_chunk_rel']} "
+             "of the layer max from its plain version")
+    bulk_rec = [cin_layer_timing(cfg, i, *xs, BULK_ITERS, BULK_PLAIN_ITERS)
+                for i, xs in enumerate(bulk_in)]
+    del bulk_in, bemb
+    phase_s = time.perf_counter() - phase_t0
+    progress(f"xdeepfm: K11 timed at both serve shapes; phase {phase_s:.1f} s")
+    lat_s = float(np.sum(lat))
+    phase = {"phase": "xdeepfm", "config": dataclasses.asdict(cfg),
+             "total_rows": cfg.total_rows, "param_bytes": pbytes,
+             "param_bytes_total": sum(pbytes.values()), "setup_s": setup_s,
+             "phase_s": phase_s,
+             "serve_p99": {"batch": p99[0], "batches": p99[1],
+                           "p50_us": float(np.percentile(lat_us, 50)),
+                           "p99_us": float(np.percentile(lat_us, 99)),
+                           "mean_us": float(lat_us.mean()),
+                           "samples_per_s": p99[0] * p99[1] / lat_s},
+             "serve_bulk": {"batch": bulk[0], "batches": bulk[1],
+                            "ms_per_batch": [s * 1e3 for s in bulk_s],
+                            "median_ms": float(np.median(bulk_s)) * 1e3,
+                            "samples_per_s": bulk[0] * bulk[1]
+                            / float(np.sum(bulk_s)),
+                            "max_memory_allocated": peak,
+                            "allocated_before": base,
+                            "peak_above_before": peak - base},
+             "retrieval_cand": {"n_cand": n_cand, "top_k": TOP_K,
+                                "ms": retrieval_ms},
+             "shapes": {k: _SHAPE_SPECS[k] for k in
+                        ("serve_p99", "serve_bulk", "retrieval_cand")},
+             "forwards": forwards,
+             "launches": {k: launches[k] for k in XDEEPFM_PATH},
+             "checks": checks}
+    main = p99_rec[1 if L > 1 else 0]
+    x1, x0, w = p99_in[1 if L > 1 else 0]
+    a, b = kcin.cin_layer_cuda(x1, x0, w), kcin.cin_layer_plain(x1, x0, w)
+    kern = {"name": "cin_layer", "route": "cuda",
+            "source": "src/repro_torch/csrc/cin_fuse.cu",
+            "replaces": "src/repro/kernels/cin_fuse.py:39",
+            "launches": launches[XDEEPFM_PATH[0]],
+            "max_abs_err": float((a - b).abs().max()),
+            # fp32 sums in another order: judged relative to the layer's
+            # max (CIN_REL_TOL), not exactly as the int32 kernels are
+            "max_abs_tol": CIN_REL_TOL * float(b.abs().max()),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "library_ms")},
+            "shape": {k: main[k] for k in ("B", "H", "M", "D", "K")},
+            "serve_p99_layers": p99_rec, "serve_bulk_layers": bulk_rec}
+    return phase, [kern]
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device is available", file=sys.stderr)
         return 2
+    from repro_torch.configs.xdeepfm_arch import get_config
     from repro_torch.core.generators import random_queries, scale_free
     from repro_torch.core.wc_index_batched import \
         build_wc_index_batched_packed
@@ -1349,6 +1658,9 @@ def main() -> int:
                                                 out_e, prof_e, dev)
     relax, relax_kernels = frontier_relax_phase(g, dev)
 
+    # ------------------------------------------ xDeepFM serving (K11)
+    xdf, xdf_kernels = xdeepfm_phase(get_config(), dev)
+
     # ----------------------------------------- kernels vs plain, timed
     if cap.k3 is None or cap.k4 is None:
         fail("no build round was captured for the kernel phases")
@@ -1361,9 +1673,10 @@ def main() -> int:
                            steps["wc_prune_emit"], 50),
         relax_kernel_phase(cap.k4, launches["wc_relax_batched"],
                            steps["wc_relax_batched"], 50),
-    ] + comp_kernels + bp_kernels + pad_kernels + relax_kernels
+    ] + comp_kernels + bp_kernels + pad_kernels + relax_kernels \
+        + xdf_kernels
     for k in kernels:
-        if k["max_abs_err"] != 0:
+        if k["max_abs_err"] > k.get("max_abs_tol", 0):
             fail(f"kernel {k['name']} differs from its plain version "
                  f"(max abs err {k['max_abs_err']})")
 
@@ -1378,6 +1691,7 @@ def main() -> int:
     emit(bp_serve)
     emit(pad_serve)
     emit(relax)
+    emit(xdf)
     emit({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

@@ -21,7 +21,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("wcsd_query", "frontier")
+SOURCES = ("wcsd_query", "frontier", "cin_fuse")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -32,7 +32,8 @@ LAUNCHES = {"wcsd_query_ragged": 0, "wcsd_profile_ragged": 0,
             "wcsd_query_ragged_compressed": 0,
             "wcsd_profile_ragged_compressed": 0,
             "wcsd_query_segmented": 0, "wcsd_profile_segmented": 0,
-            "wcsd_query_gathered": 0, "frontier_relax_gathered": 0}
+            "wcsd_query_gathered": 0, "frontier_relax_gathered": 0,
+            "cin_layer": 0}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

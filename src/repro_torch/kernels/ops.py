@@ -1,4 +1,4 @@
-"""Wrappers the engines call for the port's kernels.
+"""Wrappers the engines and the models call for the port's kernels.
 
 Each wrapper chooses by the device of the tensors it is given: a CPU
 tensor gets the kernel's plain PyTorch version, a CUDA tensor the CUDA
@@ -11,6 +11,7 @@ from __future__ import annotations
 
 import torch
 
+from . import cin_fuse as _cin
 from . import frontier as _frontier
 from . import wcsd_query as _wq
 from . import wcsd_segmented as _seg
@@ -213,3 +214,13 @@ def frontier_relax(nbr_pad, lvl_pad, Fw, R):
     if _on_card(R, "frontier_relax"):
         return _frontier.frontier_relax_gathered_cuda(fw_nbr, lvl_pad, R)
     return _frontier.frontier_relax_gathered_plain(fw_nbr, lvl_pad, R)
+
+
+def cin_layer(x1, x0, w):
+    """One xDeepFM CIN layer (reference `ops.py:cin_layer`): x1 [B, H, D],
+    x0 [B, M, D], w [K, H, M] -> [B, K, D] float32. K11 on the card (any
+    B; the reference pads B to its block of 8, K11 masks its edge), the
+    plain version on the CPU."""
+    if _on_card(x1, "cin_layer"):
+        return _cin.cin_layer_cuda(x1, x0, w)
+    return _cin.cin_layer_plain(x1, x0, w)

@@ -1,0 +1,261 @@
+"""xDeepFM (arXiv:1803.05170) serving path: sparse embeddings + CIN + DNN
++ linear, the port of the reference's `models/xdeepfm.py`.
+
+Parameters keep the reference's names and layouts (``embed [R, D]``,
+``linear [R, 1]``, ``bias [1]``, ``cin.w{i} [K, H, M]``, ``cin.out_w``,
+``mlp.w{i} [in, out]``, ``mlp.b{i}``, ``mlp.out_w``; products are
+``h @ w``), so `params_from_numpy` carries the reference's
+`init_params` across as it is. Each CIN layer is one `ops.cin_layer`
+call: kernel K11 on the card, its plain version on the CPU (the
+reference's model path computes the same contraction as a `lax.scan`
+over D slices; its Pallas kernel is the fused form). The MLP is a plain
+`torch.matmul`, as the reference leaves it to XLA.
+
+This is the serving path: parameters do not require gradients, and
+`loss_fn` is an evaluation loss. Training, and the CIN gradient, are not
+ported yet. The reference's `PartitionSpec`s belong to its dry run and
+have no counterpart here.
+"""
+from __future__ import annotations
+
+import dataclasses
+
+import numpy as np
+import torch
+from torch import nn
+
+from ..kernels import ops
+from ..kernels._cuda import resolve_device
+from .common import trunc_normal
+
+
+@dataclasses.dataclass(frozen=True)
+class XDeepFMConfig:
+    name: str
+    n_sparse: int = 39
+    embed_dim: int = 10
+    cin_layers: tuple = (200, 200, 200)
+    mlp_layers: tuple = (400, 400)
+    # criteo-like skewed vocabulary: a few huge fields + many small ones
+    big_fields: int = 8
+    big_vocab: int = 1_000_000
+    small_vocab: int = 1_000
+    compute_dtype: str = "float32"
+
+    @property
+    def field_vocabs(self) -> tuple:
+        return tuple([self.big_vocab] * self.big_fields +
+                     [self.small_vocab] * (self.n_sparse - self.big_fields))
+
+    @property
+    def total_rows(self) -> int:
+        # padded to 512 as in the reference (there, so row-sharding
+        # divides any mesh axis); pad rows are never indexed
+        raw = sum(self.field_vocabs)
+        return -(-raw // 512) * 512
+
+    @property
+    def field_offsets(self) -> np.ndarray:
+        return np.concatenate([[0], np.cumsum(self.field_vocabs)[:-1]])
+
+
+# ------------------------------------------------------------ embedding bag
+def embedding_bag(table, ids, bag_ids, num_bags: int, mode: str = "sum",
+                  weights=None):
+    """EmbeddingBag from a gather and an index add. table [R, D]; ids [K]
+    row indices; bag_ids [K] the bag of each id; mode sum | mean (a bag
+    with no ids gives zeros in both)."""
+    if mode not in ("sum", "mean"):
+        raise ValueError(f"embedding_bag: mode must be sum or mean, got "
+                         f"{mode!r}")
+    bag_ids = bag_ids.long()
+    rows = table.index_select(0, ids.long())
+    if weights is not None:
+        rows = rows * weights[:, None]
+    out = torch.zeros((num_bags, table.shape[1]), dtype=rows.dtype,
+                      device=table.device)
+    out.index_add_(0, bag_ids, rows)
+    if mode == "mean":
+        cnt = torch.zeros(num_bags, dtype=torch.float32, device=table.device)
+        cnt.index_add_(0, bag_ids, torch.ones(bag_ids.shape[0],
+                                              device=table.device))
+        out = out / cnt.clamp_min(1.0)[:, None]
+    return out
+
+
+# --------------------------------------------------------------- param defs
+def param_defs(cfg: XDeepFMConfig) -> dict:
+    """Parameter path -> shape, in the reference's order."""
+    D = cfg.embed_dim
+    defs = {"embed": (cfg.total_rows, D), "linear": (cfg.total_rows, 1),
+            "bias": (1,)}
+    h_prev = cfg.n_sparse
+    for i, k in enumerate(cfg.cin_layers):
+        defs[f"cin.w{i}"] = (k, h_prev, cfg.n_sparse)
+        h_prev = k
+    defs["cin.out_w"] = (sum(cfg.cin_layers), 1)
+    d_in = cfg.n_sparse * D
+    for i, width in enumerate(cfg.mlp_layers):
+        defs[f"mlp.w{i}"] = (d_in, width)
+        defs[f"mlp.b{i}"] = (width,)
+        d_in = width
+    defs["mlp.out_w"] = (d_in, 1)
+    return defs
+
+
+def _is_bias(path: str) -> bool:
+    return path.endswith("bias") or ".b" in path
+
+
+class _Group(nn.Module):
+    """A named group of parameters (``cin`` or ``mlp``)."""
+
+    def __init__(self, shapes: dict, device: torch.device):
+        super().__init__()
+        for name, shape in shapes.items():
+            self.register_parameter(name, nn.Parameter(
+                torch.empty(shape, device=device), requires_grad=False))
+
+
+# ------------------------------------------------------------------ forward
+def cin_features(cin: nn.Module, x0: torch.Tensor) -> torch.Tensor:
+    """Compressed Interaction Network: one `ops.cin_layer` per layer
+    (K11 on the card). x0 [B, M, D]; returns [B, sum(cin_layers)], each
+    layer's output summed over D."""
+    xk, pooled, i = x0, [], 0
+    while hasattr(cin, f"w{i}"):
+        out = ops.cin_layer(xk, x0, getattr(cin, f"w{i}"))   # [B, K, D]
+        pooled.append(out.sum(-1))
+        xk, i = out, i + 1
+    return torch.cat(pooled, dim=-1)
+
+
+def head(cin: nn.Module, mlp: nn.Module, bias: torch.Tensor,
+         emb: torch.Tensor, lin: torch.Tensor):
+    """Logits from gathered embeddings ``emb`` [B, F, D] and the linear
+    term ``lin`` [B]: the CIN, the MLP and the bias. Returns (logits [B],
+    cin_feat [B, sum(cin_layers)])."""
+    B, F, D = emb.shape
+    cin_feat = cin_features(cin, emb)
+    cin_logit = (cin_feat @ cin.out_w)[:, 0]
+    h, i = emb.reshape(B, F * D), 0
+    while hasattr(mlp, f"w{i}"):
+        h = torch.relu(h @ getattr(mlp, f"w{i}") + getattr(mlp, f"b{i}"))
+        i += 1
+    dnn_logit = (h @ mlp.out_w)[:, 0]
+    return lin + cin_logit + dnn_logit + bias[0], cin_feat
+
+
+class XDeepFM(nn.Module):
+    """The xDeepFM model on one device. ``device=None`` means the card (it
+    raises where there is none); tests pass ``device="cpu"``. Weights are
+    drawn as the reference's `init_params` draws them (zeros for biases,
+    ``0.01 * normal`` for ``embed``, `trunc_normal` for the rest), from a
+    `torch.Generator` on the device seeded with ``seed``."""
+
+    def __init__(self, cfg: XDeepFMConfig, device=None, seed: int = 0):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        defs = param_defs(cfg)
+        for path in ("embed", "linear", "bias"):
+            self.register_parameter(path, nn.Parameter(
+                torch.empty(defs[path], device=dev), requires_grad=False))
+        for group in ("cin", "mlp"):
+            self.add_module(group, _Group(
+                {p.split(".", 1)[1]: s for p, s in defs.items()
+                 if p.startswith(group + ".")}, dev))
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        with torch.no_grad():
+            for path in sorted(defs):         # the reference's draw order
+                p = self.get_parameter(path)
+                if _is_bias(path):
+                    p.zero_()
+                elif path == "embed":
+                    p.normal_(generator=gen).mul_(0.01)
+                else:
+                    p.copy_(trunc_normal(p.shape, gen))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def embed_rows(self, ids):
+        """Gather the embeddings [B, F, D] and the summed linear term [B]
+        of int32 global row ids [B, F] (a tensor or a numpy array; moved
+        to the model's device)."""
+        ids = torch.as_tensor(ids, device=self.device)
+        if ids.dtype != torch.int32:
+            raise TypeError(f"ids must be int32, got {ids.dtype}")
+        if ids.dim() != 2 or ids.shape[1] != self.cfg.n_sparse:
+            raise ValueError(f"ids must be [B, {self.cfg.n_sparse}], got "
+                             f"{tuple(ids.shape)}")
+        B, F = ids.shape
+        flat = ids.reshape(-1).long()
+        emb = self.embed.index_select(0, flat).reshape(B, F,
+                                                       self.cfg.embed_dim)
+        lin = self.linear.index_select(0, flat).reshape(B, F).sum(-1)
+        return emb, lin
+
+    def forward(self, ids, return_cin: bool = False):
+        """Logits [B] of int32 ids [B, F]; with ``return_cin`` also the
+        pooled CIN features [B, sum(cin_layers)]."""
+        emb, lin = self.embed_rows(ids)
+        logits, cin_feat = head(self.cin, self.mlp, self.bias, emb, lin)
+        return (logits, cin_feat) if return_cin else logits
+
+
+def loss_fn(model: XDeepFM, batch: dict) -> torch.Tensor:
+    """Mean binary cross-entropy of the logits against ``batch["labels"]``,
+    in the numerically stable form."""
+    logits = model(batch["ids"])
+    y = torch.as_tensor(batch["labels"], device=logits.device).float()
+    loss = logits.clamp_min(0) - logits * y + torch.log1p(
+        torch.exp(-logits.abs()))
+    return loss.mean()
+
+
+def retrieval_scores(model: XDeepFM, query_ids, cand_emb):
+    """One query against candidate vectors ``cand_emb`` [C, D]: the query
+    is the mean of its field embeddings. Returns (scores [C], (top values,
+    top indices)), the top 100 in descending order."""
+    qi = torch.as_tensor(query_ids, device=model.device).reshape(-1).long()
+    q = model.embed.index_select(0, qi).reshape(-1, model.cfg.embed_dim)
+    scores = cand_emb @ q.mean(0)
+    top = torch.topk(scores, 100)
+    return scores, (top.values, top.indices)
+
+
+def _flatten(tree: dict, prefix: str = "") -> dict:
+    flat = {}
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, dict):
+            flat.update(_flatten(val, path + "."))
+        else:
+            flat[path] = val
+    return flat
+
+
+def params_from_numpy(cfg: XDeepFMConfig, tree: dict, device=None,
+                      ) -> XDeepFM:
+    """An `XDeepFM` holding the weights of ``tree``: the nested dict the
+    reference's `init_params` returns, each leaf a numpy array. A missing
+    key, an extra key or a shape that differs raises."""
+    flat = _flatten(tree)
+    want = param_defs(cfg)
+    missing = sorted(set(want) - set(flat))
+    extra = sorted(set(flat) - set(want))
+    if missing or extra:
+        raise KeyError(f"params_from_numpy: missing {missing}, extra {extra}")
+    for path, val in flat.items():
+        if tuple(np.shape(val)) != tuple(want[path]):
+            raise ValueError(f"params_from_numpy: {path} has shape "
+                             f"{tuple(np.shape(val))}, expected {want[path]}")
+    model = XDeepFM(cfg, device=device)
+    with torch.no_grad():
+        for path, val in flat.items():
+            model.get_parameter(path).copy_(torch.tensor(
+                np.asarray(val, dtype=np.float32)))
+    return model

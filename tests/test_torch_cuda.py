@@ -1,7 +1,8 @@
 """Card-only tests of the port: each CUDA kernel against its plain
-PyTorch version on CUDA tensors, and the engine and builder on the card
-against the same calls on the CPU. Marked `gpu`; they skip where
-`torch.cuda.is_available()` is false. Run them on the card with
+PyTorch version on CUDA tensors, and the engine, the builder and the
+xDeepFM forward on the card against the same calls on the CPU. Marked
+`gpu`; they skip where `torch.cuda.is_available()` is false. Run them on
+the card with
 
     python -m pytest -q -m gpu tests/test_torch_cuda.py
 """
@@ -325,3 +326,73 @@ def test_padded_server_and_ladder_on_card(card, built):
     np.testing.assert_array_equal(lad.query_many(s, t, wl), exp)
     assert lad.mode == "oracle" and lad.stats.demotions == 3
     np.testing.assert_array_equal(lad.query_profile_many(s, t), exp_p)
+
+
+@pytest.mark.parametrize("B,H,M,D,K", [(8, 16, 8, 4, 8), (20, 13, 7, 6, 11),
+                                       (4, 200, 39, 10, 200),
+                                       (700, 200, 39, 10, 200)])
+def test_cin_kernel_equals_plain(card, B, H, M, D, K):
+    """K11 against its plain version on unit-normal inputs, at the
+    reference test's shapes (tolerance: `tests/test_kernels.py`'s, for
+    fp32 sums of H*M terms in another order) and at B = 700, whose
+    B*D = 7,000 columns end in a ragged 128-column tile."""
+    from repro_torch.kernels import cin_fuse as kcin
+    rng = np.random.default_rng(B)
+    x = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(card)
+         for s in ((B, H, D), (B, M, D), (K, H, M))]
+    _cuda.reset_launch_counts()
+    got = kcin.cin_layer_cuda(*x)
+    assert _cuda.LAUNCHES["cin_layer"] == 1
+    exp = kcin.cin_layer_plain(*x)
+    torch.cuda.synchronize()
+    np.testing.assert_allclose(got.cpu().numpy(), exp.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5 * H * M ** 0.5)
+
+
+def test_cin_kernel_bf16_equals_plain(card):
+    """bf16 inputs: K11 and the plain version both widen to fp32 before
+    any product, so they differ only in summation order (the fp32
+    tolerance); against the fp32 inputs, `test_cin_kernel_bf16`'s."""
+    from repro_torch.kernels import cin_fuse as kcin
+    rng = np.random.default_rng(0)
+    x = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(card)
+         for s in ((8, 16, 8), (8, 8, 8), (16, 16, 8))]
+    xb = [a.to(torch.bfloat16) for a in x]
+    got = kcin.cin_layer_cuda(*xb)
+    assert got.dtype == torch.float32
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               kcin.cin_layer_plain(*xb).cpu().numpy(),
+                               rtol=1e-4, atol=1e-5 * 16 * 8 ** 0.5)
+    np.testing.assert_allclose(got.cpu().numpy(),
+                               kcin.cin_layer_plain(*x).cpu().numpy(),
+                               rtol=5e-2, atol=0.5)
+
+
+def test_xdeepfm_forward_on_card(card):
+    """One forward of the full CIN and MLP widths (cut vocabulary) on the
+    card: 3 K11 launches and nothing else; `cin_feat` per layer within
+    1e-4 of its max and the logits within 1e-5 of theirs, against the
+    same weights on the CPU."""
+    from repro_torch.data.recsys import CTRStream
+    from repro_torch.models.xdeepfm import XDeepFM, XDeepFMConfig
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = XDeepFMConfig("xdeepfm-narrow-vocab", big_vocab=64, small_vocab=16)
+    m_card = XDeepFM(cfg, device=card, seed=0)
+    m_cpu = XDeepFM(cfg, device="cpu", seed=0)
+    m_cpu.load_state_dict({k: v.cpu() for k, v in
+                           m_card.state_dict().items()})
+    ids = CTRStream(cfg.field_vocabs, cfg.field_offsets, 64,
+                    seed=0).next_batch()["ids"]
+    _cuda.reset_launch_counts()
+    with torch.inference_mode():
+        lg, cf = m_card(ids, return_cin=True)
+        torch.cuda.synchronize()
+        assert _cuda.LAUNCHES["cin_layer"] == 3
+        assert sum(_cuda.LAUNCHES.values()) == 3
+        lc, cc = m_cpu(ids, return_cin=True)
+    a = 0
+    for k in cfg.cin_layers:
+        e = cc[:, a:a + k]
+        assert (cf[:, a:a + k].cpu() - e).abs().max() <= 1e-4 * e.abs().max()
+        a += k
+    assert (lg.cpu() - lc).abs().max() <= 1e-5 * lc.abs().max()

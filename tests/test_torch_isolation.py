@@ -1,8 +1,9 @@
 """The port stands alone: `repro_torch` and `chip_smoke.py` import neither
 `jax` nor the reference package `repro`; entry points default to the card
-and raise where there is none; the CUDA launchers refuse CPU tensors; and
-the features not ported yet raise `NotImplementedError` (the engine
-configurations the reference refuses raise `ValueError`)."""
+and raise where there is none; the CUDA launchers refuse CPU tensors
+(K11's also mixed dtypes and wrong ranks); and the features not ported
+yet raise `NotImplementedError` (the engine configurations the reference
+refuses raise `ValueError`)."""
 import os
 import pkgutil
 import re
@@ -27,8 +28,12 @@ def _port_modules():
 
 def test_import_every_module_without_jax_or_repro():
     mods = _port_modules()
-    assert len(mods) >= 20, mods
-    assert "repro_torch.checkpoint.fault" in mods
+    assert len(mods) >= 28, mods
+    for m in ("repro_torch.checkpoint.fault", "repro_torch.models.xdeepfm",
+              "repro_torch.models.common", "repro_torch.data.recsys",
+              "repro_torch.configs.xdeepfm_arch",
+              "repro_torch.kernels.cin_fuse"):
+        assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "bad = sorted(m for m in sys.modules if m == 'jax' or "
@@ -51,7 +56,7 @@ def test_source_scan_finds_no_jax_or_repro_import():
     files = [os.path.join(REPO, "chip_smoke.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 21
+    assert len(files) >= 29
     for path in files:
         with open(path) as f:
             text = f.read()
@@ -89,6 +94,10 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         WCSDServer(idx)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         WCSDServer(idx, device="cuda")
+    from repro_torch.configs.xdeepfm_arch import smoke_config
+    from repro_torch.models.xdeepfm import XDeepFM
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        XDeepFM(smoke_config())
 
 
 def test_cuda_launchers_refuse_cpu_tensors():
@@ -127,6 +136,26 @@ def test_cuda_launchers_refuse_cpu_tensors():
         kwq.wcsd_query_gathered_cuda(z, z, z, z)
     with pytest.raises(ValueError, match="CUDA"):
         kfr.frontier_relax_gathered_cuda(z, z, v)
+    from repro_torch.kernels import cin_fuse as kcin
+    with pytest.raises(ValueError, match="CUDA"):
+        kcin.cin_layer_cuda(torch.zeros((4, 3, 2)), torch.zeros((4, 5, 2)),
+                            torch.zeros((6, 3, 5)))
+
+
+def test_cin_launcher_refuses_mixed_dtypes_and_wrong_shapes():
+    """K11 takes x1/x0/w all float32 or all bfloat16, of ranks 3 and
+    agreeing shapes; anything else raises before any build or launch."""
+    from repro_torch.kernels import cin_fuse as kcin
+    x1, x0, w = torch.zeros((4, 3, 2)), torch.zeros((4, 5, 2)), \
+        torch.zeros((6, 3, 5))
+    with pytest.raises(TypeError, match="one dtype"):
+        kcin.cin_layer_cuda(x1.bfloat16(), x0, w)
+    with pytest.raises(TypeError, match="one dtype"):
+        kcin.cin_layer_cuda(x1, x0, w.double())
+    with pytest.raises(ValueError, match="expected x1"):
+        kcin.cin_layer_cuda(x1[0], x0, w)
+    with pytest.raises(ValueError, match="disagree"):
+        kcin.cin_layer_cuda(x1, x0[:, :4], w)
 
 
 def test_cuda_arg_checks_take_a_dtype_per_tensor():
@@ -171,6 +200,13 @@ def test_wrappers_choose_by_device():
     meta = torch.empty((2, 5), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="unsupported device"):
         ops.wc_relax_batched(meta, nbr, nbr, rank, rank, meta)
+    x1, x0, w = torch.ones((2, 3, 4)), torch.ones((2, 5, 4)), \
+        torch.ones((6, 3, 5))
+    out = ops.cin_layer(x1, x0, w)
+    assert out.shape == (2, 6, 4) and (out == 15).all()
+    assert sum(_cuda.LAUNCHES.values()) == 0
+    with pytest.raises(ValueError, match="unsupported device"):
+        ops.cin_layer(x1.to("meta"), x0.to("meta"), w.to("meta"))
 
 
 def test_unported_engine_features_raise():
@@ -220,6 +256,8 @@ def test_kernel_library_is_keyed_on_its_source():
     assert os.path.samefile(_cuda.BUILD_DIR.parent, REPO)
     assert p.name.startswith("libwcsd_query_") and p.suffix == ".so"
     assert p != _cuda._lib_path("frontier")
+    assert _cuda._lib_path("cin_fuse").name.startswith("libcin_fuse_")
+    assert "cin_fuse" in _cuda.SOURCES and "cin_layer" in _cuda.LAUNCHES
     assert "sm_90a" in " ".join(_cuda.NVCC_FLAGS)
 
 
