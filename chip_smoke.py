@@ -34,11 +34,13 @@ reset just before it and read just after it:
    launch per CIN layer of every forward.
 
 Then every kernel is held against its plain PyTorch version on inputs
-captured from its path (exact int32 equality; K11, an fp32 sum taken in
-another order, within 1e-4 of each layer's max |ref| on the model's own
-activations and at the reference test's tolerance on unit-normal
-inputs, and 8 rows of one batch against the plain forward in float64 on
-the CPU) and timed with CUDA events; every served flush (every
+captured from its path (exact int32 equality, K4 at round 1 of the
+middle root batch and of root batch 0; K11, 3xTF32 on the tensor cores
+summed in fp32 in another order, within 1e-4 of each layer's max |ref|
+on the model's own activations and at the reference test's tolerance on
+unit-normal inputs, and 8 rows of one batch against the plain forward
+in float64 on the CPU, and bit-identical across two launches) and timed
+with CUDA events; every served flush (every
 sub-batch, for bucket-pair) is checked against the plain path; every
 served logit is finite and the retrieval top 100 equals float64's on
 the host; the compressed answers equal an uncompressed
@@ -74,6 +76,7 @@ sys.path.insert(0, os.path.join(ROOT, "src"))
 
 HBM_BYTES_PER_S = 3.35e12   # H100 SXM HBM3 (NVIDIA data sheet)
 FP32_FLOPS_PER_S = 67e12    # H100 SXM fp32 outside the tensor cores (same)
+TF32_FLOPS_PER_S = 494.7e12  # H100 SXM dense TF32 on the tensor cores (same)
 # int32 ALU ops/s: 132 SMs x 64 INT32 lanes x 1.98 GHz boost. The data
 # sheet's 67 TFLOP/s fp32 is the same clock on 128 FP32 lanes x 2 (FMA).
 INT32_OPS_PER_S = 132 * 64 * 1.98e9
@@ -186,14 +189,15 @@ class Capture:
     call that scans the most label entries in the whole build (active
     (root, vertex) pairs times their label-row lengths: one row-length
     count per root batch and one extra host sync per round); K4 keeps
-    round 1 of the middle root batch. The wrapped call itself is the original, so the
-    launch counts are unchanged."""
+    round 1 of the middle root batch and round 1 of root batch 0 (the hub
+    roots, whose frontier is dense). The wrapped call itself is the
+    original, so the launch counts are unchanged."""
 
     def __init__(self, ops, target_batch: int):
         self.ops = ops
         self.target = target_batch
         self.orig = (ops.wc_prune_emit, ops.wc_relax_batched)
-        self.k3 = self.k4 = None
+        self.k3 = self.k4 = self.k4_dense = None
         self.k3_scanned = -1
         self._T = self._lens = None
         self.events = {"wc_prune_emit": [], "wc_relax_batched": []}
@@ -221,9 +225,12 @@ class Capture:
             if rr is not self._rr:
                 self._rr, self._b4, self._k4_calls = rr, self._b4 + 1, 0
             self._k4_calls += 1
-            if self._b4 == self.target and self._k4_calls <= 2:
-                self.k4 = (emit_w.clone(), nbr, lvl, rank, rr.clone(),
-                           R.clone())
+            if self._b4 in (0, self.target) and self._k4_calls <= 2:
+                x = (emit_w.clone(), nbr, lvl, rank, rr.clone(), R.clone())
+                if self._b4 == self.target:
+                    self.k4 = x
+                if self._b4 == 0:
+                    self.k4_dense = x
             with self._timed("wc_relax_batched"):
                 return relax(emit_w, nbr, lvl, rank, rr, R)
 
@@ -588,8 +595,9 @@ def prune_kernel_phase(cap3, launches: int, step_s: float,
                       "scanned_entries": scanned}}
 
 
-def relax_kernel_phase(cap4, launches: int, step_s: float,
-                       iters: int) -> dict:
+def relax_capture(cap4, iters: int) -> dict:
+    """K4 on one captured call: held against its plain version (exact),
+    timed (kernel and plain), and its bound counted from these inputs."""
     import torch
     from repro_torch.kernels import frontier as kfr
     emit_w, nbr, lvl, rank, rr, R = cap4
@@ -612,18 +620,38 @@ def relax_kernel_phase(cap4, launches: int, step_s: float,
         needed += int(e.any(2).sum().item())
     nbytes = 12 * B * V + 4 * needed + rows_bytes + 4 * (V + B)
     bms, by = bound_ms(nbytes, 2 * scanned)
-    return {"name": "wc_relax_batched", "route": "cuda",
-            "source": "src/repro_torch/csrc/frontier.cu",
-            "replaces": "src/repro/kernels/frontier.py:160",
-            "launches": launches, "max_abs_err": err,
+    return {"max_abs_err": err,
             "ms": cuda_ms(lambda: kfr.wc_relax_batched_cuda(
                 emit_w, nbr, lvl, rank, rr, R), iters),
             "plain_ms": cuda_ms(lambda: kfr.wc_relax_batched_plain(
                 emit_w, nbr, lvl, rank, rr, R), 2),
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "main_path_mean_ms": step_s * 1e3 / max(launches, 1),
+            "bound_ms": bms, "bound_by": by,
+            # the mask pass reads every emit cell once more
+            "bound_with_mask_ms": bound_ms(nbytes + 4 * B * V,
+                                           2 * scanned)[0],
             "shape": {"B": B, "V": V, "D": nbr.shape[1],
+                      "active": int((emit_w >= 0).sum().item()),
                       "scanned_neighbours": scanned}}
+
+
+def relax_kernel_phase(cap4, cap4_dense, launches: int, step_s: float,
+                       iters: int) -> dict:
+    """K4's record: round 1 of the middle root batch (the table's row),
+    and round 1 of root batch 0 (the hub roots, a dense frontier)."""
+    main = relax_capture(cap4, iters)
+    dense = relax_capture(cap4_dense, iters)
+    return {"name": "wc_relax_batched", "route": "cuda",
+            "source": "src/repro_torch/csrc/frontier.cu",
+            "replaces": "src/repro/kernels/frontier.py:160",
+            "launches": launches,
+            "max_abs_err": max(main["max_abs_err"], dense["max_abs_err"]),
+            **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
+                                    "bound_by", "bound_with_mask_ms",
+                                    "shape")},
+            "library_ms": None, "cuda_launches_per_call": 2,
+            "build_device_s": step_s,
+            "main_path_mean_ms": step_s * 1e3 / max(launches, 1),
+            "dense_capture": dense}
 
 
 # ------------------------------------------ compressed and bucket-pair
@@ -1202,14 +1230,17 @@ BULK_BATCH, BULK_BATCHES = 262144, 4   # serve_bulk
 N_CAND, TOP_K = 1_000_000, 100         # retrieval_cand (top 100 fixed)
 WARMUP_BATCHES = 2                     # serve_p99 batches before the clock
 # K11 timing: iterations at serve_p99 (kernel, plain and einsum), then
-# at serve_bulk, where one H = 200 call takes ~0.3-0.4 s
+# at serve_bulk, where one H = 200 call takes ~0.1-0.3 s
 P99_ITERS, P99_PLAIN_ITERS, BULK_ITERS, BULK_PLAIN_ITERS = 50, 5, 3, 1
 ANCHOR_ROWS = 8                        # rows checked against float64 (CPU)
 # CIN at the model's init scale: max |out| ~1e-3, 1e-4, 1e-5 by layer, so
 # every comparison there is relative to the layer's own max |ref|. fp32
 # sums of H*M = 7,800 terms in another order err by ~sqrt(H*M) * 2^-24 ~
-# 5e-6 of that; 1e-4 leaves 20x. Logits (the CIN share is ~1e-4 of them)
-# are checked beside cin_feat, not instead of it.
+# 5e-6 of that; 1e-4 leaves 20x. K11's 3xTF32 products drop only
+# lo*lo (~2^-22 of each), which is of the same order (an emulation:
+# ~5e-7 of the layer's max, `tests/test_torch_kernels.py`). Logits (the
+# CIN share is ~1e-4 of them) are checked beside cin_feat, not instead of
+# it.
 CIN_REL_TOL = 1e-4
 LOGIT_REL_TOL = 1e-5
 
@@ -1248,7 +1279,10 @@ def cin_layer_timing(cfg, layer: int, x1, x0, w, iters: int,
     """K11, its plain version and one `torch.einsum` on one layer's
     inputs. The einsum builds the [B, H, M, D] outer product, so where B
     passes the plain version's chunk it is timed on a chunk's rows
-    (``library_rows``) and ``library_ms`` is null."""
+    (``library_rows``) and ``library_ms`` is null. K11 runs the layer's
+    FLOP three times over on the tensor cores (3xTF32): its bound is that
+    over the dense TF32 rate; the fp32 bound (the FLOP once, outside the
+    tensor cores) is kept beside it."""
     import torch
     from repro_torch.configs.xdeepfm_arch import cin_flops
     from repro_torch.kernels import cin_fuse as kcin
@@ -1256,7 +1290,7 @@ def cin_layer_timing(cfg, layer: int, x1, x0, w, iters: int,
     flop = cin_flops(cfg, B)[layer]
     nbytes = x1.element_size() * (x1.numel() + x0.numel() + w.numel()) \
         + 4 * B * K * D
-    to = flop / FP32_FLOPS_PER_S * 1e3
+    to = 3 * flop / TF32_FLOPS_PER_S * 1e3
     tb = nbytes / HBM_BYTES_PER_S * 1e3
     rows = min(B, kcin.cin_chunk_rows(H, M, D))
     lib = cuda_ms(lambda: torch.einsum("bhd,bmd,khm->bkd", x1[:rows],
@@ -1265,10 +1299,14 @@ def cin_layer_timing(cfg, layer: int, x1, x0, w, iters: int,
     return {"layer": layer, "B": B, "H": H, "M": M, "D": D, "K": K,
             "flop": flop, "bytes": nbytes, "ms": ms,
             "tflop_per_s": flop / ms * 1e-9,
+            "splits": kcin.cin_plan(x1.device, B, H, M, D, K,
+                                    x1.dtype == torch.bfloat16)[0],
             "plain_ms": cuda_ms(lambda: kcin.cin_layer_plain(x1, x0, w),
                                 plain_iters),
             "bound_ms": max(to, tb),
             "bound_by": "operations" if to >= tb else "bytes",
+            "bound_3xtf32_ms": to,
+            "bound_fp32_ms": max(flop / FP32_FLOPS_PER_S * 1e3, tb),
             "library_ms": lib if rows == B else None,
             "library_rows": rows, "library_rows_ms": lib}
 
@@ -1370,8 +1408,9 @@ def xdeepfm_phase(cfg, device, p99=(P99_BATCH, P99_BATCHES),
              f"= {L} x {forwards} forwards")
 
     # ------------------------- K11 against its plain version
-    checks = {"tf32": False, "cin_rel_tol": CIN_REL_TOL,
-              "logit_rel_tol": LOGIT_REL_TOL}
+    # K11's arithmetic; every PyTorch product here stays full fp32
+    checks = {"tf32": "3xtf32", "matmul_allow_tf32": False,
+              "cin_rel_tol": CIN_REL_TOL, "logit_rel_tol": LOGIT_REL_TOL}
     g = torch.Generator(device=device)
     g.manual_seed(5)
     M, D, K = cfg.n_sparse, cfg.embed_dim, widths[0]
@@ -1393,10 +1432,11 @@ def xdeepfm_phase(cfg, device, p99=(P99_BATCH, P99_BATCHES),
     checks["unit_normal"] = unit
     emb, lin = model.embed_rows(check_ids)
     p99_in = cin_inputs(model, emb)
-    real = []
+    real, same = [], []
     for x1, x0, w in p99_in:
-        real.append(rel_err(kcin.cin_layer_cuda(x1, x0, w),
-                            kcin.cin_layer_plain(x1, x0, w)))
+        a = kcin.cin_layer_cuda(x1, x0, w)
+        same.append(bool(torch.equal(a, kcin.cin_layer_cuda(x1, x0, w))))
+        real.append(rel_err(a, kcin.cin_layer_plain(x1, x0, w)))
     xk, pooled = emb, []
     for i in range(L):
         xk = kcin.cin_layer_plain(xk, emb, getattr(model.cin, f"w{i}"))
@@ -1437,9 +1477,15 @@ def xdeepfm_phase(cfg, device, p99=(P99_BATCH, P99_BATCHES),
     bulk_in = cin_inputs(model, bemb)
     x1, x0, w = bulk_in[1 if L > 1 else 0]
     rows = kcin.cin_chunk_rows(x1.shape[1], M, D)
-    checks["bulk_chunk_rel"] = rel_err(
-        kcin.cin_layer_cuda(x1[:rows].contiguous(), x0[:rows].contiguous(),
-                            w), kcin.cin_layer_plain(x1[:rows], x0[:rows], w))
+    x1c, x0c = x1[:rows].contiguous(), x0[:rows].contiguous()
+    a = kcin.cin_layer_cuda(x1c, x0c, w)
+    same.append(bool(torch.equal(a, kcin.cin_layer_cuda(x1c, x0c, w))))
+    checks["bulk_chunk_rel"] = rel_err(a, kcin.cin_layer_plain(x1c, x0c, w))
+    del a, x1c, x0c
+    checks["deterministic"] = same
+    if not all(same):
+        fail(f"xdeepfm: two K11 launches on the same inputs differ "
+             f"(p99 layers, bulk chunk: {same})")
     if checks["bulk_chunk_rel"] > CIN_REL_TOL:
         fail(f"xdeepfm: K11 on a bulk chunk is {checks['bulk_chunk_rel']} "
              "of the layer max from its plain version")
@@ -1485,8 +1531,11 @@ def xdeepfm_phase(cfg, device, p99=(P99_BATCH, P99_BATCHES),
             # max (CIN_REL_TOL), not exactly as the int32 kernels are
             "max_abs_tol": CIN_REL_TOL * float(b.abs().max()),
             **{k: main[k] for k in ("ms", "plain_ms", "bound_ms",
-                                    "bound_by", "library_ms")},
-            "shape": {k: main[k] for k in ("B", "H", "M", "D", "K")},
+                                    "bound_by", "bound_3xtf32_ms",
+                                    "bound_fp32_ms", "library_ms")},
+            "arithmetic": "3xtf32", "deterministic": all(same),
+            "shape": {k: main[k] for k in ("B", "H", "M", "D", "K",
+                                           "splits")},
             "serve_p99_layers": p99_rec, "serve_bulk_layers": bulk_rec}
     return phase, [kern]
 
@@ -1662,7 +1711,7 @@ def main() -> int:
     xdf, xdf_kernels = xdeepfm_phase(get_config(), dev)
 
     # ----------------------------------------- kernels vs plain, timed
-    if cap.k3 is None or cap.k4 is None:
+    if cap.k3 is None or cap.k4 is None or cap.k4_dense is None:
         fail("no build round was captured for the kernel phases")
     kernels = [
         ragged_kernel_phase(srv_e.engine, qrec, False,
@@ -1671,7 +1720,8 @@ def main() -> int:
                             launches["wcsd_profile_ragged"], 50),
         prune_kernel_phase(cap.k3, launches["wc_prune_emit_batched"],
                            steps["wc_prune_emit"], 50),
-        relax_kernel_phase(cap.k4, launches["wc_relax_batched"],
+        relax_kernel_phase(cap.k4, cap.k4_dense,
+                           launches["wc_relax_batched"],
                            steps["wc_relax_batched"], 50),
     ] + comp_kernels + bp_kernels + pad_kernels + relax_kernels \
         + xdf_kernels

@@ -35,6 +35,36 @@ LAUNCHES = {"wcsd_query_ragged": 0, "wcsd_profile_ragged": 0,
             "wcsd_query_gathered": 0, "frontier_relax_gathered": 0,
             "cin_layer": 0}
 
+_P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+# the C prototype of every exported function, by source: set once when
+# `library` loads the source's library (pointers and the stream as
+# c_void_p, or ctypes would pass them as 32-bit ints); each returns an int
+# (a launcher's cudaError_t) unless `RESTYPES` names another type
+PROTOTYPES = {
+    "wcsd_query": {
+        "wcsd_query_ragged_launch": [_P] * 10 + [_LL, _I, _P],
+        "wcsd_profile_ragged_launch": [_P] * 9 + [_LL, _I, _I, _P],
+        "wcsd_query_ragged_compressed_launch": [_P] * 10 + [_LL, _I, _I,
+                                                            _P],
+        "wcsd_profile_ragged_compressed_launch": [_P] * 9 + [_LL, _I, _I,
+                                                             _I, _P],
+        "wcsd_query_segmented_launch": [_P] * 10 + [_LL, _I, _I, _P],
+        "wcsd_profile_segmented_launch": [_P] * 9 + [_LL, _I, _I, _I, _P],
+        "wcsd_query_gathered_launch": [_P] * 5 + [_LL, _I, _P],
+    },
+    "frontier": {
+        "wc_prune_emit_launch": [_P] * 6 + [_I] * 5 + [_P],
+        "wc_relax_batched_launch": [_P] * 9 + [_I] * 3 + [_P],
+        "frontier_relax_gathered_launch": [_P] * 5 + [_I] * 2 + [_P],
+    },
+    "cin_fuse": {
+        "cin_layer_splits": [_I] * 6,
+        "cin_layer_wimg_words": [_I] * 3,
+        "cin_layer_launch": [_P] * 6 + [_I] * 7 + [_P],
+    },
+}
+RESTYPES = {"cin_layer_wimg_words": _LL}
+
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()
 
@@ -100,15 +130,21 @@ def build(names=SOURCES) -> None:
 
 
 def library(name: str) -> ctypes.CDLL:
-    """The loaded library for ``csrc/<name>.cu``, built on first use."""
+    """The loaded library for ``csrc/<name>.cu``, built on first use, its
+    launchers' prototypes set (`PROTOTYPES`)."""
     with _lock:
         if name not in _libs:
             build((name,))
             try:
-                _libs[name] = ctypes.CDLL(str(_lib_path(name)))
-            except OSError as err:
+                lib = ctypes.CDLL(str(_lib_path(name)))
+                for fn, argtypes in PROTOTYPES[name].items():
+                    f = getattr(lib, fn)
+                    f.argtypes = argtypes
+                    f.restype = RESTYPES.get(fn, ctypes.c_int)
+            except (OSError, AttributeError) as err:
                 raise KernelError(f"loading {name}.cu's library: {err}") \
                     from err
+            _libs[name] = lib
         return _libs[name]
 
 

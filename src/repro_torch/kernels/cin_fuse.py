@@ -4,15 +4,14 @@ cin_layer`): its CUDA launcher and, beside it, its plain PyTorch version.
     out[b, k, d] = sum_{h, m} w[k, h, m] * x1[b, h, d] * x0[b, m, d]
 
 x1 [B, H, D], x0 [B, M, D], w [K, H, M] -> [B, K, D] float32. The CUDA
-source is `repro_torch/csrc/cin_fuse.cu`. The plain version translates
-the reference's `kernels/ref.py:cin_layer_ref`, in the TPU kernel's form
-(the outer product z as a [b*D, H*M] matrix against w as [H*M, K]),
-chunked over B so that z stays under `CIN_CHUNK_BYTES`: unchunked it
-would be B*H*M*D floats, 81.8 GB at B = 262,144 and the model's widths.
+source is `repro_torch/csrc/cin_fuse.cu` (3xTF32 on the tensor cores).
+The plain version translates the reference's `kernels/ref.py:
+cin_layer_ref`, in the TPU kernel's form (the outer product z as a
+[b*D, H*M] matrix against w as [H*M, K]), chunked over B so that z
+stays under `CIN_CHUNK_BYTES`: unchunked it would be B*H*M*D floats,
+81.8 GB at B = 262,144 and the model's widths.
 """
 from __future__ import annotations
-
-import ctypes
 
 import torch
 
@@ -20,6 +19,7 @@ from . import _cuda
 
 CIN_CHUNK_BYTES = 1 << 30   # one [b, D, H, M] outer product, at most
 CIN_DTYPES = (torch.float32, torch.bfloat16)
+_PLANS: dict[tuple, tuple] = {}  # `cin_plan` by (device, shapes, bf16)
 
 
 def cin_chunk_rows(H: int, M: int, D: int, itemsize: int = 4) -> int:
@@ -63,10 +63,30 @@ def cin_layer_plain(x1, x0, w):
     return out
 
 
+def cin_plan(device: torch.device, B: int, H: int, M: int, D: int, K: int,
+             bf16: bool) -> tuple[int, int]:
+    """(S, words) of K11 at these shapes on ``device``: the r-axis splits
+    (1 unless the tile grid is smaller than the SM count) and the 32-bit
+    words of the per-stage W images. Asked of the library once per
+    shape."""
+    key = (device.index, B, H, M, D, K, bf16)
+    if key not in _PLANS:
+        lib = _cuda.library("cin_fuse")
+        with torch.cuda.device(device):
+            s = lib.cin_layer_splits(B, H, M, D, K, int(bf16))
+        if s < 1:
+            _cuda.check_launch(-s, "cin_layer")
+        _PLANS[key] = (s, lib.cin_layer_wimg_words(H, M, K))
+    return _PLANS[key]
+
+
 def cin_layer_cuda(x1, x0, w):
-    """Launch K11 on the current stream. x1, x0 and w all float32 or all
-    bfloat16, contiguous, on one CUDA device; any B. Returns [B, K, D]
-    float32."""
+    """Launch K11 on the current stream: w laid out as per-stage TF32
+    hi/lo images, the 3xTF32 wgmma kernel and, where it splits the r axis
+    over S blocks, the in-order sum of the S partial slices (two or three
+    CUDA launches; scratch: the images and S * B * K * D floats). x1, x0
+    and w all float32 or all bfloat16, contiguous, on one CUDA device; any
+    B. Returns [B, K, D] float32."""
     what = "cin_layer"
     B, H, M, D, K = cin_shapes(x1, x0, w)
     if not (x1.dtype == x0.dtype == w.dtype):
@@ -77,13 +97,15 @@ def cin_layer_cuda(x1, x0, w):
     out = torch.empty((B, K, D), dtype=torch.float32, device=x1.device)
     if out.numel() == 0:                  # nothing to compute: no launch
         return out
-    fn = _cuda.library("cin_fuse").cin_layer_launch
-    fn.argtypes = [ctypes.c_void_p] * 4 + [ctypes.c_int] * 6 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
-    err = fn(x1.data_ptr(), x0.data_ptr(), w.data_ptr(), out.data_ptr(),
-             B, H, M, D, K, int(x1.dtype == torch.bfloat16),
-             _cuda.stream_ptr(x1.device))
+    bf16 = x1.dtype == torch.bfloat16
+    S, words = cin_plan(x1.device, B, H, M, D, K, bf16)
+    work = torch.empty((S, B, K, D) if S > 1 else (0,), dtype=torch.float32,
+                       device=x1.device)
+    wimg = torch.empty((words,), dtype=torch.int32, device=x1.device)
+    err = _cuda.library("cin_fuse").cin_layer_launch(
+        x1.data_ptr(), x0.data_ptr(), w.data_ptr(), out.data_ptr(),
+        work.data_ptr(), wimg.data_ptr(), B, H, M, D, K, int(bf16), S,
+        _cuda.stream_ptr(x1.device))
     _cuda.check_launch(err, what)
     _cuda.LAUNCHES[what] += 1
     return out

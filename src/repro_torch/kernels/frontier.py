@@ -22,8 +22,6 @@ rank mask.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _cuda
@@ -116,9 +114,6 @@ def frontier_relax_gathered_cuda(fw_nbr, lvl_pad, R):
     if V == 0:                            # no vertex launches nothing
         return newF, newR
     fn = _cuda.library("frontier").frontier_relax_gathered_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_int] * 2 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     err = fn(fw_nbr.data_ptr(), lvl_pad.data_ptr(), R.data_ptr(),
              newF.data_ptr(), newR.data_ptr(), V, D,
              _cuda.stream_ptr(R.device))
@@ -144,9 +139,6 @@ def wc_prune_emit_batched_cuda(F, T, hub, dist, wlev, d: int):
         raise ValueError(f"{what}: hub/dist/wlev must be [V, cap]")
     emit = torch.empty_like(F)
     fn = _cuda.library("frontier").wc_prune_emit_launch
-    fn.argtypes = [ctypes.c_void_p] * 6 + [ctypes.c_int] * 5 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     err = fn(F.data_ptr(), T.data_ptr(), hub.data_ptr(), dist.data_ptr(),
              wlev.data_ptr(), emit.data_ptr(), B, V, W1, cap, int(d),
              _cuda.stream_ptr(F.device))
@@ -156,8 +148,10 @@ def wc_prune_emit_batched_cuda(F, T, hub, dist, wlev, d: int):
 
 
 def wc_relax_batched_cuda(emit_w, nbr_pad, lvl_pad, rank, root_ranks, R):
-    """Launch K4 on the current stream. Same contract as the plain
-    version; adjacency rows must be filled row-prefix first
+    """Launch K4 on the current stream: a mask pass (one uint32 word of
+    active-root bits per vertex and 32 roots) and the vertex-major pull
+    over it, two CUDA launches. Same contract as the plain version;
+    adjacency rows must be filled row-prefix first
     (`Graph.padded_adjacency`)."""
     what = "wc_relax_batched"
     _cuda.check_cuda_args(what, emit_w.device, emit_w=emit_w,
@@ -173,13 +167,12 @@ def wc_relax_batched_cuda(emit_w, nbr_pad, lvl_pad, rank, root_ranks, R):
         raise ValueError(f"{what}: expected rank [V], root_ranks [B]")
     newF = torch.empty_like(R)
     newR = torch.empty_like(R)
+    act = torch.empty(((B + 31) // 32, V), dtype=torch.int32,
+                      device=R.device)      # uint32 bits, scratch
     fn = _cuda.library("frontier").wc_relax_batched_launch
-    fn.argtypes = [ctypes.c_void_p] * 8 + [ctypes.c_int] * 3 + [
-        ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     err = fn(emit_w.data_ptr(), nbr_pad.data_ptr(), lvl_pad.data_ptr(),
              rank.data_ptr(), root_ranks.data_ptr(), R.data_ptr(),
-             newF.data_ptr(), newR.data_ptr(), B, V, D,
+             newF.data_ptr(), newR.data_ptr(), act.data_ptr(), B, V, D,
              _cuda.stream_ptr(emit_w.device))
     _cuda.check_launch(err, what)
     _cuda.LAUNCHES[what] += 1

@@ -27,8 +27,6 @@ widened from int8.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _cuda
@@ -172,9 +170,6 @@ def wcsd_query_gathered_cuda(hs, ds, ht, dt):
     if L < 1:
         raise ValueError(f"{what}: empty label rows")
     fn = _cuda.library("wcsd_query").wcsd_query_gathered_launch
-    fn.argtypes = [ctypes.c_void_p] * 5 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     err = fn(hs.data_ptr(), ds.data_ptr(), ht.data_ptr(), dt.data_ptr(),
              out.data_ptr(), B, L, _cuda.stream_ptr(hs.device))
     _cuda.check_launch(err, what)
@@ -222,9 +217,6 @@ def _launch_query(what, symbol, hub, dist, wlev, tile_lo, tile_hi, qidx,
     if qidx.shape[0] == 0:                # an empty worklist launches nothing
         return out
     fn = getattr(_cuda.library("wcsd_query"), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int]
-                   + [ctypes.c_int] * len(extra_args) + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     err = fn(hub.data_ptr(), dist.data_ptr(), wlev.data_ptr(),
              tile_lo.data_ptr(), tile_hi.data_ptr(), qidx.data_ptr(),
              stile.data_ptr(), ttile.data_ptr(), wq.data_ptr(),
@@ -245,10 +237,6 @@ def _launch_profile(what, symbol, hub, dist, wlev, tile_lo, tile_hi, qidx,
     if qidx.shape[0] == 0:                # an empty worklist launches nothing
         return out
     fn = getattr(_cuda.library("wcsd_query"), symbol)
-    fn.argtypes = ([ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_int]
-                   + [ctypes.c_int] * len(extra_args) + [ctypes.c_void_p])
-    fn.restype = ctypes.c_int
     err = fn(hub.data_ptr(), dist.data_ptr(), wlev.data_ptr(),
              tile_lo.data_ptr(), tile_hi.data_ptr(), qidx.data_ptr(),
              stile.data_ptr(), ttile.data_ptr(), out.data_ptr(),

@@ -15,8 +15,6 @@ DEV_INF-initialised accumulators do.
 """
 from __future__ import annotations
 
-import ctypes
-
 import torch
 
 from . import _cuda
@@ -106,9 +104,6 @@ def wcsd_query_segmented_cuda(hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t,
     if B == 0:                            # an empty sub-batch launches nothing
         return out
     fn = _cuda.library("wcsd_query").wcsd_query_segmented_launch
-    fn.argtypes = [ctypes.c_void_p] * 10 + [ctypes.c_longlong, ctypes.c_int,
-                                            ctypes.c_int, ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     err = fn(hub_s.data_ptr(), dist_s.data_ptr(), wlev_s.data_ptr(),
              hub_t.data_ptr(), dist_t.data_ptr(), wlev_t.data_ptr(),
              srow.data_ptr(), trow.data_ptr(), wq.data_ptr(), out.data_ptr(),
@@ -135,10 +130,6 @@ def wcsd_profile_segmented_cuda(hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t,
     if B == 0:                            # an empty sub-batch launches nothing
         return out
     fn = _cuda.library("wcsd_query").wcsd_profile_segmented_launch
-    fn.argtypes = [ctypes.c_void_p] * 9 + [ctypes.c_longlong, ctypes.c_int,
-                                           ctypes.c_int, ctypes.c_int,
-                                           ctypes.c_void_p]
-    fn.restype = ctypes.c_int
     err = fn(hub_s.data_ptr(), dist_s.data_ptr(), wlev_s.data_ptr(),
              hub_t.data_ptr(), dist_t.data_ptr(), wlev_t.data_ptr(),
              srow.data_ptr(), trow.data_ptr(), out.data_ptr(), B,

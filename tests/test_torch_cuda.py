@@ -93,6 +93,55 @@ def test_frontier_kernels_equal_plain(card):
         assert torch.equal(x, y)
 
 
+@pytest.fixture(scope="module")
+def hub_adjacency(card):
+    """The padded adjacency of a `scale_free` graph (many rows past 32
+    neighbours) plus a star hub: vertex 0 joined to every other vertex, a
+    row of V - 1 = 1,499 neighbours (past 1,024)."""
+    from repro_torch.core.generators import barabasi_albert_edges
+    from repro_torch.core.graph import Graph
+    V = 1500
+    e = barabasi_albert_edges(V, 4, seed=3)
+    star = np.arange(1, V, dtype=np.int32)
+    u = np.concatenate([e[:, 0], np.zeros(V - 1, np.int32)])
+    v = np.concatenate([e[:, 1], star])
+    q = np.random.default_rng(3).integers(0, 4, len(u)).astype(np.float64)
+    nbr, lvl = Graph.from_edges(V, u, v, q).padded_adjacency()
+    deg = (nbr >= 0).sum(1)
+    assert deg[0] == V - 1 and (deg > 32).sum() > 10
+    return torch.from_numpy(nbr).to(card), torch.from_numpy(lvl).to(card)
+
+
+@pytest.mark.parametrize("density", [0.001, 0.2, 1.0])
+@pytest.mark.parametrize("B", [16, 32, 40])
+def test_relax_pull_kernel_equals_plain(card, hub_adjacency, B, density):
+    """K4 (mask pass + vertex-major pull) against its plain version, bit
+    for bit: one partial root word (16), one full word (32), two words
+    (40); sparse to full frontiers; rows past 32 and past 1,024
+    neighbours, the hub eligible for every real root; three inert pad
+    roots at rank V + 1."""
+    nbr, lvl = hub_adjacency
+    V = nbr.shape[0]
+    rng = np.random.default_rng(B * 1000 + int(density * 1000))
+    emit = np.where(rng.random((B, V)) < density,
+                    rng.integers(0, 4, (B, V)), -1)
+    rank = rng.permutation(V)
+    rank[[0, int(np.argmax(rank))]] = rank[[int(np.argmax(rank)), 0]]
+    assert rank[0] == V - 1                 # the hub outranks every root
+    rr = np.concatenate([rng.integers(0, V - 1, B - 3), [V + 1] * 3])
+    R = rng.integers(-1, 4, (B, V))
+    x = [torch.from_numpy(a.astype(np.int32)).to(card)
+         for a in (emit, rank, rr, R)]
+    args = (x[0], nbr, lvl, x[1], x[2], x[3])
+    _cuda.reset_launch_counts()
+    got = kfr.wc_relax_batched_cuda(*args)
+    assert _cuda.LAUNCHES["wc_relax_batched"] == 1
+    exp = kfr.wc_relax_batched_plain(*args)
+    for a, b in zip(got, exp):
+        assert torch.equal(a, b)
+    assert (got[0][B - 3:] == -1).all()     # inert roots label nothing
+
+
 def test_build_on_card_equals_cpu_and_serves(card, built):
     g, idx_cpu = built
     _cuda.reset_launch_counts()
@@ -335,7 +384,7 @@ def test_cin_kernel_equals_plain(card, B, H, M, D, K):
     """K11 against its plain version on unit-normal inputs, at the
     reference test's shapes (tolerance: `tests/test_kernels.py`'s, for
     fp32 sums of H*M terms in another order) and at B = 700, whose
-    B*D = 7,000 columns end in a ragged 128-column tile."""
+    B*D = 7,000 rows end in a ragged 64-row tile."""
     from repro_torch.kernels import cin_fuse as kcin
     rng = np.random.default_rng(B)
     x = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(card)
@@ -366,6 +415,33 @@ def test_cin_kernel_bf16_equals_plain(card):
     np.testing.assert_allclose(got.cpu().numpy(),
                                kcin.cin_layer_plain(*x).cpu().numpy(),
                                rtol=5e-2, atol=0.5)
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("B,H,M,D,K", [(512, 200, 39, 10, 200),
+                                       (512, 39, 39, 10, 200),
+                                       (300, 30, 7, 10, 50)])
+def test_cin_tensor_core_kernel_at_serve_shapes(card, B, H, M, D, K, dtype):
+    """The 3xTF32 K11 at the model's serve_p99 layer shapes (split over
+    the r axis: the tile grid is under the SM count) and at a ragged R =
+    210 (M = 7, not a multiple of 8 or 4), both dtypes, within the fp32
+    tolerance of `test_cin_kernel_equals_plain`; two launches on the same
+    inputs are bit-identical (the split partials are summed in order)."""
+    from repro_torch.kernels import cin_fuse as kcin
+    torch.backends.cuda.matmul.allow_tf32 = False
+    rng = np.random.default_rng(B + H + M)
+    x = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        card).to(getattr(torch, dtype))
+         for s in ((B, H, D), (B, M, D), (K, H, M))]
+    _cuda.reset_launch_counts()
+    got = kcin.cin_layer_cuda(*x)
+    again = kcin.cin_layer_cuda(*x)
+    assert _cuda.LAUNCHES["cin_layer"] == 2
+    exp = kcin.cin_layer_plain(*x)
+    torch.cuda.synchronize()
+    assert torch.equal(got, again)
+    np.testing.assert_allclose(got.cpu().numpy(), exp.cpu().numpy(),
+                               rtol=1e-4, atol=1e-5 * H * M ** 0.5)
 
 
 def test_xdeepfm_forward_on_card(card):

@@ -9,6 +9,15 @@ Cases: real arenas (lane 128 and 48), adversarial skewed stores (lane
 48), worklist pads and the trash row, s == t, level num_levels (only self
 entries feasible), inactive frontiers and inert pad roots. Also the
 device-emitted worklist, array for array.
+
+K4's card kernel pulls each row once for all roots behind a bitmask of
+active roots and hands rows past 8 neighbours to a whole warp; its plain
+version is held against the reference on inputs with those branches
+(40 roots = two mask words, a star hub's row of 63 neighbours, an all-
+inactive frontier). K11's card kernel runs on the tensor cores in
+3xTF32: an emulation of that arithmetic (round-to-nearest-away to TF32's
+10-bit mantissa, by bit operations) on one CIN layer at the model's
+widths is the written reason its fp32 tolerance does not move.
 """
 import numpy as np
 import pytest
@@ -18,6 +27,7 @@ import jax.numpy as jnp
 
 from _torch_parity import assert_same_array, port_index
 from repro.core.generators import scale_free
+from repro.core.graph import Graph
 from repro.core.query import emit_ragged_worklist as j_emit
 from repro.core.query import ragged_worklist_len as j_wl_len
 from repro.core.wc_index import build_wc_index
@@ -28,6 +38,7 @@ from repro.kernels import wcsd_query as j_wq
 from repro_torch.core.query import TRASH_LEVEL
 from repro_torch.core.query import emit_ragged_worklist as t_emit
 from repro_torch.core.query import ragged_worklist_len as t_wl_len
+from repro_torch.kernels import cin_fuse as t_cin
 from repro_torch.kernels import frontier as t_frontier
 from repro_torch.kernels import ops as t_ops
 from repro_torch.kernels import wcsd_query as t_wq
@@ -297,3 +308,101 @@ def test_direct_pallas_frontier_kernels_agree_at_block_multiple():
     plain = t_frontier.wc_prune_emit_batched_plain(
         *(_t(a) for a in (Fp, Tp, hp, dp, wp)), d)
     assert_same_array(plain.numpy(), pallas)
+
+
+def _star_hub_inputs(frontier: str):
+    """B = 40 roots (two mask words) over a Barabasi-Albert graph plus a
+    star hub (vertex 0, 63 neighbours) that every real root may label;
+    three inert pad roots at rank V + 1."""
+    rng = np.random.default_rng({"inactive": 0, "sparse": 1,
+                                 "dense": 2}[frontier])
+    V, B = 64, 40
+    e = np.array([(a, b) for a in range(1, V) for b in
+                  rng.choice(a, min(a, 2), replace=False)], np.int32)
+    u = np.concatenate([e[:, 0], np.zeros(V - 1, np.int32)])
+    v = np.concatenate([e[:, 1], np.arange(1, V, dtype=np.int32)])
+    q = rng.integers(0, W, len(u)).astype(np.float64)
+    nbr, lvl = Graph.from_edges(V, u, v, q).padded_adjacency()
+    assert (nbr[0] >= 0).sum() == V - 1 > 32
+    rank = rng.permutation(V).astype(np.int32)
+    top = int(np.argmax(rank))
+    rank[[0, top]] = rank[[top, 0]]          # the hub outranks every root
+    rr = np.concatenate([rng.integers(0, V - 1, B - 3),
+                         [V + 1] * 3]).astype(np.int32)
+    p = {"inactive": 0.0, "sparse": 0.05, "dense": 1.0}[frontier]
+    emit = np.where(rng.random((B, V)) < p, rng.integers(0, W + 1, (B, V)),
+                    -1).astype(np.int32)
+    R = rng.integers(-1, W + 1, (B, V)).astype(np.int32)
+    return emit, nbr, lvl, rank, rr, R
+
+
+@pytest.mark.parametrize("frontier", ["inactive", "sparse", "dense"])
+def test_relax_batched_plain_matches_pallas_at_two_root_words(frontier):
+    emit, nbr, lvl, rank, rr, R = _star_hub_inputs(frontier)
+    ja = [jnp.asarray(a) for a in (emit, nbr, lvl, rank, rr, R)]
+    pallas = [_np(x) for x in j_ops.wc_relax_batched(
+        *ja, interpret=True, use_kernel=True)]
+    plain = t_frontier.wc_relax_batched_plain(*(_t(a) for a in (
+        emit, nbr, lvl, rank, rr, R)))
+    for p, x in zip(pallas, plain):
+        assert_same_array(x.numpy(), p)
+    if frontier == "inactive":              # nothing to pull: newF all -1
+        assert (plain[0] == -1).all()
+        assert_same_array(plain[1].numpy(), np.maximum(R, -1))
+    assert (plain[0][-3:] == -1).all()      # inert roots label nothing
+
+
+def _tf32_rna(x: torch.Tensor) -> torch.Tensor:
+    """cvt.rna.tf32.f32: fp32 rounded to TF32's 10-bit mantissa, ties away
+    from zero (add half of the dropped 13 bits' range to the magnitude,
+    then clear them)."""
+    return ((x.view(torch.int32) + 0x1000) & ~0x1FFF).view(torch.float32)
+
+
+def test_tf32_rounding_emulation():
+    one = torch.tensor([1.0, -1.0])
+    ulp = 2.0 ** -10
+    x = torch.cat([one * (1 + ulp / 2), one * (1 + ulp / 2 - 2 ** -20),
+                   one * (1 + ulp * 3 / 4)])
+    assert _tf32_rna(x).tolist() == [1 + ulp, -1 - ulp, 1.0, -1.0,
+                                     1 + ulp, -1 - ulp]
+    y = torch.from_numpy(np.random.default_rng(0).standard_normal(
+        10000).astype(np.float32))
+    h = _tf32_rna(y)
+    assert ((h.view(torch.int32) & 0x1FFF) == 0).all()
+    assert ((h - y).abs() <= y.abs() * 2.0 ** -11).all()
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("H", [39, 200])
+def test_cin_3xtf32_emulation_keeps_fp32_tolerance(H, seed):
+    """One CIN layer at the model's widths (M = 39, D = 10, K = 200), B =
+    4, unit-normal x, w * 0.05, as the card kernel computes it:
+    z = x1 * x0 in fp32, both operands split into TF32 hi + lo, the
+    products lo*hi + hi*lo + hi*hi (each exact in fp32) summed in fp32.
+    Against float64 it is within 1e-4 of the layer's max (the tolerance
+    K11 is held to), as the plain fp32 version is; single-pass TF32
+    (hi*hi alone) is not."""
+    B, M, D, K = 4, 39, 10, 200
+    rng = np.random.default_rng(seed)
+    x1 = rng.standard_normal((B, H, D)).astype(np.float32)
+    x0 = rng.standard_normal((B, M, D)).astype(np.float32)
+    w = (rng.standard_normal((K, H, M)) * 0.05).astype(np.float32)
+    t1, t0, tw = (torch.from_numpy(a) for a in (x1, x0, w))
+    z = (t1.transpose(1, 2)[:, :, :, None]
+         * t0.transpose(1, 2)[:, :, None, :]).reshape(B * D, H * M)
+    wt = tw.reshape(K, H * M).t().contiguous()
+    zh, wh = _tf32_rna(z), _tf32_rna(wt)
+    zl, wl = _tf32_rna(z - zh), _tf32_rna(wt - wh)
+
+    def layer(c):
+        return c.reshape(B, D, K).transpose(1, 2).double()
+
+    ref = t_cin.cin_layer_plain(t1.double(), t0.double(), tw.double())
+    scale = ref.abs().max()
+    err = {name: float((layer(c) - ref).abs().max() / scale)
+           for name, c in (("3xtf32", zl @ wh + zh @ wl + zh @ wh),
+                           ("tf32", zh @ wh), ("fp32", z @ wt))}
+    assert err["3xtf32"] <= 1e-4 / 20, err
+    assert err["fp32"] <= 1e-4 / 20, err
+    assert err["tf32"] > 1e-4, err
