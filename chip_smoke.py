@@ -20,7 +20,8 @@ reset just before it and read just after it:
    on a fixed schedule, walked down every rung (K5/K6, K1/K2, K7/K8, the
    plain padded oracle) and promoted back to the top;
 4. bucket-pair serving: the V = 2^17 index served through
-   `WCSDServer(dispatch="bucket_pair")` (K7, K8) in epoch flushes;
+   `WCSDServer(dispatch="bucket_pair")` in epoch flushes (one K7 launch
+   per scalar flush, one K8 launch per profile sub-batch);
 5. padded serving: the V = 2^17 index from the padded ``[V, L]`` store,
    `WCSDServer(layout="padded", use_pallas=True)` (K9; plain profiles),
    in epoch flushes;
@@ -34,8 +35,11 @@ reset just before it and read just after it:
    launch per CIN layer of every forward.
 
 Then every kernel is held against its plain PyTorch version on inputs
-captured from its path (exact int32 equality, K4 at round 1 of the
-middle root batch and of root batch 0; K11, 3xTF32 on the tensor cores
+captured from its path (exact int32 equality; K3 at the build's heaviest
+pruning call, K4 at round 1 of the middle root batch and of root batch
+0, both again with every row's pads moved mid-row, K4 also with pad ids
+V, and both on the smallest inputs of the fault C1; K7 on the grouped
+flush, every sub-batch, and unsorted rows; K11, 3xTF32 on the tensor cores
 summed in fp32 in another order, within 1e-4 of each layer's max |ref|
 on the model's own activations and at the reference test's tolerance on
 unit-normal inputs, and 8 rows of one batch against the plain forward
@@ -186,12 +190,16 @@ class Capture:
     """Wraps the build's two round wrappers to keep (clones of) the inputs
     of one call each, and to bracket every call with CUDA events (the
     step's device time, launch overhead included). K3 keeps the pruning
-    call that scans the most label entries in the whole build (active
-    (root, vertex) pairs times their label-row lengths: one row-length
-    count per root batch and one extra host sync per round); K4 keeps
-    round 1 of the middle root batch and round 1 of root batch 0 (the hub
-    roots, whose frontier is dense). The wrapped call itself is the
-    original, so the launch counts are unchanged."""
+    call that scans the most label entries in the whole build when every
+    row is read to its end (active (root, vertex) pairs times their row
+    ends: one extra host sync per round), with the row ends the builder
+    passed; K4 keeps round 1 of the middle root batch and round 1 of root
+    batch 0 (the hub roots, whose frontier is dense). For K3's build-total
+    bound it sums, per call on the card, a floor of what the call must
+    move: F read and emit written once, a whole row for every vertex where
+    a root emits (its feasible entries must all be seen) and one entry
+    for every other active vertex with a row. The wrapped call itself is
+    the original, so the launch counts are unchanged."""
 
     def __init__(self, ops, target_batch: int):
         self.ops = ops
@@ -204,39 +212,64 @@ class Capture:
         self._rr = None
         self._b4 = -1
         self._k4_calls = 0
+        self.floor_cells = 0            # sum of B * V over pruning calls
+        self.floor_rows = None          # entries, a device scalar
 
     def __enter__(self):
         prune, relax = self.orig
 
-        def wc_prune_emit(F, T, hub, dist, wlev, d, *, do_prune=True):
+        def wc_prune_emit(F, T, hub, dist, wlev, d, *, do_prune=True,
+                          row_end=None):
             if do_prune:
                 if T is not self._T:      # a new root batch: rows have grown
-                    self._T, self._lens = T, (hub >= 0).sum(1)
+                    self._T = T
+                    self._lens = row_end if row_end is not None \
+                        else (hub >= 0).sum(1)
                 n = int(((F >= 0).sum(0) * self._lens).sum().item())
                 if n > self.k3_scanned:
                     self.k3 = None                  # free the old clones
                     self.k3 = tuple(x.clone() for x in (F, T, hub, dist,
-                                                        wlev)) + (int(d),)
+                                                        wlev)) + (
+                        int(d), None if row_end is None else row_end.clone())
                     self.k3_scanned = n
             with self._timed("wc_prune_emit"):
-                return prune(F, T, hub, dist, wlev, d, do_prune=do_prune)
+                out = prune(F, T, hub, dist, wlev, d, do_prune=do_prune,
+                            row_end=row_end)
+            if do_prune:
+                self._floor(F, out)
+            return out
 
-        def wc_relax_batched(emit_w, nbr, lvl, rank, rr, R):
+        def wc_relax_batched(emit_w, nbr, lvl, rank, rr, R, *, row_end=None):
             if rr is not self._rr:
                 self._rr, self._b4, self._k4_calls = rr, self._b4 + 1, 0
             self._k4_calls += 1
             if self._b4 in (0, self.target) and self._k4_calls <= 2:
-                x = (emit_w.clone(), nbr, lvl, rank, rr.clone(), R.clone())
+                x = (emit_w.clone(), nbr, lvl, rank, rr.clone(), R.clone(),
+                     row_end)
                 if self._b4 == self.target:
                     self.k4 = x
                 if self._b4 == 0:
                     self.k4_dense = x
             with self._timed("wc_relax_batched"):
-                return relax(emit_w, nbr, lvl, rank, rr, R)
+                return relax(emit_w, nbr, lvl, rank, rr, R, row_end=row_end)
 
         self.ops.wc_prune_emit = wc_prune_emit
         self.ops.wc_relax_batched = wc_relax_batched
         return self
+
+    def _floor(self, F, emit):
+        import torch
+        L = self._lens
+        rows = torch.where((emit >= 0).any(0), L, torch.where(
+            (F >= 0).any(0), L.clamp(max=1), 0)).sum()
+        self.floor_rows = rows if self.floor_rows is None \
+            else self.floor_rows + rows
+        self.floor_cells += F.numel()
+
+    def floor_bound_s(self) -> float:
+        """K3's build-total bound: the floor summed over every call."""
+        rows = 0 if self.floor_rows is None else int(self.floor_rows.item())
+        return bound_ms(8 * self.floor_cells + 12 * rows, 0)[0] / 1e3
 
     def __exit__(self, *exc):
         self.ops.wc_prune_emit, self.ops.wc_relax_batched = self.orig
@@ -476,9 +509,14 @@ def ragged_kernel_phase(engine, rec, profile: bool, launches: int,
 def segmented_kernel_phase(engine, rec, profile: bool, launches: int,
                            iters: int) -> dict:
     """K7/K8 on the sub-batches of one recorded bucket-pair flush: every
-    sub-batch held against the plain version; the heaviest (most cell
-    pairs compared) timed alone, and the whole flush's launches timed back to
-    back."""
+    sub-batch held against the plain version. K8: the heaviest (most cell
+    pairs) timed alone, and the whole flush's launches back to back. K7:
+    the flush as the engine launches it (one grouped launch over the
+    sub-batches' table) held against the plain versions and timed, the
+    heaviest sub-batch's own launch timed beside it, and the heaviest
+    sub-batch with every row's cells shuffled (unsorted rows, pads
+    mid-row: the kernel's all-pairs branch) held against its plain
+    version."""
     import torch
     from repro_torch.kernels import wcsd_segmented as kseg
     L = engine.num_levels
@@ -504,7 +542,7 @@ def segmented_kernel_phase(engine, rec, profile: bool, launches: int,
     torch.cuda.synchronize()
 
     def work(sub, stq, tiles):
-        """(bytes, ops, hub meets) of one launch: each distinct row read
+        """(bytes, ops, hub meets) of one sub-batch: each distinct row read
         once, the row ids and levels, the output; a merge of each query's
         two rows plus its hub meets."""
         n = len(sub.positions)
@@ -522,7 +560,7 @@ def segmented_kernel_phase(engine, rec, profile: bool, launches: int,
 
     works = [work(*x) for x in subs]
 
-    def pairs(i):          # cell pairs the kernel compares
+    def pairs(i):          # cell pairs an all-pairs join compares
         return (len(subs[i][0].positions) * subs[i][2][0].shape[1]
                 * subs[i][2][3].shape[1])
 
@@ -530,69 +568,169 @@ def segmented_kernel_phase(engine, rec, profile: bool, launches: int,
     sub, stq, tiles = subs[heavy]
     bms, by = bound_ms(*works[heavy][:2])
     fbms, fby = bound_ms(sum(w[0] for w in works), sum(w[1] for w in works))
-    flush_ms = cuda_ms(lambda: [kern(q, t_) for _, q, t_ in subs],
-                       max(1, iters // 10))
-    return {"name": ("wcsd_profile_segmented" if profile
-                     else "wcsd_query_segmented"),
-            "route": "cuda", "source": "src/repro_torch/csrc/wcsd_query.cu",
-            "replaces": ("src/repro/kernels/wcsd_query.py:588" if profile
-                         else "src/repro/kernels/wcsd_query.py:119"),
-            "launches": launches, "max_abs_err": err,
-            "ms": cuda_ms(lambda: kern(stq, tiles), iters),
-            "plain_ms": cuda_ms(lambda: plain(stq, tiles), 2),
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "flush_ms": flush_ms, "flush_bound_ms": fbms,
-            "flush_bound_by": fby,
-            "shape": {"sub_batches": len(subs), "queries": len(rec[1]),
-                      "heaviest": {"bucket_s": sub.bucket_s,
-                                   "bucket_t": sub.bucket_t,
-                                   "n": len(sub.positions),
-                                   "Ws": tiles[0].shape[1],
-                                   "Wt": tiles[3].shape[1],
-                                   "hub_meets": works[heavy][2]},
-                      "flush_hub_meets": sum(w[2] for w in works)}}
+    shape = {"sub_batches": len(subs), "queries": len(rec[1]),
+             "heaviest": {"bucket_s": sub.bucket_s,
+                          "bucket_t": sub.bucket_t,
+                          "n": len(sub.positions),
+                          "Ws": tiles[0].shape[1],
+                          "Wt": tiles[3].shape[1],
+                          "hub_meets": works[heavy][2]},
+             "flush_hub_meets": sum(w[2] for w in works)}
+    if profile:
+        return {"name": "wcsd_profile_segmented", "route": "cuda",
+                "source": "src/repro_torch/csrc/wcsd_query.cu",
+                "replaces": "src/repro/kernels/wcsd_query.py:588",
+                "launches": launches, "max_abs_err": err,
+                "ms": cuda_ms(lambda: kern(stq, tiles), iters),
+                "plain_ms": cuda_ms(lambda: plain(stq, tiles), 2),
+                "bound_ms": bms, "bound_by": by, "library_ms": None,
+                "flush_ms": cuda_ms(
+                    lambda: [kern(q, t_) for _, q, t_ in subs],
+                    max(1, iters // 10)),
+                "flush_bound_ms": fbms, "flush_bound_by": fby,
+                "shape": shape}
+    # K7: the flush in one launch, staged as the engine stages it
+    groups = [(tl[:3], tl[3:], len(sb.positions)) for sb, _, tl in subs]
+    staged = kseg.GroupedFlush(
+        groups, torch.cat([q for _, q, _ in subs], dim=1).cpu().numpy(),
+        engine.device)
 
+    def flush():
+        return kseg.wcsd_query_segmented_grouped_cuda(staged)
 
-def prune_kernel_phase(cap3, launches: int, step_s: float,
-                       iters: int) -> dict:
-    import torch
-    from repro_torch.kernels import frontier as kfr
-    F, T, hub, dist, wlev, d = cap3
-    a = kfr.wc_prune_emit_batched_cuda(F, T, hub, dist, wlev, d)
-    b = kfr.wc_prune_emit_batched_plain(F, T, hub, dist, wlev, d)
+    def flush_plain():
+        return kseg.wcsd_query_segmented_grouped_plain(staged)
+
+    got, exp = flush(), flush_plain()
+    err = max(err, int((got.long() - exp.long()).abs().max().item()))
+    perm = torch.rand(tiles[0].shape, generator=torch.Generator(
+        device=engine.device).manual_seed(7),
+        device=engine.device).argsort(dim=1)
+    shuffled = [x.gather(1, perm) for x in tiles[:3]] + list(tiles[3:])
+    a, b = kern(stq, shuffled), plain(stq, shuffled)
+    unsorted_err = int((a.long() - b.long()).abs().max().item())
+    err = max(err, unsorted_err)
     torch.cuda.synchronize()
-    err = int((a.long() - b.long()).abs().max().item())
+    return {"name": "wcsd_query_segmented", "route": "cuda",
+            "source": "src/repro_torch/csrc/wcsd_query.cu",
+            "replaces": "src/repro/kernels/wcsd_query.py:119",
+            "launches": launches, "max_abs_err": err,
+            "ms": cuda_ms(flush, iters),
+            "plain_ms": cuda_ms(flush_plain, 2),
+            "bound_ms": fbms, "bound_by": fby, "library_ms": None,
+            "per": "flush (one launch)",
+            "heaviest_sub_batch_ms": cuda_ms(lambda: kern(stq, tiles),
+                                             iters),
+            "heaviest_sub_batch_bound_ms": bms,
+            "heaviest_sub_batch_bound_by": by,
+            "per_sub_batch_flush_ms": cuda_ms(
+                lambda: [kern(q, t_) for _, q, t_ in subs],
+                max(1, iters // 10)),
+            "unsorted_max_abs_err": unsorted_err,
+            "unsorted_ms": cuda_ms(lambda: kern(stq, shuffled),
+                                   max(1, iters // 10)),
+            "shape": shape}
+
+
+def prune_needs(F, T, hub, dist, wlev, d, row_end, chunk: int = 4096):
+    """What one K3 call needs when each row is read in order up to its end
+    and a root stops at its first entry that gives a distance <= d (the
+    call decides only q > d): per active (root, vertex) cell the prefix of
+    its row up to that entry (the whole row where it emits). Returns
+    (entries scanned, row entries read once per vertex, distinct T cells
+    gathered, distinct active vertices, whole-row entries of those
+    vertices, T cells a full scan gathers)."""
+    import torch
     B, V = F.shape
     W1 = T.shape[2]
-    lens = (hub >= 0).sum(1)                       # prefix length per row
+    cap = hub.shape[1]
+    L = row_end.clamp(0, cap).long()
     bi, vi = torch.nonzero(F >= 0, as_tuple=True)
-    scanned = int(lens[vi].sum().item())
-    rows_bytes = 12 * int(lens[torch.unique(vi)].sum().item())
-    # the T cells the active entries gather, each counted once
-    gathered = torch.zeros(B * V * W1, dtype=torch.bool, device=F.device)
-    for a0 in range(0, bi.numel(), 4096):
-        b_, v_ = bi[a0:a0 + 4096], vi[a0:a0 + 4096]
+    col = torch.arange(cap, device=F.device)
+    per_v = torch.zeros(V, dtype=torch.long, device=F.device)
+    seen = torch.zeros(B * V * W1, dtype=torch.bool, device=F.device)
+    seen_full = torch.zeros_like(seen)
+    scanned = 0
+    for a0 in range(0, bi.numel(), chunk):
+        b_, v_ = bi[a0:a0 + chunk], vi[a0:a0 + chunk]
         h = hub[v_]
         fw = F[b_, v_].clamp(0, W1 - 1)
-        ok = (h >= 0) & (wlev[v_] >= fw[:, None])
-        key = (b_[:, None] * V + h.clamp(min=0)).long() * W1 + fw[:, None]
-        gathered[key[ok]] = True
-    t_cells = int(gathered.sum().item())
-    nbytes = 8 * B * V + rows_bytes + 4 * t_cells
+        inrow = col[None] < L[v_][:, None]
+        ok = inrow & (h >= 0) & (wlev[v_] >= fw[:, None])
+        tv = T[b_[:, None], h.clamp(0, V - 1).long(), fw[:, None].long()]
+        q = dist[v_].clamp_max(1 << 29) + tv.clamp_max(1 << 29)
+        first = torch.where(ok & (q <= d), col[None], cap).amin(1)
+        n = torch.where(first < cap, first + 1, L[v_])
+        scanned += int(n.sum().item())
+        per_v.scatter_reduce_(0, v_, n, reduce="amax")
+        key = (b_[:, None] * (W1 * V) + fw[:, None] * V
+               + h.clamp(min=0)).long()
+        seen_full[key[ok]] = True
+        seen[key[ok & (col[None] < n[:, None])]] = True
+    verts = torch.unique(vi)
+    return (scanned, int(per_v.sum().item()), int(seen.sum().item()),
+            int(verts.numel()), int(L[verts].sum().item()),
+            int(seen_full.sum().item()))
+
+
+def prune_kernel_phase(cap3, launches: int, step_s: float, floor_s: float,
+                       iters: int) -> dict:
+    """K3 on the build's heaviest pruning call, with the builder's row ends
+    and with the row ends the wrapper computes: held against its plain
+    version (exact), timed, and its bound counted from these inputs (what
+    the early stop needs; the full scan's bound beside it)."""
+    import torch
+    from repro_torch.kernels import frontier as kfr
+    F, T, hub, dist, wlev, d, row_end = cap3
+    if row_end is None:
+        fail("the heaviest K3 call was captured without its row ends")
+    if not torch.equal(row_end, kfr.row_ends(hub, wlev)):
+        fail("the builder's row ends (its host counts) differ from "
+             "row_ends of its partial index")
+    b = kfr.wc_prune_emit_batched_plain(F, T, hub, dist, wlev, d)
+    err = 0
+    for rend in (row_end, None):
+        a = kfr.wc_prune_emit_batched_cuda(F, T, hub, dist, wlev, d,
+                                           row_end=rend)
+        err = max(err, int((a.long() - b.long()).abs().max().item()))
+    torch.cuda.synchronize()
+    B, V = F.shape
+    W1 = T.shape[2]
+    scanned, rows, t_cells, verts, full_rows, full_t = prune_needs(
+        F, T, hub, dist, wlev, d, row_end)
+    active = int((F >= 0).sum().item())
+    full_scan = int(((F >= 0).sum(0) * row_end.long()).sum().item())
+    nbytes = 8 * B * V + 12 * rows + 4 * t_cells
     bms, by = bound_ms(nbytes, 4 * scanned)
+    full_bms = bound_ms(8 * B * V + 12 * full_rows + 4 * full_t,
+                        4 * full_scan)[0]
+    layout = ("level-major [B, W+1, V]" if T.stride() == (W1 * V, 1, V)
+              else f"strides {tuple(T.stride())}")
     return {"name": "wc_prune_emit_batched", "route": "cuda",
             "source": "src/repro_torch/csrc/frontier.cu",
             "replaces": "src/repro/kernels/frontier.py:108",
             "launches": launches, "max_abs_err": err,
             "ms": cuda_ms(lambda: kfr.wc_prune_emit_batched_cuda(
-                F, T, hub, dist, wlev, d), iters),
+                F, T, hub, dist, wlev, d, row_end=row_end), iters),
             "plain_ms": cuda_ms(lambda: kfr.wc_prune_emit_batched_plain(
                 F, T, hub, dist, wlev, d), 2),
             "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "bound_full_scan_ms": full_bms,
+            "ms_row_end_computed": cuda_ms(
+                lambda: kfr.wc_prune_emit_batched_cuda(
+                    F, T, hub, dist, wlev, d), max(1, iters // 5)),
+            "cuda_launches_per_call": 1,
             "main_path_mean_ms": step_s * 1e3 / max(launches, 1),
+            "build_device_s": step_s, "build_bound_floor_s": floor_s,
             "shape": {"B": B, "V": V, "cap": hub.shape[1], "W1": W1,
-                      "round": d, "active": int(bi.numel()),
-                      "scanned_entries": scanned}}
+                      "round": d, "T_layout": layout, "active": active,
+                      "active_vertices": verts,
+                      "emitted": int((b >= 0).sum().item()),
+                      "scanned_entries": scanned,
+                      "full_scan_entries": full_scan,
+                      "row_bytes_read": 12 * rows,
+                      "row_bytes_whole_rows": 12 * full_rows,
+                      "t_cells": t_cells, "t_cells_full_scan": full_t}}
 
 
 def relax_capture(cap4, iters: int) -> dict:
@@ -600,8 +738,9 @@ def relax_capture(cap4, iters: int) -> dict:
     timed (kernel and plain), and its bound counted from these inputs."""
     import torch
     from repro_torch.kernels import frontier as kfr
-    emit_w, nbr, lvl, rank, rr, R = cap4
-    a = kfr.wc_relax_batched_cuda(emit_w, nbr, lvl, rank, rr, R)
+    emit_w, nbr, lvl, rank, rr, R, row_end = cap4
+    a = kfr.wc_relax_batched_cuda(emit_w, nbr, lvl, rank, rr, R,
+                                  row_end=row_end)
     b = kfr.wc_relax_batched_plain(emit_w, nbr, lvl, rank, rr, R)
     torch.cuda.synchronize()
     err = max(int((x.long() - y.long()).abs().max().item())
@@ -622,7 +761,7 @@ def relax_capture(cap4, iters: int) -> dict:
     bms, by = bound_ms(nbytes, 2 * scanned)
     return {"max_abs_err": err,
             "ms": cuda_ms(lambda: kfr.wc_relax_batched_cuda(
-                emit_w, nbr, lvl, rank, rr, R), iters),
+                emit_w, nbr, lvl, rank, rr, R, row_end=row_end), iters),
             "plain_ms": cuda_ms(lambda: kfr.wc_relax_batched_plain(
                 emit_w, nbr, lvl, rank, rr, R), 2),
             "bound_ms": bms, "bound_by": by,
@@ -652,6 +791,90 @@ def relax_kernel_phase(cap4, cap4_dense, launches: int, step_s: float,
             "build_device_s": step_s,
             "main_path_mean_ms": step_s * 1e3 / max(launches, 1),
             "dense_capture": dense}
+
+
+# ------------------------------------------- C1: pads anywhere in a row
+def _shuffled_rows(*arrays):
+    """The arrays with one random permutation of each row's slots applied
+    to all of them (pads land mid-row), made on the card."""
+    import torch
+    gen = torch.Generator(device=arrays[0].device).manual_seed(16)
+    perm = torch.rand(arrays[0].shape, generator=gen,
+                      device=arrays[0].device).argsort(dim=1)
+    return [a.gather(1, perm) for a in arrays]
+
+
+def c1_phase(cap3, cap4, cap4_dense) -> dict:
+    """K3 and K4 held against their plain versions where pads sit in the
+    middle of rows (the fault C1 of earlier versions, which stopped at the
+    first pad): the heaviest K3 call and both K4 captures with every
+    row's slots shuffled, K4 with pad ids V (read as V - 1, masked by
+    level -1), and the smallest failing inputs: K4 with D = 9 and rows
+    [n0, -1 x 7, n8], K3 with cap 40 and a feasible entry at slot 32
+    behind a pad. The wrappers compute the row ends here."""
+    import torch
+    from repro_torch.kernels import frontier as kfr
+    dev = cap3[0].device
+    errs = {}
+
+    def diff(a, b):
+        if isinstance(a, tuple):
+            return max(diff(x, y) for x, y in zip(a, b))
+        return int((a.long() - b.long()).abs().max().item())
+
+    F, T, hub, dist, wlev, d, _ = cap3
+    hub, dist, wlev = _shuffled_rows(hub, dist, wlev)
+    errs["k3_heaviest_mid_row"] = diff(
+        kfr.wc_prune_emit_batched_cuda(F, T, hub, dist, wlev, d),
+        kfr.wc_prune_emit_batched_plain(F, T, hub, dist, wlev, d))
+    mid_row = int((kfr.row_ends(hub, wlev) > (hub >= 0).sum(1)).sum())
+    del hub, dist, wlev
+    for name, c in (("k4_middle", cap4), ("k4_dense", cap4_dense)):
+        emit_w, nbr, lvl, rank, rr, R, _ = c
+        nbr, lvl = _shuffled_rows(nbr, lvl)
+        for pad in ("mid_row", "pad_node_V"):
+            if pad == "pad_node_V":
+                nbr = torch.where(nbr < 0, nbr.shape[0], nbr)
+            args = (emit_w, nbr, lvl, rank, rr, R)
+            errs[f"{name}_{pad}"] = diff(kfr.wc_relax_batched_cuda(*args),
+                                         kfr.wc_relax_batched_plain(*args))
+    # the smallest failing inputs of C1
+    V, B = 16, 4
+    ar = torch.arange(V, dtype=torch.int32, device=dev)
+    nbr = torch.full((V, 9), -1, dtype=torch.int32, device=dev)
+    lvl = torch.full_like(nbr, -1)
+    nbr[:, 0], lvl[:, 0] = (ar - 1) % V, 1
+    nbr[:, 8], lvl[:, 8] = (ar + 1) % V, 3
+    emit = torch.full((B, V), -1, dtype=torch.int32, device=dev)
+    emit[:, 5] = 2
+    args = (emit, nbr, lvl, ar, torch.full((B,), -1, dtype=torch.int32,
+                                           device=dev),
+            torch.full_like(emit, -1))
+    got = kfr.wc_relax_batched_cuda(*args)
+    errs["k4_d9"] = max(diff(got, kfr.wc_relax_batched_plain(*args)),
+                        int((got[0][:, 4] != 2).sum()))
+    cap, V = 40, 8
+    hub = torch.full((V, cap), -1, dtype=torch.int32, device=dev)
+    dist = torch.full_like(hub, INF_DIST)
+    wlev = torch.full_like(hub, -1)
+    hub[3, 32], dist[3, 32], wlev[3, 32] = 6, 0, 2
+    F = torch.full((2, V), -1, dtype=torch.int32, device=dev)
+    F[:, 3] = 1
+    T = torch.full((2, V, 3), INF_DIST, dtype=torch.int32, device=dev)
+    T[:, 6, :] = 0
+    got = kfr.wc_prune_emit_batched_cuda(F, T, hub, dist, wlev, 1)
+    errs["k3_cap40_slot32"] = max(
+        diff(got, kfr.wc_prune_emit_batched_plain(F, T, hub, dist, wlev, 1)),
+        int((got[:, 3] != -1).sum()))
+    torch.cuda.synchronize()
+    bad = {k: v for k, v in errs.items() if v}
+    if bad:
+        fail(f"C1: K3/K4 differ from their plain versions with pads "
+             f"mid-row: {bad}")
+    progress("C1: K3 and K4 equal their plain versions with pads mid-row")
+    return {"phase": "c1", "max_abs_err": errs,
+            "k3_rows_with_mid_row_pads": mid_row,
+            "equal_plain": True}
 
 
 # ------------------------------------------ compressed and bucket-pair
@@ -796,10 +1019,10 @@ def compressed_serve_phase(device) -> tuple[dict, list, tuple]:
 def bucket_pair_phase(idx, qs, ps, out_ragged, prof_ragged, device
                       ) -> tuple[dict, list]:
     """Path 3: the V = 2^17 index through WCSDServer(dispatch=
-    "bucket_pair") in epoch flushes. One K7/K8 launch per planned
-    sub-batch, every sub-batch equal to its plain path, the whole
-    stream equal to the ragged server's. Returns the phase record and
-    the K7/K8 kernel phases."""
+    "bucket_pair") in epoch flushes. One K7 launch per scalar flush, one
+    K8 launch per planned profile sub-batch, every sub-batch equal to its
+    plain path, the whole stream equal to the ragged server's. Returns
+    the phase record and the K7/K8 kernel phases."""
     import torch
     from repro_torch.kernels import _cuda
     log = []
@@ -811,11 +1034,13 @@ def bucket_pair_phase(idx, qs, ps, out_ragged, prof_ragged, device
     launches = dict(_cuda.LAUNCHES)
     progress(f"bucket-pair serving {wall:.1f} s")
     planned = {"query": 0, "profile": 0}
+    flushes = {"query": 0, "profile": 0}
     per_flush, bad = [], 0
     for rec in log:
         got = rec[4].wait()
         subs = sub_batches(srv.engine, rec)
         planned[rec[0]] += len(subs)
+        flushes[rec[0]] += 1 if subs else 0
         per_flush.append(len(subs))
         for sub, stq, tiles in subs:
             if not np.array_equal(got[sub.positions],
@@ -823,7 +1048,7 @@ def bucket_pair_phase(idx, qs, ps, out_ragged, prof_ragged, device
                                                   tiles)):
                 bad += 1
     check_path_launches("bucket-pair serving", launches, BUCKET_PAIR_PATH, {
-        "wcsd_query_segmented": planned["query"],
+        "wcsd_query_segmented": flushes["query"],
         "wcsd_profile_segmented": planned["profile"]})
     if bad:
         fail(f"bucket-pair serving: {bad} sub-batches differ from the "
@@ -841,7 +1066,7 @@ def bucket_pair_phase(idx, qs, ps, out_ragged, prof_ragged, device
                                for x in tl),
              "queries": len(qs[0]), "profile_queries": len(ps[0]),
              "max_batch": MAX_BATCH,
-             "sub_batches": planned,
+             "sub_batches": planned, "flushes": flushes,
              "sub_batches_per_flush": float(np.mean(per_flush)),
              "max_sub_batches_per_flush": int(max(per_flush)),
              "launches": {k: launches[k] for k in BUCKET_PAIR_PATH},
@@ -1578,6 +1803,7 @@ def main() -> int:
         build_s = time.perf_counter() - t0
     after_build = dict(_cuda.LAUNCHES)
     steps = cap.step_seconds()
+    floor_s = cap.floor_bound_s()
     progress(f"built in {build_s:.1f} s: {stats}")
     srv_e, out_e, prof_e, wall_e = serve_epoch(idx, (s, t, wl), (ps, pt),
                                                MAX_BATCH, flushes_epoch, dev)
@@ -1603,7 +1829,7 @@ def main() -> int:
              "partial_index_cap": stats["partial_index_cap"],
              "finalize_s": stats["finalize_s"],
              "round_loop_s": build_s - stats["finalize_s"],
-             "step_device_s": steps,
+             "step_device_s": steps, "k3_build_bound_floor_s": floor_s,
              "arena_tiles": ar.num_tiles, "arena_bytes": ar.memory_bytes(),
              "max_tiles_per_row": int(ar.tile_cnt.max()),
              "launches": {k: after_build[k] for k in
@@ -1719,7 +1945,7 @@ def main() -> int:
         ragged_kernel_phase(srv_e.engine, prec, True,
                             launches["wcsd_profile_ragged"], 50),
         prune_kernel_phase(cap.k3, launches["wc_prune_emit_batched"],
-                           steps["wc_prune_emit"], 50),
+                           steps["wc_prune_emit"], floor_s, 50),
         relax_kernel_phase(cap.k4, cap.k4_dense,
                            launches["wc_relax_batched"],
                            steps["wc_relax_batched"], 50),
@@ -1729,10 +1955,12 @@ def main() -> int:
         if k["max_abs_err"] > k.get("max_abs_tol", 0):
             fail(f"kernel {k['name']} differs from its plain version "
                  f"(max abs err {k['max_abs_err']})")
+    c1 = c1_phase(cap.k3, cap.k4, cap.k4_dense)
 
     emit(tool)
     for k in kernels:
         emit({"phase": "kernel", **k})
+    emit(c1)
     emit(build)
     emit(serve)
     emit(fallback)

@@ -12,10 +12,11 @@ Port of the reference package's `core/query.py` for `DeviceQueryEngine`:
     `CompressedArena` and the launch is K5 / K6, which decode the narrow
     cells in the kernel.
   * ``layout="csr"``, ``dispatch="bucket_pair"``: the host planner
-    (`plan_query_batch`) groups the batch by (bucket(s), bucket(t)), and
-    each group is one launch over that bucket pair's padded tiles (K7
-    `wcsd_query_segmented`, K8 `wcsd_profile_segmented`). The reference
-    keeps it as the ragged path's differential oracle.
+    (`plan_query_batch`) groups the batch by (bucket(s), bucket(t)) over
+    the bucket pairs' padded tiles. A scalar flush is ONE K7
+    `wcsd_query_segmented` launch over a table of its groups; a profile
+    flush is one K8 `wcsd_profile_segmented` launch per group. The
+    reference keeps it as the ragged path's differential oracle.
   * ``layout="padded"``: one ``[V, L]`` store, every query pays the
     longest row's width. ``use_pallas=True`` answers a batch with one K9
     `wcsd_query_gathered` launch (`kernels.ops.wcsd_query`);
@@ -39,6 +40,7 @@ import torch
 
 from ..kernels import ops as kops
 from ..kernels._cuda import resolve_device
+from ..kernels.wcsd_segmented import GroupedFlush
 from .graph import INF_DIST
 from .wc_index import FLOAT_DTYPES, LANE, PackedWCIndex, round_to_lane
 
@@ -325,9 +327,10 @@ class DeviceQueryEngine:
     ``compression_overflow`` True.
 
     ``layout="csr"``, ``dispatch="bucket_pair"``: the host planner groups
-    each flush by (bucket(s), bucket(t)) and launches one kernel per group
-    over the padded bucket tiles; the answers come back in batch order
-    from one handle. It does not take ``compressed=True`` (ValueError),
+    each flush by (bucket(s), bucket(t)) over the padded bucket tiles; a
+    scalar flush is one K7 launch over all its groups, a profile flush
+    one K8 launch per group; the answers come back in batch order from
+    one handle. It does not take ``compressed=True`` (ValueError),
     as in the reference.
 
     ``layout="padded"``: the ``[V, L]`` store (``cap`` trims rows, see
@@ -478,27 +481,21 @@ class DeviceQueryEngine:
                                    num_levels=self.num_levels)
 
     # ------------------------------------------------ bucket-pair dispatch
-    def _plan_segmented(self, s, t, w_level, dispatch) -> PendingResult:
-        """Plan on the host, stage every sub-batch (exactly, no pads) into
-        one [3 or 2, B] array in plan order (one host-to-device copy), and
-        launch ``dispatch(sub, stq_slice)`` per sub-batch. The results are
-        concatenated on the device and scattered back into batch order on
-        `wait()`; one event after the concatenation covers them all."""
+    def _plan(self, s, t, w_level):
+        """Plan on the host and stage every sub-batch (exactly, no pads)
+        into one [3 or 2, B] array in plan order. Returns (plan, pos,
+        staged) with ``pos`` the batch position of each staged column."""
         plan = plan_query_batch(self._bucket_of, s, t,
                                 num_buckets=self.num_buckets)
-        shape = ((len(s),) if w_level is not None
-                 else (len(s), self.num_levels + 1))
         if not plan:
-            return PendingResult(lambda: np.zeros(shape, np.int32))
+            return plan, None, None
         pos = np.concatenate([sub.positions for sub in plan])
-        dev = self._put(stage_sub_batch(self._slot_of, pos, s, t, w_level))
-        parts, a = [], 0
-        for sub in plan:
-            n = len(sub.positions)
-            parts.append(dispatch(sub, dev[:, a:a + n]))
-            a += n
-        res = torch.cat(parts)
+        return plan, pos, stage_sub_batch(self._slot_of, pos, s, t, w_level)
 
+    @staticmethod
+    def _scattered(res: torch.Tensor, pos, shape) -> PendingResult:
+        """A handle over ``res`` (answers in plan order) that scatters them
+        back into batch order on `wait()`."""
         def assemble():
             out = np.empty(shape, np.int32)
             out[pos] = res.cpu().numpy()
@@ -506,18 +503,34 @@ class DeviceQueryEngine:
         return _pending(res, assemble)
 
     def _query_segmented_async(self, s, t, w_level) -> PendingResult:
-        def dispatch(sub, stq):
-            return kops.wcsd_query_segmented(
-                *self._tiles[sub.bucket_s], *self._tiles[sub.bucket_t],
-                stq[0], stq[1], stq[2])
-        return self._plan_segmented(s, t, w_level, dispatch)
+        """One K7 launch for the whole flush: the sub-batches' table and
+        the staged queries go to the device in one copy."""
+        plan, pos, stq = self._plan(s, t, w_level)
+        if not plan:
+            return PendingResult(lambda: np.zeros(len(s), np.int32))
+        groups = [(self._tiles[sub.bucket_s], self._tiles[sub.bucket_t],
+                   len(sub.positions)) for sub in plan]
+        res = kops.wcsd_query_segmented_grouped(
+            GroupedFlush(groups, stq, self.device))
+        return self._scattered(res, pos, (len(s),))
 
     def _profile_segmented_async(self, s, t) -> PendingResult:
-        def dispatch(sub, stq):
-            return kops.wcsd_profile_segmented(
+        """One K8 launch per planned sub-batch over one staged copy; the
+        results are concatenated on the device, one event after it."""
+        plan, pos, stq = self._plan(s, t, None)
+        shape = (len(s), self.num_levels + 1)
+        if not plan:
+            return PendingResult(lambda: np.zeros(shape, np.int32))
+        dev = self._put(stq)
+        parts, a = [], 0
+        for sub in plan:
+            n = len(sub.positions)
+            parts.append(kops.wcsd_profile_segmented(
                 *self._tiles[sub.bucket_s], *self._tiles[sub.bucket_t],
-                stq[0], stq[1], num_levels=self.num_levels)
-        return self._plan_segmented(s, t, None, dispatch)
+                dev[0, a:a + n], dev[1, a:a + n],
+                num_levels=self.num_levels))
+            a += n
+        return self._scattered(torch.cat(parts), pos, shape)
 
     def query_from_quality(self, s, t, w: np.ndarray, levels: np.ndarray):
         """Real-valued thresholds -> levels (exact canonicalization)."""

@@ -24,6 +24,7 @@ import torch
 
 from ..kernels import ops as kops
 from ..kernels._cuda import resolve_device
+from ..kernels.frontier import row_ends
 from .graph import Graph, INF_DIST
 from .ordering import make_order
 from .wc_index import PackedLabelsBuilder, PackedWCIndex, _concat_ranges
@@ -37,21 +38,27 @@ def _build_T_device(hub, dist, wlev, roots, root_ranks, *, num_nodes: int,
     """Per-root hub tables from the device-side partial index:
     T[b, h, f] = min dist from root b to hub rank h over paths of quality
     level >= f (INF_DIST where unreachable; 0 on the root's own rank).
-    Inert pad rows carry root_ranks == V + 1 and add no self entry."""
+    Inert pad rows carry root_ranks == V + 1 and add no self entry.
+
+    T is built level-major, ``[B, W+1, V]`` in memory, and returned as
+    the ``[B, V, W+1]`` view of it: along a hub-sorted label row, K3's
+    gathers for one root and one level fall on nearby words."""
     V, W1 = num_nodes, num_levels + 1
     B = roots.shape[0]
     dev = hub.device
     hr = hub[roots]                                     # [B, cap] hub ranks
     dr = dist[roots].clamp_max(DEV_INF)
     wr = wlev[roots]
-    feas = torch.arange(W1, device=dev)[None, None, :] <= wr[:, :, None]
+    lev = torch.arange(W1, device=dev)
+    feas = lev[None, None, :] <= wr[:, :, None]
     vals = torch.where(feas & (hr >= 0)[:, :, None], dr[:, :, None], _INF)
-    T = torch.full((B, V, W1), _INF, dtype=torch.int32, device=dev)
-    bidx = torch.arange(B, device=dev)[:, None]
-    flat = ((bidx * V + hr.clamp(0, V - 1)).long()[:, :, None] * W1
-            + torch.arange(W1, device=dev)[None, None, :])
+    T = torch.full((B, W1, V), _INF, dtype=torch.int32, device=dev)
+    bidx = torch.arange(B, device=dev)[:, None, None]
+    flat = ((bidx * W1 + lev[None, None, :]) * V
+            + hr.clamp(0, V - 1).long()[:, :, None])
     T.view(-1).scatter_reduce_(0, flat.reshape(-1), vals.reshape(-1),
                                reduce="amin")
+    T = T.permute(0, 2, 1)                              # [B, V, W+1] view
     self_val = torch.where(root_ranks < V, 0, _INF).to(torch.int32)
     rows = T[torch.arange(B, device=dev), root_ranks.clamp(0, V - 1).long()]
     T[torch.arange(B, device=dev), root_ranks.clamp(0, V - 1).long()] = \
@@ -103,6 +110,7 @@ def build_wc_index_batched_packed(
     nbr_d = torch.from_numpy(nbr_np).to(dev)
     lvl_d = torch.from_numpy(lvl_np).to(dev)
     rank_d = torch.from_numpy(rank).to(dev)
+    nbr_end = row_ends(nbr_d, lvl_d)          # K4's row ends, once a build
 
     cap = 8
     hub_d = torch.full((V, cap), -1, dtype=torch.int32, device=dev)
@@ -133,15 +141,18 @@ def build_wc_index_batched_packed(
           torch.from_numpy(roots[:nb]).to(dev).long()] = W
         R = F
         E = torch.full((B, V, W + 1), _INF, dtype=torch.int32, device=dev)
+        # K3's row ends: the partial index is fixed within a batch and
+        # filled prefix first, so its per-row counts are exact
+        count_d = torch.from_numpy(count.astype(np.int32)).to(dev)
 
         d = 0
         while True:
             emit_w = kops.wc_prune_emit(F, T_d, hub_d, dist_d, wlev_d, d,
-                                        do_prune=(d > 0))
+                                        do_prune=(d > 0), row_end=count_d)
             if d > 0:
                 E = _accum_emit(E, emit_w, d)
             F, R = kops.wc_relax_batched(emit_w, nbr_d, lvl_d, rank_d, rr_d,
-                                         R)
+                                         R, row_end=nbr_end)
             n_rounds += 1
             d += 1
             scalar_syncs += 1

@@ -1,7 +1,7 @@
 // WCSD query kernels: the ragged kernels over the lane-tiled label arena
 // (plain and compressed), the bucket-pair kernels over padded bucket
-// tiles and the gathered-row kernel of the padded store, all on one join
-// body.
+// tiles and the gathered-row kernel of the padded store: all but K7 on
+// one all-pairs join body, K7 a merge join.
 //
 // Replaces: src/repro/kernels/wcsd_query.py:wcsd_query_ragged (K1),
 //           ...:wcsd_profile_ragged (K2),
@@ -16,11 +16,12 @@
 // mask a cell's distance to DEV_INF where its wlev < the query's level;
 // the profile kernels (K2, K6, K8) take no level and bin every meet's sum
 // by its pair level min(wlev_s, wlev_t) into num_levels + 1 minima (the
-// wrapper turns them into staircases). A block stages its t-side cells
-// (hub + dist, profile also wlev) in shared memory, each thread takes
-// s-side cells with a stride of blockDim.x and scans the staged cells,
-// and the block reduces with warp shuffles. Every kernel reads its cells
-// through a cell reader, so the join is written once:
+// wrapper turns them into staircases). Outside K7, a block stages its
+// t-side cells (hub + dist, profile also wlev) in shared memory, each
+// thread takes s-side cells with a stride of blockDim.x and scans the
+// staged cells, and the block reduces with warp shuffles; every such
+// kernel reads its cells through a cell reader, so the join is written
+// once:
 //
 // - Int32Cells: int32 hub / dist / wlev (the arena, the bucket tiles).
 // - GatheredCells: K9's pre-gathered rows, distances already masked to
@@ -51,17 +52,49 @@
 // row srow[b] of the s-side tiles [Ns, Ws] with row trow[b] of the t-side
 // tiles [Nt, Wt] (pads hub -1, dist INF_DIST, wlev -1). The Pallas kernel
 // walks a (query, t-block) grid and accumulates across t-blocks;
-// `_fit_block` exists only so that the block divides Wt. Here one block
-// owns one query, so nothing is carried between blocks and no atomics are
-// needed: the block stages its t-row in chunks of T_CHUNK cells (the loop
-// bound masks the ragged edge). There is no span test: every cell pair of
-// the two padded rows is joined, as in the reference.
+// `_fit_block` exists only so that the block divides Wt.
+//
+// K7 is a merge join, and one launch answers a whole flush. What bounds
+// it is bytes: each distinct row read once (12 bytes a cell), the row
+// ids, levels and answers; the join itself needs one compare per cell of
+// either side plus an add and a min per hub meet. The all-pairs join of
+// earlier versions compared Ws x Wt cell pairs per query (1.37G compares
+// for 543,360 meets in the heaviest sub-batch of a flush: 0.2662 ms
+// against a 0.00943 ms bound), and a flush was ~23.7 launches, most too
+// small to fill 132 SMs (2.435 ms a flush on the H100 80GB HBM3, 700 W).
+// Now:
+//  * a block (256 threads) per query of the flush; it finds its
+//    sub-batch in a small device table of SegGroup rows (tile pointers,
+//    Ws, Wt, its columns of the staged [3, B] array), so the flush's
+//    sub-batches run in one grid and no sub-batch is launched alone. The
+//    per-sub-batch entry point is the same kernel over one group.
+//  * Both rows are staged in shared memory with cp.async (16-byte copies
+//    where the row is 16-byte aligned; at most SEG_STAGE = 2,048 cells,
+//    24 KB a side; a wider row is read in place).
+//  * The block checks that each row's real cells (hub >= 0) are
+//    non-decreasing in hub, with pads only after them and every pad inert
+//    (its masked distance DEV_INF, so no pad meet can reach below
+//    DEV_INF). The store's rows are hub-sorted (the store is written in
+//    (v, hub, d) order and `bucket_tiles` copies rows in order), but the
+//    reference does not promise it: a query whose rows fail the check is
+//    joined all-pairs inside the kernel, as the reference joins it.
+//  * Otherwise each thread takes one contiguous piece of the s-row's real
+//    cells (at most ceil(Ws / 256) cells, whatever the meets), binary-
+//    searches the t-row for the first cell with its first hub, and walks
+//    forward (up to 8 steps, then a binary search again) pairing every
+//    s-cell with the t-side run of its hub (repeated hubs are Pareto
+//    entries with other (dist, wlev)): O(Ws + Wt) steps plus the meets,
+//    against Ws x Wt.
+// K8 keeps the all-pairs join and one launch per sub-batch: one block per
+// query stages its t-row in chunks of T_CHUNK cells (the loop bound masks
+// the ragged edge), every cell pair of the two padded rows joined, as in
+// the reference.
 //
 // Gathered (K9), per query b of a [B, L] batch: the join of row b of hs/ds
 // with row b of ht/dt. The Pallas kernel walks a (query block, t-block)
 // grid and carries the min across t-blocks in its output block, which
 // it initialises to DEV_INF; the wrapper pads B to 8 and L to 128. Here,
-// as for K7, one block owns one query and stages its t-row in chunks of
+// as for K8, one block owns one query and stages its t-row in chunks of
 // T_CHUNK cells, so any B and L are taken as they are. The accumulator
 // starts at DEV_INF, so the output never exceeds it, and since ds and dt
 // lie in [0, DEV_INF] no sum overflows int32. Rows need not be
@@ -70,11 +103,9 @@
 // longest row's L^2 compares: that is the layout's cost, not the
 // kernel's.
 //
-// Every kernel compares all cell pairs it joins (lane^2 per tile pair,
-// Ws x Wt per query). Rows are hub-sorted with repeated hubs, so a merge
-// join would do O(Ws + Wt) steps plus the meets; it is later work. The
-// TPU's DMA ring has no counterpart yet (cp.async/TMA staging is later
-// work).
+// Every kernel but K7 compares all cell pairs it joins (lane^2 per tile
+// pair, Ws x Wt per query). The TPU's DMA ring has no counterpart in the
+// ragged kernels yet.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -82,8 +113,10 @@
 
 #define DEV_INF (1 << 29)
 #define MAX_LEVELS1 32     // most num_levels + 1 the profile kernels bin
-#define T_CHUNK 2048       // bucket-pair t-row cells staged at a time
+#define T_CHUNK 2048       // K8 / K9 t-row cells staged at a time
 #define MAX_THREADS_SEG 256
+#define SEG_THREADS 256    // K7: threads per query
+#define SEG_STAGE 2048     // K7: widest row staged in shared memory
 
 // ------------------------------------------------------------ cell readers
 struct Int32Cells {
@@ -283,26 +316,181 @@ __global__ void wcsd_profile_ragged_kernel(
 }
 
 // ----------------------------------------------- bucket-pair (K7, K8)
-__global__ void wcsd_query_segmented_kernel(
-    Int32Cells cs, Int32Cells ct, const int* __restrict__ srow,
-    const int* __restrict__ trow, const int* __restrict__ wq,
-    int* __restrict__ out, int Ws, int Wt) {
-  __shared__ int sh_hub[T_CHUNK];
-  __shared__ int sh_dist[T_CHUNK];  // masked, clamped
+// K7 answers a whole flush in one launch: a block per query, the query's
+// sub-batch found in a small table of sub-batches (SegGroup). The
+// per-sub-batch entry point is the same kernel over one group passed by
+// value.
+struct SegGroup {  // one planned sub-batch: 64 bytes, the host's row
+  const int* hub_s;
+  const int* dist_s;
+  const int* wlev_s;
+  const int* hub_t;
+  const int* dist_t;
+  const int* wlev_t;
+  int Ws, Wt;  // row widths of the two tiles
+  int off, n;  // the sub-batch's columns of the staged [3, B] array
+};
+static_assert(sizeof(SegGroup) == 64, "SegGroup is the host table's row");
+
+// One label row as the join reads it: staged in shared memory, or (past
+// the staging capacity) in place in global memory.
+struct SegRow {
+  const int* hub;
+  const int* dist;
+  const int* wlev;
+  int n;
+  __device__ __forceinline__ int masked(int i, int w) const {
+    return wlev[i] >= w ? min(dist[i], DEV_INF) : DEV_INF;
+  }
+};
+
+__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(int* dst, const int* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
+               "memory");
+}
+
+// Copy n cells of one array into shared memory (dst is 16-byte aligned):
+// 16-byte copies where the source row is 16-byte aligned, else 4-byte.
+__device__ __forceinline__ void stage_cells(int* dst, const int* src, int n) {
+  if (((uintptr_t)src & 15) == 0) {
+    const int n4 = n >> 2;
+    for (int j = threadIdx.x; j < n4; j += blockDim.x)
+      cp_async16(dst + 4 * j, src + 4 * j);
+    for (int j = 4 * n4 + threadIdx.x; j < n; j += blockDim.x)
+      cp_async4(dst + j, src + j);
+  } else {
+    for (int j = threadIdx.x; j < n; j += blockDim.x)
+      cp_async4(dst + j, src + j);
+  }
+}
+
+// Row [hub, dist, wlev] + base with width n: staged into smem (capacity
+// cap cells an array) where n <= cap, else read in place.
+__device__ __forceinline__ SegRow seg_row(const int* hub, const int* dist,
+                                          const int* wlev, int64_t base,
+                                          int n, int* smem, int cap) {
+  if (n > cap) return SegRow{hub + base, dist + base, wlev + base, n};
+  stage_cells(smem, hub + base, n);
+  stage_cells(smem + cap, dist + base, n);
+  stage_cells(smem + 2 * cap, wlev + base, n);
+  return SegRow{smem, smem + cap, smem + 2 * cap, n};
+}
+
+// This thread's part of the merge-join check of one row: real cells
+// (hub >= 0) non-decreasing in hub, pads (hub < 0) only after them, and
+// every pad inert (masked distance DEV_INF, so no pad meet can reach
+// below DEV_INF). Adds this thread's real cells to *nreal.
+__device__ __forceinline__ bool row_mergeable(const SegRow& r, int w,
+                                              int* nreal) {
+  bool ok = true;
+  int real = 0;
+  for (int i = threadIdx.x; i < r.n; i += blockDim.x) {
+    const int h = r.hub[i];
+    if (h >= 0) {
+      ++real;
+      if (i > 0) {
+        const int p = r.hub[i - 1];
+        ok &= p >= 0 && p <= h;
+      }
+    } else {
+      ok &= r.masked(i, w) >= DEV_INF;
+    }
+  }
+  if (real) atomicAdd(nreal, real);
+  return ok;
+}
+
+// First index in [lo, hi) whose hub is >= key (hi if none).
+__device__ __forceinline__ int lower_bound(const int* hub, int lo, int hi,
+                                           int key) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (hub[mid] < key)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
+__global__ void __launch_bounds__(SEG_THREADS) wcsd_query_segmented_kernel(
+    const SegGroup* __restrict__ groups, int G, SegGroup one,
+    const int* __restrict__ srow, const int* __restrict__ trow,
+    const int* __restrict__ wq, int* __restrict__ out, int cap_s,
+    int cap_t) {
+  extern __shared__ __align__(16) int seg_smem[];  // s: 3 x cap_s, t: 3 x cap_t
   __shared__ int red[32];
-  const int64_t b = blockIdx.x;
-  const int w = wq[b];
-  const int64_t sb = (int64_t)srow[b] * Ws, tb = (int64_t)trow[b] * Wt;
+  __shared__ int nreal[2];
+  const int k = blockIdx.x;
+  // the query's sub-batch: the last group starting at or before k
+  SegGroup g = one;
+  if (G > 0) {
+    int lo = 0, hi = G - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (groups[mid].off <= k)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    g = groups[lo];
+  }
+  const int w = wq[k];
+  if (threadIdx.x < 2) nreal[threadIdx.x] = 0;
+  const SegRow rs = seg_row(g.hub_s, g.dist_s, g.wlev_s,
+                            (int64_t)srow[k] * g.Ws, g.Ws, seg_smem, cap_s);
+  const SegRow rt = seg_row(g.hub_t, g.dist_t, g.wlev_t,
+                            (int64_t)trow[k] * g.Wt, g.Wt,
+                            seg_smem + 3 * cap_s, cap_t);
+  cp_async_wait_all();
+  __syncthreads();
+  const bool ok = row_mergeable(rs, w, &nreal[0]) &
+                  row_mergeable(rt, w, &nreal[1]);
+  const bool merge = __syncthreads_and(ok);  // also orders the atomics
   int best = DEV_INF;
-  for (int c0 = 0; c0 < Wt; c0 += T_CHUNK) {
-    const int n = min(T_CHUNK, Wt - c0);
-    __syncthreads();  // the previous chunk is fully scanned
-    stage_masked(ct, tb + c0, n, 0, w, sh_hub, sh_dist);
-    __syncthreads();
-    best = join_masked(cs, sb, Ws, 0, w, sh_hub, sh_dist, n, best);
+  if (merge) {
+    // a contiguous piece of the s-row's real cells per thread; each
+    // pairs every s-cell with the t-side run of its hub
+    const int ns = nreal[0], nt = nreal[1];
+    const int per = (ns + blockDim.x - 1) / blockDim.x;
+    const int i1 = min(ns, (int)(threadIdx.x + 1) * per);
+    int j = 0, prev = -1;
+    for (int i = threadIdx.x * per; i < i1; ++i) {
+      const int h = rs.hub[i];
+      if (h != prev) {  // a few steps forward, else binary search
+        int k = 0;
+        while (k < 8 && j < nt && rt.hub[j] < h) ++j, ++k;
+        if (k == 8) j = lower_bound(rt.hub, j, nt, h);
+        prev = h;
+      }
+      const int ds = rs.masked(i, w);
+      if (ds >= DEV_INF) continue;  // its sums cannot go below DEV_INF
+      for (int jj = j; jj < nt && rt.hub[jj] == h; ++jj)
+        best = min(best, ds + rt.masked(jj, w));
+    }
+  } else {
+    // rows the merge cannot take: every cell pair, as the reference
+    for (int i = threadIdx.x; i < rs.n; i += blockDim.x) {
+      const int hs = rs.hub[i];
+      const int ds = rs.masked(i, w);
+      for (int jj = 0; jj < rt.n; ++jj)
+        if (rt.hub[jj] == hs) best = min(best, ds + rt.masked(jj, w));
+    }
   }
   best = block_min(best, red);
-  if (threadIdx.x == 0) out[b] = best;
+  if (threadIdx.x == 0) out[k] = best;
 }
 
 __global__ void wcsd_profile_segmented_kernel(
@@ -452,18 +640,68 @@ extern "C" int wcsd_profile_ragged_compressed_launch(
       tile_hi, qidx, stile, ttile, out, worklist_len, lane, levels1, stream);
 }
 
+// Shared-memory cells staged per side: the widest row at most SEG_STAGE
+// wide, rounded up to 4 cells (16 bytes); 0 where every row is wider.
+static int seg_cap(int widest_staged) {
+  return widest_staged > 0 ? (widest_staged + 3) / 4 * 4 : 0;
+}
+
+static int launch_query_segmented(const SegGroup* groups, int G,
+                                  SegGroup one, const void* srow,
+                                  const void* trow, const void* wq,
+                                  void* out, long long batch, int cap_s,
+                                  int cap_t, void* stream) {
+  if (batch <= 0) return 0;
+  if (batch > 0x7fffffffLL || cap_s < 0 || cap_t < 0 ||
+      cap_s > SEG_STAGE || cap_t > SEG_STAGE)
+    return (int)cudaErrorInvalidValue;
+  const size_t smem = sizeof(int) * 3 * ((size_t)cap_s + cap_t);
+  static bool opted[16];
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 0 && dev < 16 && !opted[dev]) {
+    err = cudaFuncSetAttribute(wcsd_query_segmented_kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)(sizeof(int) * 6 * SEG_STAGE));
+    if (err != cudaSuccess) return (int)err;
+    opted[dev] = true;
+  }
+  wcsd_query_segmented_kernel<<<(unsigned)batch, SEG_THREADS, smem,
+                                (cudaStream_t)stream>>>(
+      groups, G, one, (const int*)srow, (const int*)trow, (const int*)wq,
+      (int*)out, cap_s, cap_t);
+  return (int)cudaGetLastError();
+}
+
 extern "C" int wcsd_query_segmented_launch(
     const void* hub_s, const void* dist_s, const void* wlev_s,
     const void* hub_t, const void* dist_t, const void* wlev_t,
     const void* srow, const void* trow, const void* wq, void* out,
     long long batch, int Ws, int Wt, void* stream) {
-  if (batch <= 0) return 0;
-  wcsd_query_segmented_kernel<<<(unsigned)batch,
-                                block_threads(Ws, MAX_THREADS_SEG), 0,
-                                (cudaStream_t)stream>>>(
-      int32_cells(hub_s, dist_s, wlev_s), int32_cells(hub_t, dist_t, wlev_t),
-      (const int*)srow, (const int*)trow, (const int*)wq, (int*)out, Ws, Wt);
-  return (int)cudaGetLastError();
+  if (Ws < 1 || Wt < 1) return (int)cudaErrorInvalidValue;
+  const SegGroup one{(const int*)hub_s, (const int*)dist_s,
+                     (const int*)wlev_s, (const int*)hub_t,
+                     (const int*)dist_t, (const int*)wlev_t,
+                     Ws, Wt, 0, (int)batch};
+  return launch_query_segmented(
+      nullptr, 0, one, srow, trow, wq, out, batch,
+      seg_cap(Ws <= SEG_STAGE ? Ws : 0), seg_cap(Wt <= SEG_STAGE ? Wt : 0),
+      stream);
+}
+
+// groups: G SegGroup rows in device memory, their [off, off + n) ranges
+// tiling [0, batch) in order; widest_s / widest_t: the widest row of
+// each side at most SEG_STAGE wide (0 if none).
+extern "C" int wcsd_query_segmented_grouped_launch(
+    const void* groups, int G, const void* srow, const void* trow,
+    const void* wq, void* out, long long batch, int widest_s, int widest_t,
+    void* stream) {
+  if (G < 1) return batch > 0 ? (int)cudaErrorInvalidValue : 0;
+  return launch_query_segmented((const SegGroup*)groups, G, SegGroup{},
+                                srow, trow, wq, out, batch,
+                                seg_cap(widest_s), seg_cap(widest_t),
+                                stream);
 }
 
 extern "C" int wcsd_profile_segmented_launch(

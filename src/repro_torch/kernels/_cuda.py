@@ -49,12 +49,14 @@ PROTOTYPES = {
         "wcsd_profile_ragged_compressed_launch": [_P] * 9 + [_LL, _I, _I,
                                                              _I, _P],
         "wcsd_query_segmented_launch": [_P] * 10 + [_LL, _I, _I, _P],
+        "wcsd_query_segmented_grouped_launch": [_P, _I] + [_P] * 4
+        + [_LL, _I, _I, _P],
         "wcsd_profile_segmented_launch": [_P] * 9 + [_LL, _I, _I, _I, _P],
         "wcsd_query_gathered_launch": [_P] * 5 + [_LL, _I, _P],
     },
     "frontier": {
-        "wc_prune_emit_launch": [_P] * 6 + [_I] * 5 + [_P],
-        "wc_relax_batched_launch": [_P] * 9 + [_I] * 3 + [_P],
+        "wc_prune_emit_launch": [_P] * 7 + [_I] * 5 + [_P],
+        "wc_relax_batched_launch": [_P] * 10 + [_I] * 3 + [_P],
         "frontier_relax_gathered_launch": [_P] * 5 + [_I] * 2 + [_P],
     },
     "cin_fuse": {

@@ -13,6 +13,17 @@ versions translate the reference package's
 by line, chunked over (root, vertex) blocks so that the ``[B, V, cap]``
 and ``[B, V, D]`` intermediates stay bounded on the card.
 
+Pads may sit anywhere in a label or adjacency row: both versions mask
+each pad as a cell. Both also take an optional row end per row
+(``row_end``: one past the last slot that can contribute) and treat every
+slot at or past it as a pad; the CUDA kernels do not read those slots. A
+caller that knows the row ends passes them (the builder does); otherwise
+the CUDA wrapper computes them exactly (`row_ends`) and the plain version
+reads every slot.
+K3 reads T through its strides in the level-major layout ``[B, W+1, V]``
+(seen as ``[B, V, W+1]``, `level_major`), which the builder makes; any
+other layout is copied into it once per call.
+
 K10 is one round of a single-root constrained BFS over a padded adjacency
 whose frontier levels are already gathered per neighbour
 (`kernels.ops.frontier_relax` gathers ``Fw[nbr]``): per vertex v,
@@ -36,17 +47,55 @@ def _vchunk(B: int, width: int) -> int:
     return max(1, _CHUNK_CELLS // max(B * width, 1))
 
 
-def wc_prune_emit_batched_plain(F, T, hub, dist, wlev, d: int):
-    """Plain version of K3: F [B, V], T [B, V, W+1], hub/dist/wlev [V, cap]
-    (pads hub -1, dist INF_DIST, wlev -1), d the round. Returns emit
-    [B, V] int32: F where the partial index does not already cover the
-    frontier distance, else -1."""
+def row_ends(ids, lvl):
+    """[V] int32: one past the last slot of each row of ``ids`` / ``lvl``
+    ([V, D]) with ``ids >= 0`` and ``lvl >= 0`` (0 for a row without
+    one). Every other slot is a pad for K3 (hub, wlev) and K4 (nbr, lvl),
+    wherever it sits; the kernels scan a row only this far."""
+    V, D = ids.shape
+    out = torch.zeros(V, dtype=torch.int32, device=ids.device)
+    if D == 0:
+        return out
+    col = torch.arange(1, D + 1, dtype=torch.int32, device=ids.device)
+    step = max(1, _CHUNK_CELLS // D)
+    for a in range(0, V, step):
+        real = (ids[a:a + step] >= 0) & (lvl[a:a + step] >= 0)
+        out[a:a + step] = torch.where(real, col, 0).amax(dim=1)
+    return out
+
+
+def level_major(T):
+    """T [B, V, W+1] as a view of a level-major ``[B, W+1, V]`` tensor
+    (strides ``(W1 * V, 1, V)``): T itself when it already is one, else
+    one copy."""
+    B, V, W1 = T.shape
+    if T.stride() == (W1 * V, 1, V):
+        return T
+    return T.permute(0, 2, 1).contiguous().permute(0, 2, 1)
+
+
+def _real(ids, row_end, a: int):
+    """[n, width] bool: the slots of rows a.. of ``ids`` that are not pads
+    (id >= 0 and before the row's ``row_end``, where one is given)."""
+    real = ids >= 0
+    if row_end is not None:
+        col = torch.arange(ids.shape[1], device=ids.device)
+        real &= col[None] < row_end[a:a + ids.shape[0], None]
+    return real
+
+
+def wc_prune_emit_batched_plain(F, T, hub, dist, wlev, d: int,
+                                row_end=None):
+    """Plain version of K3: F [B, V], T [B, V, W+1] (any strides),
+    hub/dist/wlev [V, cap] (pads hub -1, dist INF_DIST, wlev -1,
+    anywhere in a row), d the round, ``row_end`` [V] optional (slots at
+    or past it are pads). Returns emit [B, V] int32: F where the partial
+    index does not already cover the frontier distance, else -1."""
     B, V = F.shape
     W1 = T.shape[2]
     cap = hub.shape[1]
     out = torch.empty_like(F)
-    Tflat = T.reshape(-1)
-    brow = torch.arange(B, device=F.device)[:, None, None] * (V * W1)
+    bidx = torch.arange(B, device=F.device)[:, None, None]
     step = min(_vchunk(B, cap), _CHUNK_ROWS)
     for a in range(0, V, step):
         Fa = F[:, a:a + step]
@@ -55,10 +104,10 @@ def wc_prune_emit_batched_plain(F, T, hub, dist, wlev, d: int):
             continue
         ha, da, wa = hub[a:a + step], dist[a:a + step], wlev[a:a + step]
         fw = Fa.clamp(0, W1 - 1)
-        # T[b, clip(hub), fw] as one flat gather
-        tv = Tflat[brow + ha.clamp(0, V - 1).long()[None] * W1
-                   + fw[:, :, None]]                          # [B, n, cap]
-        feas = (ha >= 0)[None] & (wa[None] >= fw[:, :, None])
+        # T[b, clip(hub), fw], gathered through T's own strides
+        tv = T[bidx, ha.clamp(0, V - 1).long()[None],
+               fw.long()[:, :, None]]                         # [B, n, cap]
+        feas = _real(ha, row_end, a)[None] & (wa[None] >= fw[:, :, None])
         cand = torch.where(feas, da.clamp_max(DEV_INF)[None]
                            + tv.clamp_max(DEV_INF), INF_DIST)
         q = cand.amin(dim=2)
@@ -67,9 +116,12 @@ def wc_prune_emit_batched_plain(F, T, hub, dist, wlev, d: int):
     return out
 
 
-def wc_relax_batched_plain(emit_w, nbr_pad, lvl_pad, rank, root_ranks, R):
-    """Plain version of K4: emit_w/R [B, V], nbr_pad/lvl_pad [V, D] (pads
-    -1), rank [V], root_ranks [B]. Returns (newF, newR), both [B, V]."""
+def wc_relax_batched_plain(emit_w, nbr_pad, lvl_pad, rank, root_ranks, R,
+                           row_end=None):
+    """Plain version of K4: emit_w/R [B, V], nbr_pad/lvl_pad [V, D] (a
+    slot with nbr < 0 is a pad, wherever it sits; ids >= V read V - 1),
+    rank [V], root_ranks [B], ``row_end`` [V] optional (slots at or past
+    it are pads). Returns (newF, newR), both [B, V]."""
     B, V = emit_w.shape
     D = nbr_pad.shape[1]
     newF = torch.empty_like(R)
@@ -78,7 +130,7 @@ def wc_relax_batched_plain(emit_w, nbr_pad, lvl_pad, rank, root_ranks, R):
     for a in range(0, V, step):
         na, la = nbr_pad[a:a + step], lvl_pad[a:a + step]
         fwn = emit_w[:, na.clamp(0, V - 1)]                   # [B, n, D]
-        fwn = torch.where(na[None] >= 0, fwn, -1)
+        fwn = torch.where(_real(na, row_end, a)[None], fwn, -1)
         wp = torch.minimum(fwn, la[None])
         cand = wp.amax(dim=2)
         cand = torch.where(rank[None, a:a + step] > root_ranks[:, None],
@@ -122,37 +174,51 @@ def frontier_relax_gathered_cuda(fw_nbr, lvl_pad, R):
     return newF, newR
 
 
-def wc_prune_emit_batched_cuda(F, T, hub, dist, wlev, d: int):
-    """Launch K3 on the current stream. Same contract as the plain
-    version; label rows must be filled row-prefix first (pads at the
-    tail), as the builder's partial index is."""
+def wc_prune_emit_batched_cuda(F, T, hub, dist, wlev, d: int,
+                               row_end=None):
+    """Launch K3 on the current stream: one launch, a block per 256
+    vertices, each active vertex's row read once for all of its active
+    roots. Same contract as the plain version, for any placement of
+    pads. ``row_end`` [V] (`row_ends`; the builder's per-row counts; slots
+    at or past it are pads) is computed from hub/wlev where not given; T
+    is read level-major (`level_major`)."""
     what = "wc_prune_emit_batched"
-    _cuda.check_cuda_args(what, F.device, F=F, T=T, hub=hub, dist=dist,
-                          wlev=wlev)
+    given = {} if row_end is None else {"row_end": row_end}
+    _cuda.check_cuda_args(what, F.device, F=F, hub=hub, dist=dist,
+                          wlev=wlev, **given)
+    if row_end is None:
+        row_end = row_ends(hub, wlev)
     B, V = F.shape
     W1 = T.shape[2] if T.dim() == 3 else -1
     cap = hub.shape[1]
     if T.shape != (B, V, W1) or W1 < 1:
         raise ValueError(f"{what}: T must be [B, V, W+1] = [{B}, {V}, *]")
+    if T.device != F.device or T.dtype != torch.int32:
+        raise ValueError(f"{what}: T must be int32 on {F.device}")
     if hub.shape != (V, cap) or dist.shape != (V, cap) \
-            or wlev.shape != (V, cap):
-        raise ValueError(f"{what}: hub/dist/wlev must be [V, cap]")
+            or wlev.shape != (V, cap) or row_end.shape != (V,):
+        raise ValueError(f"{what}: hub/dist/wlev must be [V, cap], "
+                         "row_end [V]")
+    T = level_major(T)
     emit = torch.empty_like(F)
     fn = _cuda.library("frontier").wc_prune_emit_launch
     err = fn(F.data_ptr(), T.data_ptr(), hub.data_ptr(), dist.data_ptr(),
-             wlev.data_ptr(), emit.data_ptr(), B, V, W1, cap, int(d),
-             _cuda.stream_ptr(F.device))
+             wlev.data_ptr(), row_end.data_ptr(), emit.data_ptr(), B, V, W1,
+             cap, int(d), _cuda.stream_ptr(F.device))
     _cuda.check_launch(err, what)
     _cuda.LAUNCHES[what] += 1
     return emit
 
 
-def wc_relax_batched_cuda(emit_w, nbr_pad, lvl_pad, rank, root_ranks, R):
+def wc_relax_batched_cuda(emit_w, nbr_pad, lvl_pad, rank, root_ranks, R,
+                          row_end=None):
     """Launch K4 on the current stream: a mask pass (one uint32 word of
     active-root bits per vertex and 32 roots) and the vertex-major pull
-    over it, two CUDA launches. Same contract as the plain version;
-    adjacency rows must be filled row-prefix first
-    (`Graph.padded_adjacency`)."""
+    over it, two CUDA launches. Same contract as the plain version, for
+    any placement of pads and any pad id (ids >= V are clipped to V - 1,
+    as the reference clips them). ``row_end`` [V] (`row_ends` of nbr/lvl;
+    the builder computes it once per build; slots at or past it are pads)
+    is computed here where not given."""
     what = "wc_relax_batched"
     _cuda.check_cuda_args(what, emit_w.device, emit_w=emit_w,
                           nbr_pad=nbr_pad, lvl_pad=lvl_pad, rank=rank,
@@ -165,15 +231,21 @@ def wc_relax_batched_cuda(emit_w, nbr_pad, lvl_pad, rank, root_ranks, R):
                          "lvl_pad [V, D]")
     if rank.shape != (V,) or root_ranks.shape != (B,):
         raise ValueError(f"{what}: expected rank [V], root_ranks [B]")
+    if row_end is None:
+        row_end = row_ends(nbr_pad, lvl_pad)
+    else:
+        _cuda.check_cuda_args(what, emit_w.device, row_end=row_end)
+    if row_end.shape != (V,):
+        raise ValueError(f"{what}: row_end must be [V]")
     newF = torch.empty_like(R)
     newR = torch.empty_like(R)
     act = torch.empty(((B + 31) // 32, V), dtype=torch.int32,
                       device=R.device)      # uint32 bits, scratch
     fn = _cuda.library("frontier").wc_relax_batched_launch
     err = fn(emit_w.data_ptr(), nbr_pad.data_ptr(), lvl_pad.data_ptr(),
-             rank.data_ptr(), root_ranks.data_ptr(), R.data_ptr(),
-             newF.data_ptr(), newR.data_ptr(), act.data_ptr(), B, V, D,
-             _cuda.stream_ptr(emit_w.device))
+             rank.data_ptr(), root_ranks.data_ptr(), row_end.data_ptr(),
+             R.data_ptr(), newF.data_ptr(), newR.data_ptr(), act.data_ptr(),
+             B, V, D, _cuda.stream_ptr(emit_w.device))
     _cuda.check_launch(err, what)
     _cuda.LAUNCHES[what] += 1
     return newF, newR

@@ -165,6 +165,18 @@ def wcsd_query_segmented(hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t,
     return _to_inf_dist(best)
 
 
+def wcsd_query_segmented_grouped(flush):
+    """A whole bucket-pair flush of scalar queries, staged as a
+    `kernels.wcsd_segmented.GroupedFlush`: one K7 launch on the card (the
+    plain version per sub-batch on the CPU). Returns [B] int32 distances
+    in staging order (INF_DIST when no feasible path)."""
+    if _on_card(flush.st, "wcsd_query_segmented"):
+        best = _seg.wcsd_query_segmented_grouped_cuda(flush)
+    else:
+        best = _seg.wcsd_query_segmented_grouped_plain(flush)
+    return _to_inf_dist(best)
+
+
 def wcsd_profile_segmented(hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t,
                            srow, trow, *, num_levels: int):
     """One bucket-pair sub-batch of profiles: both rows read once, every
@@ -181,26 +193,38 @@ def wcsd_profile_segmented(hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t,
     return _staircase(bucket)
 
 
-def wc_prune_emit(F, T, hub, dist, wlev, d: int, *, do_prune: bool = True):
+def wc_prune_emit(F, T, hub, dist, wlev, d: int, *, do_prune: bool = True,
+                  row_end=None):
     """Fused partial-index prune + emission for a batch of roots. F [B, V]
-    frontier levels (-1 inactive); T [B, V, W+1] per-root hub tables;
-    hub/dist/wlev [V, cap] partial index; d the round. Returns emit_w
-    [B, V]. With do_prune=False (round 0) the whole frontier emits."""
+    frontier levels (-1 inactive); T [B, V, W+1] per-root hub tables (any
+    strides; the card reads the level-major layout the builder makes);
+    hub/dist/wlev [V, cap] partial index, pads anywhere; d the round;
+    ``row_end`` [V] optional row ends (`frontier.row_ends`; slots at or
+    past them are pads on either device; computed on the card where not
+    given). Returns
+    emit_w [B, V]. With do_prune=False (round 0) the whole frontier
+    emits."""
     if not do_prune:
         return F
     if _on_card(F, "wc_prune_emit"):
-        return _frontier.wc_prune_emit_batched_cuda(F, T, hub, dist, wlev, d)
-    return _frontier.wc_prune_emit_batched_plain(F, T, hub, dist, wlev, d)
+        return _frontier.wc_prune_emit_batched_cuda(F, T, hub, dist, wlev, d,
+                                                    row_end=row_end)
+    return _frontier.wc_prune_emit_batched_plain(F, T, hub, dist, wlev, d,
+                                                 row_end=row_end)
 
 
-def wc_relax_batched(emit_w, nbr_pad, lvl_pad, rank, root_ranks, R):
+def wc_relax_batched(emit_w, nbr_pad, lvl_pad, rank, root_ranks, R, *,
+                     row_end=None):
     """One batched relaxation round. emit_w/R [B, V]; nbr_pad/lvl_pad
-    [V, D] (pads -1); rank [V]; root_ranks [B]. Returns (newF, newR)."""
+    [V, D] (pads anywhere; ids >= V read V - 1); rank [V]; root_ranks
+    [B]; ``row_end`` [V] optional row ends as for `wc_prune_emit`.
+    Returns (newF, newR)."""
     if _on_card(emit_w, "wc_relax_batched"):
         return _frontier.wc_relax_batched_cuda(emit_w, nbr_pad, lvl_pad,
-                                               rank, root_ranks, R)
+                                               rank, root_ranks, R,
+                                               row_end=row_end)
     return _frontier.wc_relax_batched_plain(emit_w, nbr_pad, lvl_pad, rank,
-                                            root_ranks, R)
+                                            root_ranks, R, row_end=row_end)
 
 
 def frontier_relax(nbr_pad, lvl_pad, Fw, R):

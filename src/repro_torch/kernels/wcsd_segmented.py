@@ -2,19 +2,27 @@
 `wcsd_profile_segmented`): the CUDA launchers and, beside each, its plain
 PyTorch version.
 
-One launch answers one planned sub-batch (`core.query.plan_query_batch`):
-query b joins row ``srow[b]`` of the s-side bucket tiles ``[Ns, Ws]``
-with row ``trow[b]`` of the t-side tiles ``[Nt, Wt]``
+A planned sub-batch (`core.query.plan_query_batch`) is a run of queries
+b that join row ``srow[b]`` of the s-side bucket tiles ``[Ns, Ws]`` with
+row ``trow[b]`` of the t-side tiles ``[Nt, Wt]``
 (`core.wc_index.PackedLabels.bucket_tiles`; pads hub -1, dist INF_DIST,
-wlev -1). The CUDA source is `repro_torch/csrc/wcsd_query.cu`, where
-K7/K8 share one join with the ragged kernels; the plain versions
-translate the reference package's `kernels/ref.py` oracles
-(`wcsd_query_segmented_ref`, `wcsd_profile_segmented_ref`), chunked over
-the batch, and cap every minimum at DEV_INF as the kernels'
+wlev -1). K8 is one launch per sub-batch. K7 is a merge join over
+hub-sorted rows (rows that are not are joined all-pairs in the kernel),
+and answers a whole flush in one launch: `GroupedFlush` lays the
+flush's sub-batches out as a small table (`segmented_group_table`: each
+one's six tile pointers, Ws, Wt, and its columns of the staged ``[3,
+B]`` array) and uploads it with the staged queries in one copy, and
+`wcsd_query_segmented_grouped_cuda` launches over it;
+`wcsd_query_segmented_cuda` is the per-sub-batch entry point, with the
+reference's contract. The CUDA source is `repro_torch/csrc/wcsd_query.cu`;
+the plain versions translate the reference package's `kernels/ref.py`
+oracles (`wcsd_query_segmented_ref`, `wcsd_profile_segmented_ref`),
+chunked over the batch, and cap every minimum at DEV_INF as the kernels'
 DEV_INF-initialised accumulators do.
 """
 from __future__ import annotations
 
+import numpy as np
 import torch
 
 from . import _cuda
@@ -22,6 +30,9 @@ from . import _cuda
 DEV_INF = 1 << 29
 MAX_LEVELS1 = 32        # per-thread level minima of the profile kernel
 _CHUNK_CELLS = 1 << 25  # join cells per chunk of the plain versions
+SEG_STAGE = 2048        # widest row K7 stages in shared memory
+GROUP_WORDS = 16        # int32 words of a table row: six int64 tile
+                        # pointers, Ws, Wt, offset, n (csrc SegGroup)
 
 
 def _rows(hub, dist, wlev, rows):
@@ -73,6 +84,63 @@ def wcsd_profile_segmented_plain(hub_s, dist_s, wlev_s, hub_t, dist_t,
     return out
 
 
+def segmented_group_table(groups) -> np.ndarray:
+    """The table of one grouped K7 launch: ``groups`` is the flush's
+    sub-batches in staging order, each ``(tiles_s, tiles_t, n)`` with
+    ``tiles_* = (hub, dist, wlev)`` and n its query count. Returns int32
+    ``[G, GROUP_WORDS]``: words 0-11 the six tiles' data pointers (int64),
+    then Ws, Wt, the sub-batch's first column of the staged ``[3, B]``
+    array, and n. Empty sub-batches have no row."""
+    groups = [g for g in groups if g[2] > 0]
+    table = np.zeros((len(groups), GROUP_WORDS), dtype=np.int32)
+    ptrs = table.view(np.int64)
+    off = 0
+    for i, (ts, tt, n) in enumerate(groups):
+        ptrs[i, :6] = [x.data_ptr() for x in (*ts, *tt)]
+        table[i, 12:] = ts[0].shape[1], tt[0].shape[1], off, n
+        off += n
+    return table
+
+
+class GroupedFlush:
+    """A bucket-pair flush of scalar queries staged for one grouped K7
+    launch: ``groups`` the planned sub-batches in staging order, each
+    ``(tiles_s, tiles_t, n)``; ``stq`` the host int32 ``[3, B]`` array of
+    row ids and levels in the same order. The table of the sub-batches
+    (`segmented_group_table`) is built here from ``groups`` and goes to
+    ``device`` with ``stq`` in one copy, so it always describes them.
+    Holds ``groups`` (the non-empty ones), ``table`` and ``st`` (the
+    device ``[3, B]``)."""
+
+    def __init__(self, groups, stq, device):
+        self.groups = [g for g in groups if g[2] > 0]
+        stq = np.ascontiguousarray(stq, dtype=np.int32)
+        covered = sum(n for _, _, n in self.groups)
+        if stq.ndim != 2 or stq.shape[0] != 3 or stq.shape[1] != covered:
+            raise ValueError(f"grouped flush: the sub-batches cover "
+                             f"{covered} queries, the staged array is "
+                             f"{tuple(stq.shape)}")
+        table = segmented_group_table(self.groups)
+        dev = torch.from_numpy(np.concatenate([table.ravel(),
+                                               stq.ravel()])).to(device)
+        self.table = dev[:table.size].view(table.shape)
+        self.st = dev[table.size:].view(stq.shape)
+
+
+def wcsd_query_segmented_grouped_plain(flush: GroupedFlush):
+    """Plain version of the grouped K7 launch: every sub-batch of
+    ``flush`` through `wcsd_query_segmented_plain` on its columns of the
+    staged queries. Returns [B] int32 in staging order."""
+    st = flush.st
+    out = torch.empty((st.shape[1],), dtype=torch.int32, device=st.device)
+    a = 0
+    for ts, tt, n in flush.groups:
+        out[a:a + n] = wcsd_query_segmented_plain(*ts, *tt,
+                                                  *st[:, a:a + n])
+        a += n
+    return out
+
+
 def _checks(what, hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t, srow, trow,
             extra: dict):
     _cuda.check_cuda_args(what, srow.device, hub_s=hub_s, dist_s=dist_s,
@@ -94,8 +162,10 @@ def _checks(what, hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t, srow, trow,
 
 def wcsd_query_segmented_cuda(hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t,
                               srow, trow, wq):
-    """Launch K7 on the current stream: one block per query. Returns [B]
-    int32 best sums (DEV_INF means infeasible)."""
+    """Launch K7 on the current stream for one sub-batch: one block per
+    query, a merge join where both rows are hub-sorted, all-pairs where
+    they are not. Returns [B] int32 best sums (DEV_INF means
+    infeasible)."""
     what = "wcsd_query_segmented"
     _checks(what, hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t, srow, trow,
             {"wq": wq})
@@ -108,6 +178,36 @@ def wcsd_query_segmented_cuda(hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t,
              hub_t.data_ptr(), dist_t.data_ptr(), wlev_t.data_ptr(),
              srow.data_ptr(), trow.data_ptr(), wq.data_ptr(), out.data_ptr(),
              B, hub_s.shape[1], hub_t.shape[1],
+             _cuda.stream_ptr(srow.device))
+    _cuda.check_launch(err, what)
+    _cuda.LAUNCHES[what] += 1
+    return out
+
+
+def wcsd_query_segmented_grouped_cuda(flush: GroupedFlush):
+    """Launch K7 once for a whole flush on the current stream: a block per
+    query, each finding its sub-batch in ``flush.table``. Same answers as
+    `wcsd_query_segmented_cuda` on every sub-batch. Returns [B] int32 in
+    staging order (DEV_INF means infeasible)."""
+    what = "wcsd_query_segmented"
+    groups, table = flush.groups, flush.table
+    srow, trow, wq = flush.st
+    tiles = {id(x[0]): x for g in groups for x in g[:2]}  # each bucket once
+    for ts in tiles.values():
+        _checks(what, *ts, *ts, srow, trow, {"wq": wq})
+    _cuda.check_cuda_args(what, srow.device, table=table)
+    B = srow.shape[0]
+    out = torch.empty((B,), dtype=torch.int32, device=srow.device)
+    if B == 0:                            # an empty flush launches nothing
+        return out
+
+    def widest(side):
+        w = [g[side][0].shape[1] for g in groups]
+        return max([x for x in w if x <= SEG_STAGE], default=0)
+
+    fn = _cuda.library("wcsd_query").wcsd_query_segmented_grouped_launch
+    err = fn(table.data_ptr(), len(groups), srow.data_ptr(), trow.data_ptr(),
+             wq.data_ptr(), out.data_ptr(), B, widest(0), widest(1),
              _cuda.stream_ptr(srow.device))
     _cuda.check_launch(err, what)
     _cuda.LAUNCHES[what] += 1

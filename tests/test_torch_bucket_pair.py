@@ -206,6 +206,51 @@ def test_ops_segmented_wrappers_match_reference_ops(stores, store):
             *tt, *(_t(r) for r in stq[:2]), num_levels=W).numpy(), exp)
 
 
+@pytest.mark.parametrize("store", STORES)
+def test_grouped_staging_matches_per_sub_batch(stores, store):
+    """A flush staged for the one-launch K7 (`GroupedFlush`: the table of
+    sub-batches and the staged [3, B] array, in one upload as the engine
+    makes it) gives, through the plain versions, the per-sub-batch
+    answers; the table holds each sub-batch's tile pointers, widths and
+    offsets, and staging refuses sub-batches that do not cover the
+    queries."""
+    idx, lane, heavy = stores[store]
+    eng = TEngine(port_index(idx, lane=lane), lane=lane,
+                  dispatch="bucket_pair", device="cpu")
+    s, t, wl = _batch(idx.num_nodes, 80, 7, heavy)
+    plan = t_plan(eng._bucket_of, s, t, num_buckets=eng.num_buckets)
+    groups = [(eng._tiles[p.bucket_s], eng._tiles[p.bucket_t],
+               len(p.positions)) for p in plan]
+    pos = np.concatenate([p.positions for p in plan])
+    stq = t_stage(eng._slot_of, pos, s, t, wl)
+    flush = t_seg.GroupedFlush(groups + [(*groups[0][:2], 0)], stq, "cpu")
+    assert len(flush.groups) == len(plan)       # the empty one has no row
+    table = flush.table.numpy()
+    assert table.shape == (len(plan), t_seg.GROUP_WORDS)
+    assert_same_array(table, t_seg.segmented_group_table(groups))
+    n = np.array([len(p.positions) for p in plan], np.int32)
+    assert_same_array(table[:, 15], n)
+    assert_same_array(table[:, 14], (np.cumsum(n) - n).astype(np.int32))
+    for row, (ts, tt, _) in zip(table, groups):
+        assert list(row.view(np.int64)[:6]) == [x.data_ptr()
+                                                for x in (*ts, *tt)]
+        assert (row[12], row[13]) == (ts[0].shape[1], tt[0].shape[1])
+    assert_same_array(flush.st.numpy(), stq)
+    got = t_seg.wcsd_query_segmented_grouped_plain(flush)
+    parts = [t_seg.wcsd_query_segmented_plain(
+        *ts, *tt, *_t(t_stage(eng._slot_of, p.positions, s, t, wl)))
+        for (ts, tt, _), p in zip(groups, plan)]
+    assert_same_array(got.numpy(), torch.cat(parts).numpy())
+    wrapped = t_ops.wcsd_query_segmented_grouped(flush)
+    out = np.empty(len(s), np.int32)
+    out[pos] = wrapped.numpy()
+    assert_same_array(out, eng.query(s, t, wl))
+    with pytest.raises(ValueError, match="cover"):
+        t_seg.GroupedFlush(groups[:-1], stq, "cpu")
+    with pytest.raises(ValueError, match="cover"):
+        t_seg.GroupedFlush(groups, stq[:2], "cpu")
+
+
 # ------------------------------------------------------ engine and server
 def _grid(V, Wl):
     s, t, w = np.meshgrid(np.arange(V), np.arange(V), np.arange(Wl + 1),

@@ -142,6 +142,270 @@ def test_relax_pull_kernel_equals_plain(card, hub_adjacency, B, density):
     assert (got[0][B - 3:] == -1).all()     # inert roots label nothing
 
 
+# ------------------------------------------ C1: pads anywhere in a row
+def test_c1_relax_reads_past_a_mid_row_pad_run(card):
+    """K4, the smallest C1 input: D = 9 and rows [n0, -1 x 7, n8] with n8
+    active for every root; the pull must read slot 8 (the row end), not
+    stop at the pads."""
+    V, B = 16, 4
+    ar = np.arange(V)
+    nbr = np.full((V, 9), -1, np.int32)
+    lvl = np.full((V, 9), -1, np.int32)
+    nbr[:, 0], lvl[:, 0] = (ar - 1) % V, 1
+    nbr[:, 8], lvl[:, 8] = (ar + 1) % V, 3
+    emit = np.full((B, V), -1, np.int32)
+    emit[:, 5] = 2                      # vertex 4 reaches it at slot 8
+    x = [torch.from_numpy(a).to(card) for a in (
+        emit, nbr, lvl, ar.astype(np.int32), np.full(B, -1, np.int32),
+        np.full((B, V), -1, np.int32))]
+    got = kfr.wc_relax_batched_cuda(*x)
+    exp = kfr.wc_relax_batched_plain(*x)
+    for a, b in zip(got, exp):
+        assert torch.equal(a, b)
+    assert (got[0][:, 4] == 2).all()
+
+
+@pytest.mark.parametrize("given_row_end", [False, True])
+def test_c1_prune_reads_past_a_leading_pad(card, given_row_end):
+    """K3, the smallest C1 input: cap = 40, an active row whose slot 0 is
+    a pad and whose slot 32 holds a feasible entry giving distance 0 <=
+    d: the root must be pruned (emit -1), as the plain version says."""
+    B, V, W1, cap, d = 2, 8, 3, 40, 1
+    hub = np.full((V, cap), -1, np.int32)
+    dist = np.full((V, cap), 1 << 30, np.int32)
+    wlev = np.full((V, cap), -1, np.int32)
+    hub[3, 32], dist[3, 32], wlev[3, 32] = 6, 0, 2
+    F = np.full((B, V), -1, np.int32)
+    F[:, 3] = 1
+    T = np.full((B, V, W1), 1 << 30, np.int32)
+    T[:, 6, :] = 0
+    x = [torch.from_numpy(a).to(card) for a in (F, T, hub, dist, wlev)]
+    rend = kfr.row_ends(x[2], x[4]) if given_row_end else None
+    got = kfr.wc_prune_emit_batched_cuda(*x, d, row_end=rend)
+    assert torch.equal(got, kfr.wc_prune_emit_batched_plain(*x, d))
+    assert (got[:, 3] == -1).all()
+
+
+def _pads(nbr, lvl, layout, rng):
+    """The adjacency with its pads moved mid-row ("mid-row"), or carrying
+    id V ("pad-node-V", mid-row too), or as built ("prefix")."""
+    if layout == "prefix":
+        return nbr, lvl
+    V, D = nbr.shape
+    perm = torch.from_numpy(np.argsort(rng.random((V, D)), axis=1)).to(
+        nbr.device)
+    nbr, lvl = nbr.gather(1, perm), lvl.gather(1, perm)
+    if layout == "pad-node-V":
+        nbr = torch.where(nbr < 0, V, nbr)
+    return nbr, lvl
+
+
+@pytest.mark.parametrize("layout", ["mid-row", "pad-node-V"])
+@pytest.mark.parametrize("density", [0.001, 0.2, 1.0])
+def test_relax_pull_kernel_takes_pads_anywhere(card, hub_adjacency, layout,
+                                               density):
+    """K4 bit for bit against its plain version when every row's pads are
+    spread through it, or carry id V (clipped to V - 1 and masked by level
+    -1), on rows past 1,024 neighbours; with the row ends given and
+    computed."""
+    nbr, lvl = hub_adjacency
+    V, B = nbr.shape[0], 40
+    rng = np.random.default_rng(int(density * 1000) + len(layout))
+    nbr, lvl = _pads(nbr, lvl, layout, rng)
+    emit = np.where(rng.random((B, V)) < density,
+                    rng.integers(0, 4, (B, V)), -1)
+    x = [torch.from_numpy(a.astype(np.int32)).to(card) for a in (
+        emit, rng.permutation(V), rng.integers(0, V, B),
+        rng.integers(-1, 4, (B, V)))]
+    args = (x[0], nbr, lvl, x[1], x[2], x[3])
+    exp = kfr.wc_relax_batched_plain(*args)
+    for rend in (None, kfr.row_ends(nbr, lvl)):
+        for a, b in zip(kfr.wc_relax_batched_cuda(*args, row_end=rend), exp):
+            assert torch.equal(a, b)
+
+
+def _prune_case(card, B, density, layout, seed):
+    """K3 inputs at V = 1,500: rows of 0-60 hub-sorted entries and ten
+    rows of 1,100-1,200 (cap 1,200); distances and T cells small enough
+    that roots both prune and emit at d = 6; T level-major."""
+    rng = np.random.default_rng(seed)
+    V, W1, cap, d = 1500, 4, 1200, 6
+    n = rng.integers(0, 61, V)
+    n[rng.choice(V, 10, replace=False)] = rng.integers(1100, cap + 1, 10)
+    hub = np.full((V, cap), -1, np.int32)
+    for v in range(V):
+        hub[v, :n[v]] = np.sort(rng.choice(V, n[v], replace=False))
+    real = hub >= 0
+    dist = np.where(real, rng.integers(0, 6, (V, cap)), 1 << 30)
+    wlev = np.where(real, rng.integers(0, W1, (V, cap)), -1)
+    if layout == "mid-row":
+        perm = np.argsort(rng.random((V, cap)), axis=1)
+        hub, dist, wlev = (np.take_along_axis(a, perm, axis=1)
+                           for a in (hub, dist, wlev))
+    F = np.where(rng.random((B, V)) < density, rng.integers(0, W1, (B, V)),
+                 -1)
+    T = np.where(rng.random((B, W1, V)) < 0.3, rng.integers(0, 8, (B, W1, V)),
+                 1 << 30)
+    x = [torch.from_numpy(np.ascontiguousarray(a, np.int32)).to(card)
+         for a in (F, T, hub, dist, wlev)]
+    x[1] = x[1].permute(0, 2, 1)            # the builder's layout
+    return x, d
+
+
+@pytest.mark.parametrize("layout", ["prefix", "mid-row"])
+@pytest.mark.parametrize("density", [0.002, 0.3, 1.0])
+@pytest.mark.parametrize("B", [16, 32, 40])
+def test_prune_pull_kernel_equals_plain(card, B, density, layout):
+    """K3 (mask pass + vertex-major pull) against its plain version, bit
+    for bit: partial, full and two root words; sparse to dense frontiers;
+    rows past 1,024 entries; pads at the tail or anywhere; row ends
+    computed by the wrapper, and given (for prefix rows, the counts the
+    builder keeps); T level-major and, copied by the wrapper, not."""
+    x, d = _prune_case(card, B, density, layout, B + int(density * 100))
+    exp = kfr.wc_prune_emit_batched_plain(*x, d)
+    assert ((exp >= 0) & (x[0] >= 0)).any() or density < 0.01
+    assert ((exp < 0) & (x[0] >= 0)).any()
+    _cuda.reset_launch_counts()
+    assert torch.equal(kfr.wc_prune_emit_batched_cuda(*x, d), exp)
+    assert _cuda.LAUNCHES["wc_prune_emit_batched"] == 1
+    rend = (x[2] >= 0).sum(1).int() if layout == "prefix" else \
+        kfr.row_ends(x[2], x[4])
+    assert torch.equal(kfr.wc_prune_emit_batched_cuda(*x, d, row_end=rend),
+                       exp)
+    y = list(x)
+    y[1] = x[1].contiguous()                # [B, V, W+1] in memory
+    assert torch.equal(kfr.wc_prune_emit_batched_cuda(*y, d), exp)
+
+
+@pytest.mark.parametrize("kernel", ["prune", "relax"])
+def test_short_row_end_cuts_rows_on_card_as_plain(card, hub_adjacency,
+                                                  kernel):
+    """A ``row_end`` shorter than its row: K3 / K4 on the card drop every
+    slot at or past it exactly as their plain versions mask them (one
+    contract on both devices); rows past 1,024 slots, row ends at random
+    and every other row's 0; the cut changes the answer."""
+    rng = np.random.default_rng(5)
+    if kernel == "prune":
+        x, d = _prune_case(card, 32, 0.3, "mid-row", 7)
+        rows = x[2]
+        fns = (kfr.wc_prune_emit_batched_cuda,
+               kfr.wc_prune_emit_batched_plain)
+
+        def run(fn, **k):
+            return (fn(*x, d, **k),)
+    else:
+        rows, lvl = hub_adjacency
+        V, B = rows.shape[0], 40
+        x = [torch.from_numpy(a.astype(np.int32)).to(card) for a in (
+            np.where(rng.random((B, V)) < 0.2, rng.integers(0, 4, (B, V)),
+                     -1), rng.permutation(V), rng.integers(0, V, B),
+            rng.integers(-1, 4, (B, V)))]
+        args = (x[0], rows, lvl, x[1], x[2], x[3])
+        fns = (kfr.wc_relax_batched_cuda, kfr.wc_relax_batched_plain)
+
+        def run(fn, **k):
+            return fn(*args, **k)
+    V, D = rows.shape
+    rend = torch.from_numpy(rng.integers(0, D + 1, V).astype(np.int32)).to(
+        card)
+    rend[::2] = 0
+    got, exp = (run(fn, row_end=rend) for fn in fns)
+    for a, b in zip(got, exp):
+        assert torch.equal(a, b)
+    assert any(not torch.equal(a, b) for a, b in zip(exp, run(fns[1])))
+
+
+def _seg_rows(rng, n, W, case, H=400):
+    """[n, W] (hub, dist, wlev) tiles: hub-sorted rows with pads at the
+    tail ("sorted"), shuffled rows ("unsorted"), pads spread mid-row
+    ("mid-row-pads"), or sorted rows whose pads carry a feasible distance
+    ("live-pads", which the merge join must not take)."""
+    hub = np.full((n, W), -1, np.int32)
+    dist = np.full((n, W), 1 << 30, np.int32)
+    wlev = np.full((n, W), -1, np.int32)
+    for r in range(n):
+        k = int(rng.integers(0, W + 1))
+        hub[r, :k] = np.sort(rng.integers(0, H, k))   # repeated hubs too
+        dist[r, :k] = rng.integers(0, 1000, k)
+        wlev[r, :k] = rng.integers(0, 4, k)
+    if case in ("unsorted", "mid-row-pads"):
+        perm = np.argsort(rng.random((n, W)), axis=1)
+        if case == "unsorted":          # real cells stay first, unordered
+            perm = np.argsort(np.where(hub >= 0, rng.random((n, W)), 2),
+                              axis=1)
+        hub, dist, wlev = (np.take_along_axis(a, perm, axis=1)
+                           for a in (hub, dist, wlev))
+    if case == "live-pads":
+        dist = np.where(hub < 0, 7, dist)
+        wlev = np.where(hub < 0, 3, wlev)
+    return hub, dist, wlev
+
+
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "mid-row-pads",
+                                  "live-pads"])
+@pytest.mark.parametrize("Ws,Wt", [(48, 130), (2048, 1024), (3000, 100)])
+def test_segmented_merge_join_takes_any_rows(card, case, Ws, Wt):
+    """K7 against its plain version on rows the merge join takes (sorted)
+    and on rows it must join all-pairs inside the kernel (unsorted, pads
+    mid-row, pads with a feasible distance), with Ws != Wt, a side wider
+    than the shared-memory stage (3,000), per sub-batch and grouped."""
+    from repro_torch.kernels import wcsd_segmented as kseg
+    rng = np.random.default_rng(Ws + Wt + len(case))
+    B = 300
+    ts = [torch.from_numpy(a).to(card) for a in _seg_rows(rng, 50, Ws, case)]
+    tt = [torch.from_numpy(a).to(card) for a in _seg_rows(rng, 50, Wt, case)]
+    q = [torch.from_numpy(a.astype(np.int32)).to(card) for a in (
+        rng.integers(0, 50, B), rng.integers(0, 50, B),
+        rng.integers(-1, 5, B))]
+    exp = kseg.wcsd_query_segmented_plain(*ts, *tt, *q)
+    assert (exp < (1 << 29)).any()
+    got = kseg.wcsd_query_segmented_cuda(*ts, *tt, *q)
+    assert torch.equal(got, exp)
+    groups = [(ts, tt, 100), (ts, ts, 120), (tt, tt, 80)]
+    flush = kseg.GroupedFlush(groups, torch.stack(q).cpu().numpy(), card)
+    _cuda.reset_launch_counts()
+    grouped = kseg.wcsd_query_segmented_grouped_cuda(flush)
+    assert _cuda.LAUNCHES["wcsd_query_segmented"] == 1
+    assert torch.equal(grouped,
+                       kseg.wcsd_query_segmented_grouped_plain(flush))
+    assert torch.equal(grouped[:100], exp[:100])
+
+
+def test_grouped_flush_equals_per_sub_batch_launches(card, built):
+    """A bucket-pair flush through the engine: one K7 launch, equal to the
+    per-sub-batch launches of `wcsd_query_segmented_cuda` on the same
+    staging, and to the CPU engine; staging refuses sub-batches that do
+    not cover the queries."""
+    from repro_torch.core.query import plan_query_batch, stage_sub_batch
+    from repro_torch.kernels import wcsd_segmented as kseg
+    g, idx = built
+    s, t, wl = random_queries(g, 3000, seed=11)
+    eng = DeviceQueryEngine(idx, lane=16, dispatch="bucket_pair",
+                            device=card)
+    plan = plan_query_batch(eng._bucket_of, s, t)
+    assert len(plan) > 4
+    parts = [kseg.wcsd_query_segmented_cuda(
+        *eng._tiles[p.bucket_s], *eng._tiles[p.bucket_t],
+        *torch.from_numpy(stage_sub_batch(eng._slot_of, p.positions, s, t,
+                                          wl)).to(card)) for p in plan]
+    pos = np.concatenate([p.positions for p in plan])
+    exp = np.empty(len(s), np.int32)
+    exp[pos] = torch.where(torch.cat(parts) >= 1 << 29, 1 << 30,
+                           torch.cat(parts)).cpu().numpy()
+    _cuda.reset_launch_counts()
+    got = eng.query(s, t, wl)
+    assert _cuda.LAUNCHES["wcsd_query_segmented"] == 1
+    np.testing.assert_array_equal(got, exp)
+    ref = DeviceQueryEngine(idx, lane=16, dispatch="bucket_pair",
+                            device="cpu")
+    np.testing.assert_array_equal(got, ref.query(s, t, wl))
+    groups = [(eng._tiles[p.bucket_s], eng._tiles[p.bucket_t],
+               len(p.positions)) for p in plan]
+    stq = stage_sub_batch(eng._slot_of, pos, s, t, wl)
+    with pytest.raises(ValueError, match="cover"):   # a sub-batch short
+        kseg.GroupedFlush(groups[1:], stq, card)
+
+
 def test_build_on_card_equals_cpu_and_serves(card, built):
     g, idx_cpu = built
     _cuda.reset_launch_counts()
@@ -295,8 +559,8 @@ def test_segmented_kernels_equal_plain(card, built, store):
 
 def test_compressed_and_bucket_pair_servers_on_card(card, built):
     """Both new serving modes on the card: one K5/K6 launch per dispatch,
-    one K7/K8 launch per planned sub-batch, answers equal to the ragged
-    server's on the CPU."""
+    one K7 launch per scalar flush and one K8 launch per planned profile
+    sub-batch, answers equal to the ragged server's on the CPU."""
     from repro_torch.core.query import plan_query_batch
     g, idx = built
     s, t, wl = random_queries(g, 3000, seed=9)
@@ -315,7 +579,7 @@ def test_compressed_and_bucket_pair_servers_on_card(card, built):
     np.testing.assert_array_equal(bp.query(s, t, wl), exp)
     np.testing.assert_array_equal(bp.query_profile(s, t), exp_p)
     n = len(plan_query_batch(bp._bucket_of, s, t))
-    assert _cuda.LAUNCHES["wcsd_query_segmented"] == n
+    assert _cuda.LAUNCHES["wcsd_query_segmented"] == 1   # one per flush
     assert _cuda.LAUNCHES["wcsd_profile_segmented"] == n
 
 

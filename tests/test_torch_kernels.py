@@ -256,6 +256,137 @@ def test_prune_emit_plain_matches_pallas_and_ref(seed, inert):
                                do_prune=False) is tF
 
 
+def _shuffle_rows(rng, *arrays):
+    """The same random permutation of every row's slots in each array:
+    pads land in the middle of rows, real entries after them."""
+    V, D = arrays[0].shape
+    perm = np.argsort(rng.random((V, D)), axis=1)
+    return [np.take_along_axis(a, perm, axis=1) for a in arrays]
+
+
+@pytest.mark.parametrize("case", ["prefix", "mid-row", "pad-node-V",
+                                  "empty-rows"])
+def test_row_ends_match_numpy(case):
+    """`frontier.row_ends`: one past each row's last slot with id >= 0
+    and level >= 0, against a numpy loop (0 for a row without one)."""
+    rng = np.random.default_rng(len(case))
+    V, D = 37, 11
+    n = rng.integers(0, D + 1, V)
+    ids = np.where(np.arange(D)[None] < n[:, None],
+                   rng.integers(0, V, (V, D)), -1).astype(np.int32)
+    lvl = np.where(ids >= 0, rng.integers(0, W + 1, (V, D)), -1).astype(
+        np.int32)
+    if case == "mid-row":
+        ids, lvl = _shuffle_rows(rng, ids, lvl)
+    if case == "pad-node-V":            # pads carry id V and level -1
+        ids = np.where(ids < 0, V, ids).astype(np.int32)
+    if case == "empty-rows":
+        ids[::3] = -1
+        lvl[1::3] = -1
+    exp = np.zeros(V, np.int32)
+    for v in range(V):
+        real = np.flatnonzero((ids[v] >= 0) & (lvl[v] >= 0))
+        exp[v] = real[-1] + 1 if len(real) else 0
+    assert_same_array(t_frontier.row_ends(_t(ids), _t(lvl)).numpy(), exp)
+    assert t_frontier.row_ends(_t(ids[:, :0]), _t(lvl[:, :0])).shape == (V,)
+
+
+@pytest.mark.parametrize("seed", [0, 1, 2])
+def test_prune_emit_plain_on_level_major_T_with_mid_row_pads(seed):
+    """K3's plain version on the builder's layout: T a [B, V, W+1] view
+    of a level-major [B, W+1, V] tensor, label rows with pads in the
+    middle (a hub -1 at slot 0 and real entries after it), entries
+    past the row-prefix. Equals the Pallas kernel (interpret mode) and
+    the jnp oracle, and the ops wrapper given the row ends."""
+    F, T, hub, dist, wlev, d = _prune_inputs(seed, 8 - seed)
+    rng = np.random.default_rng(seed + 10)
+    hub, dist, wlev = _shuffle_rows(rng, hub, dist, wlev)
+    hub[:, 0], dist[:, 0], wlev[:, 0] = -1, 1 << 30, -1
+    assert ((hub[:, 1:] >= 0) & (hub[:, :-1] < 0)).any()
+    Tlm = _t(np.ascontiguousarray(T.transpose(0, 2, 1))).permute(0, 2, 1)
+    assert Tlm.stride() == (T.shape[1] * T.shape[2], 1, T.shape[1])
+    args = [jnp.asarray(a) for a in (F, T, hub, dist, wlev)]
+    pallas = _np(j_ops.wc_prune_emit(*args, jnp.int32(d), interpret=True,
+                                     use_kernel=True))
+    assert_same_array(_np(j_ref.wc_prune_emit_batched_ref(*args, d)), pallas)
+    th = [_t(a) for a in (hub, dist, wlev)]
+    plain = t_frontier.wc_prune_emit_batched_plain(_t(F), Tlm, *th, d)
+    assert_same_array(plain.numpy(), pallas)
+    wrapped = t_ops.wc_prune_emit(_t(F), Tlm, *th, d,
+                                  row_end=t_frontier.row_ends(th[0], th[2]))
+    assert_same_array(wrapped.numpy(), pallas)
+    assert t_frontier.level_major(Tlm) is Tlm
+    assert torch.equal(t_frontier.level_major(_t(T)), _t(T))
+
+
+@pytest.mark.parametrize("seed,pad_node", [(0, "V"), (1, "V"), (2, -1)])
+def test_relax_plain_with_mid_row_pads_and_pad_node(seed, pad_node):
+    """K4's plain version on an adjacency whose pads sit mid-row and carry
+    id V (`padded_adjacency(pad_node=V)`; read as V - 1 and masked by
+    their level -1, as the reference clips them) equals the Pallas kernel
+    in interpret mode."""
+    emit, _, _, rank, rr, R = _relax_inputs(seed, 8 - seed)
+    g = scale_free(48, m=2, num_levels=W, seed=seed)
+    V = g.num_nodes
+    nbr, lvl = g.padded_adjacency(pad_node=V if pad_node == "V" else -1)
+    nbr, lvl = _shuffle_rows(np.random.default_rng(seed), nbr, lvl)
+    assert ((lvl[:, 1:] >= 0) & (lvl[:, :-1] < 0)).any()
+    ja = [jnp.asarray(a) for a in (emit, nbr, lvl, rank, rr, R)]
+    pallas = [_np(x) for x in j_ops.wc_relax_batched(
+        *ja, interpret=True, use_kernel=True)]
+    ta = [_t(a) for a in (emit, nbr, lvl, rank, rr, R)]
+    for p, x, y in zip(pallas, t_frontier.wc_relax_batched_plain(*ta),
+                       t_ops.wc_relax_batched(
+                           *ta, row_end=t_frontier.row_ends(ta[1], ta[2]))):
+        assert_same_array(x.numpy(), p)
+        assert_same_array(y.numpy(), p)
+
+
+@pytest.mark.parametrize("kernel", ["prune", "relax"])
+@pytest.mark.parametrize("seed", [0, 1])
+def test_plain_row_end_cuts_rows_as_pads(kernel, seed):
+    """A ``row_end`` shorter than a row makes every slot at or past it a
+    pad in the plain K3 / K4, through the ops wrappers too: the answer
+    equals the Pallas kernel (interpret mode) on the same rows with those
+    slots overwritten by pads, and differs from the uncut answer. Row ends
+    at random, every other row's 0."""
+    if kernel == "prune":
+        F, T, hub, dist, wlev, d = _prune_inputs(seed, 8)
+        rows, pads = (hub, dist, wlev), (-1, 1 << 30, -1)
+        fns = (t_frontier.wc_prune_emit_batched_plain, t_ops.wc_prune_emit)
+
+        def port(fn, r, **k):
+            return fn(*map(_t, (F, T, *r)), d, **k).numpy()
+
+        def pallas(r):
+            return _np(j_ops.wc_prune_emit(*map(jnp.asarray, (F, T, *r)),
+                                           jnp.int32(d), interpret=True,
+                                           use_kernel=True))
+    else:
+        emit, nbr, lvl, rank, rr, R = _relax_inputs(seed, 8)
+        rows, pads = (nbr, lvl), (-1, -1)
+        fns = (t_frontier.wc_relax_batched_plain, t_ops.wc_relax_batched)
+
+        def port(fn, r, **k):
+            return np.stack([x.numpy() for x in fn(
+                *map(_t, (emit, *r, rank, rr, R)), **k)])
+
+        def pallas(r):
+            return np.stack([_np(x) for x in j_ops.wc_relax_batched(
+                *map(jnp.asarray, (emit, *r, rank, rr, R)), interpret=True,
+                use_kernel=True)])
+    V, D = rows[0].shape
+    rend = np.random.default_rng(seed + 20).integers(0, D + 1, V).astype(
+        np.int32)
+    rend[::2] = 0                           # every other row cut whole
+    cut = np.arange(D)[None] >= rend[:, None]
+    exp = pallas([np.where(cut, p, a).astype(np.int32)
+                  for a, p in zip(rows, pads)])
+    for fn in fns:
+        assert_same_array(port(fn, rows, row_end=_t(rend)), exp)
+    assert not np.array_equal(port(fns[0], rows), exp)
+
+
 def _relax_inputs(seed, nb):
     rng = np.random.default_rng(seed)
     g = scale_free(48, m=2, num_levels=W, seed=seed)
