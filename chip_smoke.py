@@ -39,7 +39,10 @@ captured from its path (exact int32 equality; K3 at the build's heaviest
 pruning call, K4 at round 1 of the middle root batch and of root batch
 0, both again with every row's pads moved mid-row, K4 also with pad ids
 V, and both on the smallest inputs of the fault C1; K7 on the grouped
-flush, every sub-batch, and unsorted rows; K11, 3xTF32 on the tensor cores
+flush, every sub-batch, and unsorted rows; K2 and K9 also with every
+tile's or row's cells shuffled, which their merge check refuses (the
+share of items or queries that pass it is recorded; K9's record also
+times the gather before it); K11, 3xTF32 on the tensor cores
 summed in fp32 in another order, within 1e-4 of each layer's max |ref|
 on the model's own activations and at the reference test's tolerance on
 unit-normal inputs, and 8 rows of one batch against the plain forward
@@ -440,9 +443,25 @@ RAGGED_KERNELS = {  # (profile, compressed) -> name, TPU kernel it replaces
 }
 
 
+def mergeable_rows(hub, pad_inert):
+    """[n] bool: the merge kernels' check of each row of ``hub`` [n, W]
+    (real cells non-decreasing in hub, pads only after them, every pad
+    inert where ``pad_inert`` says so), computed here from the inputs,
+    not read from the kernel."""
+    real = hub >= 0
+    prefix = ~(real[:, 1:] & ~real[:, :-1]).any(1)
+    rising = ~(real[:, 1:] & real[:, :-1]
+               & (hub[:, 1:] < hub[:, :-1])).any(1)
+    return prefix & rising & ~(~real & ~pad_inert).any(1)
+
+
 def ragged_kernel_phase(engine, rec, profile: bool, launches: int,
                         iters: int) -> dict:
-    """K1/K2, or K5/K6 where the engine serves the compressed arena."""
+    """K1/K2, or K5/K6 where the engine serves the compressed arena. K2
+    (a merge join) also runs on the same worklist over the arena with
+    every tile's cells shuffled (its all-pairs branch), held against the
+    plain version and timed; the share of meeting items whose two tiles
+    pass its merge check is recorded for both."""
     import torch
     from repro_torch.kernels import wcsd_query as kwq
     hub, dist, wlev, lo, hi, qidx, stile, ttile, wq, rows = \
@@ -494,16 +513,37 @@ def ragged_kernel_phase(engine, rec, profile: bool, launches: int,
         ht = torch.where(ht >= 0, lo[ttile[meet]][:, None] + ht.int(), -1)
     meets = hub_meets(hs, ht)
     bms, by = bound_ms(nbytes, join_ops(2 * lane * n_meet, meets, profile))
-    return {"name": name,
-            "route": "cuda", "source": "src/repro_torch/csrc/wcsd_query.cu",
-            "replaces": replaces,
-            "launches": launches, "max_abs_err": err,
-            "ms": cuda_ms(kern, iters), "plain_ms": cuda_ms(plain, 2),
-            "bound_ms": bms, "bound_by": by, "library_ms": None,
-            "shape": {"worklist": WL, "pad_items": WL - int(real.sum()),
-                      "meeting_items": n_meet, "hub_meets": meets,
-                      "lane": lane,
-                      "bytes_per_cell": cell, "queries": rows - 1}}
+    out = {"name": name,
+           "route": "cuda", "source": "src/repro_torch/csrc/wcsd_query.cu",
+           "replaces": replaces,
+           "launches": launches, "max_abs_err": err,
+           "ms": cuda_ms(kern, iters), "plain_ms": cuda_ms(plain, 2),
+           "bound_ms": bms, "bound_by": by, "library_ms": None,
+           "shape": {"worklist": WL, "pad_items": WL - int(real.sum()),
+                     "meeting_items": n_meet, "hub_meets": meets,
+                     "lane": lane,
+                     "bytes_per_cell": cell, "queries": rows - 1}}
+    if profile and not comp:
+        def merge_share(h, w):
+            ok = mergeable_rows(h, w < 0)
+            return float((ok[stile[meet]] & ok[ttile[meet]]).float().mean())
+
+        out["merge_share"] = merge_share(hub, wlev)
+        sh, sd, sw = _shuffled_rows(hub, dist, wlev)
+        out["shuffled_merge_share"] = merge_share(sh, sw)
+
+        def kern_shuffled():
+            return kp(sh, sd, sw, lo, hi, qidx, stile, ttile, rows, L)
+
+        a = kern_shuffled()
+        b = pp(sh, sd, sw, qidx, stile, ttile, rows, L)
+        torch.cuda.synchronize()
+        out["shuffled_max_abs_err"] = int((a.long() - b.long()).abs().max()
+                                          .item())
+        out["max_abs_err"] = max(err, out["shuffled_max_abs_err"])
+        out["shuffled_ms"] = cuda_ms(kern_shuffled, max(1, iters // 10))
+        del sh, sd, sw
+    return out
 
 
 def segmented_kernel_phase(engine, rec, profile: bool, launches: int,
@@ -1087,20 +1127,40 @@ FRONTIER_PATH = ("frontier_relax_gathered",)
 
 
 def gathered_kernel_phase(engine, rec, launches: int, iters: int) -> dict:
-    """K9 on the gathered rows of one recorded padded flush."""
+    """K9 on the gathered rows of one recorded padded flush, and on the
+    same rows with every row's cells shuffled (its all-pairs branch), both
+    held against the plain version and timed; the share of queries whose
+    two rows pass its merge check, for both; the gather's time
+    (`ops.gather_padded_rows`, which runs before every K9 launch)."""
     import torch
     from repro_torch.kernels import ops as kops
     from repro_torch.kernels import wcsd_query as kwq
     _, s, t, wl, _ = rec
     st = torch.from_numpy(np.stack([s, t, wl]).astype(np.int32)).to(
         engine.device)
-    hs, ds, ht, dt = kops.gather_padded_rows(
-        engine.hub, engine.dist, engine.wlev, engine.count, st[0], st[1],
-        st[2])
+
+    def gather():
+        return kops.gather_padded_rows(
+            engine.hub, engine.dist, engine.wlev, engine.count, st[0],
+            st[1], st[2])
+
+    hs, ds, ht, dt = gather()
     a = kwq.wcsd_query_gathered_cuda(hs, ds, ht, dt)
     b = kwq.wcsd_query_gathered_plain(hs, ds, ht, dt)
     torch.cuda.synchronize()
     err = int((a.long() - b.long()).abs().max().item())
+    hs2, ds2 = _shuffled_rows(hs, ds)
+    ht2, dt2 = _shuffled_rows(ht, dt)
+    a = kwq.wcsd_query_gathered_cuda(hs2, ds2, ht2, dt2)
+    b = kwq.wcsd_query_gathered_plain(hs2, ds2, ht2, dt2)
+    torch.cuda.synchronize()
+    shuffled_err = int((a.long() - b.long()).abs().max().item())
+
+    def merge_share(h1, d1, h2, d2):
+        ok = (mergeable_rows(h1, d1 >= kwq.DEV_INF)
+              & mergeable_rows(h2, d2 >= kwq.DEV_INF))
+        return float(ok.float().mean())
+
     B, L = hs.shape
     meets = hub_meets(hs, ht)
     # the four gathered rows once and the output; a merge join over the
@@ -1110,12 +1170,18 @@ def gathered_kernel_phase(engine, rec, launches: int, iters: int) -> dict:
     return {"name": "wcsd_query_gathered", "route": "cuda",
             "source": "src/repro_torch/csrc/wcsd_query.cu",
             "replaces": "src/repro/kernels/wcsd_query.py:55",
-            "launches": launches, "max_abs_err": err,
+            "launches": launches, "max_abs_err": max(err, shuffled_err),
             "ms": cuda_ms(lambda: kwq.wcsd_query_gathered_cuda(
                 hs, ds, ht, dt), iters),
             "plain_ms": cuda_ms(lambda: kwq.wcsd_query_gathered_plain(
                 hs, ds, ht, dt), 2),
             "bound_ms": bms, "bound_by": by, "library_ms": None,
+            "gather_ms": cuda_ms(gather, iters),
+            "merge_share": merge_share(hs, ds, ht, dt),
+            "shuffled_merge_share": merge_share(hs2, ds2, ht2, dt2),
+            "shuffled_max_abs_err": shuffled_err,
+            "shuffled_ms": cuda_ms(lambda: kwq.wcsd_query_gathered_cuda(
+                hs2, ds2, ht2, dt2), max(1, iters // 5)),
             "shape": {"B": B, "L": L, "hub_meets": meets,
                       "cell_pairs": B * L * L}}
 

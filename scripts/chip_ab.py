@@ -1,6 +1,6 @@
 #!/usr/bin/env python3
-"""Build and bucket-pair serving of the port at V = 2^17, for comparing
-two trees of the port on one card.
+"""Build and serving of the port at V = 2^17, for comparing two trees of
+the port on one card.
 
     python3 scripts/chip_ab.py --src SRC --label NAME [--out FILE]
                                [--profile] [--no-serve]
@@ -8,9 +8,13 @@ two trees of the port on one card.
 imports `repro_torch` from ``SRC`` (the ``src/`` directory of the tree
 under test), builds `scale_free(2^17, m=4, num_levels=5, seed=0)` with
 `build_wc_index_batched_packed` (batch 32) on the card, and serves 2^20
-random queries and 2^16 profiles through
-`WCSDServer(dispatch="bucket_pair", max_batch=4096)` in epoch flushes,
-as `chip_smoke.py` does. The only instrumentation is a pair of CUDA
+random queries and 2^16 profiles in epoch flushes of 4,096 through three
+servers in turn, each with `chip_smoke.serve_epoch` (the smoke's own
+serving loop, imported from the checkout this script sits in): the
+ragged server (K1 a scalar flush, K2 a profile flush), the bucket-pair
+server (K7, K8) and the padded server (`layout="padded"`, K9 a scalar
+flush, the plain padded join for profiles); every server's answers must
+equal the ragged server's. The only instrumentation is a pair of CUDA
 events around every call of the build's two round wrappers (K3
 `ops.wc_prune_emit`, K4 `ops.wc_relax_batched`), the same for any tree,
 so two trees run in turns on one card (A, B, B, A) compare like for
@@ -19,12 +23,21 @@ the built index's packed arrays (two trees that build the same index
 print the same digest), build, round loop and finalize seconds, the
 device seconds of each round step (CUDA events around the call, so the
 wrapper's own host time between them is counted too), the host seconds
-spent inside each wrapper, the launch counts, and the serving wall
-time, requests/s, dispatch and drain-wait seconds. ``--profile`` also
+spent inside each wrapper, the launch counts, and per server the
+serving wall time, requests/s, dispatch and drain-wait seconds, p50 and
+p99 latency and the launch counts. ``--profile`` also
 traces the build with `torch.profiler` (CUDA activity only) and adds
 every kernel's summed device time, the busy device time over the round
 loop, the round loop's idle share, and the round kernels' calls binned
-by their device time ([count, seconds] per bin). Needs a CUDA device.
+by their device time ([count, seconds] per bin). ``--kernels`` also
+times, with the smoke's own kernel phases (CUDA events, the smoke's
+shapes), K1 and K2 on the ragged server's first scalar and profile
+flush, K7 on the bucket-pair server's first scalar flush, K9 (and the
+gather before it) on the padded server's first scalar flush, and K5 and
+K6 on the first flushes of a compressed server of the V = 2^15 index
+(`chip_smoke.compressed_serve_phase`'s graph and queries); each kernel
+is held against its plain version there, as in the smoke. Needs a CUDA
+device.
 """
 from __future__ import annotations
 
@@ -44,15 +57,18 @@ def main() -> int:
     ap.add_argument("--out")
     ap.add_argument("--profile", action="store_true")
     ap.add_argument("--no-serve", action="store_true")
+    ap.add_argument("--kernels", action="store_true")
     args = ap.parse_args()
-    sys.path.insert(0, os.path.abspath(args.src))
+    sys.path.insert(0, os.path.dirname(os.path.dirname(
+        os.path.abspath(__file__))))
+    import chip_smoke               # puts its own src/ first on the path
+    sys.path.insert(0, os.path.abspath(args.src))   # the tree under test
     import numpy as np
     import torch
     if not torch.cuda.is_available():
         print("chip_ab: no CUDA device is available", file=sys.stderr)
         return 2
     from repro_torch.core.generators import random_queries, scale_free
-    from repro_torch.core.serve import WCSDServer
     from repro_torch.core.wc_index_batched import \
         build_wc_index_batched_packed
     from repro_torch.kernels import _cuda
@@ -143,26 +159,81 @@ def main() -> int:
             "per_call_us_edges": [15, 30, 60, 120, 250, "inf"],
             "per_call": per_call,
             "round_loop_idle_share": 1 - busy / rec["round_loop_s"]}
-    if not args.no_serve:
-        srv = WCSDServer(idx, max_batch=4096, dispatch="bucket_pair",
-                         device="cuda")
-        _cuda.reset_launch_counts()
-        t0 = time.perf_counter()
-        srv.query_many(s, t, wl)
-        srv.query_profile_many(ps, pt)
+    servers = (("ragged", {}), ("bucket_pair", {"dispatch": "bucket_pair"}),
+               ("padded", {"layout": "padded", "use_pallas": True}))
+    answers = None
+    first = {}                  # server -> (engine, first query / profile)
+    for name, kw in () if args.no_serve else servers:
         torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        rec["bucket_pair"] = {
+        _cuda.reset_launch_counts()
+        log = []
+        srv, out, prof, wall = chip_smoke.serve_epoch(
+            idx, (s, t, wl), (ps, pt), 4096, log, "cuda", **kw)
+        torch.cuda.synchronize()
+        if answers is None:
+            answers = (out, prof)
+        elif not (np.array_equal(out, answers[0])
+                  and np.array_equal(prof, answers[1])):
+            print(f"chip_ab: {name} serving differs from ragged",
+                  file=sys.stderr)
+            return 1
+        lat = srv.latency_summary()
+        rec[name] = {
             "wall_s": wall, "requests_per_s": (len(s) + len(ps)) / wall,
             "dispatch_s": srv.stats.dispatch_time_s,
             "drain_wait_s": srv.stats.drain_wait_s,
+            "p50_us": lat["p50_us"], "p99_us": lat["p99_us"],
             "launches": {k: v for k, v in _cuda.LAUNCHES.items() if v}}
+        first[name] = (srv.engine, next(r for r in log if r[0] == "query"),
+                       next(r for r in log if r[0] == "profile"))
+        del srv, log
+    if args.kernels and first:
+        rec["kernels"] = kernel_times(chip_smoke, first, "cuda")
+        bad = [k for k, v in rec["kernels"].items()
+               if any(x for key, x in v.items() if key.endswith("err"))]
+        if bad:
+            print(f"chip_ab: {bad} differ from their plain versions",
+                  file=sys.stderr)
+            return 1
     line = json.dumps(rec)
     print(line, flush=True)
     if args.out:
         with open(args.out, "a") as f:
             f.write(line + "\n")
     return 0
+
+
+def kernel_times(smoke, first, device) -> dict:
+    """The smoke's kernel phases on the first flushes of each server, and
+    K5/K6 on the first flushes of a compressed V = 2^15 server: per
+    kernel its times (``*ms``) and errors against the plain version."""
+    from repro_torch.core.generators import random_queries, scale_free
+    from repro_torch.core.wc_index_batched import \
+        build_wc_index_batched_packed
+    g = scale_free(1 << smoke.LOG2_V_COMPRESSED, m=4, num_levels=5, seed=0)
+    idx, _ = build_wc_index_batched_packed(g, batch_size=smoke.BATCH,
+                                           device=device)
+    n = smoke.MAX_BATCH                 # one flush of each kind
+    qs = [a[:n] for a in random_queries(g, 1 << smoke.LOG2_QUERIES, seed=1)]
+    ps = [a[:n] for a in random_queries(g, 1 << smoke.LOG2_PROFILES,
+                                        seed=2)[:2]]
+    log = []
+    srv, *_ = smoke.serve_epoch(idx, qs, ps, n, log, device, compressed=True)
+    first["compressed"] = (srv.engine,
+                           next(r for r in log if r[0] == "query"),
+                           next(r for r in log if r[0] == "profile"))
+    phases = []
+    for name in ("ragged", "compressed"):
+        eng, qrec, prec = first[name]
+        phases += [smoke.ragged_kernel_phase(eng, qrec, False, 0, 50),
+                   smoke.ragged_kernel_phase(eng, prec, True, 0, 50)]
+    eng, qrec, _ = first["bucket_pair"]
+    phases.append(smoke.segmented_kernel_phase(eng, qrec, False, 0, 20))
+    eng, qrec, _ = first["padded"]
+    phases.append(smoke.gathered_kernel_phase(eng, qrec, 0, 10))
+    return {k["name"]: {key: v for key, v in k.items()
+                        if key.endswith(("ms", "err", "share"))}
+            for k in phases}
 
 
 if __name__ == "__main__":

@@ -1,7 +1,7 @@
 // WCSD query kernels: the ragged kernels over the lane-tiled label arena
 // (plain and compressed), the bucket-pair kernels over padded bucket
-// tiles and the gathered-row kernel of the padded store: all but K7 on
-// one all-pairs join body, K7 a merge join.
+// tiles and the gathered-row kernel of the padded store. K2, K7 and K9
+// are merge joins; K1, K5, K6 and K8 keep one all-pairs join body.
 //
 // Replaces: src/repro/kernels/wcsd_query.py:wcsd_query_ragged (K1),
 //           ...:wcsd_profile_ragged (K2),
@@ -13,20 +13,34 @@
 //
 // The join: the min over hub meets hub_s[i] == hub_t[j] of dist_s[i] +
 // dist_t[j], both clamped to DEV_INF. The scalar kernels (K1, K5, K7)
-// mask a cell's distance to DEV_INF where its wlev < the query's level;
-// the profile kernels (K2, K6, K8) take no level and bin every meet's sum
-// by its pair level min(wlev_s, wlev_t) into num_levels + 1 minima (the
-// wrapper turns them into staircases). Outside K7, a block stages its
-// t-side cells (hub + dist, profile also wlev) in shared memory, each
-// thread takes s-side cells with a stride of blockDim.x and scans the
-// staged cells, and the block reduces with warp shuffles; every such
-// kernel reads its cells through a cell reader, so the join is written
-// once:
+// mask a cell's distance to DEV_INF where its wlev < the query's level
+// (K9 takes distances the wrapper has masked); the profile kernels (K2,
+// K6, K8) take no level and bin every meet's sum by its pair level
+// min(wlev_s, wlev_t) into num_levels + 1 minima (the wrapper turns them
+// into staircases).
+//
+// What bounds every one of them is bytes: each row or tile read once (12
+// bytes a cell, 8 for K9's pre-masked rows, 5 compressed), the ids and
+// the answers. The join itself needs one compare per cell of either side
+// plus an add and a min (profile: and the bin) per hub meet, which a
+// merge join over hub-sorted rows does. The store's rows are hub-sorted
+// (it is written in (v, hub, d) order; arena tiles, bucket tiles and
+// padded rows are slices of those rows with pads after them), but the
+// reference does not promise it. So every merge kernel first checks the
+// rows it joins: real cells (hub >= 0) non-decreasing in hub, pads (hub
+// < 0) only after them, and every pad inert (a scalar pad's masked
+// distance is DEV_INF, so a pad meet never reaches below DEV_INF; a
+// profile pad's wlev is < 0, so its meets fall in no bin). Rows that
+// fail the check are joined all-pairs inside the kernel, as the
+// reference joins them.
+//
+// All-pairs body (K1, K5, K6, K8): a block stages its t-side cells (hub +
+// dist, profile also wlev) in shared memory, each thread takes s-side
+// cells with a stride of blockDim.x and scans every staged cell, and the
+// block reduces with warp shuffles; every such kernel reads its cells
+// through a cell reader, so the join is written once:
 //
 // - Int32Cells: int32 hub / dist / wlev (the arena, the bucket tiles).
-// - GatheredCells: K9's pre-gathered rows, distances already masked to
-//   DEV_INF and clamped by the wrapper: read as they are, every cell
-//   feasible.
 // - CompressedCells<F>: the compressed arena (int16 hub deltas, bf16 or
 //   fp16 distances, int8 levels: 5 bytes a cell instead of 12), decoded
 //   in registers as each cell is loaded, exactly as the reference's
@@ -41,12 +55,33 @@
 // Pallas kernel walks the worklist as a sequential grid, initialising
 // out[qidx] on each query's first item and accumulating into the same
 // output block on the following steps. Hopper blocks run in no order, so
-// here each work item is one block ending in one atomicMin per output
-// cell. The wrapper pre-fills out with DEV_INF (trash row included); int32
-// min is order-independent, so the result is bit-exact whatever order
-// blocks run in, and the worklist's `first` flags are not needed. Items
-// whose [tile_lo, tile_hi] hub spans are disjoint cannot meet and are
-// skipped before any cell is read.
+// here every work item ends in atomicMin into its output row. The
+// wrapper pre-fills out with DEV_INF (trash row included); int32 min is
+// order-independent, so the result is bit-exact whatever order items run
+// in, and the worklist's `first` flags are not needed. Items whose
+// [tile_lo, tile_hi] hub spans are disjoint cannot meet and are skipped
+// before any cell is read. K1, K5 and K6 run one block per item.
+//
+// K2 runs one warp per item, so an item costs no block barrier: blocks of
+// PROF_WARPS_MAX warps (fewer where the lane is wide), only as many as
+// the card holds at once, each warp walking the worklist with the grid's
+// stride (a block of 8 items, one each, holds its slot on the SM until
+// its slowest item ends, while two in three items of a flush end at the
+// span test). The warp stages both tiles (hub, dist, wlev: 1.5 KB a
+// tile at lane 128) in its slice of shared memory with cp.async, checks
+// them with one vote, and each lane binary-searches the t-tile for its
+// s-cells (a stride of 32; each search starts where the lane's previous
+// one ended) and walks the t-side run of each cell's hub (repeated hubs
+// are Pareto entries); contiguous pieces a lane, walked forward as K7
+// walks, were slower here. Every
+// meet goes into the warp's num_levels + 1 bins in shared memory by
+// shared atomicMin, not into a per-thread array indexed by a run-time
+// level (which would live in local memory), and the warp writes its
+// bins below DEV_INF with one global atomicMin each: no block reduction
+// per level. The all-pairs body of earlier versions (lane^2 compares an
+// item, then levels1 block reductions of two barriers each) took 0.2288
+// ms for the first profile flush of the V = 2^17 run against a 0.0196 ms
+// bound (H100 80GB HBM3, 700 W). K6 keeps that body.
 //
 // Bucket-pair (K7, K8), per query b of one planned sub-batch: the join of
 // row srow[b] of the s-side tiles [Ns, Ws] with row trow[b] of the t-side
@@ -54,58 +89,43 @@
 // walks a (query, t-block) grid and accumulates across t-blocks;
 // `_fit_block` exists only so that the block divides Wt.
 //
-// K7 is a merge join, and one launch answers a whole flush. What bounds
-// it is bytes: each distinct row read once (12 bytes a cell), the row
-// ids, levels and answers; the join itself needs one compare per cell of
-// either side plus an add and a min per hub meet. The all-pairs join of
-// earlier versions compared Ws x Wt cell pairs per query (1.37G compares
-// for 543,360 meets in the heaviest sub-batch of a flush: 0.2662 ms
-// against a 0.00943 ms bound), and a flush was ~23.7 launches, most too
-// small to fill 132 SMs (2.435 ms a flush on the H100 80GB HBM3, 700 W).
-// Now:
-//  * a block (256 threads) per query of the flush; it finds its
-//    sub-batch in a small device table of SegGroup rows (tile pointers,
-//    Ws, Wt, its columns of the staged [3, B] array), so the flush's
-//    sub-batches run in one grid and no sub-batch is launched alone. The
-//    per-sub-batch entry point is the same kernel over one group.
+// Gathered (K9), per query b of a [B, L] batch: the join of row b of
+// hs/ds with row b of ht/dt, which `kernels/ops.py::gather_padded_rows`
+// gathers from the padded store and masks (DEV_INF past the row's count
+// and below the query's level). The Pallas kernel walks a (query block,
+// t-block) grid and carries the min across t-blocks in its output block,
+// which it initialises to DEV_INF; the wrapper pads B to 8 and L to 128.
+// Here any B and L are taken as they are.
+//
+// K7 and K9 share one row merge (`block_join`, templated on the row
+// reader: K7's masks by wlev, K9's reads the pre-masked distances):
+//  * a block (256 threads) per query. K7 answers a whole flush in one
+//    launch: a block finds its query's sub-batch in a small device table
+//    of SegGroup rows (tile pointers, Ws, Wt, its columns of the staged
+//    [3, B] array), so no sub-batch is launched alone; the per-sub-batch
+//    entry point is the same kernel over one group.
 //  * Both rows are staged in shared memory with cp.async (16-byte copies
-//    where the row is 16-byte aligned; at most SEG_STAGE = 2,048 cells,
-//    24 KB a side; a wider row is read in place).
-//  * The block checks that each row's real cells (hub >= 0) are
-//    non-decreasing in hub, with pads only after them and every pad inert
-//    (its masked distance DEV_INF, so no pad meet can reach below
-//    DEV_INF). The store's rows are hub-sorted (the store is written in
-//    (v, hub, d) order and `bucket_tiles` copies rows in order), but the
-//    reference does not promise it: a query whose rows fail the check is
-//    joined all-pairs inside the kernel, as the reference joins it.
+//    where the row is 16-byte aligned; at most SEG_STAGE = 2,048 cells a
+//    side: 24 KB for K7's three arrays, 16 KB for K9's two; a wider row
+//    is read in place).
+//  * The block checks both rows (above); a query whose rows fail is
+//    joined all-pairs.
 //  * Otherwise each thread takes one contiguous piece of the s-row's real
 //    cells (at most ceil(Ws / 256) cells, whatever the meets), binary-
 //    searches the t-row for the first cell with its first hub, and walks
 //    forward (up to 8 steps, then a binary search again) pairing every
-//    s-cell with the t-side run of its hub (repeated hubs are Pareto
-//    entries with other (dist, wlev)): O(Ws + Wt) steps plus the meets,
-//    against Ws x Wt.
+//    s-cell with the t-side run of its hub: O(Ws + Wt) steps plus the
+//    meets, against Ws x Wt. One block reduction, one store, no atomics.
+// The all-pairs K9 of earlier versions compared L^2 cell pairs a query:
+// 2.4728 ms at B = 4,096, L = 1,792 against a 0.0351 ms bound (H100
+// 80GB HBM3, 700 W).
+//
 // K8 keeps the all-pairs join and one launch per sub-batch: one block per
 // query stages its t-row in chunks of T_CHUNK cells (the loop bound masks
 // the ragged edge), every cell pair of the two padded rows joined, as in
-// the reference.
-//
-// Gathered (K9), per query b of a [B, L] batch: the join of row b of hs/ds
-// with row b of ht/dt. The Pallas kernel walks a (query block, t-block)
-// grid and carries the min across t-blocks in its output block, which
-// it initialises to DEV_INF; the wrapper pads B to 8 and L to 128. Here,
-// as for K8, one block owns one query and stages its t-row in chunks of
-// T_CHUNK cells, so any B and L are taken as they are. The accumulator
-// starts at DEV_INF, so the output never exceeds it, and since ds and dt
-// lie in [0, DEV_INF] no sum overflows int32. Rows need not be
-// hub-sorted (the contract does not promise it), so this is the
-// all-pairs join. On the padded store every query pays the global
-// longest row's L^2 compares: that is the layout's cost, not the
-// kernel's.
-//
-// Every kernel but K7 compares all cell pairs it joins (lane^2 per tile
-// pair, Ws x Wt per query). The TPU's DMA ring has no counterpart in the
-// ragged kernels yet.
+// the reference. The accumulators start at DEV_INF, so no output exceeds
+// it, and since distances lie in [0, DEV_INF] no sum overflows int32.
+// The TPU's DMA ring has no counterpart in the ragged kernels.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -113,10 +133,12 @@
 
 #define DEV_INF (1 << 29)
 #define MAX_LEVELS1 32     // most num_levels + 1 the profile kernels bin
-#define T_CHUNK 2048       // K8 / K9 t-row cells staged at a time
+#define T_CHUNK 2048       // K8 t-row cells staged at a time
 #define MAX_THREADS_SEG 256
-#define SEG_THREADS 256    // K7: threads per query
-#define SEG_STAGE 2048     // K7: widest row staged in shared memory
+#define SEG_THREADS 256    // K7 / K9: threads per query
+#define SEG_STAGE 2048     // K7 / K9: widest row staged in shared memory
+#define PROF_WARPS_MAX 8   // K2: work items (warps) per block at most
+#define PROF_SMEM 49152    // K2: shared bytes a block uses at most
 
 // ------------------------------------------------------------ cell readers
 struct Int32Cells {
@@ -130,16 +152,6 @@ struct Int32Cells {
     return min(dist[x], DEV_INF);
   }
   __device__ __forceinline__ int wlev_at(int64_t x) const { return wlev[x]; }
-};
-
-struct GatheredCells {
-  const int* __restrict__ hub;
-  const int* __restrict__ dist;
-  __device__ __forceinline__ int hub_at(int64_t x, int) const {
-    return hub[x];
-  }
-  __device__ __forceinline__ int dist_at(int64_t x) const { return dist[x]; }
-  __device__ __forceinline__ int wlev_at(int64_t) const { return 0; }
 };
 
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
@@ -258,6 +270,56 @@ __device__ __forceinline__ void join_levels(const Cells& c, int64_t base,
   }
 }
 
+// ------------------------------------------------------------ staging
+__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async16(int* dst, const int* src) {
+  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cp_async_wait_all() {
+  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
+               "memory");
+}
+
+// Copy n cells of one array into shared memory (dst is 16-byte aligned),
+// thread tid of nth: 16-byte copies where the source row is 16-byte
+// aligned, else 4-byte.
+__device__ __forceinline__ void stage_cells(int* dst, const int* src, int n,
+                                            int tid, int nth) {
+  if (((uintptr_t)src & 15) == 0) {
+    const int n4 = n >> 2;
+    for (int j = tid; j < n4; j += nth) cp_async16(dst + 4 * j, src + 4 * j);
+    for (int j = 4 * n4 + tid; j < n; j += nth) cp_async4(dst + j, src + j);
+  } else {
+    for (int j = tid; j < n; j += nth) cp_async4(dst + j, src + j);
+  }
+}
+
+// Shared-memory cells staged per array: n rounded up to 4 cells (16 bytes).
+__host__ __device__ __forceinline__ int stage_cap(int n) {
+  return (n + 3) / 4 * 4;
+}
+
+// First index in [lo, hi) whose hub is >= key (hi if none).
+__device__ __forceinline__ int lower_bound(const int* hub, int lo, int hi,
+                                           int key) {
+  while (lo < hi) {
+    const int mid = (lo + hi) >> 1;
+    if (hub[mid] < key)
+      lo = mid + 1;
+    else
+      hi = mid;
+  }
+  return lo;
+}
+
 // --------------------------------------------- ragged (K1, K2, K5, K6)
 __device__ __forceinline__ bool tiles_meet(const int* tile_lo,
                                            const int* tile_hi, int s, int t) {
@@ -315,7 +377,109 @@ __global__ void wcsd_profile_ragged_kernel(
     atomicMin(out + (int64_t)q * levels1 + threadIdx.x, lev_min[threadIdx.x]);
 }
 
-// ----------------------------------------------- bucket-pair (K7, K8)
+// K2: one warp per work item. A warp's slice of shared memory: the
+// s-tile and the t-tile (hub, dist, wlev; cap cells an array), then
+// MAX_LEVELS1 bins.
+__host__ __device__ __forceinline__ int prof_warp_ints(int lane) {
+  return 6 * stage_cap(lane) + MAX_LEVELS1;
+}
+
+// This lane's part of the merge check of one staged tile: real cells
+// (hub >= 0) non-decreasing in hub, pads only after them, every pad inert
+// (wlev < 0: its meets fall in no bin). Adds its real cells to *real.
+__device__ __forceinline__ bool tile_mergeable(const int* hub,
+                                               const int* wlev, int lane,
+                                               int lid, int* real) {
+  bool ok = true;
+  for (int i = lid; i < lane; i += 32) {
+    const int h = hub[i];
+    if (h >= 0) {
+      ++*real;
+      if (i > 0) {
+        const int p = hub[i - 1];
+        ok &= p >= 0 && p <= h;
+      }
+    } else {
+      ok &= wlev[i] < 0;
+    }
+  }
+  return ok;
+}
+
+__global__ void __launch_bounds__(32 * PROF_WARPS_MAX)
+    wcsd_profile_ragged_merge_kernel(
+        const int* __restrict__ hub, const int* __restrict__ dist,
+        const int* __restrict__ wlev, const int* __restrict__ tile_lo,
+        const int* __restrict__ tile_hi, const int* __restrict__ qidx,
+        const int* __restrict__ stile, const int* __restrict__ ttile,
+        int* __restrict__ out, long long worklist_len, int lane,
+        int levels1) {
+  extern __shared__ __align__(16) int prof_smem[];
+  const int warp = threadIdx.x >> 5, lid = threadIdx.x & 31;
+  const int cap = stage_cap(lane);
+  int* sh = prof_smem + warp * prof_warp_ints(lane);
+  int *s_hub = sh, *s_dist = sh + cap, *s_wlev = sh + 2 * cap;
+  int *t_hub = sh + 3 * cap, *t_dist = sh + 4 * cap, *t_wlev = sh + 5 * cap;
+  int* bins = sh + 6 * cap;
+  // every warp walks the worklist with the grid's stride (the grid is
+  // what the card holds at once); all branches below are warp-uniform
+  for (int64_t k = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
+       k < worklist_len; k += (int64_t)gridDim.x * (blockDim.x >> 5)) {
+    const int s = stile[k], t = ttile[k];
+    if (!tiles_meet(tile_lo, tile_hi, s, t)) continue;
+    const int q = qidx[k];
+    const int64_t sb = (int64_t)s * lane, tb = (int64_t)t * lane;
+    stage_cells(s_hub, hub + sb, lane, lid, 32);
+    stage_cells(s_dist, dist + sb, lane, lid, 32);
+    stage_cells(s_wlev, wlev + sb, lane, lid, 32);
+    stage_cells(t_hub, hub + tb, lane, lid, 32);
+    stage_cells(t_dist, dist + tb, lane, lid, 32);
+    stage_cells(t_wlev, wlev + tb, lane, lid, 32);
+    if (lid < levels1) bins[lid] = DEV_INF;
+    cp_async_wait_all();
+    __syncwarp();
+    int rs = 0, rt = 0;
+    const bool ok = tile_mergeable(s_hub, s_wlev, lane, lid, &rs) &
+                    tile_mergeable(t_hub, t_wlev, lane, lid, &rt);
+    if (__all_sync(0xffffffffu, ok)) {
+      const int ns = __reduce_add_sync(0xffffffffu, rs);
+      const int nt = __reduce_add_sync(0xffffffffu, rt);
+      int j = 0;  // this lane's hubs rise, so each search starts at the last
+      for (int i = lid; i < ns; i += 32) {
+        const int ws = s_wlev[i];
+        if (ws < 0) continue;  // min(ws, wt) < 0: no bin
+        const int h = s_hub[i];
+        const int ds = min(s_dist[i], DEV_INF);
+        j = lower_bound(t_hub, j, nt, h);
+        for (int jj = j; jj < nt && t_hub[jj] == h; ++jj) {
+          const int mw = min(ws, t_wlev[jj]);
+          const int sum = ds + min(t_dist[jj], DEV_INF);
+          if (mw >= 0 && mw < levels1 && sum < DEV_INF)
+            atomicMin(bins + mw, sum);
+        }
+      }
+    } else {
+      // tiles the merge cannot take: every cell pair, as the reference
+      for (int i = lid; i < lane; i += 32) {
+        const int h = s_hub[i], ws = s_wlev[i];
+        const int ds = min(s_dist[i], DEV_INF);
+        for (int jj = 0; jj < lane; ++jj) {
+          if (t_hub[jj] != h) continue;
+          const int mw = min(ws, t_wlev[jj]);
+          const int sum = ds + min(t_dist[jj], DEV_INF);
+          if (mw >= 0 && mw < levels1 && sum < DEV_INF)
+            atomicMin(bins + mw, sum);
+        }
+      }
+    }
+    __syncwarp();
+    if (lid < levels1 && bins[lid] < DEV_INF)
+      atomicMin(out + (int64_t)q * levels1 + lid, bins[lid]);
+    __syncwarp();  // the next item rewrites the slice
+  }
+}
+
+// ---------------------------------- row merge (K7, K9) and bucket-pair K8
 // K7 answers a whole flush in one launch: a block per query, the query's
 // sub-batch found in a small table of sub-batches (SegGroup). The
 // per-sub-batch entry point is the same kernel over one group passed by
@@ -332,8 +496,9 @@ struct SegGroup {  // one planned sub-batch: 64 bytes, the host's row
 };
 static_assert(sizeof(SegGroup) == 64, "SegGroup is the host table's row");
 
-// One label row as the join reads it: staged in shared memory, or (past
-// the staging capacity) in place in global memory.
+// One label row as the merge reads it: staged in shared memory, or (past
+// the staging capacity) in place in global memory. K7's rows carry wlev
+// and are masked by the query's level; K9's distances come masked.
 struct SegRow {
   const int* hub;
   const int* dist;
@@ -344,37 +509,12 @@ struct SegRow {
   }
 };
 
-__device__ __forceinline__ void cp_async4(int* dst, const int* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.ca.shared.global [%0], [%1], 4;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async16(int* dst, const int* src) {
-  const unsigned s = (unsigned)__cvta_generic_to_shared(dst);
-  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(s),
-               "l"(src));
-}
-
-__device__ __forceinline__ void cp_async_wait_all() {
-  asm volatile("cp.async.commit_group;\ncp.async.wait_group 0;\n" :::
-               "memory");
-}
-
-// Copy n cells of one array into shared memory (dst is 16-byte aligned):
-// 16-byte copies where the source row is 16-byte aligned, else 4-byte.
-__device__ __forceinline__ void stage_cells(int* dst, const int* src, int n) {
-  if (((uintptr_t)src & 15) == 0) {
-    const int n4 = n >> 2;
-    for (int j = threadIdx.x; j < n4; j += blockDim.x)
-      cp_async16(dst + 4 * j, src + 4 * j);
-    for (int j = 4 * n4 + threadIdx.x; j < n; j += blockDim.x)
-      cp_async4(dst + j, src + j);
-  } else {
-    for (int j = threadIdx.x; j < n; j += blockDim.x)
-      cp_async4(dst + j, src + j);
-  }
-}
+struct GatheredRow {
+  const int* hub;
+  const int* dist;
+  int n;
+  __device__ __forceinline__ int masked(int i, int) const { return dist[i]; }
+};
 
 // Row [hub, dist, wlev] + base with width n: staged into smem (capacity
 // cap cells an array) where n <= cap, else read in place.
@@ -382,17 +522,29 @@ __device__ __forceinline__ SegRow seg_row(const int* hub, const int* dist,
                                           const int* wlev, int64_t base,
                                           int n, int* smem, int cap) {
   if (n > cap) return SegRow{hub + base, dist + base, wlev + base, n};
-  stage_cells(smem, hub + base, n);
-  stage_cells(smem + cap, dist + base, n);
-  stage_cells(smem + 2 * cap, wlev + base, n);
+  stage_cells(smem, hub + base, n, threadIdx.x, blockDim.x);
+  stage_cells(smem + cap, dist + base, n, threadIdx.x, blockDim.x);
+  stage_cells(smem + 2 * cap, wlev + base, n, threadIdx.x, blockDim.x);
   return SegRow{smem, smem + cap, smem + 2 * cap, n};
+}
+
+// The same for a gathered row [hub, dist] + base (two arrays).
+__device__ __forceinline__ GatheredRow gathered_row(const int* hub,
+                                                    const int* dist,
+                                                    int64_t base, int n,
+                                                    int* smem, int cap) {
+  if (n > cap) return GatheredRow{hub + base, dist + base, n};
+  stage_cells(smem, hub + base, n, threadIdx.x, blockDim.x);
+  stage_cells(smem + cap, dist + base, n, threadIdx.x, blockDim.x);
+  return GatheredRow{smem, smem + cap, n};
 }
 
 // This thread's part of the merge-join check of one row: real cells
 // (hub >= 0) non-decreasing in hub, pads (hub < 0) only after them, and
 // every pad inert (masked distance DEV_INF, so no pad meet can reach
 // below DEV_INF). Adds this thread's real cells to *nreal.
-__device__ __forceinline__ bool row_mergeable(const SegRow& r, int w,
+template <typename Row>
+__device__ __forceinline__ bool row_mergeable(const Row& r, int w,
                                               int* nreal) {
   bool ok = true;
   int real = 0;
@@ -412,50 +564,13 @@ __device__ __forceinline__ bool row_mergeable(const SegRow& r, int w,
   return ok;
 }
 
-// First index in [lo, hi) whose hub is >= key (hi if none).
-__device__ __forceinline__ int lower_bound(const int* hub, int lo, int hi,
-                                           int key) {
-  while (lo < hi) {
-    const int mid = (lo + hi) >> 1;
-    if (hub[mid] < key)
-      lo = mid + 1;
-    else
-      hi = mid;
-  }
-  return lo;
-}
-
-__global__ void __launch_bounds__(SEG_THREADS) wcsd_query_segmented_kernel(
-    const SegGroup* __restrict__ groups, int G, SegGroup one,
-    const int* __restrict__ srow, const int* __restrict__ trow,
-    const int* __restrict__ wq, int* __restrict__ out, int cap_s,
-    int cap_t) {
-  extern __shared__ __align__(16) int seg_smem[];  // s: 3 x cap_s, t: 3 x cap_t
-  __shared__ int red[32];
-  __shared__ int nreal[2];
-  const int k = blockIdx.x;
-  // the query's sub-batch: the last group starting at or before k
-  SegGroup g = one;
-  if (G > 0) {
-    int lo = 0, hi = G - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (groups[mid].off <= k)
-        lo = mid;
-      else
-        hi = mid - 1;
-    }
-    g = groups[lo];
-  }
-  const int w = wq[k];
-  if (threadIdx.x < 2) nreal[threadIdx.x] = 0;
-  const SegRow rs = seg_row(g.hub_s, g.dist_s, g.wlev_s,
-                            (int64_t)srow[k] * g.Ws, g.Ws, seg_smem, cap_s);
-  const SegRow rt = seg_row(g.hub_t, g.dist_t, g.wlev_t,
-                            (int64_t)trow[k] * g.Wt, g.Wt,
-                            seg_smem + 3 * cap_s, cap_t);
-  cp_async_wait_all();
-  __syncthreads();
+// The join of one query's two rows (staged and visible to the block):
+// the merge where both rows pass the check, else every cell pair.
+// nreal[2] is zeroed before the block's barrier; red[32] is scratch.
+// The block-wide min is valid in thread 0.
+template <typename Row>
+__device__ __forceinline__ int block_join(const Row& rs, const Row& rt,
+                                          int w, int* nreal, int* red) {
   const bool ok = row_mergeable(rs, w, &nreal[0]) &
                   row_mergeable(rt, w, &nreal[1]);
   const bool merge = __syncthreads_and(ok);  // also orders the atomics
@@ -489,7 +604,41 @@ __global__ void __launch_bounds__(SEG_THREADS) wcsd_query_segmented_kernel(
         if (rt.hub[jj] == hs) best = min(best, ds + rt.masked(jj, w));
     }
   }
-  best = block_min(best, red);
+  return block_min(best, red);
+}
+
+__global__ void __launch_bounds__(SEG_THREADS) wcsd_query_segmented_kernel(
+    const SegGroup* __restrict__ groups, int G, SegGroup one,
+    const int* __restrict__ srow, const int* __restrict__ trow,
+    const int* __restrict__ wq, int* __restrict__ out, int cap_s,
+    int cap_t) {
+  extern __shared__ __align__(16) int seg_smem[];  // s: 3 x cap_s, t: 3 x cap_t
+  __shared__ int red[32];
+  __shared__ int nreal[2];
+  const int k = blockIdx.x;
+  // the query's sub-batch: the last group starting at or before k
+  SegGroup g = one;
+  if (G > 0) {
+    int lo = 0, hi = G - 1;
+    while (lo < hi) {
+      const int mid = (lo + hi + 1) >> 1;
+      if (groups[mid].off <= k)
+        lo = mid;
+      else
+        hi = mid - 1;
+    }
+    g = groups[lo];
+  }
+  const int w = wq[k];
+  if (threadIdx.x < 2) nreal[threadIdx.x] = 0;
+  const SegRow rs = seg_row(g.hub_s, g.dist_s, g.wlev_s,
+                            (int64_t)srow[k] * g.Ws, g.Ws, seg_smem, cap_s);
+  const SegRow rt = seg_row(g.hub_t, g.dist_t, g.wlev_t,
+                            (int64_t)trow[k] * g.Wt, g.Wt,
+                            seg_smem + 3 * cap_s, cap_t);
+  cp_async_wait_all();
+  __syncthreads();
+  const int best = block_join(rs, rt, w, nreal, red);
   if (threadIdx.x == 0) out[k] = best;
 }
 
@@ -519,21 +668,21 @@ __global__ void wcsd_profile_segmented_kernel(
 }
 
 // ------------------------------------------------------------ gathered (K9)
-__global__ void wcsd_query_gathered_kernel(GatheredCells cs, GatheredCells ct,
-                                           int* __restrict__ out, int L) {
-  __shared__ int sh_hub[T_CHUNK];
-  __shared__ int sh_dist[T_CHUNK];
+__global__ void __launch_bounds__(SEG_THREADS) wcsd_query_gathered_kernel(
+    const int* __restrict__ hs, const int* __restrict__ ds,
+    const int* __restrict__ ht, const int* __restrict__ dt,
+    int* __restrict__ out, int L, int cap) {
+  extern __shared__ __align__(16) int seg_smem[];  // s: 2 x cap, t: 2 x cap
   __shared__ int red[32];
+  __shared__ int nreal[2];
   const int64_t base = (int64_t)blockIdx.x * L;
-  int best = DEV_INF;
-  for (int c0 = 0; c0 < L; c0 += T_CHUNK) {
-    const int n = min(T_CHUNK, L - c0);
-    __syncthreads();  // the previous chunk is fully scanned
-    stage_masked(ct, base + c0, n, 0, 0, sh_hub, sh_dist);
-    __syncthreads();
-    best = join_masked(cs, base, L, 0, 0, sh_hub, sh_dist, n, best);
-  }
-  best = block_min(best, red);
+  if (threadIdx.x < 2) nreal[threadIdx.x] = 0;
+  const GatheredRow rs = gathered_row(hs, ds, base, L, seg_smem, cap);
+  const GatheredRow rt = gathered_row(ht, dt, base, L, seg_smem + 2 * cap,
+                                      cap);
+  cp_async_wait_all();
+  __syncthreads();
+  const int best = block_join(rs, rt, 0, nreal, red);
   if (threadIdx.x == 0) out[blockIdx.x] = best;
 }
 
@@ -561,6 +710,7 @@ static int launch_query_ragged(Cells c, const void* tile_lo,
   return (int)cudaGetLastError();
 }
 
+// K6 (K2 has its own kernel, below)
 template <typename Cells>
 static int launch_profile_ragged(Cells c, const void* tile_lo,
                                  const void* tile_hi, const void* qidx,
@@ -601,14 +751,42 @@ extern "C" int wcsd_query_ragged_launch(
                              stream);
 }
 
+// K2: a warp per work item, as many warps a block as PROF_SMEM holds (at
+// most PROF_WARPS_MAX), as many blocks as the card holds at once.
 extern "C" int wcsd_profile_ragged_launch(
     const void* hub, const void* dist, const void* wlev, const void* tile_lo,
     const void* tile_hi, const void* qidx, const void* stile,
     const void* ttile, void* out, long long worklist_len, int lane,
     int levels1, void* stream) {
-  return launch_profile_ragged(int32_cells(hub, dist, wlev), tile_lo,
-                               tile_hi, qidx, stile, ttile, out,
-                               worklist_len, lane, levels1, stream);
+  if (worklist_len <= 0) return 0;
+  if (levels1 < 1 || levels1 > MAX_LEVELS1 || lane < 1)
+    return (int)cudaErrorInvalidValue;
+  const size_t warp_bytes = sizeof(int) * (size_t)prof_warp_ints(lane);
+  if (warp_bytes > PROF_SMEM) return (int)cudaErrorInvalidValue;
+  const int wpb = (int)(PROF_SMEM / warp_bytes) < PROF_WARPS_MAX
+                      ? (int)(PROF_SMEM / warp_bytes)
+                      : PROF_WARPS_MAX;
+  // at most the blocks the card holds at once; each warp loops
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, wcsd_profile_ragged_merge_kernel, 32 * wpb,
+        wpb * warp_bytes);
+  if (err != cudaSuccess) return (int)err;
+  long long blocks = (worklist_len + wpb - 1) / wpb;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (blocks > resident) blocks = resident;
+  wcsd_profile_ragged_merge_kernel<<<(unsigned)blocks, 32 * wpb,
+                                     wpb * warp_bytes,
+                                     (cudaStream_t)stream>>>(
+      (const int*)hub, (const int*)dist, (const int*)wlev,
+      (const int*)tile_lo, (const int*)tile_hi, (const int*)qidx,
+      (const int*)stile, (const int*)ttile, (int*)out, worklist_len, lane,
+      levels1);
+  return (int)cudaGetLastError();
 }
 
 // dist_is_fp16: 0 = bfloat16 distances, 1 = float16
@@ -638,12 +816,6 @@ extern "C" int wcsd_profile_ragged_compressed_launch(
   return launch_profile_ragged(
       compressed_cells<__nv_bfloat16>(hub_delta, dist, wlev), tile_lo,
       tile_hi, qidx, stile, ttile, out, worklist_len, lane, levels1, stream);
-}
-
-// Shared-memory cells staged per side: the widest row at most SEG_STAGE
-// wide, rounded up to 4 cells (16 bytes); 0 where every row is wider.
-static int seg_cap(int widest_staged) {
-  return widest_staged > 0 ? (widest_staged + 3) / 4 * 4 : 0;
 }
 
 static int launch_query_segmented(const SegGroup* groups, int G,
@@ -686,7 +858,8 @@ extern "C" int wcsd_query_segmented_launch(
                      Ws, Wt, 0, (int)batch};
   return launch_query_segmented(
       nullptr, 0, one, srow, trow, wq, out, batch,
-      seg_cap(Ws <= SEG_STAGE ? Ws : 0), seg_cap(Wt <= SEG_STAGE ? Wt : 0),
+      stage_cap(Ws <= SEG_STAGE ? Ws : 0),
+      stage_cap(Wt <= SEG_STAGE ? Wt : 0),
       stream);
 }
 
@@ -700,7 +873,7 @@ extern "C" int wcsd_query_segmented_grouped_launch(
   if (G < 1) return batch > 0 ? (int)cudaErrorInvalidValue : 0;
   return launch_query_segmented((const SegGroup*)groups, G, SegGroup{},
                                 srow, trow, wq, out, batch,
-                                seg_cap(widest_s), seg_cap(widest_t),
+                                stage_cap(widest_s), stage_cap(widest_t),
                                 stream);
 }
 
@@ -719,16 +892,19 @@ extern "C" int wcsd_profile_segmented_launch(
   return (int)cudaGetLastError();
 }
 
+// K9: a block per query; rows up to SEG_STAGE cells staged (hub + dist a
+// side: at most 32 KB a block), wider rows read in place.
 extern "C" int wcsd_query_gathered_launch(const void* hs, const void* ds,
                                           const void* ht, const void* dt,
                                           void* out, long long batch, int L,
                                           void* stream) {
   if (batch <= 0) return 0;
-  if (L < 1) return (int)cudaErrorInvalidValue;
-  wcsd_query_gathered_kernel<<<(unsigned)batch,
-                               block_threads(L, MAX_THREADS_SEG), 0,
+  if (L < 1 || batch > 0x7fffffffLL) return (int)cudaErrorInvalidValue;
+  const int cap = L <= SEG_STAGE ? stage_cap(L) : 0;
+  wcsd_query_gathered_kernel<<<(unsigned)batch, SEG_THREADS,
+                               sizeof(int) * 4 * (size_t)cap,
                                (cudaStream_t)stream>>>(
-      GatheredCells{(const int*)hs, (const int*)ds},
-      GatheredCells{(const int*)ht, (const int*)dt}, (int*)out, L);
+      (const int*)hs, (const int*)ds, (const int*)ht, (const int*)dt,
+      (int*)out, L, cap);
   return (int)cudaGetLastError();
 }

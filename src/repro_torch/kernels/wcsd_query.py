@@ -7,8 +7,14 @@ launchers and, beside each, its plain PyTorch version.
 K9 joins pre-gathered, pre-masked ``[B, L]`` label rows of the padded
 store (`kernels.ops.gather_padded_rows`): per query, the min over every
 cell pair with ``hs[i] == ht[j]`` of ``ds[i] + dt[j]``, capped at DEV_INF
-as the Pallas kernel's DEV_INF-initialised accumulator caps it. Rows need
-not be hub-sorted: the join is all-pairs.
+as the Pallas kernel's DEV_INF-initialised accumulator caps it. The
+store's rows are hub-sorted with inert pads after them (hub -1, distance
+DEV_INF), and the CUDA kernel merge-joins such rows (one block per query,
+both rows staged in shared memory up to 2,048 cells). Rows need not be
+sorted: a query whose rows fail the kernel's check (real cells
+non-decreasing in hub, pads only after them, every pad's distance >=
+DEV_INF) is joined all-pairs inside the kernel, so any rows give the
+plain version's answer.
 
 K1, K2, K5 and K6 read the lane-tiled label arena
 (`core.wc_index.LabelArena`, or `CompressedArena` for K5/K6) through a
@@ -18,7 +24,10 @@ sources are `repro_torch/csrc/wcsd_query.cu`; the plain versions are
 line-by-line translations of the reference package's `kernels/ref.py`
 oracles (`wcsd_query_ragged_ref`, `wcsd_profile_ragged_ref` and their
 `_compressed` twins), chunked over the worklist so that the
-``[items, lane, lane]`` join never exceeds a fixed number of cells.
+``[items, lane, lane]`` join never exceeds a fixed number of cells. K1,
+K5 and K6 join each item's tiles all-pairs in one block; K2 runs a warp
+per item and merge-joins tiles whose real cells are hub-sorted with
+inert pads (wlev < 0) after them, all-pairs otherwise.
 
 Compressed cells decode as the reference's `_decode_cells` does: hub =
 ``tile_lo + delta`` where ``delta >= 0`` (the sign is the pad flag), else
@@ -32,8 +41,8 @@ import torch
 from . import _cuda
 
 DEV_INF = 1 << 29
-MAX_LANE = 1024         # one thread per s-side cell, one block per item
-MAX_LEVELS1 = 32        # per-thread level minima of the profile kernels
+MAX_LANE = 1024         # K1/K5/K6: one thread per s-side cell, a block an item
+MAX_LEVELS1 = 32        # level bins of the profile kernels
 _CHUNK_CELLS = 1 << 25  # join cells per chunk of the plain versions
 _DIST_DTYPES = (torch.bfloat16, torch.float16)
 
@@ -156,7 +165,8 @@ def wcsd_query_gathered_plain(hs, ds, ht, dt):
 
 
 def wcsd_query_gathered_cuda(hs, ds, ht, dt):
-    """Launch K9 on the current stream: one block per query. hs/ds/ht/dt
+    """Launch K9 on the current stream: one block per query, a merge join
+    where both rows pass the kernel's check, else all-pairs. hs/ds/ht/dt
     [B, L] int32, ds/dt in [0, DEV_INF]. Returns [B] int32 best sums
     (DEV_INF means no meet)."""
     what = "wcsd_query_gathered"
@@ -261,8 +271,10 @@ def wcsd_query_ragged_cuda(hub, dist, wlev, tile_lo, tile_hi, qidx, stile,
 
 def wcsd_profile_ragged_cuda(hub, dist, wlev, tile_lo, tile_hi, qidx, stile,
                              ttile, num_rows: int, num_levels: int):
-    """Launch K2 on the current stream. Returns [num_rows, num_levels + 1]
-    int32 bucket minima (pre-filled with DEV_INF, trash row included)."""
+    """Launch K2 on the current stream: a warp per work item, a merge join
+    where both tiles pass the kernel's check, else all-pairs. Returns
+    [num_rows, num_levels + 1] int32 bucket minima (pre-filled with
+    DEV_INF, trash row included)."""
     what = "wcsd_profile_ragged"
     _arena_checks(what, hub, dist, wlev, tile_lo, tile_hi, qidx, stile,
                   ttile, {})

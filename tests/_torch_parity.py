@@ -50,3 +50,99 @@ ARENA_FIELDS = ("hub", "dist", "wlev", "tile_base", "tile_cnt", "tile_lo",
                 "tile_hi")
 GRAPH_FIELDS = ("indptr", "nbr", "nbr_level", "levels", "edges_src",
                 "edges_dst", "edges_level")
+
+
+# ----------------------------------------- rows for the merge-join kernels
+DEV_INF = 1 << 29
+INF_DIST = 1 << 30
+# "store": rows as the label store writes them; "duplicates": the same
+# with long runs of one hub (Pareto entries); the rest break what a merge
+# join relies on: "live-pad" (the first pad of every row feasible, with a
+# short distance and a level >= 0), "mid-row-pad" (an inert pad between
+# real cells), "descending" (two adjacent real cells out of hub order),
+# "pads-only" (no real cell at all)
+ROW_CASES = ("store", "duplicates", "live-pad", "mid-row-pad", "descending",
+             "pads-only")
+
+
+def label_rows(rng, n: int, W: int, case: str, top_level: int = 4):
+    """[n, W] int32 (hub, dist, wlev) label rows. "store": k real cells
+    (hub ranks non-decreasing, repeats allowed; distances 10-999, levels
+    0..``top_level``) followed by pads (hub -1, dist INF_DIST, wlev -1),
+    k drawn per row; the other `ROW_CASES` as described there."""
+    hubs = max(2, W // 6) if case == "duplicates" else 4 * W
+    lo_k = 2 if case in ("mid-row-pad", "descending") else 0
+    hi_k = W if case == "live-pad" else W + 1      # live-pad: room for a pad
+    hub = np.full((n, W), -1, np.int32)
+    dist = np.full((n, W), INF_DIST, np.int32)
+    wlev = np.full((n, W), -1, np.int32)
+    for r in range(n):
+        k = 0 if case == "pads-only" else int(rng.integers(min(lo_k, W),
+                                                           max(hi_k, 1)))
+        hub[r, :k] = np.sort(rng.integers(0, hubs, k))
+        dist[r, :k] = rng.integers(10, 1000, k)
+        wlev[r, :k] = rng.integers(0, top_level + 1, k)
+    real = (hub >= 0).sum(1)
+    for r in range(n):
+        k = int(real[r])
+        if case == "live-pad" and k < W:
+            dist[r, k], wlev[r, k] = rng.integers(0, 5), top_level
+        elif case == "mid-row-pad" and k >= 2:
+            p = int(rng.integers(0, k - 1))
+            hub[r, p], dist[r, p], wlev[r, p] = -1, INF_DIST, -1
+        elif case == "descending":
+            up = np.flatnonzero(hub[r, 1:k] > hub[r, :k - 1])
+            if len(up):
+                p = int(rng.choice(up))
+                for a in (hub, dist, wlev):
+                    a[r, [p, p + 1]] = a[r, [p + 1, p]]
+    return hub, dist, wlev
+
+
+def gathered_rows(rng, B: int, L: int, case: str, top_level: int = 4):
+    """K9's inputs (hs, ds, ht, dt), [B, L] int32 each, made from
+    `label_rows` of both sides as `kernels.ops.gather_padded_rows` makes
+    them from the padded store: distances clamped to DEV_INF, and DEV_INF
+    where a cell's level is below the query's (drawn in 0..top_level; a
+    pad's level is -1). A "live-pad" row's first pad keeps its short
+    distance, so the pad-pad meet is the answer."""
+    w = rng.integers(0, top_level + 1, B)[:, None]
+    out = []
+    for _ in range(2):
+        h, d, wl = label_rows(rng, B, L, case, top_level)
+        out += [h, np.where(wl >= w, np.minimum(d, DEV_INF),
+                            DEV_INF).astype(np.int32)]
+    return tuple(out)
+
+
+def tile_spans(hub, wlev):
+    """[T] (tile_lo, tile_hi) of arena tiles: the min and max hub of the
+    cells that can reach a bin (real cells, and pads with a level >= 0),
+    -1 where there are none, as the store's pads-only tile would have.
+    An item whose spans are disjoint then has no meet that bins, so the
+    kernels' early exit keeps the answer of a join of every item."""
+    live = (hub >= 0) | (wlev >= 0)
+    big = np.iinfo(np.int32).max
+    lo = np.where(live, hub, big).min(1)
+    hi = np.where(live, hub, -big).max(1)
+    none = ~live.any(1)
+    return (np.where(none, -1, lo).astype(np.int32),
+            np.where(none, -1, hi).astype(np.int32))
+
+
+def ragged_items(rng, Q: int, T: int, length: int, per_query: int = 4):
+    """A query-major ragged worklist of ``length`` items over T tiles, as
+    the reference's `emit_ragged_worklist` lays one out: 1..per_query
+    items a query (any tiles), then pads on the trash row Q with tile 0 on
+    both sides (at least one). Returns int32 (qidx, stile, ttile,
+    first)."""
+    qidx = np.repeat(np.arange(Q), rng.integers(1, per_query + 1, Q))
+    n = len(qidx)
+    pads = length - n
+    assert pads >= 1, (length, n)
+    qidx = np.concatenate([qidx, np.full(pads, Q)])
+    stile = np.concatenate([rng.integers(0, T, n), np.zeros(pads, int)])
+    ttile = np.concatenate([rng.integers(0, T, n), np.zeros(pads, int)])
+    first = np.concatenate([[1], qidx[1:] != qidx[:-1]])
+    return tuple(a.astype(np.int32) for a in (qidx, stile, ttile, first))
+

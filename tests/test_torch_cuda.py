@@ -10,6 +10,8 @@ import numpy as np
 import pytest
 import torch
 
+from _torch_parity import (ROW_CASES, gathered_rows, label_rows,
+                           ragged_items, tile_spans)
 from repro_torch.core.generators import erdos_renyi, random_queries, \
     scale_free
 from repro_torch.core.query import DeviceQueryEngine, TRASH_LEVEL, \
@@ -599,6 +601,51 @@ def test_gathered_kernel_equals_plain(card, B, L):
     a = kwq.wcsd_query_gathered_cuda(*x)
     assert _cuda.LAUNCHES["wcsd_query_gathered"] == (1 if B else 0)
     assert torch.equal(a, kwq.wcsd_query_gathered_plain(*x))
+
+
+@pytest.mark.parametrize("L", [130, 1792, 2500])
+@pytest.mark.parametrize("case", ROW_CASES)
+def test_gathered_merge_join_takes_any_rows(card, case, L):
+    """K9 against its plain version on store-shaped rows (the merge join)
+    and on rows it must join all-pairs inside the kernel (a feasible pad
+    on both sides, a pad mid-row, a descending pair), rows of no real cell;
+    L = 130 (rows not 16-byte aligned), 1,792 (the V = 2^17 store) and
+    2,500 (past the shared-memory stage: read in place)."""
+    rng = np.random.default_rng(L + ROW_CASES.index(case))
+    x = [torch.from_numpy(a).to(card)
+         for a in gathered_rows(rng, 96, L, case)]
+    _cuda.reset_launch_counts()
+    got = kwq.wcsd_query_gathered_cuda(*x)
+    assert _cuda.LAUNCHES["wcsd_query_gathered"] == 1
+    assert torch.equal(got, kwq.wcsd_query_gathered_plain(*x))
+
+
+@pytest.mark.parametrize("num_levels", [0, 4, 31])
+@pytest.mark.parametrize("lane", [128, 48, 1024])
+@pytest.mark.parametrize("case", ROW_CASES)
+def test_profile_merge_kernel_takes_any_tiles(card, case, lane, num_levels):
+    """K2 (a warp per work item) against its plain version on tiles of
+    every row case, num_levels + 1 of 1, 5 and 32 bins (a tenth of the
+    real cells one level past the last), lanes 128, 48 and 1,024 (one warp
+    a block), the worklist in shuffled order with trash-row pads."""
+    rng = np.random.default_rng(lane * 100 + num_levels
+                                + ROW_CASES.index(case))
+    T, Q = 120, 200
+    hub, dist, wlev = label_rows(rng, T, lane, case, top_level=num_levels)
+    past = (hub >= 0) & (rng.random(hub.shape) < 0.1)
+    wlev = np.where(past, num_levels + 1, wlev).astype(np.int32)
+    lo, hi = tile_spans(hub, wlev)
+    q, st, tt, _ = ragged_items(rng, Q, T, length=4 * Q + 40)
+    perm = rng.permutation(len(q))
+    arena = [torch.from_numpy(a).to(card) for a in (hub, dist, wlev, lo, hi)]
+    items = [torch.from_numpy(a[perm]).to(card) for a in (q, st, tt)]
+    _cuda.reset_launch_counts()
+    got = kwq.wcsd_profile_ragged_cuda(*arena, *items, Q + 1, num_levels)
+    assert _cuda.LAUNCHES["wcsd_profile_ragged"] == 1
+    exp = kwq.wcsd_profile_ragged_plain(*arena[:3], *items, Q + 1,
+                                        num_levels)
+    assert torch.equal(got, exp)
+    assert case == "pads-only" or (exp[:Q] < kwq.DEV_INF).any()
 
 
 @pytest.mark.parametrize("V,D", [(1, 1), (100, 7), (513, 33), (300, 1100)])

@@ -1,5 +1,6 @@
-"""The port stands alone: `repro_torch` and `chip_smoke.py` import neither
-`jax` nor the reference package `repro`; entry points default to the card
+"""The port stands alone: `repro_torch`, `chip_smoke.py` and
+`scripts/chip_ab.py` import neither `jax` nor the reference package
+`repro`; entry points default to the card
 and raise where there is none; the CUDA launchers refuse CPU tensors
 (K11's also mixed dtypes and wrong ranks); and the features not ported
 yet raise `NotImplementedError` (the engine configurations the reference
@@ -53,7 +54,8 @@ _BANNED = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
 
 
 def test_source_scan_finds_no_jax_or_repro_import():
-    files = [os.path.join(REPO, "chip_smoke.py")]
+    files = [os.path.join(REPO, "chip_smoke.py"),
+             os.path.join(REPO, "scripts", "chip_ab.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) >= 29

@@ -1,0 +1,120 @@
+"""The two merge-join kernels' plain versions on the rows those kernels
+must tell apart: K9 `wcsd_query_gathered` (gathered padded rows) and K2
+`wcsd_profile_ragged` (arena tiles through a ragged worklist).
+
+On the card both kernels merge-join rows whose real cells are hub-sorted
+with inert pads after them, and join every other row all-pairs. The
+rows here (`_torch_parity.ROW_CASES`) are store-shaped (sorted real
+prefix, inert pad tail, cells masked by level; also with long runs of
+one hub) or break that shape (a feasible pad on both sides, a pad
+mid-row, a descending pair, no real cell at all). The plain versions
+must give the reference's answer on every one: the Pallas kernels in
+interpret mode and the `kernels/ref.py` oracles, exactly. K2 runs at
+``num_levels + 1`` of 1, 5 and 32 (the most the kernels bin) with levels
+up to one past the last bin, and lane 48; K9 at a shape the Pallas
+kernel takes (B % 8 == 0, L % 128 == 0) and at an odd one (oracle only).
+"""
+import os
+import sys
+
+import numpy as np
+import pytest
+import torch
+
+import jax.numpy as jnp
+
+from _torch_parity import (DEV_INF, ROW_CASES, assert_same_array,
+                           gathered_rows, label_rows, ragged_items,
+                           tile_spans)
+from repro.kernels import ref as j_ref
+from repro.kernels import wcsd_query as j_wq
+from repro_torch.kernels import wcsd_query as t_wq
+
+sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+from chip_smoke import mergeable_rows  # noqa: E402  (the smoke's check)
+
+BROKEN = {"live-pad", "mid-row-pad", "descending"}
+
+
+def _t(*arrays):
+    return [torch.from_numpy(np.ascontiguousarray(a)) for a in arrays]
+
+
+def _j(*arrays):
+    return [jnp.asarray(np.asarray(a)) for a in arrays]
+
+
+def test_row_cases_are_what_they_say():
+    """Store-shaped rows pass the kernels' check (as the smoke computes it
+    to report the merge share), broken ones fail it in some row: the
+    generators make the rows each test needs."""
+    rng = np.random.default_rng(0)
+    for case in ROW_CASES:
+        hs, ds, ht, dt = gathered_rows(rng, 16, 40, case)
+        ok9 = mergeable_rows(hs, ds >= DEV_INF) & mergeable_rows(
+            ht, dt >= DEV_INF)
+        hub, _, wlev = label_rows(rng, 16, 40, case)
+        ok2 = mergeable_rows(hub, wlev < 0)
+        assert ok9.all() == ok2.all() == (case not in BROKEN), case
+    hub, _, _ = label_rows(rng, 64, 40, "duplicates")
+    assert (hub[:, 1:] == hub[:, :-1])[hub[:, 1:] >= 0].mean() > 0.5
+
+
+@pytest.mark.parametrize("B,L", [(16, 128), (5, 131)])
+@pytest.mark.parametrize("case", ROW_CASES)
+def test_gathered_plain_on_merge_cases(case, B, L):
+    """K9's plain version == the jnp oracle (capped at DEV_INF) == the
+    Pallas kernel in interpret mode where its shape rules allow; a feasible
+    pad on both sides gives the pads' sum."""
+    rng = np.random.default_rng(ROW_CASES.index(case) * 100 + L)
+    rows = gathered_rows(rng, B, L, case)
+    got = t_wq.wcsd_query_gathered_plain(*_t(*rows)).numpy()
+    exp = np.minimum(np.asarray(j_ref.wcsd_query_gathered_ref(*_j(*rows))),
+                     DEV_INF).astype(np.int32)
+    assert_same_array(got, exp)
+    if B % 8 == 0 and L % 128 == 0:
+        assert_same_array(got, np.asarray(j_wq.wcsd_query_gathered(
+            *_j(*rows))))
+    hs, ds, ht, dt = rows
+    if case == "live-pad":       # the first pads' sum beats every real meet
+        k_s, k_t = (hs >= 0).sum(1), (ht >= 0).sum(1)
+        r = np.arange(B)
+        assert_same_array(got, (ds[r, k_s] + dt[r, k_t]).astype(np.int32))
+    elif case == "pads-only":
+        assert (got == DEV_INF).all()
+    else:
+        assert (got < DEV_INF).any()
+
+
+@pytest.mark.parametrize("num_levels", [0, 4, 31])
+@pytest.mark.parametrize("case", ROW_CASES)
+def test_profile_plain_on_merge_cases(case, num_levels):
+    """K2's plain version == the Pallas kernel (interpret) == the jnp
+    oracle on arena tiles of every row case, lane 48, through a
+    query-major worklist with trash-row pads; a tenth of the real cells
+    sit one level past the last bin; feasible pads meet in the top bin."""
+    rng = np.random.default_rng(ROW_CASES.index(case) * 100 + num_levels)
+    T, Q, lane = 24, 10, 48
+    hub, dist, wlev = label_rows(rng, T, lane, case, top_level=num_levels)
+    past = (hub >= 0) & (rng.random(hub.shape) < 0.1)
+    wlev = np.where(past, num_levels + 1, wlev).astype(np.int32)
+    lo, hi = tile_spans(hub, wlev)
+    q, st, tt, first = ragged_items(rng, Q, T, length=4 * Q + 8)
+    rows = Q + 1
+    arena = (hub, dist, wlev)
+    pallas = np.asarray(j_wq.wcsd_profile_ragged(
+        *_j(*arena, lo, hi, q, st, tt, first), num_rows=rows,
+        num_levels=num_levels, interpret=True))
+    ref = np.asarray(j_ref.wcsd_profile_ragged_ref(
+        *_j(*arena, q, st, tt), rows, num_levels))
+    plain = t_wq.wcsd_profile_ragged_plain(*_t(*arena, q, st, tt), rows,
+                                           num_levels).numpy()
+    assert_same_array(pallas, ref)
+    assert_same_array(plain, pallas)
+    assert plain.shape == (rows, num_levels + 1)
+    if case == "live-pad":       # every item meets its tiles' first pads
+        assert (plain[:Q, num_levels] <= 8).all()
+    elif case == "pads-only":
+        assert (plain == DEV_INF).all()
+    else:
+        assert (plain[:Q] < DEV_INF).any()
