@@ -21,7 +21,7 @@ reset just before it and read just after it:
    plain padded oracle) and promoted back to the top;
 4. bucket-pair serving: the V = 2^17 index served through
    `WCSDServer(dispatch="bucket_pair")` in epoch flushes (one K7 launch
-   per scalar flush, one K8 launch per profile sub-batch);
+   per scalar flush, one K8 launch per profile flush);
 5. padded serving: the V = 2^17 index from the padded ``[V, L]`` store,
    `WCSDServer(layout="padded", use_pallas=True)` (K9; plain profiles),
    in epoch flushes;
@@ -38,11 +38,11 @@ Then every kernel is held against its plain PyTorch version on inputs
 captured from its path (exact int32 equality; K3 at the build's heaviest
 pruning call, K4 at round 1 of the middle root batch and of root batch
 0, both again with every row's pads moved mid-row, K4 also with pad ids
-V, and both on the smallest inputs of the fault C1; K7 on the grouped
-flush, every sub-batch, and unsorted rows; K2 and K9 also with every
-tile's or row's cells shuffled, which their merge check refuses (the
-share of items or queries that pass it is recorded; K9's record also
-times the gather before it); K11, 3xTF32 on the tensor cores
+V, and both on the smallest inputs of the fault C1; K7 and K8 on the
+grouped flush, every sub-batch, and unsorted rows; K1, K2 and K9 also
+with every tile's or row's cells shuffled, which their merge check
+refuses (the share of items or queries that pass it is recorded; K9's
+record also times the gather before it); K11, 3xTF32 on the tensor cores
 summed in fp32 in another order, within 1e-4 of each layer's max |ref|
 on the model's own activations and at the reference test's tolerance on
 unit-normal inputs, and 8 rows of one batch against the plain forward
@@ -101,6 +101,7 @@ BFS_ROOTS = 3        # single-root relaxation runs (K10)
 LADDER_PER = 512     # scalar requests per ladder flush (and a quarter as
                      # many profiles)
 LADDER_TIMEOUT_MS = 2000.0  # the ladder server's flush deadline
+DEV_INF = 1 << 29
 INF_DIST = 1 << 30
 
 
@@ -131,6 +132,28 @@ def cuda_ms(fn, iters: int) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / iters
+
+
+def device_ms(fn, iters: int, kernel: str):
+    """Mean device milliseconds per call of the CUDA kernels whose name
+    holds ``kernel`` among those ``fn`` launches, from a `torch.profiler`
+    trace of ``iters`` calls after one warm-up call: the kernel alone,
+    where `cuda_ms` also counts the wrapper's host time whenever the host
+    is the slower side. None where the trace shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(iters):
+            fn()
+        torch.cuda.synchronize()
+    us = 0.0
+    for e in prof.key_averages():
+        if kernel in e.key.split("(")[0]:
+            t = getattr(e, "device_time_total", None)
+            us += e.cuda_time_total if t is None else t
+    return us / iters / 1e3 if us else None
 
 
 def bound_ms(nbytes: float, nops: float) -> tuple[float, str]:
@@ -455,13 +478,24 @@ def mergeable_rows(hub, pad_inert):
     return prefix & rising & ~(~real & ~pad_inert).any(1)
 
 
+def mergeable_at(hub, dist, wlev, tiles, w):
+    """[n] bool: K1's merge check of tile ``tiles[i]`` at level ``w[i]``:
+    `mergeable_rows`' order, and every pad of the tile inert at that level
+    (its distance, masked where its wlev < w, is >= DEV_INF), computed
+    here from the inputs."""
+    ok = mergeable_rows(hub, hub == hub)
+    live = (hub < 0) & (dist < DEV_INF)      # pads a low level makes count
+    return ok[tiles] & ~(live[tiles] & (wlev[tiles] >= w[:, None])).any(1)
+
+
 def ragged_kernel_phase(engine, rec, profile: bool, launches: int,
                         iters: int) -> dict:
-    """K1/K2, or K5/K6 where the engine serves the compressed arena. K2
-    (a merge join) also runs on the same worklist over the arena with
-    every tile's cells shuffled (its all-pairs branch), held against the
-    plain version and timed; the share of meeting items whose two tiles
-    pass its merge check is recorded for both."""
+    """K1/K2, or K5/K6 where the engine serves the compressed arena. K1
+    and K2 (merge joins) also run on the same worklist over the arena
+    with every tile's cells shuffled (their all-pairs branch), held
+    against the plain version and timed; the share of meeting items whose
+    two tiles pass the merge check (K1's at each item's level) is
+    recorded for both."""
     import torch
     from repro_torch.kernels import wcsd_query as kwq
     hub, dist, wlev, lo, hi, qidx, stile, ttile, wq, rows = \
@@ -475,23 +509,23 @@ def ragged_kernel_phase(engine, rec, profile: bool, launches: int,
                   kwq.wcsd_profile_ragged_compressed_cuda)
         pq, pp = (kwq.wcsd_query_ragged_compressed_plain,
                   kwq.wcsd_profile_ragged_compressed_plain)
-        plain_arena = (hub, dist, wlev, lo)
+        plain_extra = (lo,)
     else:
         kq, kp = kwq.wcsd_query_ragged_cuda, kwq.wcsd_profile_ragged_cuda
         pq, pp = kwq.wcsd_query_ragged_plain, kwq.wcsd_profile_ragged_plain
-        plain_arena = (hub, dist, wlev)
+        plain_extra = ()
     if profile:
-        def kern():
-            return kp(hub, dist, wlev, lo, hi, qidx, stile, ttile, rows, L)
+        def kern(h=hub, d=dist, w=wlev):
+            return kp(h, d, w, lo, hi, qidx, stile, ttile, rows, L)
 
-        def plain():
-            return pp(*plain_arena, qidx, stile, ttile, rows, L)
+        def plain(h=hub, d=dist, w=wlev):
+            return pp(h, d, w, *plain_extra, qidx, stile, ttile, rows, L)
     else:
-        def kern():
-            return kq(hub, dist, wlev, lo, hi, qidx, stile, ttile, wq)
+        def kern(h=hub, d=dist, w=wlev):
+            return kq(h, d, w, lo, hi, qidx, stile, ttile, wq)
 
-        def plain():
-            return pq(*plain_arena, qidx, stile, ttile, wq)
+        def plain(h=hub, d=dist, w=wlev):
+            return pq(h, d, w, *plain_extra, qidx, stile, ttile, wq)
     a, b = kern(), plain()
     torch.cuda.synchronize()
     err = int((a.long() - b.long()).abs().max().item())
@@ -519,44 +553,49 @@ def ragged_kernel_phase(engine, rec, profile: bool, launches: int,
            "launches": launches, "max_abs_err": err,
            "ms": cuda_ms(kern, iters), "plain_ms": cuda_ms(plain, 2),
            "bound_ms": bms, "bound_by": by, "library_ms": None,
+           "device_ms": device_ms(kern, iters,
+                                  name.replace("_compressed", "")),
            "shape": {"worklist": WL, "pad_items": WL - int(real.sum()),
                      "meeting_items": n_meet, "hub_meets": meets,
                      "lane": lane,
                      "bytes_per_cell": cell, "queries": rows - 1}}
-    if profile and not comp:
-        def merge_share(h, w):
-            ok = mergeable_rows(h, w < 0)
-            return float((ok[stile[meet]] & ok[ttile[meet]]).float().mean())
+    if not comp:
+        if profile:
+            def merge_share(h, d, w):
+                ok = mergeable_rows(h, w < 0)
+                return float((ok[stile[meet]] & ok[ttile[meet]]).float()
+                             .mean())
+        else:
+            lev = wq[qidx[meet]]
 
-        out["merge_share"] = merge_share(hub, wlev)
-        sh, sd, sw = _shuffled_rows(hub, dist, wlev)
-        out["shuffled_merge_share"] = merge_share(sh, sw)
+            def merge_share(h, d, w):
+                return float((mergeable_at(h, d, w, stile[meet], lev)
+                              & mergeable_at(h, d, w, ttile[meet], lev))
+                             .float().mean())
 
-        def kern_shuffled():
-            return kp(sh, sd, sw, lo, hi, qidx, stile, ttile, rows, L)
-
-        a = kern_shuffled()
-        b = pp(sh, sd, sw, qidx, stile, ttile, rows, L)
+        out["merge_share"] = merge_share(hub, dist, wlev)
+        sh = _shuffled_rows(hub, dist, wlev)
+        out["shuffled_merge_share"] = merge_share(*sh)
+        a, b = kern(*sh), plain(*sh)
         torch.cuda.synchronize()
         out["shuffled_max_abs_err"] = int((a.long() - b.long()).abs().max()
                                           .item())
         out["max_abs_err"] = max(err, out["shuffled_max_abs_err"])
-        out["shuffled_ms"] = cuda_ms(kern_shuffled, max(1, iters // 10))
-        del sh, sd, sw
+        out["shuffled_ms"] = cuda_ms(lambda: kern(*sh), max(1, iters // 10))
+        del sh
     return out
 
 
 def segmented_kernel_phase(engine, rec, profile: bool, launches: int,
                            iters: int) -> dict:
     """K7/K8 on the sub-batches of one recorded bucket-pair flush: every
-    sub-batch held against the plain version. K8: the heaviest (most cell
-    pairs) timed alone, and the whole flush's launches back to back. K7:
-    the flush as the engine launches it (one grouped launch over the
-    sub-batches' table) held against the plain versions and timed, the
-    heaviest sub-batch's own launch timed beside it, and the heaviest
-    sub-batch with every row's cells shuffled (unsorted rows, pads
-    mid-row: the kernel's all-pairs branch) held against its plain
-    version."""
+    sub-batch's own launch held against the plain version; the flush as
+    the engine launches it (one grouped launch over the sub-batches'
+    table) held against the grouped plain version and timed, the heaviest
+    (most cell pairs) sub-batch's own launch and the flush's per-sub-batch
+    launches back to back timed beside it; and the heaviest sub-batch
+    with every row's cells shuffled (unsorted rows, pads mid-row: the
+    kernel's all-pairs branch) held against its plain version."""
     import torch
     from repro_torch.kernels import wcsd_segmented as kseg
     L = engine.num_levels
@@ -616,30 +655,29 @@ def segmented_kernel_phase(engine, rec, profile: bool, launches: int,
                           "Wt": tiles[3].shape[1],
                           "hub_meets": works[heavy][2]},
              "flush_hub_meets": sum(w[2] for w in works)}
-    if profile:
-        return {"name": "wcsd_profile_segmented", "route": "cuda",
-                "source": "src/repro_torch/csrc/wcsd_query.cu",
-                "replaces": "src/repro/kernels/wcsd_query.py:588",
-                "launches": launches, "max_abs_err": err,
-                "ms": cuda_ms(lambda: kern(stq, tiles), iters),
-                "plain_ms": cuda_ms(lambda: plain(stq, tiles), 2),
-                "bound_ms": bms, "bound_by": by, "library_ms": None,
-                "flush_ms": cuda_ms(
-                    lambda: [kern(q, t_) for _, q, t_ in subs],
-                    max(1, iters // 10)),
-                "flush_bound_ms": fbms, "flush_bound_by": fby,
-                "shape": shape}
-    # K7: the flush in one launch, staged as the engine stages it
+    # the flush in one launch, staged as the engine stages it
     groups = [(tl[:3], tl[3:], len(sb.positions)) for sb, _, tl in subs]
     staged = kseg.GroupedFlush(
         groups, torch.cat([q for _, q, _ in subs], dim=1).cpu().numpy(),
         engine.device)
+    if profile:
+        name, replaces = ("wcsd_profile_segmented",
+                          "src/repro/kernels/wcsd_query.py:588")
 
-    def flush():
-        return kseg.wcsd_query_segmented_grouped_cuda(staged)
+        def flush():
+            return kseg.wcsd_profile_segmented_grouped_cuda(staged, L)
 
-    def flush_plain():
-        return kseg.wcsd_query_segmented_grouped_plain(staged)
+        def flush_plain():
+            return kseg.wcsd_profile_segmented_grouped_plain(staged, L)
+    else:
+        name, replaces = ("wcsd_query_segmented",
+                          "src/repro/kernels/wcsd_query.py:119")
+
+        def flush():
+            return kseg.wcsd_query_segmented_grouped_cuda(staged)
+
+        def flush_plain():
+            return kseg.wcsd_query_segmented_grouped_plain(staged)
 
     got, exp = flush(), flush_plain()
     err = max(err, int((got.long() - exp.long()).abs().max().item()))
@@ -651,14 +689,15 @@ def segmented_kernel_phase(engine, rec, profile: bool, launches: int,
     unsorted_err = int((a.long() - b.long()).abs().max().item())
     err = max(err, unsorted_err)
     torch.cuda.synchronize()
-    return {"name": "wcsd_query_segmented", "route": "cuda",
+    return {"name": name, "route": "cuda",
             "source": "src/repro_torch/csrc/wcsd_query.cu",
-            "replaces": "src/repro/kernels/wcsd_query.py:119",
+            "replaces": replaces,
             "launches": launches, "max_abs_err": err,
             "ms": cuda_ms(flush, iters),
             "plain_ms": cuda_ms(flush_plain, 2),
             "bound_ms": fbms, "bound_by": fby, "library_ms": None,
             "per": "flush (one launch)",
+            "device_ms": device_ms(flush, iters, name),
             "heaviest_sub_batch_ms": cuda_ms(lambda: kern(stq, tiles),
                                              iters),
             "heaviest_sub_batch_bound_ms": bms,
@@ -1060,9 +1099,9 @@ def bucket_pair_phase(idx, qs, ps, out_ragged, prof_ragged, device
                       ) -> tuple[dict, list]:
     """Path 3: the V = 2^17 index through WCSDServer(dispatch=
     "bucket_pair") in epoch flushes. One K7 launch per scalar flush, one
-    K8 launch per planned profile sub-batch, every sub-batch equal to its
-    plain path, the whole stream equal to the ragged server's. Returns
-    the phase record and the K7/K8 kernel phases."""
+    K8 launch per profile flush, every sub-batch equal to its plain path,
+    the whole stream equal to the ragged server's. Returns the phase
+    record and the K7/K8 kernel phases."""
     import torch
     from repro_torch.kernels import _cuda
     log = []
@@ -1089,7 +1128,7 @@ def bucket_pair_phase(idx, qs, ps, out_ragged, prof_ragged, device
                 bad += 1
     check_path_launches("bucket-pair serving", launches, BUCKET_PAIR_PATH, {
         "wcsd_query_segmented": flushes["query"],
-        "wcsd_profile_segmented": planned["profile"]})
+        "wcsd_profile_segmented": flushes["profile"]})
     if bad:
         fail(f"bucket-pair serving: {bad} sub-batches differ from the "
              "plain path")

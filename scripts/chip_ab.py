@@ -32,7 +32,8 @@ loop, the round loop's idle share, and the round kernels' calls binned
 by their device time ([count, seconds] per bin). ``--kernels`` also
 times, with the smoke's own kernel phases (CUDA events, the smoke's
 shapes), K1 and K2 on the ragged server's first scalar and profile
-flush, K7 on the bucket-pair server's first scalar flush, K9 (and the
+flush, K7 and K8 on the bucket-pair server's first scalar and profile
+flush, K9 (and the
 gather before it) on the padded server's first scalar flush, and K5 and
 K6 on the first flushes of a compressed server of the V = 2^15 index
 (`chip_smoke.compressed_serve_phase`'s graph and queries); each kernel
@@ -227,13 +228,49 @@ def kernel_times(smoke, first, device) -> dict:
         eng, qrec, prec = first[name]
         phases += [smoke.ragged_kernel_phase(eng, qrec, False, 0, 50),
                    smoke.ragged_kernel_phase(eng, prec, True, 0, 50)]
-    eng, qrec, _ = first["bucket_pair"]
-    phases.append(smoke.segmented_kernel_phase(eng, qrec, False, 0, 20))
+    eng, qrec, prec = first["bucket_pair"]
+    phases += [smoke.segmented_kernel_phase(eng, qrec, False, 0, 20),
+               profile_flush_times(smoke, eng, prec)]
     eng, qrec, _ = first["padded"]
     phases.append(smoke.gathered_kernel_phase(eng, qrec, 0, 10))
     return {k["name"]: {key: v for key, v in k.items()
                         if key.endswith(("ms", "err", "share"))}
             for k in phases}
+
+
+def profile_flush_times(smoke, eng, prec) -> dict:
+    """K8 on the bucket-pair server's first profile flush: the smoke's
+    kernel phase where the tree under test launches K8 once a flush;
+    where it launches K8 once a sub-batch (no grouped K8), those launches
+    back to back (its flush, ``ms``) and its heaviest sub-batch alone,
+    each sub-batch held against the plain version."""
+    import torch
+    from repro_torch.kernels import wcsd_segmented as kseg
+    if hasattr(kseg, "wcsd_profile_segmented_grouped_cuda"):
+        return smoke.segmented_kernel_phase(eng, prec, True, 0, 20)
+    L = eng.num_levels
+    subs = smoke.sub_batches(eng, prec)
+
+    def kern(stq, tiles):
+        return kseg.wcsd_profile_segmented_cuda(*tiles, stq[0], stq[1], L)
+
+    err = 0
+    for _, stq, tiles in subs:
+        exp = kseg.wcsd_profile_segmented_plain(*tiles, stq[0], stq[1], L)
+        err = max(err, int((kern(stq, tiles).long() - exp.long()).abs()
+                           .max().item()))
+    torch.cuda.synchronize()
+    _, stq, tiles = max(subs, key=lambda x: len(x[0].positions)
+                        * x[2][0].shape[1] * x[2][3].shape[1])
+    def flush():
+        return [kern(q, t_) for _, q, t_ in subs]
+
+    flush_ms = smoke.cuda_ms(flush, 2)
+    return {"name": "wcsd_profile_segmented", "max_abs_err": err,
+            "ms": flush_ms, "per_sub_batch_flush_ms": flush_ms,
+            "device_ms": smoke.device_ms(flush, 2, "wcsd_profile_segmented"),
+            "heaviest_sub_batch_ms": smoke.cuda_ms(lambda: kern(stq, tiles),
+                                                   20)}
 
 
 if __name__ == "__main__":

@@ -14,9 +14,10 @@ Port of the reference package's `core/query.py` for `DeviceQueryEngine`:
   * ``layout="csr"``, ``dispatch="bucket_pair"``: the host planner
     (`plan_query_batch`) groups the batch by (bucket(s), bucket(t)) over
     the bucket pairs' padded tiles. A scalar flush is ONE K7
-    `wcsd_query_segmented` launch over a table of its groups; a profile
-    flush is one K8 `wcsd_profile_segmented` launch per group. The
-    reference keeps it as the ragged path's differential oracle.
+    `wcsd_query_segmented` launch over a table of its groups, a profile
+    flush ONE K8 `wcsd_profile_segmented` launch over the same kind of
+    table. The reference keeps it as the ragged path's differential
+    oracle.
   * ``layout="padded"``: one ``[V, L]`` store, every query pays the
     longest row's width. ``use_pallas=True`` answers a batch with one K9
     `wcsd_query_gathered` launch (`kernels.ops.wcsd_query`);
@@ -502,35 +503,33 @@ class DeviceQueryEngine:
             return out
         return _pending(res, assemble)
 
+    def _groups(self, plan):
+        """The flush's sub-batches as `GroupedFlush` takes them: (s-side
+        tiles, t-side tiles, query count) in plan order."""
+        return [(self._tiles[sub.bucket_s], self._tiles[sub.bucket_t],
+                 len(sub.positions)) for sub in plan]
+
     def _query_segmented_async(self, s, t, w_level) -> PendingResult:
         """One K7 launch for the whole flush: the sub-batches' table and
         the staged queries go to the device in one copy."""
         plan, pos, stq = self._plan(s, t, w_level)
         if not plan:
             return PendingResult(lambda: np.zeros(len(s), np.int32))
-        groups = [(self._tiles[sub.bucket_s], self._tiles[sub.bucket_t],
-                   len(sub.positions)) for sub in plan]
         res = kops.wcsd_query_segmented_grouped(
-            GroupedFlush(groups, stq, self.device))
+            GroupedFlush(self._groups(plan), stq, self.device))
         return self._scattered(res, pos, (len(s),))
 
     def _profile_segmented_async(self, s, t) -> PendingResult:
-        """One K8 launch per planned sub-batch over one staged copy; the
-        results are concatenated on the device, one event after it."""
+        """One K8 launch for the whole flush, staged as a scalar flush is
+        (the staged array is [2, B]: no levels)."""
         plan, pos, stq = self._plan(s, t, None)
         shape = (len(s), self.num_levels + 1)
         if not plan:
             return PendingResult(lambda: np.zeros(shape, np.int32))
-        dev = self._put(stq)
-        parts, a = [], 0
-        for sub in plan:
-            n = len(sub.positions)
-            parts.append(kops.wcsd_profile_segmented(
-                *self._tiles[sub.bucket_s], *self._tiles[sub.bucket_t],
-                dev[0, a:a + n], dev[1, a:a + n],
-                num_levels=self.num_levels))
-            a += n
-        return self._scattered(torch.cat(parts), pos, shape)
+        res = kops.wcsd_profile_segmented_grouped(
+            GroupedFlush(self._groups(plan), stq, self.device),
+            num_levels=self.num_levels)
+        return self._scattered(res, pos, shape)
 
     def query_from_quality(self, s, t, w: np.ndarray, levels: np.ndarray):
         """Real-valued thresholds -> levels (exact canonicalization)."""

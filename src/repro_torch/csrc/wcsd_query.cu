@@ -1,7 +1,7 @@
 // WCSD query kernels: the ragged kernels over the lane-tiled label arena
 // (plain and compressed), the bucket-pair kernels over padded bucket
-// tiles and the gathered-row kernel of the padded store. K2, K7 and K9
-// are merge joins; K1, K5, K6 and K8 keep one all-pairs join body.
+// tiles and the gathered-row kernel of the padded store. K1, K2, K7, K8
+// and K9 are merge joins; K5 and K6 keep one all-pairs join body.
 //
 // Replaces: src/repro/kernels/wcsd_query.py:wcsd_query_ragged (K1),
 //           ...:wcsd_profile_ragged (K2),
@@ -29,26 +29,23 @@
 // reference does not promise it. So every merge kernel first checks the
 // rows it joins: real cells (hub >= 0) non-decreasing in hub, pads (hub
 // < 0) only after them, and every pad inert (a scalar pad's masked
-// distance is DEV_INF, so a pad meet never reaches below DEV_INF; a
-// profile pad's wlev is < 0, so its meets fall in no bin). Rows that
-// fail the check are joined all-pairs inside the kernel, as the
-// reference joins them.
+// distance, at the query's level, is DEV_INF, so a pad meet never
+// reaches below DEV_INF; a profile pad's wlev is < 0, so its meets fall
+// in no bin). Rows that fail the check are joined all-pairs inside the
+// kernel, as the reference joins them.
 //
-// All-pairs body (K1, K5, K6, K8): a block stages its t-side cells (hub +
-// dist, profile also wlev) in shared memory, each thread takes s-side
-// cells with a stride of blockDim.x and scans every staged cell, and the
-// block reduces with warp shuffles; every such kernel reads its cells
-// through a cell reader, so the join is written once:
-//
-// - Int32Cells: int32 hub / dist / wlev (the arena, the bucket tiles).
-// - CompressedCells<F>: the compressed arena (int16 hub deltas, bf16 or
-//   fp16 distances, int8 levels: 5 bytes a cell instead of 12), decoded
-//   in registers as each cell is loaded, exactly as the reference's
-//   `_decode_cells`: hub = tile_lo + delta where delta >= 0, else -1 (the
-//   pad flag); dist = min(float(x), DEV_INF) + 0.5 rounded to nearest,
-//   then truncated (`__float2int_rz`, as `astype(int32)` truncates), so
-//   +inf pads decode to DEV_INF; wlev widened. The staged cells are
-//   decoded int32 values. Built without fast math.
+// All-pairs body (K5, K6): a block stages its t-side cells (hub + dist,
+// profile also wlev) in shared memory, each thread takes s-side cells
+// with a stride of blockDim.x and scans every staged cell, and the block
+// reduces with warp shuffles; both read their cells through a cell
+// reader, CompressedCells<F>: the compressed arena (int16 hub deltas,
+// bf16 or fp16 distances, int8 levels: 5 bytes a cell instead of 12),
+// decoded in registers as each cell is loaded, exactly as the
+// reference's `_decode_cells`: hub = tile_lo + delta where delta >= 0,
+// else -1 (the pad flag); dist = min(float(x), DEV_INF) + 0.5 rounded to
+// nearest, then truncated (`__float2int_rz`, as `astype(int32)`
+// truncates), so +inf pads decode to DEV_INF; wlev widened. The staged
+// cells are decoded int32 values. Built without fast math.
 //
 // Ragged (K1, K2, K5, K6), per worklist item k = (qidx, s_tile, t_tile):
 // the join of the two tiles, min-accumulated into output row qidx. The
@@ -60,28 +57,30 @@
 // order-independent, so the result is bit-exact whatever order items run
 // in, and the worklist's `first` flags are not needed. Items whose
 // [tile_lo, tile_hi] hub spans are disjoint cannot meet and are skipped
-// before any cell is read. K1, K5 and K6 run one block per item.
+// before any cell is read. K5 and K6 run one block per item.
 //
-// K2 runs one warp per item, so an item costs no block barrier: blocks of
-// PROF_WARPS_MAX warps (fewer where the lane is wide), only as many as
-// the card holds at once, each warp walking the worklist with the grid's
-// stride (a block of 8 items, one each, holds its slot on the SM until
-// its slowest item ends, while two in three items of a flush end at the
-// span test). The warp stages both tiles (hub, dist, wlev: 1.5 KB a
+// K1 and K2 run one warp per item, so an item costs no block barrier:
+// blocks of PROF_WARPS_MAX warps (fewer where the lane is wide), only as
+// many as the card holds at once, each warp walking the worklist with the
+// grid's stride (a block of 8 items, one each, holds its slot on the SM
+// until its slowest item ends, while two in three items of a flush end at
+// the span test). The warp stages both tiles (hub, dist, wlev: 1.5 KB a
 // tile at lane 128) in its slice of shared memory with cp.async, checks
 // them with one vote, and each lane binary-searches the t-tile for its
 // s-cells (a stride of 32; each search starts where the lane's previous
 // one ended) and walks the t-side run of each cell's hub (repeated hubs
 // are Pareto entries); contiguous pieces a lane, walked forward as K7
-// walks, were slower here. Every
-// meet goes into the warp's num_levels + 1 bins in shared memory by
-// shared atomicMin, not into a per-thread array indexed by a run-time
-// level (which would live in local memory), and the warp writes its
-// bins below DEV_INF with one global atomicMin each: no block reduction
-// per level. The all-pairs body of earlier versions (lane^2 compares an
-// item, then levels1 block reductions of two barriers each) took 0.2288
-// ms for the first profile flush of the V = 2^17 run against a 0.0196 ms
-// bound (H100 80GB HBM3, 700 W). K6 keeps that body.
+// walks, were slower for K2. K1 masks the staged distances in place at
+// the item's level while it checks, keeps one running min in a register
+// and ends in one warp_min and one global atomicMin. K2 puts every meet
+// into the warp's num_levels + 1 bins in shared memory by shared
+// atomicMin, not into a per-thread array indexed by a run-time level
+// (which would live in local memory), and writes its bins below DEV_INF
+// with one global atomicMin each. The all-pairs bodies of earlier
+// versions (a block an item, lane^2 compares, then block reductions of
+// two barriers each) took 0.1727 ms (K1) and 0.2288 ms (K2) for the first
+// flushes of the V = 2^17 run against bounds of 0.0195 and 0.0196 ms
+// (H100 80GB HBM3, 700 W). K5 and K6 keep those bodies.
 //
 // Bucket-pair (K7, K8), per query b of one planned sub-batch: the join of
 // row srow[b] of the s-side tiles [Ns, Ws] with row trow[b] of the t-side
@@ -97,17 +96,19 @@
 // which it initialises to DEV_INF; the wrapper pads B to 8 and L to 128.
 // Here any B and L are taken as they are.
 //
-// K7 and K9 share one row merge (`block_join`, templated on the row
-// reader: K7's masks by wlev, K9's reads the pre-masked distances):
-//  * a block (256 threads) per query. K7 answers a whole flush in one
-//    launch: a block finds its query's sub-batch in a small device table
-//    of SegGroup rows (tile pointers, Ws, Wt, its columns of the staged
-//    [3, B] array), so no sub-batch is launched alone; the per-sub-batch
-//    entry point is the same kernel over one group.
+// K7, K8 and K9 share one row merge (`block_join`, templated on the row
+// reader -- K7's and K8's rows carry wlev, K9's distances come masked --
+// and on the join: `MinJoin`, one running min at the query's level, for
+// K7 and K9; `BinJoin`, the profile's bins, for K8):
+//  * a block (256 threads) per query. K7 and K8 answer a whole flush in
+//    one launch: a block finds its query's sub-batch in a small device
+//    table of SegGroup rows (tile pointers, Ws, Wt, its columns of the
+//    staged [3, B] or [2, B] array), so no sub-batch is launched alone;
+//    the per-sub-batch entry points are the same kernels over one group.
 //  * Both rows are staged in shared memory with cp.async (16-byte copies
 //    where the row is 16-byte aligned; at most SEG_STAGE = 2,048 cells a
-//    side: 24 KB for K7's three arrays, 16 KB for K9's two; a wider row
-//    is read in place).
+//    side: 24 KB for three arrays, 16 KB for K9's two; a wider row is
+//    read in place).
 //  * The block checks both rows (above); a query whose rows fail is
 //    joined all-pairs.
 //  * Otherwise each thread takes one contiguous piece of the s-row's real
@@ -115,17 +116,20 @@
 //    searches the t-row for the first cell with its first hub, and walks
 //    forward (up to 8 steps, then a binary search again) pairing every
 //    s-cell with the t-side run of its hub: O(Ws + Wt) steps plus the
-//    meets, against Ws x Wt. One block reduction, one store, no atomics.
+//    meets, against Ws x Wt.
+//  * K7 and K9 end in one block reduction and one store, no atomics. K8
+//    puts every meet into the block's num_levels + 1 bins in shared
+//    memory (shared atomicMin at the pair level) and writes its row of
+//    the output from them (DEV_INF where a level has no meet).
 // The all-pairs K9 of earlier versions compared L^2 cell pairs a query:
-// 2.4728 ms at B = 4,096, L = 1,792 against a 0.0351 ms bound (H100
-// 80GB HBM3, 700 W).
+// 2.4728 ms at B = 4,096, L = 1,792 against a 0.0351 ms bound; the
+// all-pairs K8 (a block per query, one launch per sub-batch, its level
+// minima in a local array) 2.608 ms for the first profile flush in 24
+// launches against 0.0258 ms (H100 80GB HBM3, 700 W).
 //
-// K8 keeps the all-pairs join and one launch per sub-batch: one block per
-// query stages its t-row in chunks of T_CHUNK cells (the loop bound masks
-// the ragged edge), every cell pair of the two padded rows joined, as in
-// the reference. The accumulators start at DEV_INF, so no output exceeds
-// it, and since distances lie in [0, DEV_INF] no sum overflows int32.
-// The TPU's DMA ring has no counterpart in the ragged kernels.
+// Every accumulator starts at DEV_INF, so no output exceeds it, and
+// since distances lie in [0, DEV_INF] no sum overflows int32. The TPU's
+// DMA ring has no counterpart in the ragged kernels.
 #include <cuda_bf16.h>
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
@@ -133,27 +137,12 @@
 
 #define DEV_INF (1 << 29)
 #define MAX_LEVELS1 32     // most num_levels + 1 the profile kernels bin
-#define T_CHUNK 2048       // K8 t-row cells staged at a time
-#define MAX_THREADS_SEG 256
-#define SEG_THREADS 256    // K7 / K9: threads per query
-#define SEG_STAGE 2048     // K7 / K9: widest row staged in shared memory
-#define PROF_WARPS_MAX 8   // K2: work items (warps) per block at most
-#define PROF_SMEM 49152    // K2: shared bytes a block uses at most
+#define SEG_THREADS 256    // K7 / K8 / K9: threads per query
+#define SEG_STAGE 2048     // K7 / K8 / K9: widest row staged in shared memory
+#define PROF_WARPS_MAX 8   // K1 / K2: work items (warps) per block at most
+#define PROF_SMEM 49152    // K1 / K2: shared bytes a block uses at most
 
 // ------------------------------------------------------------ cell readers
-struct Int32Cells {
-  const int* __restrict__ hub;
-  const int* __restrict__ dist;
-  const int* __restrict__ wlev;
-  __device__ __forceinline__ int hub_at(int64_t x, int) const {
-    return hub[x];
-  }
-  __device__ __forceinline__ int dist_at(int64_t x) const {
-    return min(dist[x], DEV_INF);
-  }
-  __device__ __forceinline__ int wlev_at(int64_t x) const { return wlev[x]; }
-};
-
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
@@ -207,7 +196,7 @@ __device__ __forceinline__ void block_min_levels(const int* acc, int levels1,
   }
 }
 
-// ------------------------------------------------------------ the join
+// ------------------------------------------------- the all-pairs join
 // Stage cells [base, base + n): hub, and dist masked to DEV_INF where
 // wlev < w (scalar kernels).
 template <typename Cells>
@@ -326,6 +315,7 @@ __device__ __forceinline__ bool tiles_meet(const int* tile_lo,
   return tile_lo[s] <= tile_hi[t] && tile_lo[t] <= tile_hi[s];
 }
 
+// K5: one block per item, every cell pair.
 template <typename Cells>
 __global__ void wcsd_query_ragged_kernel(
     Cells c, const int* __restrict__ tile_lo, const int* __restrict__ tile_hi,
@@ -349,6 +339,7 @@ __global__ void wcsd_query_ragged_kernel(
   if (threadIdx.x == 0 && best < DEV_INF) atomicMin(out + q, best);
 }
 
+// K6: one block per item, every cell pair.
 template <typename Cells>
 __global__ void wcsd_profile_ragged_kernel(
     Cells c, const int* __restrict__ tile_lo, const int* __restrict__ tile_hi,
@@ -377,14 +368,33 @@ __global__ void wcsd_profile_ragged_kernel(
     atomicMin(out + (int64_t)q * levels1 + threadIdx.x, lev_min[threadIdx.x]);
 }
 
-// K2: one warp per work item. A warp's slice of shared memory: the
-// s-tile and the t-tile (hub, dist, wlev; cap cells an array), then
+// K1 / K2: one warp per work item. A warp's slice of shared memory: the
+// s-tile and the t-tile (hub, dist, wlev; cap cells an array), then (K2)
 // MAX_LEVELS1 bins.
-__host__ __device__ __forceinline__ int prof_warp_ints(int lane) {
-  return 6 * stage_cap(lane) + MAX_LEVELS1;
+__host__ __device__ __forceinline__ int query_warp_ints(int lane) {
+  return 6 * stage_cap(lane);
 }
 
-// This lane's part of the merge check of one staged tile: real cells
+__host__ __device__ __forceinline__ int prof_warp_ints(int lane) {
+  return query_warp_ints(lane) + MAX_LEVELS1;
+}
+
+// Stage one work item's two tiles into a warp's slice (lane lid of 32).
+__device__ __forceinline__ void stage_tile_pair(int* sh, int cap,
+                                                const int* hub,
+                                                const int* dist,
+                                                const int* wlev, int64_t sb,
+                                                int64_t tb, int lane,
+                                                int lid) {
+  stage_cells(sh, hub + sb, lane, lid, 32);
+  stage_cells(sh + cap, dist + sb, lane, lid, 32);
+  stage_cells(sh + 2 * cap, wlev + sb, lane, lid, 32);
+  stage_cells(sh + 3 * cap, hub + tb, lane, lid, 32);
+  stage_cells(sh + 4 * cap, dist + tb, lane, lid, 32);
+  stage_cells(sh + 5 * cap, wlev + tb, lane, lid, 32);
+}
+
+// K2: this lane's part of the merge check of one staged tile: real cells
 // (hub >= 0) non-decreasing in hub, pads only after them, every pad inert
 // (wlev < 0: its meets fall in no bin). Adds its real cells to *real.
 __device__ __forceinline__ bool tile_mergeable(const int* hub,
@@ -404,6 +414,91 @@ __device__ __forceinline__ bool tile_mergeable(const int* hub,
     }
   }
   return ok;
+}
+
+// K1: the same check at the item's level w, which also masks this lane's
+// staged distances in place (min(dist, DEV_INF) where wlev >= w, else
+// DEV_INF); a pad is inert where its masked distance is DEV_INF.
+__device__ __forceinline__ bool tile_mask_mergeable(const int* hub,
+                                                    int* dist,
+                                                    const int* wlev,
+                                                    int lane, int lid, int w,
+                                                    int* real) {
+  bool ok = true;
+  for (int i = lid; i < lane; i += 32) {
+    const int d = wlev[i] >= w ? min(dist[i], DEV_INF) : DEV_INF;
+    dist[i] = d;
+    const int h = hub[i];
+    if (h >= 0) {
+      ++*real;
+      if (i > 0) {
+        const int p = hub[i - 1];
+        ok &= p >= 0 && p <= h;
+      }
+    } else {
+      ok &= d >= DEV_INF;
+    }
+  }
+  return ok;
+}
+
+__global__ void __launch_bounds__(32 * PROF_WARPS_MAX)
+    wcsd_query_ragged_merge_kernel(
+        const int* __restrict__ hub, const int* __restrict__ dist,
+        const int* __restrict__ wlev, const int* __restrict__ tile_lo,
+        const int* __restrict__ tile_hi, const int* __restrict__ qidx,
+        const int* __restrict__ stile, const int* __restrict__ ttile,
+        const int* __restrict__ wq, int* __restrict__ out,
+        long long worklist_len, int lane) {
+  extern __shared__ __align__(16) int query_smem[];
+  const int warp = threadIdx.x >> 5, lid = threadIdx.x & 31;
+  const int cap = stage_cap(lane);
+  int* sh = query_smem + warp * query_warp_ints(lane);
+  int *s_hub = sh, *s_dist = sh + cap, *s_wlev = sh + 2 * cap;
+  int *t_hub = sh + 3 * cap, *t_dist = sh + 4 * cap, *t_wlev = sh + 5 * cap;
+  // every warp walks the worklist with the grid's stride (the grid is
+  // what the card holds at once); all branches below are warp-uniform
+  for (int64_t k = (int64_t)blockIdx.x * (blockDim.x >> 5) + warp;
+       k < worklist_len; k += (int64_t)gridDim.x * (blockDim.x >> 5)) {
+    const int s = stile[k], t = ttile[k];
+    if (!tiles_meet(tile_lo, tile_hi, s, t)) continue;
+    const int q = qidx[k];
+    const int w = wq[q];
+    stage_tile_pair(sh, cap, hub, dist, wlev, (int64_t)s * lane,
+                    (int64_t)t * lane, lane, lid);
+    cp_async_wait_all();
+    __syncwarp();
+    int rs = 0, rt = 0;
+    const bool ok =
+        tile_mask_mergeable(s_hub, s_dist, s_wlev, lane, lid, w, &rs) &
+        tile_mask_mergeable(t_hub, t_dist, t_wlev, lane, lid, w, &rt);
+    const bool merge = __all_sync(0xffffffffu, ok);
+    __syncwarp();  // every lane's masked distances are in place
+    int best = DEV_INF;
+    if (merge) {
+      const int ns = __reduce_add_sync(0xffffffffu, rs);
+      const int nt = __reduce_add_sync(0xffffffffu, rt);
+      int j = 0;  // this lane's hubs rise, so each search starts at the last
+      for (int i = lid; i < ns; i += 32) {
+        const int ds = s_dist[i];
+        if (ds >= DEV_INF) continue;  // its sums cannot go below DEV_INF
+        const int h = s_hub[i];
+        j = lower_bound(t_hub, j, nt, h);
+        for (int jj = j; jj < nt && t_hub[jj] == h; ++jj)
+          best = min(best, ds + t_dist[jj]);
+      }
+    } else {
+      // tiles the merge cannot take: every cell pair, as the reference
+      for (int i = lid; i < lane; i += 32) {
+        const int h = s_hub[i], ds = s_dist[i];
+        for (int jj = 0; jj < lane; ++jj)
+          if (t_hub[jj] == h) best = min(best, ds + t_dist[jj]);
+      }
+    }
+    best = warp_min(best);  // valid in lane 0
+    if (lid == 0 && best < DEV_INF) atomicMin(out + q, best);
+    __syncwarp();  // the next item rewrites the slice
+  }
 }
 
 __global__ void __launch_bounds__(32 * PROF_WARPS_MAX)
@@ -428,13 +523,8 @@ __global__ void __launch_bounds__(32 * PROF_WARPS_MAX)
     const int s = stile[k], t = ttile[k];
     if (!tiles_meet(tile_lo, tile_hi, s, t)) continue;
     const int q = qidx[k];
-    const int64_t sb = (int64_t)s * lane, tb = (int64_t)t * lane;
-    stage_cells(s_hub, hub + sb, lane, lid, 32);
-    stage_cells(s_dist, dist + sb, lane, lid, 32);
-    stage_cells(s_wlev, wlev + sb, lane, lid, 32);
-    stage_cells(t_hub, hub + tb, lane, lid, 32);
-    stage_cells(t_dist, dist + tb, lane, lid, 32);
-    stage_cells(t_wlev, wlev + tb, lane, lid, 32);
+    stage_tile_pair(sh, cap, hub, dist, wlev, (int64_t)s * lane,
+                    (int64_t)t * lane, lane, lid);
     if (lid < levels1) bins[lid] = DEV_INF;
     cp_async_wait_all();
     __syncwarp();
@@ -479,11 +569,11 @@ __global__ void __launch_bounds__(32 * PROF_WARPS_MAX)
   }
 }
 
-// ---------------------------------- row merge (K7, K9) and bucket-pair K8
-// K7 answers a whole flush in one launch: a block per query, the query's
-// sub-batch found in a small table of sub-batches (SegGroup). The
-// per-sub-batch entry point is the same kernel over one group passed by
-// value.
+// ----------------------------------- row merge (K7, K8, K9), bucket-pair
+// K7 and K8 answer a whole flush in one launch: a block per query, the
+// query's sub-batch found in a small table of sub-batches (SegGroup). The
+// per-sub-batch entry points are the same kernels over one group passed
+// by value.
 struct SegGroup {  // one planned sub-batch: 64 bytes, the host's row
   const int* hub_s;
   const int* dist_s;
@@ -492,13 +582,29 @@ struct SegGroup {  // one planned sub-batch: 64 bytes, the host's row
   const int* dist_t;
   const int* wlev_t;
   int Ws, Wt;  // row widths of the two tiles
-  int off, n;  // the sub-batch's columns of the staged [3, B] array
+  int off, n;  // the sub-batch's columns of the staged [3 or 2, B] array
 };
 static_assert(sizeof(SegGroup) == 64, "SegGroup is the host table's row");
 
+// The sub-batch of query k: the last of the G groups starting at or
+// before k, or `one` where there is no table (G == 0).
+__device__ __forceinline__ SegGroup find_group(
+    const SegGroup* __restrict__ groups, int G, const SegGroup& one, int k) {
+  if (G == 0) return one;
+  int lo = 0, hi = G - 1;
+  while (lo < hi) {
+    const int mid = (lo + hi + 1) >> 1;
+    if (groups[mid].off <= k)
+      lo = mid;
+    else
+      hi = mid - 1;
+  }
+  return groups[lo];
+}
+
 // One label row as the merge reads it: staged in shared memory, or (past
-// the staging capacity) in place in global memory. K7's rows carry wlev
-// and are masked by the query's level; K9's distances come masked.
+// the staging capacity) in place in global memory. K7's and K8's rows
+// carry wlev (K7 masks by the query's level); K9's distances come masked.
 struct SegRow {
   const int* hub;
   const int* dist;
@@ -539,12 +645,59 @@ __device__ __forceinline__ GatheredRow gathered_row(const int* hub,
   return GatheredRow{smem, smem + cap, n};
 }
 
+// What the row merge does at each hub meet, and which pads it may skip.
+// cell(r, i) reads s-cell i once; live(c) says whether its meets can
+// change anything; meet(c, rt, j) takes its meet with t-cell j.
+//
+// K7, K9: one running min at the query's level w; a pad is inert where
+// its masked distance is DEV_INF (no pad meet reaches below DEV_INF).
+struct MinJoin {
+  int w;
+  int best;
+  template <typename Row>
+  __device__ __forceinline__ bool pad_inert(const Row& r, int i) const {
+    return r.masked(i, w) >= DEV_INF;
+  }
+  template <typename Row>
+  __device__ __forceinline__ int cell(const Row& r, int i) const {
+    return r.masked(i, w);
+  }
+  static __device__ __forceinline__ bool live(int ds) {
+    return ds < DEV_INF;
+  }
+  template <typename Row>
+  __device__ __forceinline__ void meet(int ds, const Row& rt, int j) {
+    best = min(best, ds + rt.masked(j, w));
+  }
+};
+
+// K8: every meet's sum into the block's bins (shared) by shared atomicMin
+// at its pair level min(wlev_s, wlev_t), where that is in [0, levels1);
+// a pad is inert where its wlev is < 0 (its meets fall in no bin).
+struct BinJoin {
+  int* bins;
+  int levels1;
+  __device__ __forceinline__ bool pad_inert(const SegRow& r, int i) const {
+    return r.wlev[i] < 0;
+  }
+  __device__ __forceinline__ int2 cell(const SegRow& r, int i) const {
+    return make_int2(r.wlev[i], min(r.dist[i], DEV_INF));
+  }
+  static __device__ __forceinline__ bool live(int2 c) {
+    return c.x >= 0 && c.y < DEV_INF;
+  }
+  __device__ __forceinline__ void meet(int2 c, const SegRow& rt, int j) {
+    const int mw = min(c.x, rt.wlev[j]);
+    const int sum = c.y + min(rt.dist[j], DEV_INF);
+    if (mw >= 0 && mw < levels1 && sum < DEV_INF) atomicMin(bins + mw, sum);
+  }
+};
+
 // This thread's part of the merge-join check of one row: real cells
 // (hub >= 0) non-decreasing in hub, pads (hub < 0) only after them, and
-// every pad inert (masked distance DEV_INF, so no pad meet can reach
-// below DEV_INF). Adds this thread's real cells to *nreal.
-template <typename Row>
-__device__ __forceinline__ bool row_mergeable(const Row& r, int w,
+// every pad inert for the join. Adds this thread's real cells to *nreal.
+template <typename Row, typename Join>
+__device__ __forceinline__ bool row_mergeable(const Row& r, const Join& join,
                                               int* nreal) {
   bool ok = true;
   int real = 0;
@@ -557,7 +710,7 @@ __device__ __forceinline__ bool row_mergeable(const Row& r, int w,
         ok &= p >= 0 && p <= h;
       }
     } else {
-      ok &= r.masked(i, w) >= DEV_INF;
+      ok &= join.pad_inert(r, i);
     }
   }
   if (real) atomicAdd(nreal, real);
@@ -565,16 +718,14 @@ __device__ __forceinline__ bool row_mergeable(const Row& r, int w,
 }
 
 // The join of one query's two rows (staged and visible to the block):
-// the merge where both rows pass the check, else every cell pair.
-// nreal[2] is zeroed before the block's barrier; red[32] is scratch.
-// The block-wide min is valid in thread 0.
-template <typename Row>
-__device__ __forceinline__ int block_join(const Row& rs, const Row& rt,
-                                          int w, int* nreal, int* red) {
-  const bool ok = row_mergeable(rs, w, &nreal[0]) &
-                  row_mergeable(rt, w, &nreal[1]);
+// the merge where both rows pass the check, else every cell pair; every
+// meet goes to join.meet. nreal[2] is zeroed before the block's barrier.
+template <typename Row, typename Join>
+__device__ __forceinline__ void block_join(const Row& rs, const Row& rt,
+                                           Join& join, int* nreal) {
+  const bool ok = row_mergeable(rs, join, &nreal[0]) &
+                  row_mergeable(rt, join, &nreal[1]);
   const bool merge = __syncthreads_and(ok);  // also orders the atomics
-  int best = DEV_INF;
   if (merge) {
     // a contiguous piece of the s-row's real cells per thread; each
     // pairs every s-cell with the t-side run of its hub
@@ -590,21 +741,19 @@ __device__ __forceinline__ int block_join(const Row& rs, const Row& rt,
         if (k == 8) j = lower_bound(rt.hub, j, nt, h);
         prev = h;
       }
-      const int ds = rs.masked(i, w);
-      if (ds >= DEV_INF) continue;  // its sums cannot go below DEV_INF
-      for (int jj = j; jj < nt && rt.hub[jj] == h; ++jj)
-        best = min(best, ds + rt.masked(jj, w));
+      const auto c = join.cell(rs, i);
+      if (!Join::live(c)) continue;  // its meets change nothing
+      for (int jj = j; jj < nt && rt.hub[jj] == h; ++jj) join.meet(c, rt, jj);
     }
   } else {
     // rows the merge cannot take: every cell pair, as the reference
     for (int i = threadIdx.x; i < rs.n; i += blockDim.x) {
       const int hs = rs.hub[i];
-      const int ds = rs.masked(i, w);
+      const auto c = join.cell(rs, i);
       for (int jj = 0; jj < rt.n; ++jj)
-        if (rt.hub[jj] == hs) best = min(best, ds + rt.masked(jj, w));
+        if (rt.hub[jj] == hs) join.meet(c, rt, jj);
     }
   }
-  return block_min(best, red);
 }
 
 __global__ void __launch_bounds__(SEG_THREADS) wcsd_query_segmented_kernel(
@@ -616,19 +765,7 @@ __global__ void __launch_bounds__(SEG_THREADS) wcsd_query_segmented_kernel(
   __shared__ int red[32];
   __shared__ int nreal[2];
   const int k = blockIdx.x;
-  // the query's sub-batch: the last group starting at or before k
-  SegGroup g = one;
-  if (G > 0) {
-    int lo = 0, hi = G - 1;
-    while (lo < hi) {
-      const int mid = (lo + hi + 1) >> 1;
-      if (groups[mid].off <= k)
-        lo = mid;
-      else
-        hi = mid - 1;
-    }
-    g = groups[lo];
-  }
+  const SegGroup g = find_group(groups, G, one, k);
   const int w = wq[k];
   if (threadIdx.x < 2) nreal[threadIdx.x] = 0;
   const SegRow rs = seg_row(g.hub_s, g.dist_s, g.wlev_s,
@@ -638,33 +775,35 @@ __global__ void __launch_bounds__(SEG_THREADS) wcsd_query_segmented_kernel(
                             seg_smem + 3 * cap_s, cap_t);
   cp_async_wait_all();
   __syncthreads();
-  const int best = block_join(rs, rt, w, nreal, red);
+  MinJoin join{w, DEV_INF};
+  block_join(rs, rt, join, nreal);
+  const int best = block_min(join.best, red);
   if (threadIdx.x == 0) out[k] = best;
 }
 
-__global__ void wcsd_profile_segmented_kernel(
-    Int32Cells cs, Int32Cells ct, const int* __restrict__ srow,
-    const int* __restrict__ trow, int* __restrict__ out, int Ws, int Wt,
-    int levels1) {
-  __shared__ int sh_hub[T_CHUNK];
-  __shared__ int sh_dist[T_CHUNK];  // clamped
-  __shared__ int sh_wlev[T_CHUNK];
-  __shared__ int red[32];
-  __shared__ int lev_min[MAX_LEVELS1];
-  const int64_t b = blockIdx.x;
-  const int64_t sb = (int64_t)srow[b] * Ws, tb = (int64_t)trow[b] * Wt;
-  int acc[MAX_LEVELS1];
-  for (int l = 0; l < levels1; ++l) acc[l] = DEV_INF;
-  for (int c0 = 0; c0 < Wt; c0 += T_CHUNK) {
-    const int n = min(T_CHUNK, Wt - c0);
-    __syncthreads();  // the previous chunk is fully scanned
-    stage_levels(ct, tb + c0, n, 0, sh_hub, sh_dist, sh_wlev);
-    __syncthreads();
-    join_levels(cs, sb, Ws, 0, sh_hub, sh_dist, sh_wlev, n, acc, levels1);
-  }
-  block_min_levels(acc, levels1, red, lev_min);
+__global__ void __launch_bounds__(SEG_THREADS) wcsd_profile_segmented_kernel(
+    const SegGroup* __restrict__ groups, int G, SegGroup one,
+    const int* __restrict__ srow, const int* __restrict__ trow,
+    int* __restrict__ out, int cap_s, int cap_t, int levels1) {
+  extern __shared__ __align__(16) int seg_smem[];  // s: 3 x cap_s, t: 3 x cap_t
+  __shared__ int bins[MAX_LEVELS1];
+  __shared__ int nreal[2];
+  const int k = blockIdx.x;
+  const SegGroup g = find_group(groups, G, one, k);
+  if (threadIdx.x < 2) nreal[threadIdx.x] = 0;
+  if (threadIdx.x < levels1) bins[threadIdx.x] = DEV_INF;
+  const SegRow rs = seg_row(g.hub_s, g.dist_s, g.wlev_s,
+                            (int64_t)srow[k] * g.Ws, g.Ws, seg_smem, cap_s);
+  const SegRow rt = seg_row(g.hub_t, g.dist_t, g.wlev_t,
+                            (int64_t)trow[k] * g.Wt, g.Wt,
+                            seg_smem + 3 * cap_s, cap_t);
+  cp_async_wait_all();
+  __syncthreads();
+  BinJoin join{bins, levels1};
+  block_join(rs, rt, join, nreal);
+  __syncthreads();  // every meet is in the bins
   if (threadIdx.x < levels1)
-    out[b * levels1 + threadIdx.x] = lev_min[threadIdx.x];
+    out[(int64_t)k * levels1 + threadIdx.x] = bins[threadIdx.x];
 }
 
 // ------------------------------------------------------------ gathered (K9)
@@ -682,7 +821,9 @@ __global__ void __launch_bounds__(SEG_THREADS) wcsd_query_gathered_kernel(
                                       cap);
   cp_async_wait_all();
   __syncthreads();
-  const int best = block_join(rs, rt, 0, nreal, red);
+  MinJoin join{0, DEV_INF};
+  block_join(rs, rt, join, nreal);
+  const int best = block_min(join.best, red);
   if (threadIdx.x == 0) out[blockIdx.x] = best;
 }
 
@@ -692,6 +833,7 @@ static int block_threads(int cells, int most) {
   return th > most ? most : th;
 }
 
+// K5 (K1 has its own kernel, below)
 template <typename Cells>
 static int launch_query_ragged(Cells c, const void* tile_lo,
                                const void* tile_hi, const void* qidx,
@@ -728,11 +870,6 @@ static int launch_profile_ragged(Cells c, const void* tile_lo,
   return (int)cudaGetLastError();
 }
 
-static Int32Cells int32_cells(const void* hub, const void* dist,
-                              const void* wlev) {
-  return Int32Cells{(const int*)hub, (const int*)dist, (const int*)wlev};
-}
-
 template <typename F>
 static CompressedCells<F> compressed_cells(const void* hub_delta,
                                            const void* dist,
@@ -741,18 +878,57 @@ static CompressedCells<F> compressed_cells(const void* hub_delta,
                             (const signed char*)wlev};
 }
 
+// The grid of a warp-per-item kernel (K1, K2) whose warps each use
+// warp_bytes of shared memory: as many warps a block as PROF_SMEM holds
+// (at most PROF_WARPS_MAX), as many blocks as the card holds at once
+// (each warp walks the worklist), and no more than the items need.
+template <typename Kernel>
+static int warp_item_grid(Kernel kernel, size_t warp_bytes,
+                          long long worklist_len, int* wpb,
+                          long long* blocks) {
+  if (warp_bytes > PROF_SMEM) return (int)cudaErrorInvalidValue;
+  *wpb = (int)(PROF_SMEM / warp_bytes) < PROF_WARPS_MAX
+             ? (int)(PROF_SMEM / warp_bytes)
+             : PROF_WARPS_MAX;
+  int dev = 0, sms = 0, per_sm = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err == cudaSuccess)
+    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
+  if (err == cudaSuccess)
+    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
+        &per_sm, kernel, 32 * *wpb, *wpb * warp_bytes);
+  if (err != cudaSuccess) return (int)err;
+  *blocks = (worklist_len + *wpb - 1) / *wpb;
+  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
+  if (*blocks > resident) *blocks = resident;
+  return 0;
+}
+
+// K1: a warp per work item (the grid of warp_item_grid).
 extern "C" int wcsd_query_ragged_launch(
     const void* hub, const void* dist, const void* wlev, const void* tile_lo,
     const void* tile_hi, const void* qidx, const void* stile,
     const void* ttile, const void* wq, void* out, long long worklist_len,
     int lane, void* stream) {
-  return launch_query_ragged(int32_cells(hub, dist, wlev), tile_lo, tile_hi,
-                             qidx, stile, ttile, wq, out, worklist_len, lane,
-                             stream);
+  if (worklist_len <= 0) return 0;
+  if (lane < 1) return (int)cudaErrorInvalidValue;
+  const size_t warp_bytes = sizeof(int) * (size_t)query_warp_ints(lane);
+  int wpb = 0;
+  long long blocks = 0;
+  const int err = warp_item_grid(wcsd_query_ragged_merge_kernel, warp_bytes,
+                                 worklist_len, &wpb, &blocks);
+  if (err) return err;
+  wcsd_query_ragged_merge_kernel<<<(unsigned)blocks, 32 * wpb,
+                                   wpb * warp_bytes,
+                                   (cudaStream_t)stream>>>(
+      (const int*)hub, (const int*)dist, (const int*)wlev,
+      (const int*)tile_lo, (const int*)tile_hi, (const int*)qidx,
+      (const int*)stile, (const int*)ttile, (const int*)wq, (int*)out,
+      worklist_len, lane);
+  return (int)cudaGetLastError();
 }
 
-// K2: a warp per work item, as many warps a block as PROF_SMEM holds (at
-// most PROF_WARPS_MAX), as many blocks as the card holds at once.
+// K2: a warp per work item (the grid of warp_item_grid).
 extern "C" int wcsd_profile_ragged_launch(
     const void* hub, const void* dist, const void* wlev, const void* tile_lo,
     const void* tile_hi, const void* qidx, const void* stile,
@@ -762,23 +938,11 @@ extern "C" int wcsd_profile_ragged_launch(
   if (levels1 < 1 || levels1 > MAX_LEVELS1 || lane < 1)
     return (int)cudaErrorInvalidValue;
   const size_t warp_bytes = sizeof(int) * (size_t)prof_warp_ints(lane);
-  if (warp_bytes > PROF_SMEM) return (int)cudaErrorInvalidValue;
-  const int wpb = (int)(PROF_SMEM / warp_bytes) < PROF_WARPS_MAX
-                      ? (int)(PROF_SMEM / warp_bytes)
-                      : PROF_WARPS_MAX;
-  // at most the blocks the card holds at once; each warp loops
-  int dev = 0, sms = 0, per_sm = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err == cudaSuccess)
-    err = cudaDeviceGetAttribute(&sms, cudaDevAttrMultiProcessorCount, dev);
-  if (err == cudaSuccess)
-    err = cudaOccupancyMaxActiveBlocksPerMultiprocessor(
-        &per_sm, wcsd_profile_ragged_merge_kernel, 32 * wpb,
-        wpb * warp_bytes);
-  if (err != cudaSuccess) return (int)err;
-  long long blocks = (worklist_len + wpb - 1) / wpb;
-  const long long resident = (long long)sms * (per_sm > 0 ? per_sm : 1);
-  if (blocks > resident) blocks = resident;
+  int wpb = 0;
+  long long blocks = 0;
+  const int err = warp_item_grid(wcsd_profile_ragged_merge_kernel,
+                                 warp_bytes, worklist_len, &wpb, &blocks);
+  if (err) return err;
   wcsd_profile_ragged_merge_kernel<<<(unsigned)blocks, 32 * wpb,
                                      wpb * warp_bytes,
                                      (cudaStream_t)stream>>>(
@@ -818,27 +982,39 @@ extern "C" int wcsd_profile_ragged_compressed_launch(
       tile_hi, qidx, stile, ttile, out, worklist_len, lane, levels1, stream);
 }
 
+// The checks of a bucket-pair launch (K7, K8), and the opt-in of its
+// kernel to 6 x SEG_STAGE cells of dynamic shared memory (once per
+// device: opted[dev]). Returns a cudaError_t.
+template <typename Kernel>
+static int seg_prepare(Kernel kernel, bool* opted, long long batch,
+                       int cap_s, int cap_t) {
+  if (batch > 0x7fffffffLL || cap_s < 0 || cap_t < 0 ||
+      cap_s > SEG_STAGE || cap_t > SEG_STAGE)
+    return (int)cudaErrorInvalidValue;
+  int dev = 0;
+  cudaError_t err = cudaGetDevice(&dev);
+  if (err != cudaSuccess) return (int)err;
+  if (dev >= 0 && dev < 16 && !opted[dev]) {
+    err = cudaFuncSetAttribute(kernel,
+                               cudaFuncAttributeMaxDynamicSharedMemorySize,
+                               (int)(sizeof(int) * 6 * SEG_STAGE));
+    if (err != cudaSuccess) return (int)err;
+    opted[dev] = true;
+  }
+  return 0;
+}
+
 static int launch_query_segmented(const SegGroup* groups, int G,
                                   SegGroup one, const void* srow,
                                   const void* trow, const void* wq,
                                   void* out, long long batch, int cap_s,
                                   int cap_t, void* stream) {
   if (batch <= 0) return 0;
-  if (batch > 0x7fffffffLL || cap_s < 0 || cap_t < 0 ||
-      cap_s > SEG_STAGE || cap_t > SEG_STAGE)
-    return (int)cudaErrorInvalidValue;
-  const size_t smem = sizeof(int) * 3 * ((size_t)cap_s + cap_t);
   static bool opted[16];
-  int dev = 0;
-  cudaError_t err = cudaGetDevice(&dev);
-  if (err != cudaSuccess) return (int)err;
-  if (dev >= 0 && dev < 16 && !opted[dev]) {
-    err = cudaFuncSetAttribute(wcsd_query_segmented_kernel,
-                               cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               (int)(sizeof(int) * 6 * SEG_STAGE));
-    if (err != cudaSuccess) return (int)err;
-    opted[dev] = true;
-  }
+  const int err = seg_prepare(wcsd_query_segmented_kernel, opted, batch,
+                              cap_s, cap_t);
+  if (err) return err;
+  const size_t smem = sizeof(int) * 3 * ((size_t)cap_s + cap_t);
   wcsd_query_segmented_kernel<<<(unsigned)batch, SEG_THREADS, smem,
                                 (cudaStream_t)stream>>>(
       groups, G, one, (const int*)srow, (const int*)trow, (const int*)wq,
@@ -846,21 +1022,48 @@ static int launch_query_segmented(const SegGroup* groups, int G,
   return (int)cudaGetLastError();
 }
 
+static int launch_profile_segmented(const SegGroup* groups, int G,
+                                    SegGroup one, const void* srow,
+                                    const void* trow, void* out,
+                                    long long batch, int cap_s, int cap_t,
+                                    int levels1, void* stream) {
+  if (batch <= 0) return 0;
+  if (levels1 < 1 || levels1 > MAX_LEVELS1) return (int)cudaErrorInvalidValue;
+  static bool opted[16];
+  const int err = seg_prepare(wcsd_profile_segmented_kernel, opted, batch,
+                              cap_s, cap_t);
+  if (err) return err;
+  const size_t smem = sizeof(int) * 3 * ((size_t)cap_s + cap_t);
+  wcsd_profile_segmented_kernel<<<(unsigned)batch, SEG_THREADS, smem,
+                                  (cudaStream_t)stream>>>(
+      groups, G, one, (const int*)srow, (const int*)trow, (int*)out, cap_s,
+      cap_t, levels1);
+  return (int)cudaGetLastError();
+}
+
+// One sub-batch as a group passed by value, with the staging capacities
+// of its two widths (0 where a row is read in place).
+static SegGroup one_group(const void* hub_s, const void* dist_s,
+                          const void* wlev_s, const void* hub_t,
+                          const void* dist_t, const void* wlev_t, int Ws,
+                          int Wt, long long batch) {
+  return SegGroup{(const int*)hub_s, (const int*)dist_s, (const int*)wlev_s,
+                  (const int*)hub_t, (const int*)dist_t, (const int*)wlev_t,
+                  Ws, Wt, 0, (int)batch};
+}
+
+static int stage_width(int W) { return stage_cap(W <= SEG_STAGE ? W : 0); }
+
 extern "C" int wcsd_query_segmented_launch(
     const void* hub_s, const void* dist_s, const void* wlev_s,
     const void* hub_t, const void* dist_t, const void* wlev_t,
     const void* srow, const void* trow, const void* wq, void* out,
     long long batch, int Ws, int Wt, void* stream) {
   if (Ws < 1 || Wt < 1) return (int)cudaErrorInvalidValue;
-  const SegGroup one{(const int*)hub_s, (const int*)dist_s,
-                     (const int*)wlev_s, (const int*)hub_t,
-                     (const int*)dist_t, (const int*)wlev_t,
-                     Ws, Wt, 0, (int)batch};
   return launch_query_segmented(
-      nullptr, 0, one, srow, trow, wq, out, batch,
-      stage_cap(Ws <= SEG_STAGE ? Ws : 0),
-      stage_cap(Wt <= SEG_STAGE ? Wt : 0),
-      stream);
+      nullptr, 0,
+      one_group(hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t, Ws, Wt, batch),
+      srow, trow, wq, out, batch, stage_width(Ws), stage_width(Wt), stream);
 }
 
 // groups: G SegGroup rows in device memory, their [off, off + n) ranges
@@ -882,14 +1085,24 @@ extern "C" int wcsd_profile_segmented_launch(
     const void* hub_t, const void* dist_t, const void* wlev_t,
     const void* srow, const void* trow, void* out, long long batch, int Ws,
     int Wt, int levels1, void* stream) {
-  if (batch <= 0) return 0;
-  if (levels1 < 1 || levels1 > MAX_LEVELS1) return (int)cudaErrorInvalidValue;
-  wcsd_profile_segmented_kernel<<<(unsigned)batch,
-                                  block_threads(Ws, MAX_THREADS_SEG), 0,
-                                  (cudaStream_t)stream>>>(
-      int32_cells(hub_s, dist_s, wlev_s), int32_cells(hub_t, dist_t, wlev_t),
-      (const int*)srow, (const int*)trow, (int*)out, Ws, Wt, levels1);
-  return (int)cudaGetLastError();
+  if (Ws < 1 || Wt < 1) return (int)cudaErrorInvalidValue;
+  return launch_profile_segmented(
+      nullptr, 0,
+      one_group(hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t, Ws, Wt, batch),
+      srow, trow, out, batch, stage_width(Ws), stage_width(Wt), levels1,
+      stream);
+}
+
+// K8 over a whole profile flush: groups as for K7's grouped launch, their
+// columns of the staged [2, B] array (s and t rows).
+extern "C" int wcsd_profile_segmented_grouped_launch(
+    const void* groups, int G, const void* srow, const void* trow, void* out,
+    long long batch, int widest_s, int widest_t, int levels1, void* stream) {
+  if (G < 1) return batch > 0 ? (int)cudaErrorInvalidValue : 0;
+  return launch_profile_segmented((const SegGroup*)groups, G, SegGroup{},
+                                  srow, trow, out, batch,
+                                  stage_cap(widest_s), stage_cap(widest_t),
+                                  levels1, stream);
 }
 
 // K9: a block per query; rows up to SEG_STAGE cells staged (hub + dist a

@@ -52,6 +52,8 @@ PROTOTYPES = {
         "wcsd_query_segmented_grouped_launch": [_P, _I] + [_P] * 4
         + [_LL, _I, _I, _P],
         "wcsd_profile_segmented_launch": [_P] * 9 + [_LL, _I, _I, _I, _P],
+        "wcsd_profile_segmented_grouped_launch": [_P, _I] + [_P] * 3
+        + [_LL, _I, _I, _I, _P],
         "wcsd_query_gathered_launch": [_P] * 5 + [_LL, _I, _P],
     },
     "frontier": {

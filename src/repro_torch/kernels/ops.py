@@ -193,6 +193,19 @@ def wcsd_profile_segmented(hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t,
     return _staircase(bucket)
 
 
+def wcsd_profile_segmented_grouped(flush, *, num_levels: int):
+    """A whole bucket-pair flush of profiles, staged as a
+    `kernels.wcsd_segmented.GroupedFlush` with a ``[2, B]`` array: one K8
+    launch on the card (the plain version per sub-batch on the CPU).
+    Returns [B, num_levels + 1] int32 staircases in staging order
+    (INF_DIST where infeasible)."""
+    if _on_card(flush.st, "wcsd_profile_segmented"):
+        bucket = _seg.wcsd_profile_segmented_grouped_cuda(flush, num_levels)
+    else:
+        bucket = _seg.wcsd_profile_segmented_grouped_plain(flush, num_levels)
+    return _staircase(bucket)
+
+
 def wc_prune_emit(F, T, hub, dist, wlev, d: int, *, do_prune: bool = True,
                   row_end=None):
     """Fused partial-index prune + emission for a batch of roots. F [B, V]

@@ -24,10 +24,11 @@ sources are `repro_torch/csrc/wcsd_query.cu`; the plain versions are
 line-by-line translations of the reference package's `kernels/ref.py`
 oracles (`wcsd_query_ragged_ref`, `wcsd_profile_ragged_ref` and their
 `_compressed` twins), chunked over the worklist so that the
-``[items, lane, lane]`` join never exceeds a fixed number of cells. K1,
-K5 and K6 join each item's tiles all-pairs in one block; K2 runs a warp
-per item and merge-joins tiles whose real cells are hub-sorted with
-inert pads (wlev < 0) after them, all-pairs otherwise.
+``[items, lane, lane]`` join never exceeds a fixed number of cells. K5
+and K6 join each item's tiles all-pairs in one block. K1 and K2 run a
+warp per item and merge-join tiles whose real cells are hub-sorted with
+inert pads after them (K1: a pad's distance, masked at the item's level,
+is >= DEV_INF; K2: its wlev is < 0), all-pairs otherwise.
 
 Compressed cells decode as the reference's `_decode_cells` does: hub =
 ``tile_lo + delta`` where ``delta >= 0`` (the sign is the pad flag), else
@@ -41,7 +42,7 @@ import torch
 from . import _cuda
 
 DEV_INF = 1 << 29
-MAX_LANE = 1024         # K1/K5/K6: one thread per s-side cell, a block an item
+MAX_LANE = 1024         # K5/K6: one thread per s-side cell, a block an item
 MAX_LEVELS1 = 32        # level bins of the profile kernels
 _CHUNK_CELLS = 1 << 25  # join cells per chunk of the plain versions
 _DIST_DTYPES = (torch.bfloat16, torch.float16)
@@ -259,9 +260,11 @@ def _launch_profile(what, symbol, hub, dist, wlev, tile_lo, tile_hi, qidx,
 
 def wcsd_query_ragged_cuda(hub, dist, wlev, tile_lo, tile_hi, qidx, stile,
                            ttile, wq):
-    """Launch K1 on the current stream. Returns [Q] int32 best sums
-    (>= DEV_INF means infeasible); the output is pre-filled with DEV_INF
-    and every work item ends in one atomicMin."""
+    """Launch K1 on the current stream: a warp per work item, a merge join
+    where both tiles pass the kernel's check at the item's level, else
+    all-pairs. Returns [Q] int32 best sums (>= DEV_INF means infeasible);
+    the output is pre-filled with DEV_INF and every meeting work item
+    ends in at most one atomicMin."""
     what = "wcsd_query_ragged"
     _arena_checks(what, hub, dist, wlev, tile_lo, tile_hi, qidx, stile,
                   ttile, {"wq": wq})

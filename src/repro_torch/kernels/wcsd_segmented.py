@@ -6,18 +6,20 @@ A planned sub-batch (`core.query.plan_query_batch`) is a run of queries
 b that join row ``srow[b]`` of the s-side bucket tiles ``[Ns, Ws]`` with
 row ``trow[b]`` of the t-side tiles ``[Nt, Wt]``
 (`core.wc_index.PackedLabels.bucket_tiles`; pads hub -1, dist INF_DIST,
-wlev -1). K8 is one launch per sub-batch. K7 is a merge join over
-hub-sorted rows (rows that are not are joined all-pairs in the kernel),
-and answers a whole flush in one launch: `GroupedFlush` lays the
-flush's sub-batches out as a small table (`segmented_group_table`: each
-one's six tile pointers, Ws, Wt, and its columns of the staged ``[3,
-B]`` array) and uploads it with the staged queries in one copy, and
-`wcsd_query_segmented_grouped_cuda` launches over it;
-`wcsd_query_segmented_cuda` is the per-sub-batch entry point, with the
-reference's contract. The CUDA source is `repro_torch/csrc/wcsd_query.cu`;
-the plain versions translate the reference package's `kernels/ref.py`
-oracles (`wcsd_query_segmented_ref`, `wcsd_profile_segmented_ref`),
-chunked over the batch, and cap every minimum at DEV_INF as the kernels'
+wlev -1). K7 and K8 are merge joins over hub-sorted rows (rows that are
+not are joined all-pairs in the kernel), and each answers a whole flush
+in one launch: `GroupedFlush` lays the flush's sub-batches out as a
+small table (`segmented_group_table`: each one's six tile pointers, Ws,
+Wt, and its columns of the staged array, ``[3, B]`` with levels for a
+scalar flush, ``[2, B]`` for a profile flush) and uploads it with the
+staged queries in one copy, and `wcsd_query_segmented_grouped_cuda` /
+`wcsd_profile_segmented_grouped_cuda` launch over it;
+`wcsd_query_segmented_cuda` and `wcsd_profile_segmented_cuda` are the
+per-sub-batch entry points, with the reference's contract. The CUDA
+source is `repro_torch/csrc/wcsd_query.cu`; the plain versions translate
+the reference package's `kernels/ref.py` oracles
+(`wcsd_query_segmented_ref`, `wcsd_profile_segmented_ref`), chunked over
+the batch, and cap every minimum at DEV_INF as the kernels'
 DEV_INF-initialised accumulators do.
 """
 from __future__ import annotations
@@ -28,9 +30,9 @@ import torch
 from . import _cuda
 
 DEV_INF = 1 << 29
-MAX_LEVELS1 = 32        # per-thread level minima of the profile kernel
+MAX_LEVELS1 = 32        # level bins of the profile kernel
 _CHUNK_CELLS = 1 << 25  # join cells per chunk of the plain versions
-SEG_STAGE = 2048        # widest row K7 stages in shared memory
+SEG_STAGE = 2048        # widest row K7 / K8 stage in shared memory
 GROUP_WORDS = 16        # int32 words of a table row: six int64 tile
                         # pointers, Ws, Wt, offset, n (csrc SegGroup)
 
@@ -85,11 +87,11 @@ def wcsd_profile_segmented_plain(hub_s, dist_s, wlev_s, hub_t, dist_t,
 
 
 def segmented_group_table(groups) -> np.ndarray:
-    """The table of one grouped K7 launch: ``groups`` is the flush's
-    sub-batches in staging order, each ``(tiles_s, tiles_t, n)`` with
-    ``tiles_* = (hub, dist, wlev)`` and n its query count. Returns int32
-    ``[G, GROUP_WORDS]``: words 0-11 the six tiles' data pointers (int64),
-    then Ws, Wt, the sub-batch's first column of the staged ``[3, B]``
+    """The table of one grouped K7 or K8 launch: ``groups`` is the
+    flush's sub-batches in staging order, each ``(tiles_s, tiles_t, n)``
+    with ``tiles_* = (hub, dist, wlev)`` and n its query count. Returns
+    int32 ``[G, GROUP_WORDS]``: words 0-11 the six tiles' data pointers
+    (int64), then Ws, Wt, the sub-batch's first column of the staged
     array, and n. Empty sub-batches have no row."""
     groups = [g for g in groups if g[2] > 0]
     table = np.zeros((len(groups), GROUP_WORDS), dtype=np.int32)
@@ -103,23 +105,26 @@ def segmented_group_table(groups) -> np.ndarray:
 
 
 class GroupedFlush:
-    """A bucket-pair flush of scalar queries staged for one grouped K7
-    launch: ``groups`` the planned sub-batches in staging order, each
-    ``(tiles_s, tiles_t, n)``; ``stq`` the host int32 ``[3, B]`` array of
-    row ids and levels in the same order. The table of the sub-batches
+    """A bucket-pair flush staged for one grouped launch: ``groups`` the
+    planned sub-batches in staging order, each ``(tiles_s, tiles_t, n)``;
+    ``stq`` the host int32 staged array in the same order, ``[3, B]``
+    (row ids and levels: a scalar flush, K7) or ``[2, B]`` (row ids: a
+    profile flush, K8). The table of the sub-batches
     (`segmented_group_table`) is built here from ``groups`` and goes to
     ``device`` with ``stq`` in one copy, so it always describes them.
     Holds ``groups`` (the non-empty ones), ``table`` and ``st`` (the
-    device ``[3, B]``)."""
+    device copy of ``stq``)."""
 
     def __init__(self, groups, stq, device):
         self.groups = [g for g in groups if g[2] > 0]
         stq = np.ascontiguousarray(stq, dtype=np.int32)
         covered = sum(n for _, _, n in self.groups)
-        if stq.ndim != 2 or stq.shape[0] != 3 or stq.shape[1] != covered:
+        if stq.ndim != 2 or stq.shape[0] not in (2, 3) \
+                or stq.shape[1] != covered:
             raise ValueError(f"grouped flush: the sub-batches cover "
                              f"{covered} queries, the staged array is "
-                             f"{tuple(stq.shape)}")
+                             f"{tuple(stq.shape)} (expected [3 or 2, "
+                             f"{covered}])")
         table = segmented_group_table(self.groups)
         dev = torch.from_numpy(np.concatenate([table.ravel(),
                                                stq.ravel()])).to(device)
@@ -127,18 +132,47 @@ class GroupedFlush:
         self.st = dev[table.size:].view(stq.shape)
 
 
+def _staged(what, flush: GroupedFlush, rows: int):
+    """The first ``rows`` rows of the flush's staged array (s rows, t rows
+    and, for K7, levels)."""
+    if flush.st.shape[0] < rows:
+        raise ValueError(f"{what}: the grouped flush is staged as "
+                         f"{tuple(flush.st.shape)}, the launch needs "
+                         f"{rows} rows")
+    return tuple(flush.st[:rows])
+
+
+def _per_group(flush: GroupedFlush, staged, plain, out):
+    """``out`` filled sub-batch by sub-batch: ``plain(*tiles_s, *tiles_t,
+    *columns)`` on each sub-batch's columns of ``staged``."""
+    a = 0
+    for ts, tt, n in flush.groups:
+        out[a:a + n] = plain(*ts, *tt, *(x[a:a + n] for x in staged))
+        a += n
+    return out
+
+
 def wcsd_query_segmented_grouped_plain(flush: GroupedFlush):
     """Plain version of the grouped K7 launch: every sub-batch of
     ``flush`` through `wcsd_query_segmented_plain` on its columns of the
     staged queries. Returns [B] int32 in staging order."""
-    st = flush.st
-    out = torch.empty((st.shape[1],), dtype=torch.int32, device=st.device)
-    a = 0
-    for ts, tt, n in flush.groups:
-        out[a:a + n] = wcsd_query_segmented_plain(*ts, *tt,
-                                                  *st[:, a:a + n])
-        a += n
-    return out
+    st = _staged("wcsd_query_segmented", flush, 3)
+    out = torch.empty((st[0].shape[0],), dtype=torch.int32,
+                      device=st[0].device)
+    return _per_group(flush, st, wcsd_query_segmented_plain, out)
+
+
+def wcsd_profile_segmented_grouped_plain(flush: GroupedFlush,
+                                         num_levels: int):
+    """Plain version of the grouped K8 launch: every sub-batch of
+    ``flush`` through `wcsd_profile_segmented_plain`. Returns [B,
+    num_levels + 1] int32 bucket minima in staging order."""
+    st = _staged("wcsd_profile_segmented", flush, 2)
+    out = torch.empty((st[0].shape[0], int(num_levels) + 1),
+                      dtype=torch.int32, device=st[0].device)
+    return _per_group(
+        flush, st, lambda *a: wcsd_profile_segmented_plain(*a, num_levels),
+        out)
 
 
 def _checks(what, hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t, srow, trow,
@@ -184,30 +218,58 @@ def wcsd_query_segmented_cuda(hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t,
     return out
 
 
+def _levels1(what, num_levels) -> int:
+    L1 = int(num_levels) + 1
+    if not 1 <= L1 <= MAX_LEVELS1:
+        raise ValueError(f"{what}: num_levels + 1 = {L1} outside "
+                         f"[1, {MAX_LEVELS1}]")
+    return L1
+
+
+def _grouped_checks(what, flush: GroupedFlush, staged, extra: dict):
+    """Checks of a grouped launch, each tensor once: every bucket's tiles
+    (one [N, W] shape a bucket, W >= 1), the staged rows and ``extra``
+    ([B] each), the table, all on one device. Returns the widest row of
+    each side that is staged in shared memory (0 if none)."""
+    groups = flush.groups
+    tiles = {id(x[0]): x for g in groups for x in g[:2]}  # each bucket once
+    for h, d, w in tiles.values():
+        if h.dim() != 2 or d.shape != h.shape or w.shape != h.shape:
+            raise ValueError(f"{what}: a bucket's hub/dist/wlev must all "
+                             "be one [N, W] shape")
+        if h.shape[1] < 1:
+            raise ValueError(f"{what}: empty bucket rows")
+    srow = staged[0]
+    if srow.dim() != 1 or any(x.shape != srow.shape
+                              for x in (*staged, *extra.values())):
+        raise ValueError(f"{what}: the staged rows must be one [B] shape")
+    named = {f"{n}{i}": x for i, ts in enumerate(tiles.values())
+             for n, x in zip(("hub", "dist", "wlev"), ts)}
+    _cuda.check_cuda_args(what, srow.device, table=flush.table, srow=srow,
+                          trow=staged[1], **extra, **named)
+
+    def widest(side):
+        w = [g[side][0].shape[1] for g in groups]
+        return max([x for x in w if x <= SEG_STAGE], default=0)
+
+    return widest(0), widest(1)
+
+
 def wcsd_query_segmented_grouped_cuda(flush: GroupedFlush):
     """Launch K7 once for a whole flush on the current stream: a block per
     query, each finding its sub-batch in ``flush.table``. Same answers as
     `wcsd_query_segmented_cuda` on every sub-batch. Returns [B] int32 in
     staging order (DEV_INF means infeasible)."""
     what = "wcsd_query_segmented"
-    groups, table = flush.groups, flush.table
-    srow, trow, wq = flush.st
-    tiles = {id(x[0]): x for g in groups for x in g[:2]}  # each bucket once
-    for ts in tiles.values():
-        _checks(what, *ts, *ts, srow, trow, {"wq": wq})
-    _cuda.check_cuda_args(what, srow.device, table=table)
+    srow, trow, wq = _staged(what, flush, 3)
+    ws, wt = _grouped_checks(what, flush, (srow, trow), {"wq": wq})
     B = srow.shape[0]
     out = torch.empty((B,), dtype=torch.int32, device=srow.device)
     if B == 0:                            # an empty flush launches nothing
         return out
-
-    def widest(side):
-        w = [g[side][0].shape[1] for g in groups]
-        return max([x for x in w if x <= SEG_STAGE], default=0)
-
     fn = _cuda.library("wcsd_query").wcsd_query_segmented_grouped_launch
-    err = fn(table.data_ptr(), len(groups), srow.data_ptr(), trow.data_ptr(),
-             wq.data_ptr(), out.data_ptr(), B, widest(0), widest(1),
+    err = fn(flush.table.data_ptr(), len(flush.groups), srow.data_ptr(),
+             trow.data_ptr(), wq.data_ptr(), out.data_ptr(), B, ws, wt,
              _cuda.stream_ptr(srow.device))
     _cuda.check_launch(err, what)
     _cuda.LAUNCHES[what] += 1
@@ -216,15 +278,14 @@ def wcsd_query_segmented_grouped_cuda(flush: GroupedFlush):
 
 def wcsd_profile_segmented_cuda(hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t,
                                 srow, trow, num_levels: int):
-    """Launch K8 on the current stream: one block per query. Returns
-    [B, num_levels + 1] int32 bucket minima (DEV_INF where empty)."""
+    """Launch K8 on the current stream for one sub-batch: one block per
+    query, a merge join where both rows are hub-sorted with inert pads
+    (wlev < 0) after them, all-pairs where they are not. Returns [B,
+    num_levels + 1] int32 bucket minima (DEV_INF where empty)."""
     what = "wcsd_profile_segmented"
     _checks(what, hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t, srow, trow,
             {})
-    L1 = int(num_levels) + 1
-    if not 1 <= L1 <= MAX_LEVELS1:
-        raise ValueError(f"{what}: num_levels + 1 = {L1} outside "
-                         f"[1, {MAX_LEVELS1}]")
+    L1 = _levels1(what, num_levels)
     B = srow.shape[0]
     out = torch.empty((B, L1), dtype=torch.int32, device=srow.device)
     if B == 0:                            # an empty sub-batch launches nothing
@@ -234,6 +295,29 @@ def wcsd_profile_segmented_cuda(hub_s, dist_s, wlev_s, hub_t, dist_t, wlev_t,
              hub_t.data_ptr(), dist_t.data_ptr(), wlev_t.data_ptr(),
              srow.data_ptr(), trow.data_ptr(), out.data_ptr(), B,
              hub_s.shape[1], hub_t.shape[1], L1,
+             _cuda.stream_ptr(srow.device))
+    _cuda.check_launch(err, what)
+    _cuda.LAUNCHES[what] += 1
+    return out
+
+
+def wcsd_profile_segmented_grouped_cuda(flush: GroupedFlush,
+                                        num_levels: int):
+    """Launch K8 once for a whole profile flush on the current stream: a
+    block per query, each finding its sub-batch in ``flush.table``. Same
+    answers as `wcsd_profile_segmented_cuda` on every sub-batch. Returns
+    [B, num_levels + 1] int32 bucket minima in staging order."""
+    what = "wcsd_profile_segmented"
+    srow, trow = _staged(what, flush, 2)
+    ws, wt = _grouped_checks(what, flush, (srow, trow), {})
+    L1 = _levels1(what, num_levels)
+    B = srow.shape[0]
+    out = torch.empty((B, L1), dtype=torch.int32, device=srow.device)
+    if B == 0:                            # an empty flush launches nothing
+        return out
+    fn = _cuda.library("wcsd_query").wcsd_profile_segmented_grouped_launch
+    err = fn(flush.table.data_ptr(), len(flush.groups), srow.data_ptr(),
+             trow.data_ptr(), out.data_ptr(), B, ws, wt, L1,
              _cuda.stream_ptr(srow.device))
     _cuda.check_launch(err, what)
     _cuda.LAUNCHES[what] += 1

@@ -248,7 +248,50 @@ def test_grouped_staging_matches_per_sub_batch(stores, store):
     with pytest.raises(ValueError, match="cover"):
         t_seg.GroupedFlush(groups[:-1], stq, "cpu")
     with pytest.raises(ValueError, match="cover"):
-        t_seg.GroupedFlush(groups, stq[:2], "cpu")
+        t_seg.GroupedFlush(groups, stq[:1], "cpu")
+
+
+@pytest.mark.parametrize("store", STORES)
+def test_grouped_profile_matches_per_sub_batch_and_reference(stores, store):
+    """A profile flush staged for the one-launch K8 (`GroupedFlush` over
+    a [2, B] array, as the engine stages it): the grouped plain version
+    equals the per-sub-batch plain versions and the reference's Pallas
+    K8 (interpret) on every sub-batch; the ops wrapper, scattered back
+    to batch order, equals the engine's profiles. A [2, B] array that
+    does not cover the sub-batches is refused, and K7's grouped version
+    refuses a flush staged without levels."""
+    idx, lane, heavy = stores[store]
+    eng = TEngine(port_index(idx, lane=lane), lane=lane,
+                  dispatch="bucket_pair", device="cpu")
+    s, t, _ = _batch(idx.num_nodes, 80, 8, heavy)
+    plan = t_plan(eng._bucket_of, s, t, num_buckets=eng.num_buckets)
+    groups = [(eng._tiles[p.bucket_s], eng._tiles[p.bucket_t],
+               len(p.positions)) for p in plan]
+    pos = np.concatenate([p.positions for p in plan])
+    stq = t_stage(eng._slot_of, pos, s, t)
+    assert stq.shape == (2, len(s))
+    flush = t_seg.GroupedFlush(groups, stq, "cpu")
+    assert_same_array(flush.st.numpy(), stq)
+    got = t_seg.wcsd_profile_segmented_grouped_plain(flush, W).numpy()
+    assert got.shape == (len(s), W + 1)
+    a = 0
+    for (ts, tt, n), p in zip(groups, plan):
+        rows = t_stage(eng._slot_of, p.positions, s, t)
+        plain = t_seg.wcsd_profile_segmented_plain(*ts, *tt, *_t(rows), W)
+        pallas = np.asarray(j_wq.wcsd_profile_segmented(
+            *(jnp.asarray(x.numpy()) for x in (*ts, *tt)),
+            *(jnp.asarray(r) for r in rows), num_levels=W, interpret=True))
+        assert_same_array(got[a:a + n], plain.numpy())
+        assert_same_array(got[a:a + n], pallas)
+        a += n
+    wrapped = t_ops.wcsd_profile_segmented_grouped(flush, num_levels=W)
+    out = np.empty((len(s), W + 1), np.int32)
+    out[pos] = wrapped.numpy()
+    assert_same_array(out, eng.query_profile(s, t))
+    with pytest.raises(ValueError, match="cover"):
+        t_seg.GroupedFlush(groups, stq[:, 1:], "cpu")
+    with pytest.raises(ValueError, match="needs 3 rows"):
+        t_seg.wcsd_query_segmented_grouped_plain(flush)
 
 
 # ------------------------------------------------------ engine and server

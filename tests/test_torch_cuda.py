@@ -373,6 +373,79 @@ def test_segmented_merge_join_takes_any_rows(card, case, Ws, Wt):
     assert torch.equal(grouped[:100], exp[:100])
 
 
+@pytest.mark.parametrize("num_levels", [0, 4, 31])
+@pytest.mark.parametrize("case", ["sorted", "unsorted", "mid-row-pads",
+                                  "live-pads"])
+@pytest.mark.parametrize("Ws,Wt", [(48, 130), (2048, 1024), (3000, 100)])
+def test_segmented_profile_merge_join_takes_any_rows(card, case, Ws, Wt,
+                                                     num_levels):
+    """K8 against its plain version on rows the merge join takes (sorted)
+    and on rows it must join all-pairs inside the kernel (unsorted, pads
+    mid-row, pads with a live wlev), with Ws != Wt and a side wider than
+    the shared-memory stage (3,000), at num_levels + 1 of 1, 5 and 32
+    bins (a tenth of the real cells one level past the last), per
+    sub-batch and grouped (one launch over a [2, B] staged array)."""
+    from repro_torch.kernels import wcsd_segmented as kseg
+    rng = np.random.default_rng(Ws + Wt + len(case) + num_levels)
+    B = 300
+
+    def rows(W):
+        hub, dist, wlev = _seg_rows(rng, 50, W, case)
+        past = (hub >= 0) & (rng.random(hub.shape) < 0.1)
+        wlev = np.where(past, num_levels + 1, wlev).astype(np.int32)
+        return [torch.from_numpy(a).to(card) for a in (hub, dist, wlev)]
+
+    ts, tt = rows(Ws), rows(Wt)
+    q = [torch.from_numpy(a.astype(np.int32)).to(card) for a in (
+        rng.integers(0, 50, B), rng.integers(0, 50, B))]
+    exp = kseg.wcsd_profile_segmented_plain(*ts, *tt, *q, num_levels)
+    assert (exp < (1 << 29)).any()
+    _cuda.reset_launch_counts()
+    got = kseg.wcsd_profile_segmented_cuda(*ts, *tt, *q, num_levels)
+    assert _cuda.LAUNCHES["wcsd_profile_segmented"] == 1
+    assert torch.equal(got, exp)
+    groups = [(ts, tt, 100), (ts, ts, 120), (tt, tt, 80)]
+    flush = kseg.GroupedFlush(groups, torch.stack(q).cpu().numpy(), card)
+    _cuda.reset_launch_counts()
+    grouped = kseg.wcsd_profile_segmented_grouped_cuda(flush, num_levels)
+    assert _cuda.LAUNCHES["wcsd_profile_segmented"] == 1
+    assert torch.equal(grouped, kseg.wcsd_profile_segmented_grouped_plain(
+        flush, num_levels))
+    assert torch.equal(grouped[:100], exp[:100])
+
+
+def test_grouped_profile_flush_equals_per_sub_batch_launches(card, built):
+    """A bucket-pair profile flush through the engine: one K8 launch,
+    equal to the per-sub-batch launches of `wcsd_profile_segmented_cuda`
+    on the same staging, and to the CPU engine."""
+    from repro_torch.core.query import plan_query_batch, stage_sub_batch
+    from repro_torch.kernels import wcsd_segmented as kseg
+    g, idx = built
+    s, t, _ = random_queries(g, 3000, seed=12)
+    W = g.num_levels
+    eng = DeviceQueryEngine(idx, lane=16, dispatch="bucket_pair",
+                            device=card)
+    plan = plan_query_batch(eng._bucket_of, s, t)
+    assert len(plan) > 4
+    parts = [kseg.wcsd_profile_segmented_cuda(
+        *eng._tiles[p.bucket_s], *eng._tiles[p.bucket_t],
+        *torch.from_numpy(stage_sub_batch(eng._slot_of, p.positions, s,
+                                          t)).to(card), W) for p in plan]
+    bucket = torch.cat(parts)
+    prof = torch.flip(torch.cummin(torch.flip(bucket, (1,)), dim=1).values,
+                      (1,))
+    pos = np.concatenate([p.positions for p in plan])
+    exp = np.empty((len(s), W + 1), np.int32)
+    exp[pos] = torch.where(prof >= 1 << 29, 1 << 30, prof).cpu().numpy()
+    _cuda.reset_launch_counts()
+    got = eng.query_profile(s, t)
+    assert _cuda.LAUNCHES["wcsd_profile_segmented"] == 1
+    np.testing.assert_array_equal(got, exp)
+    ref = DeviceQueryEngine(idx, lane=16, dispatch="bucket_pair",
+                            device="cpu")
+    np.testing.assert_array_equal(got, ref.query_profile(s, t))
+
+
 def test_grouped_flush_equals_per_sub_batch_launches(card, built):
     """A bucket-pair flush through the engine: one K7 launch, equal to the
     per-sub-batch launches of `wcsd_query_segmented_cuda` on the same
@@ -561,9 +634,8 @@ def test_segmented_kernels_equal_plain(card, built, store):
 
 def test_compressed_and_bucket_pair_servers_on_card(card, built):
     """Both new serving modes on the card: one K5/K6 launch per dispatch,
-    one K7 launch per scalar flush and one K8 launch per planned profile
-    sub-batch, answers equal to the ragged server's on the CPU."""
-    from repro_torch.core.query import plan_query_batch
+    one K7 launch per scalar flush and one K8 launch per profile flush,
+    answers equal to the ragged server's on the CPU."""
     g, idx = built
     s, t, wl = random_queries(g, 3000, seed=9)
     ref = WCSDServer(idx, max_batch=1024, device="cpu")
@@ -580,9 +652,8 @@ def test_compressed_and_bucket_pair_servers_on_card(card, built):
     _cuda.reset_launch_counts()
     np.testing.assert_array_equal(bp.query(s, t, wl), exp)
     np.testing.assert_array_equal(bp.query_profile(s, t), exp_p)
-    n = len(plan_query_batch(bp._bucket_of, s, t))
     assert _cuda.LAUNCHES["wcsd_query_segmented"] == 1   # one per flush
-    assert _cuda.LAUNCHES["wcsd_profile_segmented"] == n
+    assert _cuda.LAUNCHES["wcsd_profile_segmented"] == 1
 
 
 @pytest.mark.parametrize("B,L", [(1, 7), (5, 130), (64, 256), (33, 2500),
@@ -644,6 +715,33 @@ def test_profile_merge_kernel_takes_any_tiles(card, case, lane, num_levels):
     assert _cuda.LAUNCHES["wcsd_profile_ragged"] == 1
     exp = kwq.wcsd_profile_ragged_plain(*arena[:3], *items, Q + 1,
                                         num_levels)
+    assert torch.equal(got, exp)
+    assert case == "pads-only" or (exp[:Q] < kwq.DEV_INF).any()
+
+
+@pytest.mark.parametrize("lane", [128, 48, 1024])
+@pytest.mark.parametrize("case", ROW_CASES)
+def test_query_merge_kernel_takes_any_tiles(card, case, lane):
+    """K1 (a warp per work item) against its plain version on tiles of
+    every row case at lanes 128, 48 and 1,024 (two warps a block), the
+    worklist in shuffled order with its pads on the trash row at
+    TRASH_LEVEL, query levels from 0 to one above every cell: a live pad
+    sends its item to the all-pairs branch only at levels it reaches."""
+    rng = np.random.default_rng(lane * 100 + ROW_CASES.index(case) + 7)
+    T, Q, top = 120, 200, 4
+    hub, dist, wlev = label_rows(rng, T, lane, case, top_level=top)
+    lo, hi = tile_spans(hub, wlev)
+    q, st, tt, _ = ragged_items(rng, Q, T, length=4 * Q + 40)
+    wq = np.concatenate([rng.integers(0, top + 2, Q),
+                         [TRASH_LEVEL]]).astype(np.int32)
+    perm = rng.permutation(len(q))
+    arena = [torch.from_numpy(a).to(card) for a in (hub, dist, wlev, lo, hi)]
+    items = [torch.from_numpy(a[perm]).to(card) for a in (q, st, tt)]
+    w = torch.from_numpy(wq).to(card)
+    _cuda.reset_launch_counts()
+    got = kwq.wcsd_query_ragged_cuda(*arena, *items, w)
+    assert _cuda.LAUNCHES["wcsd_query_ragged"] == 1
+    exp = kwq.wcsd_query_ragged_plain(*arena[:3], *items, w)
     assert torch.equal(got, exp)
     assert case == "pads-only" or (exp[:Q] < kwq.DEV_INF).any()
 

@@ -134,6 +134,12 @@ def test_cuda_launchers_refuse_cpu_tensors():
         kseg.wcsd_query_segmented_cuda(z, z, z, z, z, z, v, v, v)
     with pytest.raises(ValueError, match="CUDA"):
         kseg.wcsd_profile_segmented_cuda(z, z, z, z, z, z, v, v, 3)
+    flush = kseg.GroupedFlush([((z, z, z), (z, z, z), 4)],
+                              torch.zeros((3, 4), dtype=torch.int32), "cpu")
+    with pytest.raises(ValueError, match="CUDA"):
+        kseg.wcsd_query_segmented_grouped_cuda(flush)
+    with pytest.raises(ValueError, match="CUDA"):
+        kseg.wcsd_profile_segmented_grouped_cuda(flush, 3)
     with pytest.raises(ValueError, match="CUDA"):
         kwq.wcsd_query_gathered_cuda(z, z, z, z)
     with pytest.raises(ValueError, match="CUDA"):

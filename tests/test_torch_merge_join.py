@@ -1,6 +1,7 @@
-"""The two merge-join kernels' plain versions on the rows those kernels
-must tell apart: K9 `wcsd_query_gathered` (gathered padded rows) and K2
-`wcsd_profile_ragged` (arena tiles through a ragged worklist).
+"""The merge-join kernels' plain versions on the rows those kernels must
+tell apart: K9 `wcsd_query_gathered` (gathered padded rows), K2
+`wcsd_profile_ragged` and K1 `wcsd_query_ragged` (arena tiles through a
+ragged worklist).
 
 On the card both kernels merge-join rows whose real cells are hub-sorted
 with inert pads after them, and join every other row all-pairs. The
@@ -12,7 +13,9 @@ must give the reference's answer on every one: the Pallas kernels in
 interpret mode and the `kernels/ref.py` oracles, exactly. K2 runs at
 ``num_levels + 1`` of 1, 5 and 32 (the most the kernels bin) with levels
 up to one past the last bin, and lane 48; K9 at a shape the Pallas
-kernel takes (B % 8 == 0, L % 128 == 0) and at an odd one (oracle only).
+kernel takes (B % 8 == 0, L % 128 == 0) and at an odd one (oracle only);
+K1 at lane 48 with query levels from 0 to one above every cell, and the
+trash level on the worklist's pads.
 """
 import os
 import sys
@@ -31,9 +34,11 @@ from repro.kernels import wcsd_query as j_wq
 from repro_torch.kernels import wcsd_query as t_wq
 
 sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
-from chip_smoke import mergeable_rows  # noqa: E402  (the smoke's check)
+from chip_smoke import mergeable_at, mergeable_rows  # noqa: E402
+# (the smoke's checks)
 
 BROKEN = {"live-pad", "mid-row-pad", "descending"}
+TRASH_LEVEL = 1 << 20
 
 
 def _t(*arrays):
@@ -118,3 +123,44 @@ def test_profile_plain_on_merge_cases(case, num_levels):
         assert (plain == DEV_INF).all()
     else:
         assert (plain[:Q] < DEV_INF).any()
+
+
+@pytest.mark.parametrize("case", ROW_CASES)
+def test_query_plain_on_merge_cases(case):
+    """K1's plain version == the Pallas kernel (interpret) == the jnp
+    oracle on arena tiles of every row case, lane 48, through a
+    query-major worklist whose pads feed the trash row at TRASH_LEVEL;
+    query levels 0 to one above every cell. K1's merge check depends on
+    the item's level (a pad is inert where its distance, masked at that
+    level, is DEV_INF): a "live-pad" tile passes it only above the live
+    pads' level, where the pads' meet is masked too."""
+    rng = np.random.default_rng(ROW_CASES.index(case) * 100 + 7)
+    T, Q, lane, top = 24, 12, 48, 4
+    hub, dist, wlev = label_rows(rng, T, lane, case, top_level=top)
+    lo, hi = tile_spans(hub, wlev)
+    q, st, tt, first = ragged_items(rng, Q, T, length=4 * Q + 8)
+    wq = np.concatenate([rng.integers(0, top + 2, Q), [TRASH_LEVEL]])
+    wq[:3] = 0, top, top + 1           # the lowest, the top, one above it
+    wq = wq.astype(np.int32)
+    arena = (hub, dist, wlev)
+    pallas = np.asarray(j_wq.wcsd_query_ragged(
+        *_j(*arena, lo, hi, q, st, tt, first, wq), interpret=True))
+    ref = np.asarray(j_ref.wcsd_query_ragged_ref(*_j(*arena, q, st, tt,
+                                                     wq)))
+    plain = t_wq.wcsd_query_ragged_plain(*_t(*arena, q, st, tt,
+                                             wq)).numpy()
+    assert_same_array(pallas, ref)
+    assert_same_array(plain, pallas)
+    above = wq > top                  # every cell masked: no meet counts
+    assert (plain[above] == DEV_INF).all()
+    ok = mergeable_at(hub, dist, wlev, st, wq[q]) & mergeable_at(
+        hub, dist, wlev, tt, wq[q])
+    if case == "live-pad":       # the pads meet wherever their level allows
+        assert (plain[~above] <= 8).all()
+        assert_same_array(ok, wq[q] > top)
+    elif case == "pads-only":
+        assert (plain == DEV_INF).all()
+        assert ok.all()
+    else:
+        assert (plain[~above] < DEV_INF).any()
+        assert ok.all() == (case not in BROKEN)
