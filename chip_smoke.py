@@ -39,8 +39,8 @@ captured from its path (exact int32 equality; K3 at the build's heaviest
 pruning call, K4 at round 1 of the middle root batch and of root batch
 0, both again with every row's pads moved mid-row, K4 also with pad ids
 V, and both on the smallest inputs of the fault C1; K7 and K8 on the
-grouped flush, every sub-batch, and unsorted rows; K1, K2 and K9 also
-with every tile's or row's cells shuffled, which their merge check
+grouped flush, every sub-batch, and unsorted rows; K1, K2, K5, K6 and
+K9 also with every tile's or row's cells shuffled, which their merge check
 refuses (the share of items or queries that pass it is recorded; K9's
 record also times the gather before it); K11, 3xTF32 on the tensor cores
 summed in fp32 in another order, within 1e-4 of each layer's max |ref|
@@ -479,23 +479,29 @@ def mergeable_rows(hub, pad_inert):
 
 
 def mergeable_at(hub, dist, wlev, tiles, w):
-    """[n] bool: K1's merge check of tile ``tiles[i]`` at level ``w[i]``:
-    `mergeable_rows`' order, and every pad of the tile inert at that level
-    (its distance, masked where its wlev < w, is >= DEV_INF), computed
-    here from the inputs."""
+    """[n] bool: K1's (and K5's) merge check of tile ``tiles[i]`` at level
+    ``w[i]``: `mergeable_rows`' order, and every pad of the tile inert at
+    that level (its distance, masked where its wlev < w, is >= DEV_INF),
+    computed here from the inputs. Compressed tiles are taken as they are
+    stored: a hub delta's sign is the pad flag and the deltas' order the
+    hubs' order; a float distance decodes below DEV_INF exactly where it
+    is below DEV_INF."""
+    import torch
     ok = mergeable_rows(hub, hub == hub)
-    live = (hub < 0) & (dist < DEV_INF)      # pads a low level makes count
+    d = dist.float() if (isinstance(dist, torch.Tensor)
+                         and dist.is_floating_point()) else dist
+    live = (hub < 0) & (d < DEV_INF)         # pads a low level makes count
     return ok[tiles] & ~(live[tiles] & (wlev[tiles] >= w[:, None])).any(1)
 
 
 def ragged_kernel_phase(engine, rec, profile: bool, launches: int,
                         iters: int) -> dict:
-    """K1/K2, or K5/K6 where the engine serves the compressed arena. K1
-    and K2 (merge joins) also run on the same worklist over the arena
-    with every tile's cells shuffled (their all-pairs branch), held
-    against the plain version and timed; the share of meeting items whose
-    two tiles pass the merge check (K1's at each item's level) is
-    recorded for both."""
+    """K1/K2, or K5/K6 where the engine serves the compressed arena. Each
+    also runs on the same worklist over the arena with every tile's cells
+    shuffled (its all-pairs branch), held against the plain version and
+    timed; the share of meeting items whose two tiles pass the merge
+    check (the scalar kernels' at each item's level) is recorded for
+    both."""
     import torch
     from repro_torch.kernels import wcsd_query as kwq
     hub, dist, wlev, lo, hi, qidx, stile, ttile, wq, rows = \
@@ -559,30 +565,28 @@ def ragged_kernel_phase(engine, rec, profile: bool, launches: int,
                      "meeting_items": n_meet, "hub_meets": meets,
                      "lane": lane,
                      "bytes_per_cell": cell, "queries": rows - 1}}
-    if not comp:
-        if profile:
-            def merge_share(h, d, w):
-                ok = mergeable_rows(h, w < 0)
-                return float((ok[stile[meet]] & ok[ttile[meet]]).float()
-                             .mean())
-        else:
-            lev = wq[qidx[meet]]
+    if profile:
+        def merge_share(h, d, w):
+            ok = mergeable_rows(h, w < 0)
+            return float((ok[stile[meet]] & ok[ttile[meet]]).float().mean())
+    else:
+        lev = wq[qidx[meet]]
 
-            def merge_share(h, d, w):
-                return float((mergeable_at(h, d, w, stile[meet], lev)
-                              & mergeable_at(h, d, w, ttile[meet], lev))
-                             .float().mean())
+        def merge_share(h, d, w):
+            return float((mergeable_at(h, d, w, stile[meet], lev)
+                          & mergeable_at(h, d, w, ttile[meet], lev))
+                         .float().mean())
 
-        out["merge_share"] = merge_share(hub, dist, wlev)
-        sh = _shuffled_rows(hub, dist, wlev)
-        out["shuffled_merge_share"] = merge_share(*sh)
-        a, b = kern(*sh), plain(*sh)
-        torch.cuda.synchronize()
-        out["shuffled_max_abs_err"] = int((a.long() - b.long()).abs().max()
-                                          .item())
-        out["max_abs_err"] = max(err, out["shuffled_max_abs_err"])
-        out["shuffled_ms"] = cuda_ms(lambda: kern(*sh), max(1, iters // 10))
-        del sh
+    out["merge_share"] = merge_share(hub, dist, wlev)
+    sh = _shuffled_rows(hub, dist, wlev)
+    out["shuffled_merge_share"] = merge_share(*sh)
+    a, b = kern(*sh), plain(*sh)
+    torch.cuda.synchronize()
+    out["shuffled_max_abs_err"] = int((a.long() - b.long()).abs().max()
+                                      .item())
+    out["max_abs_err"] = max(err, out["shuffled_max_abs_err"])
+    out["shuffled_ms"] = cuda_ms(lambda: kern(*sh), max(1, iters // 10))
+    del sh
     return out
 
 

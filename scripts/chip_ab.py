@@ -14,7 +14,11 @@ serving loop, imported from the checkout this script sits in): the
 ragged server (K1 a scalar flush, K2 a profile flush), the bucket-pair
 server (K7, K8) and the padded server (`layout="padded"`, K9 a scalar
 flush, the plain padded join for profiles); every server's answers must
-equal the ragged server's. The only instrumentation is a pair of CUDA
+equal the ragged server's. Then the smoke's compressed path: the V =
+2^15 index of `chip_smoke.compressed_serve_phase` (same graph, build and
+streams), served in epoch flushes of 4,096 by a ragged server and by a
+compressed one (K5, K6), whose answers must equal the ragged server's.
+The only instrumentation is a pair of CUDA
 events around every call of the build's two round wrappers (K3
 `ops.wc_prune_emit`, K4 `ops.wc_relax_batched`), the same for any tree,
 so two trees run in turns on one card (A, B, B, A) compare like for
@@ -23,9 +27,10 @@ the built index's packed arrays (two trees that build the same index
 print the same digest), build, round loop and finalize seconds, the
 device seconds of each round step (CUDA events around the call, so the
 wrapper's own host time between them is counted too), the host seconds
-spent inside each wrapper, the launch counts, and per server the
-serving wall time, requests/s, dispatch and drain-wait seconds, p50 and
-p99 latency and the launch counts. ``--profile`` also
+spent inside each wrapper, the launch counts, and per server (the V =
+2^15 ones as ``ragged_v15`` and ``compressed``) the serving wall time,
+requests/s, dispatch and drain-wait seconds, p50 and p99 latency and the
+launch counts. ``--profile`` also
 traces the build with `torch.profiler` (CUDA activity only) and adds
 every kernel's summed device time, the busy device time over the round
 loop, the round loop's idle share, and the round kernels' calls binned
@@ -35,10 +40,9 @@ shapes), K1 and K2 on the ragged server's first scalar and profile
 flush, K7 and K8 on the bucket-pair server's first scalar and profile
 flush, K9 (and the
 gather before it) on the padded server's first scalar flush, and K5 and
-K6 on the first flushes of a compressed server of the V = 2^15 index
-(`chip_smoke.compressed_serve_phase`'s graph and queries); each kernel
-is held against its plain version there, as in the smoke. Needs a CUDA
-device.
+K6 on the compressed server's first scalar and profile flush; each
+kernel is held against its plain version there, as in the smoke. Needs
+a CUDA device.
 """
 from __future__ import annotations
 
@@ -160,34 +164,29 @@ def main() -> int:
             "per_call_us_edges": [15, 30, 60, 120, 250, "inf"],
             "per_call": per_call,
             "round_loop_idle_share": 1 - busy / rec["round_loop_s"]}
-    servers = (("ragged", {}), ("bucket_pair", {"dispatch": "bucket_pair"}),
-               ("padded", {"layout": "padded", "use_pallas": True}))
-    answers = None
     first = {}                  # server -> (engine, first query / profile)
-    for name, kw in () if args.no_serve else servers:
-        torch.cuda.synchronize()
-        _cuda.reset_launch_counts()
-        log = []
-        srv, out, prof, wall = chip_smoke.serve_epoch(
-            idx, (s, t, wl), (ps, pt), 4096, log, "cuda", **kw)
-        torch.cuda.synchronize()
-        if answers is None:
-            answers = (out, prof)
-        elif not (np.array_equal(out, answers[0])
-                  and np.array_equal(prof, answers[1])):
-            print(f"chip_ab: {name} serving differs from ragged",
+    if not args.no_serve:
+        servers = (("ragged", {}),
+                   ("bucket_pair", {"dispatch": "bucket_pair"}),
+                   ("padded", {"layout": "padded", "use_pallas": True}))
+        if not serve_all(chip_smoke, idx, (s, t, wl), (ps, pt), servers,
+                         rec, first):
+            return 1
+        del idx
+        g = scale_free(1 << chip_smoke.LOG2_V_COMPRESSED, m=4, num_levels=5,
+                       seed=0)
+        idx, _ = build_wc_index_batched_packed(
+            g, batch_size=chip_smoke.BATCH, device="cuda")
+        qs = random_queries(g, 1 << chip_smoke.LOG2_QUERIES, seed=1)
+        pq = random_queries(g, 1 << chip_smoke.LOG2_PROFILES, seed=2)[:2]
+        if not serve_all(chip_smoke, idx, qs, pq,
+                         (("ragged_v15", {}),
+                          ("compressed", {"compressed": True})), rec, first):
+            return 1
+        if first["compressed"][0].compressed is not True:
+            print("chip_ab: the V = 2^15 index was not served compressed",
                   file=sys.stderr)
             return 1
-        lat = srv.latency_summary()
-        rec[name] = {
-            "wall_s": wall, "requests_per_s": (len(s) + len(ps)) / wall,
-            "dispatch_s": srv.stats.dispatch_time_s,
-            "drain_wait_s": srv.stats.drain_wait_s,
-            "p50_us": lat["p50_us"], "p99_us": lat["p99_us"],
-            "launches": {k: v for k, v in _cuda.LAUNCHES.items() if v}}
-        first[name] = (srv.engine, next(r for r in log if r[0] == "query"),
-                       next(r for r in log if r[0] == "profile"))
-        del srv, log
     if args.kernels and first:
         rec["kernels"] = kernel_times(chip_smoke, first, "cuda")
         bad = [k for k, v in rec["kernels"].items()
@@ -204,25 +203,48 @@ def main() -> int:
     return 0
 
 
+def serve_all(smoke, idx, qs, ps, servers, rec, first) -> bool:
+    """Serve the streams through each (name, WCSDServer keywords) in turn
+    with `chip_smoke.serve_epoch`, recording each server's numbers in
+    ``rec[name]`` and its engine with its first scalar and profile flush
+    in ``first[name]``. False (and a message) where a server's answers
+    differ from the first one's."""
+    import numpy as np
+    import torch
+    from repro_torch.kernels import _cuda
+    answers = None
+    for name, kw in servers:
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        log = []
+        srv, out, prof, wall = smoke.serve_epoch(idx, qs, ps, 4096, log,
+                                                 "cuda", **kw)
+        torch.cuda.synchronize()
+        if answers is None:
+            answers = (out, prof)
+        elif not (np.array_equal(out, answers[0])
+                  and np.array_equal(prof, answers[1])):
+            print(f"chip_ab: {name} serving differs from {servers[0][0]}",
+                  file=sys.stderr)
+            return False
+        lat = srv.latency_summary()
+        rec[name] = {
+            "wall_s": wall,
+            "requests_per_s": (len(qs[0]) + len(ps[0])) / wall,
+            "dispatch_s": srv.stats.dispatch_time_s,
+            "drain_wait_s": srv.stats.drain_wait_s,
+            "p50_us": lat["p50_us"], "p99_us": lat["p99_us"],
+            "launches": {k: v for k, v in _cuda.LAUNCHES.items() if v}}
+        first[name] = (srv.engine, next(r for r in log if r[0] == "query"),
+                       next(r for r in log if r[0] == "profile"))
+        del srv, log
+    return True
+
+
 def kernel_times(smoke, first, device) -> dict:
-    """The smoke's kernel phases on the first flushes of each server, and
-    K5/K6 on the first flushes of a compressed V = 2^15 server: per
-    kernel its times (``*ms``) and errors against the plain version."""
-    from repro_torch.core.generators import random_queries, scale_free
-    from repro_torch.core.wc_index_batched import \
-        build_wc_index_batched_packed
-    g = scale_free(1 << smoke.LOG2_V_COMPRESSED, m=4, num_levels=5, seed=0)
-    idx, _ = build_wc_index_batched_packed(g, batch_size=smoke.BATCH,
-                                           device=device)
-    n = smoke.MAX_BATCH                 # one flush of each kind
-    qs = [a[:n] for a in random_queries(g, 1 << smoke.LOG2_QUERIES, seed=1)]
-    ps = [a[:n] for a in random_queries(g, 1 << smoke.LOG2_PROFILES,
-                                        seed=2)[:2]]
-    log = []
-    srv, *_ = smoke.serve_epoch(idx, qs, ps, n, log, device, compressed=True)
-    first["compressed"] = (srv.engine,
-                           next(r for r in log if r[0] == "query"),
-                           next(r for r in log if r[0] == "profile"))
+    """The smoke's kernel phases on the first flushes of each server: per
+    kernel its times (``*ms``), merge shares and errors against the plain
+    version."""
     phases = []
     for name in ("ragged", "compressed"):
         eng, qrec, prec = first[name]

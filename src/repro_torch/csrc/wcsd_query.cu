@@ -1,7 +1,7 @@
 // WCSD query kernels: the ragged kernels over the lane-tiled label arena
 // (plain and compressed), the bucket-pair kernels over padded bucket
-// tiles and the gathered-row kernel of the padded store. K1, K2, K7, K8
-// and K9 are merge joins; K5 and K6 keep one all-pairs join body.
+// tiles and the gathered-row kernel of the padded store. All seven are
+// merge joins.
 //
 // Replaces: src/repro/kernels/wcsd_query.py:wcsd_query_ragged (K1),
 //           ...:wcsd_profile_ragged (K2),
@@ -34,19 +34,6 @@
 // in no bin). Rows that fail the check are joined all-pairs inside the
 // kernel, as the reference joins them.
 //
-// All-pairs body (K5, K6): a block stages its t-side cells (hub + dist,
-// profile also wlev) in shared memory, each thread takes s-side cells
-// with a stride of blockDim.x and scans every staged cell, and the block
-// reduces with warp shuffles; both read their cells through a cell
-// reader, CompressedCells<F>: the compressed arena (int16 hub deltas,
-// bf16 or fp16 distances, int8 levels: 5 bytes a cell instead of 12),
-// decoded in registers as each cell is loaded, exactly as the
-// reference's `_decode_cells`: hub = tile_lo + delta where delta >= 0,
-// else -1 (the pad flag); dist = min(float(x), DEV_INF) + 0.5 rounded to
-// nearest, then truncated (`__float2int_rz`, as `astype(int32)`
-// truncates), so +inf pads decode to DEV_INF; wlev widened. The staged
-// cells are decoded int32 values. Built without fast math.
-//
 // Ragged (K1, K2, K5, K6), per worklist item k = (qidx, s_tile, t_tile):
 // the join of the two tiles, min-accumulated into output row qidx. The
 // Pallas kernel walks the worklist as a sequential grid, initialising
@@ -57,30 +44,50 @@
 // order-independent, so the result is bit-exact whatever order items run
 // in, and the worklist's `first` flags are not needed. Items whose
 // [tile_lo, tile_hi] hub spans are disjoint cannot meet and are skipped
-// before any cell is read. K5 and K6 run one block per item.
+// before any cell is read.
 //
-// K1 and K2 run one warp per item, so an item costs no block barrier:
-// blocks of PROF_WARPS_MAX warps (fewer where the lane is wide), only as
-// many as the card holds at once, each warp walking the worklist with the
-// grid's stride (a block of 8 items, one each, holds its slot on the SM
-// until its slowest item ends, while two in three items of a flush end at
-// the span test). The warp stages both tiles (hub, dist, wlev: 1.5 KB a
-// tile at lane 128) in its slice of shared memory with cp.async, checks
-// them with one vote, and each lane binary-searches the t-tile for its
-// s-cells (a stride of 32; each search starts where the lane's previous
-// one ended) and walks the t-side run of each cell's hub (repeated hubs
-// are Pareto entries); contiguous pieces a lane, walked forward as K7
-// walks, were slower for K2. K1 masks the staged distances in place at
-// the item's level while it checks, keeps one running min in a register
-// and ends in one warp_min and one global atomicMin. K2 puts every meet
-// into the warp's num_levels + 1 bins in shared memory by shared
-// atomicMin, not into a per-thread array indexed by a run-time level
-// (which would live in local memory), and writes its bins below DEV_INF
-// with one global atomicMin each. The all-pairs bodies of earlier
-// versions (a block an item, lane^2 compares, then block reductions of
-// two barriers each) took 0.1727 ms (K1) and 0.2288 ms (K2) for the first
-// flushes of the V = 2^17 run against bounds of 0.0195 and 0.0196 ms
-// (H100 80GB HBM3, 700 W). K5 and K6 keep those bodies.
+// One warp-per-item merge kernel per ragged join (scalar: K1 and K5;
+// profile: K2 and K6), templated on a tile stager, so an item costs no
+// block barrier: blocks of PROF_WARPS_MAX warps (fewer where the lane is
+// wide), only as many as the card holds at once, each warp walking the
+// worklist with the grid's stride (a block of 8 items, one each, holds
+// its slot on the SM until its slowest item ends, while two in three
+// items of a flush end at the span test). The stager fills the warp's
+// slice of shared memory with both tiles as int32 cells (hub, dist,
+// wlev: 1.5 KB a tile at lane 128):
+//  * Int32Tiles (K1, K2): cp.async straight from the arena.
+//  * CompressedTiles<F> (K5, K6; F = bf16 or fp16): the compressed arena
+//    (int16 hub deltas, F distances, int8 levels: 5 bytes a cell instead
+//    of 12), each lane loading its share with plain coalesced loads (4
+//    cells a lane: 8 + 8 + 4 bytes a tile, where the lane is a multiple
+//    of 4 and the arrays are aligned; a cell at a time otherwise),
+//    decoded in registers and stored as int32, exactly as the
+//    reference's `_decode_cells`: hub = tile_lo + delta where delta >=
+//    0, else -1 (the pad flag); dist = min(float(x), DEV_INF) + 0.5
+//    rounded to nearest, then truncated (`__float2int_rz`, as
+//    `astype(int32)` truncates), so +inf pads decode to DEV_INF; wlev
+//    widened. Built without fast math. Within a tile the deltas' order is
+//    the hubs' order, so the merge check passes the compressed store's
+//    tiles as it passes the int32 arena's.
+// Everything after staging is one piece of code for both formats: the
+// warp checks both tiles with one vote, and each lane binary-searches
+// the t-tile for its s-cells (a stride of 32; each search starts where
+// the lane's previous one ended) and walks the t-side run of each cell's
+// hub (repeated hubs are Pareto entries); contiguous pieces a lane,
+// walked forward as K7 walks, were slower for K2. The scalar kernel
+// masks the staged distances in place at the item's level while it
+// checks, keeps one running min in a register and ends in one warp_min
+// and one global atomicMin. The profile kernel puts every meet into the
+// warp's num_levels + 1 bins in shared memory by shared atomicMin, not
+// into a per-thread array indexed by a run-time level (which would live
+// in local memory), and writes its bins below DEV_INF with one global
+// atomicMin each. The all-pairs bodies of earlier versions (a block an
+// item, lane^2 compares, then block reductions of two barriers each)
+// took 0.1727 ms (K1) and 0.2288 ms (K2) for the first flushes of the V
+// = 2^17 run against bounds of 0.0195 and 0.0196 ms, and 0.0800 ms (K5)
+// and 0.1136 ms (K6) of device time for the first flushes of the V =
+// 2^15 compressed run against 0.00425 and 0.00430 ms (H100 80GB HBM3,
+// 700 W).
 //
 // Bucket-pair (K7, K8), per query b of one planned sub-batch: the join of
 // row srow[b] of the s-side tiles [Ns, Ws] with row trow[b] of the t-side
@@ -139,32 +146,37 @@
 #define MAX_LEVELS1 32     // most num_levels + 1 the profile kernels bin
 #define SEG_THREADS 256    // K7 / K8 / K9: threads per query
 #define SEG_STAGE 2048     // K7 / K8 / K9: widest row staged in shared memory
-#define PROF_WARPS_MAX 8   // K1 / K2: work items (warps) per block at most
-#define PROF_SMEM 49152    // K1 / K2: shared bytes a block uses at most
+#define PROF_WARPS_MAX 8   // K1/K2/K5/K6: work items (warps) a block at most
+#define PROF_SMEM 49152    // K1/K2/K5/K6: shared bytes a block uses at most
 
-// ------------------------------------------------------------ cell readers
+// --------------------------------------------------- compressed cells
+// The reference's `_decode_cells`, one cell at a time: hub = tile_lo +
+// delta where delta >= 0, else -1; dist clamped to DEV_INF, + 0.5 and
+// truncated; wlev widened.
 __device__ __forceinline__ float to_f32(__nv_bfloat16 x) {
   return __bfloat162float(x);
 }
 __device__ __forceinline__ float to_f32(__half x) { return __half2float(x); }
 
 template <typename F>
-struct CompressedCells {
-  const short* __restrict__ hub_delta;
-  const F* __restrict__ dist;
-  const signed char* __restrict__ wlev;
-  __device__ __forceinline__ int hub_at(int64_t x, int lo) const {
-    const short d = hub_delta[x];
-    return d >= 0 ? lo + (int)d : -1;
-  }
-  __device__ __forceinline__ int dist_at(int64_t x) const {
-    return __float2int_rz(
-        __fadd_rn(fminf(to_f32(dist[x]), (float)DEV_INF), 0.5f));
-  }
-  __device__ __forceinline__ int wlev_at(int64_t x) const {
-    return (int)wlev[x];
-  }
-};
+__device__ __forceinline__ F from_bits(unsigned short b);
+template <>
+__device__ __forceinline__ __nv_bfloat16 from_bits<__nv_bfloat16>(
+    unsigned short b) {
+  return __ushort_as_bfloat16(b);
+}
+template <>
+__device__ __forceinline__ __half from_bits<__half>(unsigned short b) {
+  return __ushort_as_half(b);
+}
+
+__device__ __forceinline__ int decode_hub(int delta, int lo) {
+  return delta >= 0 ? lo + delta : -1;
+}
+
+__device__ __forceinline__ int decode_dist(float x) {
+  return __float2int_rz(__fadd_rn(fminf(x, (float)DEV_INF), 0.5f));
+}
 
 // ------------------------------------------------------------- reductions
 __device__ __forceinline__ int warp_min(int v) {
@@ -183,80 +195,6 @@ __device__ __forceinline__ int block_min(int v, int* scratch) {
   v = (threadIdx.x < nwarps) ? scratch[threadIdx.x] : DEV_INF;
   if (warp == 0) v = warp_min(v);
   return v;
-}
-
-// Block-wide min of every level's accumulator into lev_min[levels1]
-// (shared), valid in every thread on return.
-__device__ __forceinline__ void block_min_levels(const int* acc, int levels1,
-                                                 int* scratch, int* lev_min) {
-  for (int l = 0; l < levels1; ++l) {
-    const int m = block_min(acc[l], scratch);
-    if (threadIdx.x == 0) lev_min[l] = m;
-    __syncthreads();  // scratch is reused by the next level's reduction
-  }
-}
-
-// ------------------------------------------------- the all-pairs join
-// Stage cells [base, base + n): hub, and dist masked to DEV_INF where
-// wlev < w (scalar kernels).
-template <typename Cells>
-__device__ __forceinline__ void stage_masked(const Cells& c, int64_t base,
-                                             int n, int lo, int w,
-                                             int* sh_hub, int* sh_dist) {
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    sh_hub[j] = c.hub_at(base + j, lo);
-    sh_dist[j] = c.wlev_at(base + j) >= w ? c.dist_at(base + j) : DEV_INF;
-  }
-}
-
-// This thread's s-cells of [base, base + ns) against the n staged cells:
-// the min over hub meets, folded into best.
-template <typename Cells>
-__device__ __forceinline__ int join_masked(const Cells& c, int64_t base,
-                                           int ns, int lo, int w,
-                                           const int* sh_hub,
-                                           const int* sh_dist, int n,
-                                           int best) {
-  for (int i = threadIdx.x; i < ns; i += blockDim.x) {
-    const int hs = c.hub_at(base + i, lo);
-    const int ds = c.wlev_at(base + i) >= w ? c.dist_at(base + i) : DEV_INF;
-    for (int j = 0; j < n; ++j)
-      if (sh_hub[j] == hs) best = min(best, ds + sh_dist[j]);
-  }
-  return best;
-}
-
-// Stage cells [base, base + n): hub, dist and wlev (profile kernels).
-template <typename Cells>
-__device__ __forceinline__ void stage_levels(const Cells& c, int64_t base,
-                                             int n, int lo, int* sh_hub,
-                                             int* sh_dist, int* sh_wlev) {
-  for (int j = threadIdx.x; j < n; j += blockDim.x) {
-    sh_hub[j] = c.hub_at(base + j, lo);
-    sh_dist[j] = c.dist_at(base + j);
-    sh_wlev[j] = c.wlev_at(base + j);
-  }
-}
-
-// This thread's s-cells against the n staged cells, each meet's sum
-// min-accumulated into acc at its pair level.
-template <typename Cells>
-__device__ __forceinline__ void join_levels(const Cells& c, int64_t base,
-                                            int ns, int lo,
-                                            const int* sh_hub,
-                                            const int* sh_dist,
-                                            const int* sh_wlev, int n,
-                                            int* acc, int levels1) {
-  for (int i = threadIdx.x; i < ns; i += blockDim.x) {
-    const int hs = c.hub_at(base + i, lo);
-    const int ds = c.dist_at(base + i);
-    const int ws = c.wlev_at(base + i);
-    for (int j = 0; j < n; ++j) {
-      if (sh_hub[j] != hs) continue;
-      const int mw = min(ws, sh_wlev[j]);
-      if (mw >= 0 && mw < levels1) acc[mw] = min(acc[mw], ds + sh_dist[j]);
-    }
-  }
 }
 
 // ------------------------------------------------------------ staging
@@ -315,62 +253,9 @@ __device__ __forceinline__ bool tiles_meet(const int* tile_lo,
   return tile_lo[s] <= tile_hi[t] && tile_lo[t] <= tile_hi[s];
 }
 
-// K5: one block per item, every cell pair.
-template <typename Cells>
-__global__ void wcsd_query_ragged_kernel(
-    Cells c, const int* __restrict__ tile_lo, const int* __restrict__ tile_hi,
-    const int* __restrict__ qidx, const int* __restrict__ stile,
-    const int* __restrict__ ttile, const int* __restrict__ wq,
-    int* __restrict__ out, int lane) {
-  extern __shared__ int smem[];
-  int* sh_hub = smem;          // [lane]
-  int* sh_dist = smem + lane;  // [lane] masked, clamped
-  __shared__ int red[32];
-  const int64_t k = blockIdx.x;
-  const int s = stile[k], t = ttile[k];
-  if (!tiles_meet(tile_lo, tile_hi, s, t)) return;  // block-uniform
-  const int q = qidx[k];
-  const int w = wq[q];
-  stage_masked(c, (int64_t)t * lane, lane, tile_lo[t], w, sh_hub, sh_dist);
-  __syncthreads();
-  int best = join_masked(c, (int64_t)s * lane, lane, tile_lo[s], w, sh_hub,
-                         sh_dist, lane, DEV_INF);
-  best = block_min(best, red);
-  if (threadIdx.x == 0 && best < DEV_INF) atomicMin(out + q, best);
-}
-
-// K6: one block per item, every cell pair.
-template <typename Cells>
-__global__ void wcsd_profile_ragged_kernel(
-    Cells c, const int* __restrict__ tile_lo, const int* __restrict__ tile_hi,
-    const int* __restrict__ qidx, const int* __restrict__ stile,
-    const int* __restrict__ ttile, int* __restrict__ out, int lane,
-    int levels1) {
-  extern __shared__ int smem[];
-  int* sh_hub = smem;              // [lane]
-  int* sh_dist = smem + lane;      // [lane] clamped
-  int* sh_wlev = smem + 2 * lane;  // [lane]
-  __shared__ int red[32];
-  __shared__ int lev_min[MAX_LEVELS1];
-  const int64_t k = blockIdx.x;
-  const int s = stile[k], t = ttile[k];
-  if (!tiles_meet(tile_lo, tile_hi, s, t)) return;  // block-uniform
-  const int q = qidx[k];
-  stage_levels(c, (int64_t)t * lane, lane, tile_lo[t], sh_hub, sh_dist,
-               sh_wlev);
-  __syncthreads();
-  int acc[MAX_LEVELS1];
-  for (int l = 0; l < levels1; ++l) acc[l] = DEV_INF;
-  join_levels(c, (int64_t)s * lane, lane, tile_lo[s], sh_hub, sh_dist,
-              sh_wlev, lane, acc, levels1);
-  block_min_levels(acc, levels1, red, lev_min);
-  if (threadIdx.x < levels1 && lev_min[threadIdx.x] < DEV_INF)
-    atomicMin(out + (int64_t)q * levels1 + threadIdx.x, lev_min[threadIdx.x]);
-}
-
-// K1 / K2: one warp per work item. A warp's slice of shared memory: the
-// s-tile and the t-tile (hub, dist, wlev; cap cells an array), then (K2)
-// MAX_LEVELS1 bins.
+// K1 / K2 / K5 / K6: one warp per work item. A warp's slice of shared
+// memory: the s-tile and the t-tile (hub, dist, wlev as int32; cap cells
+// an array), then (profile) MAX_LEVELS1 bins.
 __host__ __device__ __forceinline__ int query_warp_ints(int lane) {
   return 6 * stage_cap(lane);
 }
@@ -379,22 +264,94 @@ __host__ __device__ __forceinline__ int prof_warp_ints(int lane) {
   return query_warp_ints(lane) + MAX_LEVELS1;
 }
 
-// Stage one work item's two tiles into a warp's slice (lane lid of 32).
-__device__ __forceinline__ void stage_tile_pair(int* sh, int cap,
-                                                const int* hub,
-                                                const int* dist,
-                                                const int* wlev, int64_t sb,
-                                                int64_t tb, int lane,
-                                                int lid) {
-  stage_cells(sh, hub + sb, lane, lid, 32);
-  stage_cells(sh + cap, dist + sb, lane, lid, 32);
-  stage_cells(sh + 2 * cap, wlev + sb, lane, lid, 32);
-  stage_cells(sh + 3 * cap, hub + tb, lane, lid, 32);
-  stage_cells(sh + 4 * cap, dist + tb, lane, lid, 32);
-  stage_cells(sh + 5 * cap, wlev + tb, lane, lid, 32);
-}
+// Tile stagers: stage() fills a warp's slice (lane lid of 32) with one
+// work item's two tiles s and t as int32 cells, the s-tile's hub, dist
+// and wlev at sh, sh + cap and sh + 2 * cap, the t-tile's after them;
+// after wait() and a __syncwarp every lane may read them.
+//
+// K1 / K2: the int32 arena, copied with cp.async.
+struct Int32Tiles {
+  const int* __restrict__ hub;
+  const int* __restrict__ dist;
+  const int* __restrict__ wlev;
+  __device__ __forceinline__ void stage(int* sh, int cap, int s, int t,
+                                        const int* tile_lo, int lane,
+                                        int lid) const {
+    const int64_t sb = (int64_t)s * lane, tb = (int64_t)t * lane;
+    stage_cells(sh, hub + sb, lane, lid, 32);
+    stage_cells(sh + cap, dist + sb, lane, lid, 32);
+    stage_cells(sh + 2 * cap, wlev + sb, lane, lid, 32);
+    stage_cells(sh + 3 * cap, hub + tb, lane, lid, 32);
+    stage_cells(sh + 4 * cap, dist + tb, lane, lid, 32);
+    stage_cells(sh + 5 * cap, wlev + tb, lane, lid, 32);
+  }
+  __device__ __forceinline__ void wait() const { cp_async_wait_all(); }
+};
 
-// K2: this lane's part of the merge check of one staged tile: real cells
+// K5 / K6: the compressed arena, loaded into registers, decoded and
+// stored as int32. vec (set by the launcher): the lane is a multiple of
+// 4 and the arrays are 8-, 8- and 4-byte aligned, so every tile is too
+// and a lane loads 4 cells of a tile at once (8 bytes of hub deltas, 8
+// of distances, 4 of levels); otherwise a cell at a time.
+template <typename F>
+struct CompressedTiles {
+  const short* __restrict__ hub_delta;
+  const F* __restrict__ dist;
+  const signed char* __restrict__ wlev;
+  int vec;
+
+  // cells c..c+3 of one tile, packed as loaded (little-endian), into the
+  // tile's three arrays at sh
+  static __device__ __forceinline__ void store4(int* sh, int cap, int c,
+                                                uint2 hd, uint2 d,
+                                                unsigned w, int lo) {
+    *(int4*)(sh + c) = make_int4(
+        decode_hub((int)(short)(hd.x & 0xffffu), lo),
+        decode_hub((int)hd.x >> 16, lo),
+        decode_hub((int)(short)(hd.y & 0xffffu), lo),
+        decode_hub((int)hd.y >> 16, lo));
+    *(int4*)(sh + cap + c) = make_int4(
+        decode_dist(to_f32(from_bits<F>(d.x & 0xffffu))),
+        decode_dist(to_f32(from_bits<F>(d.x >> 16))),
+        decode_dist(to_f32(from_bits<F>(d.y & 0xffffu))),
+        decode_dist(to_f32(from_bits<F>(d.y >> 16))));
+    *(int4*)(sh + 2 * cap + c) =
+        make_int4((int)(w << 24) >> 24, (int)(w << 16) >> 24,
+                  (int)(w << 8) >> 24, (int)w >> 24);
+  }
+
+  __device__ __forceinline__ void stage(int* sh, int cap, int s, int t,
+                                        const int* tile_lo, int lane,
+                                        int lid) const {
+    const int64_t sb = (int64_t)s * lane, tb = (int64_t)t * lane;
+    const int los = tile_lo[s], lot = tile_lo[t];
+    int* st = sh + 3 * cap;
+    if (vec) {
+      for (int c = 4 * lid; c < lane; c += 128) {
+        const uint2 hs = *(const uint2*)(hub_delta + sb + c);
+        const uint2 ds = *(const uint2*)(dist + sb + c);
+        const unsigned ws = *(const unsigned*)(wlev + sb + c);
+        const uint2 ht = *(const uint2*)(hub_delta + tb + c);
+        const uint2 dt = *(const uint2*)(dist + tb + c);
+        const unsigned wt = *(const unsigned*)(wlev + tb + c);
+        store4(sh, cap, c, hs, ds, ws, los);
+        store4(st, cap, c, ht, dt, wt, lot);
+      }
+    } else {
+      for (int c = lid; c < lane; c += 32) {
+        sh[c] = decode_hub(hub_delta[sb + c], los);
+        sh[cap + c] = decode_dist(to_f32(dist[sb + c]));
+        sh[2 * cap + c] = wlev[sb + c];
+        st[c] = decode_hub(hub_delta[tb + c], lot);
+        st[cap + c] = decode_dist(to_f32(dist[tb + c]));
+        st[2 * cap + c] = wlev[tb + c];
+      }
+    }
+  }
+  __device__ __forceinline__ void wait() const {}
+};
+
+// K2, K6: this lane's part of the merge check of one staged tile: real cells
 // (hub >= 0) non-decreasing in hub, pads only after them, every pad inert
 // (wlev < 0: its meets fall in no bin). Adds its real cells to *real.
 __device__ __forceinline__ bool tile_mergeable(const int* hub,
@@ -416,7 +373,7 @@ __device__ __forceinline__ bool tile_mergeable(const int* hub,
   return ok;
 }
 
-// K1: the same check at the item's level w, which also masks this lane's
+// K1, K5: the same check at the item's level w, which also masks this lane's
 // staged distances in place (min(dist, DEV_INF) where wlev >= w, else
 // DEV_INF); a pad is inert where its masked distance is DEV_INF.
 __device__ __forceinline__ bool tile_mask_mergeable(const int* hub,
@@ -442,10 +399,11 @@ __device__ __forceinline__ bool tile_mask_mergeable(const int* hub,
   return ok;
 }
 
+// K1 (Int32Tiles), K5 (CompressedTiles<F>)
+template <typename Tiles>
 __global__ void __launch_bounds__(32 * PROF_WARPS_MAX)
     wcsd_query_ragged_merge_kernel(
-        const int* __restrict__ hub, const int* __restrict__ dist,
-        const int* __restrict__ wlev, const int* __restrict__ tile_lo,
+        Tiles tiles, const int* __restrict__ tile_lo,
         const int* __restrict__ tile_hi, const int* __restrict__ qidx,
         const int* __restrict__ stile, const int* __restrict__ ttile,
         const int* __restrict__ wq, int* __restrict__ out,
@@ -464,9 +422,8 @@ __global__ void __launch_bounds__(32 * PROF_WARPS_MAX)
     if (!tiles_meet(tile_lo, tile_hi, s, t)) continue;
     const int q = qidx[k];
     const int w = wq[q];
-    stage_tile_pair(sh, cap, hub, dist, wlev, (int64_t)s * lane,
-                    (int64_t)t * lane, lane, lid);
-    cp_async_wait_all();
+    tiles.stage(sh, cap, s, t, tile_lo, lane, lid);
+    tiles.wait();
     __syncwarp();
     int rs = 0, rt = 0;
     const bool ok =
@@ -501,10 +458,11 @@ __global__ void __launch_bounds__(32 * PROF_WARPS_MAX)
   }
 }
 
+// K2 (Int32Tiles), K6 (CompressedTiles<F>)
+template <typename Tiles>
 __global__ void __launch_bounds__(32 * PROF_WARPS_MAX)
     wcsd_profile_ragged_merge_kernel(
-        const int* __restrict__ hub, const int* __restrict__ dist,
-        const int* __restrict__ wlev, const int* __restrict__ tile_lo,
+        Tiles tiles, const int* __restrict__ tile_lo,
         const int* __restrict__ tile_hi, const int* __restrict__ qidx,
         const int* __restrict__ stile, const int* __restrict__ ttile,
         int* __restrict__ out, long long worklist_len, int lane,
@@ -523,10 +481,9 @@ __global__ void __launch_bounds__(32 * PROF_WARPS_MAX)
     const int s = stile[k], t = ttile[k];
     if (!tiles_meet(tile_lo, tile_hi, s, t)) continue;
     const int q = qidx[k];
-    stage_tile_pair(sh, cap, hub, dist, wlev, (int64_t)s * lane,
-                    (int64_t)t * lane, lane, lid);
+    tiles.stage(sh, cap, s, t, tile_lo, lane, lid);
     if (lid < levels1) bins[lid] = DEV_INF;
-    cp_async_wait_all();
+    tiles.wait();
     __syncwarp();
     int rs = 0, rt = 0;
     const bool ok = tile_mergeable(s_hub, s_wlev, lane, lid, &rs) &
@@ -828,60 +785,10 @@ __global__ void __launch_bounds__(SEG_THREADS) wcsd_query_gathered_kernel(
 }
 
 // ------------------------------------------------------------- launchers
-static int block_threads(int cells, int most) {
-  const int th = ((cells + 31) / 32) * 32;
-  return th > most ? most : th;
-}
-
-// K5 (K1 has its own kernel, below)
-template <typename Cells>
-static int launch_query_ragged(Cells c, const void* tile_lo,
-                               const void* tile_hi, const void* qidx,
-                               const void* stile, const void* ttile,
-                               const void* wq, void* out,
-                               long long worklist_len, int lane,
-                               void* stream) {
-  if (worklist_len <= 0) return 0;
-  const size_t smem = 2 * (size_t)lane * sizeof(int);
-  wcsd_query_ragged_kernel<Cells>
-      <<<(unsigned)worklist_len, block_threads(lane, 1024), smem,
-         (cudaStream_t)stream>>>(
-          c, (const int*)tile_lo, (const int*)tile_hi, (const int*)qidx,
-          (const int*)stile, (const int*)ttile, (const int*)wq, (int*)out,
-          lane);
-  return (int)cudaGetLastError();
-}
-
-// K6 (K2 has its own kernel, below)
-template <typename Cells>
-static int launch_profile_ragged(Cells c, const void* tile_lo,
-                                 const void* tile_hi, const void* qidx,
-                                 const void* stile, const void* ttile,
-                                 void* out, long long worklist_len, int lane,
-                                 int levels1, void* stream) {
-  if (worklist_len <= 0) return 0;
-  if (levels1 < 1 || levels1 > MAX_LEVELS1) return (int)cudaErrorInvalidValue;
-  const size_t smem = 3 * (size_t)lane * sizeof(int);
-  wcsd_profile_ragged_kernel<Cells>
-      <<<(unsigned)worklist_len, block_threads(lane, 1024), smem,
-         (cudaStream_t)stream>>>(
-          c, (const int*)tile_lo, (const int*)tile_hi, (const int*)qidx,
-          (const int*)stile, (const int*)ttile, (int*)out, lane, levels1);
-  return (int)cudaGetLastError();
-}
-
-template <typename F>
-static CompressedCells<F> compressed_cells(const void* hub_delta,
-                                           const void* dist,
-                                           const void* wlev) {
-  return CompressedCells<F>{(const short*)hub_delta, (const F*)dist,
-                            (const signed char*)wlev};
-}
-
-// The grid of a warp-per-item kernel (K1, K2) whose warps each use
-// warp_bytes of shared memory: as many warps a block as PROF_SMEM holds
-// (at most PROF_WARPS_MAX), as many blocks as the card holds at once
-// (each warp walks the worklist), and no more than the items need.
+// The grid of a warp-per-item kernel (K1, K2, K5, K6) whose warps each
+// use warp_bytes of shared memory: as many warps a block as PROF_SMEM
+// holds (at most PROF_WARPS_MAX), as many blocks as the card holds at
+// once (each warp walks the worklist), and no more than the items need.
 template <typename Kernel>
 static int warp_item_grid(Kernel kernel, size_t warp_bytes,
                           long long worklist_len, int* wpb,
@@ -904,53 +811,89 @@ static int warp_item_grid(Kernel kernel, size_t warp_bytes,
   return 0;
 }
 
-// K1: a warp per work item (the grid of warp_item_grid).
-extern "C" int wcsd_query_ragged_launch(
-    const void* hub, const void* dist, const void* wlev, const void* tile_lo,
-    const void* tile_hi, const void* qidx, const void* stile,
-    const void* ttile, const void* wq, void* out, long long worklist_len,
-    int lane, void* stream) {
+// K1 / K5: a warp per work item (the grid of warp_item_grid).
+template <typename Tiles>
+static int launch_query_ragged(Tiles tiles, const void* tile_lo,
+                               const void* tile_hi, const void* qidx,
+                               const void* stile, const void* ttile,
+                               const void* wq, void* out,
+                               long long worklist_len, int lane,
+                               void* stream) {
   if (worklist_len <= 0) return 0;
   if (lane < 1) return (int)cudaErrorInvalidValue;
   const size_t warp_bytes = sizeof(int) * (size_t)query_warp_ints(lane);
   int wpb = 0;
   long long blocks = 0;
-  const int err = warp_item_grid(wcsd_query_ragged_merge_kernel, warp_bytes,
-                                 worklist_len, &wpb, &blocks);
+  const int err = warp_item_grid(wcsd_query_ragged_merge_kernel<Tiles>,
+                                 warp_bytes, worklist_len, &wpb, &blocks);
   if (err) return err;
-  wcsd_query_ragged_merge_kernel<<<(unsigned)blocks, 32 * wpb,
-                                   wpb * warp_bytes,
-                                   (cudaStream_t)stream>>>(
-      (const int*)hub, (const int*)dist, (const int*)wlev,
-      (const int*)tile_lo, (const int*)tile_hi, (const int*)qidx,
+  wcsd_query_ragged_merge_kernel<Tiles><<<(unsigned)blocks, 32 * wpb,
+                                          wpb * warp_bytes,
+                                          (cudaStream_t)stream>>>(
+      tiles, (const int*)tile_lo, (const int*)tile_hi, (const int*)qidx,
       (const int*)stile, (const int*)ttile, (const int*)wq, (int*)out,
       worklist_len, lane);
   return (int)cudaGetLastError();
 }
 
-// K2: a warp per work item (the grid of warp_item_grid).
-extern "C" int wcsd_profile_ragged_launch(
-    const void* hub, const void* dist, const void* wlev, const void* tile_lo,
-    const void* tile_hi, const void* qidx, const void* stile,
-    const void* ttile, void* out, long long worklist_len, int lane,
-    int levels1, void* stream) {
+// K2 / K6: a warp per work item (the grid of warp_item_grid).
+template <typename Tiles>
+static int launch_profile_ragged(Tiles tiles, const void* tile_lo,
+                                 const void* tile_hi, const void* qidx,
+                                 const void* stile, const void* ttile,
+                                 void* out, long long worklist_len, int lane,
+                                 int levels1, void* stream) {
   if (worklist_len <= 0) return 0;
   if (levels1 < 1 || levels1 > MAX_LEVELS1 || lane < 1)
     return (int)cudaErrorInvalidValue;
   const size_t warp_bytes = sizeof(int) * (size_t)prof_warp_ints(lane);
   int wpb = 0;
   long long blocks = 0;
-  const int err = warp_item_grid(wcsd_profile_ragged_merge_kernel,
+  const int err = warp_item_grid(wcsd_profile_ragged_merge_kernel<Tiles>,
                                  warp_bytes, worklist_len, &wpb, &blocks);
   if (err) return err;
-  wcsd_profile_ragged_merge_kernel<<<(unsigned)blocks, 32 * wpb,
-                                     wpb * warp_bytes,
-                                     (cudaStream_t)stream>>>(
-      (const int*)hub, (const int*)dist, (const int*)wlev,
-      (const int*)tile_lo, (const int*)tile_hi, (const int*)qidx,
+  wcsd_profile_ragged_merge_kernel<Tiles><<<(unsigned)blocks, 32 * wpb,
+                                            wpb * warp_bytes,
+                                            (cudaStream_t)stream>>>(
+      tiles, (const int*)tile_lo, (const int*)tile_hi, (const int*)qidx,
       (const int*)stile, (const int*)ttile, (int*)out, worklist_len, lane,
       levels1);
   return (int)cudaGetLastError();
+}
+
+static Int32Tiles int32_tiles(const void* hub, const void* dist,
+                              const void* wlev) {
+  return Int32Tiles{(const int*)hub, (const int*)dist, (const int*)wlev};
+}
+
+template <typename F>
+static CompressedTiles<F> compressed_tiles(const void* hub_delta,
+                                           const void* dist,
+                                           const void* wlev, int lane) {
+  const int vec = lane % 4 == 0 && ((uintptr_t)hub_delta & 7) == 0 &&
+                  ((uintptr_t)dist & 7) == 0 && ((uintptr_t)wlev & 3) == 0;
+  return CompressedTiles<F>{(const short*)hub_delta, (const F*)dist,
+                            (const signed char*)wlev, vec};
+}
+
+extern "C" int wcsd_query_ragged_launch(
+    const void* hub, const void* dist, const void* wlev, const void* tile_lo,
+    const void* tile_hi, const void* qidx, const void* stile,
+    const void* ttile, const void* wq, void* out, long long worklist_len,
+    int lane, void* stream) {
+  return launch_query_ragged(int32_tiles(hub, dist, wlev), tile_lo, tile_hi,
+                             qidx, stile, ttile, wq, out, worklist_len, lane,
+                             stream);
+}
+
+extern "C" int wcsd_profile_ragged_launch(
+    const void* hub, const void* dist, const void* wlev, const void* tile_lo,
+    const void* tile_hi, const void* qidx, const void* stile,
+    const void* ttile, void* out, long long worklist_len, int lane,
+    int levels1, void* stream) {
+  return launch_profile_ragged(int32_tiles(hub, dist, wlev), tile_lo,
+                               tile_hi, qidx, stile, ttile, out,
+                               worklist_len, lane, levels1, stream);
 }
 
 // dist_is_fp16: 0 = bfloat16 distances, 1 = float16
@@ -961,10 +904,10 @@ extern "C" int wcsd_query_ragged_compressed_launch(
     long long worklist_len, int lane, int dist_is_fp16, void* stream) {
   if (dist_is_fp16)
     return launch_query_ragged(
-        compressed_cells<__half>(hub_delta, dist, wlev), tile_lo, tile_hi,
-        qidx, stile, ttile, wq, out, worklist_len, lane, stream);
+        compressed_tiles<__half>(hub_delta, dist, wlev, lane), tile_lo,
+        tile_hi, qidx, stile, ttile, wq, out, worklist_len, lane, stream);
   return launch_query_ragged(
-      compressed_cells<__nv_bfloat16>(hub_delta, dist, wlev), tile_lo,
+      compressed_tiles<__nv_bfloat16>(hub_delta, dist, wlev, lane), tile_lo,
       tile_hi, qidx, stile, ttile, wq, out, worklist_len, lane, stream);
 }
 
@@ -975,10 +918,11 @@ extern "C" int wcsd_profile_ragged_compressed_launch(
     int lane, int levels1, int dist_is_fp16, void* stream) {
   if (dist_is_fp16)
     return launch_profile_ragged(
-        compressed_cells<__half>(hub_delta, dist, wlev), tile_lo, tile_hi,
-        qidx, stile, ttile, out, worklist_len, lane, levels1, stream);
+        compressed_tiles<__half>(hub_delta, dist, wlev, lane), tile_lo,
+        tile_hi, qidx, stile, ttile, out, worklist_len, lane, levels1,
+        stream);
   return launch_profile_ragged(
-      compressed_cells<__nv_bfloat16>(hub_delta, dist, wlev), tile_lo,
+      compressed_tiles<__nv_bfloat16>(hub_delta, dist, wlev, lane), tile_lo,
       tile_hi, qidx, stile, ttile, out, worklist_len, lane, levels1, stream);
 }
 

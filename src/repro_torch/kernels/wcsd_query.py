@@ -24,11 +24,13 @@ sources are `repro_torch/csrc/wcsd_query.cu`; the plain versions are
 line-by-line translations of the reference package's `kernels/ref.py`
 oracles (`wcsd_query_ragged_ref`, `wcsd_profile_ragged_ref` and their
 `_compressed` twins), chunked over the worklist so that the
-``[items, lane, lane]`` join never exceeds a fixed number of cells. K5
-and K6 join each item's tiles all-pairs in one block. K1 and K2 run a
-warp per item and merge-join tiles whose real cells are hub-sorted with
-inert pads after them (K1: a pad's distance, masked at the item's level,
-is >= DEV_INF; K2: its wlev is < 0), all-pairs otherwise.
+``[items, lane, lane]`` join never exceeds a fixed number of cells. All
+four run a warp per item and merge-join tiles whose real cells are
+hub-sorted with inert pads after them (K1/K5: a pad's distance, masked
+at the item's level, is >= DEV_INF; K2/K6: its wlev is < 0), all-pairs
+otherwise. K5 and K6 are K1's and K2's kernels with another tile
+stager, which decodes the compressed tiles into shared memory as it
+loads them.
 
 Compressed cells decode as the reference's `_decode_cells` does: hub =
 ``tile_lo + delta`` where ``delta >= 0`` (the sign is the pad flag), else
@@ -42,7 +44,7 @@ import torch
 from . import _cuda
 
 DEV_INF = 1 << 29
-MAX_LANE = 1024         # K5/K6: one thread per s-side cell, a block an item
+MAX_LANE = 1024         # widest arena tile the ragged kernels take
 MAX_LEVELS1 = 32        # level bins of the profile kernels
 _CHUNK_CELLS = 1 << 25  # join cells per chunk of the plain versions
 _DIST_DTYPES = (torch.bfloat16, torch.float16)
@@ -288,8 +290,9 @@ def wcsd_profile_ragged_cuda(hub, dist, wlev, tile_lo, tile_hi, qidx, stile,
 
 def wcsd_query_ragged_compressed_cuda(hub_delta, dist, wlev, tile_lo,
                                       tile_hi, qidx, stile, ttile, wq):
-    """Launch K5 on the current stream: K1 over the compressed arena
-    (int16 hub deltas, bfloat16 or float16 distances, int8 levels)."""
+    """Launch K5 on the current stream: K1's kernel over the compressed
+    arena (int16 hub deltas, bfloat16 or float16 distances, int8 levels),
+    each tile decoded as it is staged."""
     what = "wcsd_query_ragged_compressed"
     _arena_checks(what, hub_delta, dist, wlev, tile_lo, tile_hi, qidx, stile,
                   ttile, {"wq": wq}, _COMPRESSED_DTYPES)
@@ -302,7 +305,8 @@ def wcsd_query_ragged_compressed_cuda(hub_delta, dist, wlev, tile_lo,
 def wcsd_profile_ragged_compressed_cuda(hub_delta, dist, wlev, tile_lo,
                                         tile_hi, qidx, stile, ttile,
                                         num_rows: int, num_levels: int):
-    """Launch K6 on the current stream: K2 over the compressed arena."""
+    """Launch K6 on the current stream: K2's kernel over the compressed
+    arena, each tile decoded as it is staged."""
     what = "wcsd_profile_ragged_compressed"
     _arena_checks(what, hub_delta, dist, wlev, tile_lo, tile_hi, qidx, stile,
                   ttile, {}, _COMPRESSED_DTYPES)

@@ -146,3 +146,18 @@ def ragged_items(rng, Q: int, T: int, length: int, per_query: int = 4):
     first = np.concatenate([[1], qidx[1:] != qidx[:-1]])
     return tuple(a.astype(np.int32) for a in (qidx, stile, ttile, first))
 
+
+
+def compressed_rows(hub, dist, wlev, tile_lo, dtype: str = "bfloat16"):
+    """Arena tiles [T, W] int32 (hub, dist, wlev) in the compressed arena's
+    format (`CompressedArena`): hub delta ``hub - tile_lo[t]`` as int16,
+    -1 for a pad; the distance rounded to ``dtype`` ("bfloat16" or
+    "float16"), as uint16 bit patterns, +inf where it is >= DEV_INF (the
+    INF_DIST pads); wlev as int8. A live pad keeps its finite distance
+    and its level."""
+    from repro_torch.core.wc_index import float16_bits
+    delta = np.where(hub < 0, -1, hub.astype(np.int64) - tile_lo[:, None])
+    assert delta.max(initial=-1) <= np.iinfo(np.int16).max
+    d = np.where(dist >= DEV_INF, np.inf, dist.astype(np.float64))
+    return (delta.astype(np.int16), float16_bits(d, dtype),
+            wlev.astype(np.int8))

@@ -10,8 +10,8 @@ import numpy as np
 import pytest
 import torch
 
-from _torch_parity import (ROW_CASES, gathered_rows, label_rows,
-                           ragged_items, tile_spans)
+from _torch_parity import (ROW_CASES, compressed_rows, gathered_rows,
+                           label_rows, ragged_items, tile_spans)
 from repro_torch.core.generators import erdos_renyi, random_queries, \
     scale_free
 from repro_torch.core.query import DeviceQueryEngine, TRASH_LEVEL, \
@@ -570,6 +570,124 @@ def test_compressed_decode_on_card_rounds_as_the_plain_version(card):
         b = kwq.wcsd_query_ragged_compressed_plain(hd, dist, wlev, lo, k, k,
                                                    k, wq)
         assert torch.equal(a, b)
+
+
+FLOATS = {"bfloat16": torch.bfloat16, "float16": torch.float16}
+
+
+def _compressed_on_card(card, hub, dist, wlev, lo, dtype, offset=0):
+    """The tiles in the compressed format on the card, each array
+    starting ``offset`` elements into its buffer (1: 2-, 2- and 1-byte
+    aligned, so the kernel stages a cell at a time)."""
+    def put(a, dt=None):
+        x = torch.from_numpy(np.ascontiguousarray(a))
+        buf = torch.empty(x.numel() + offset, dtype=x.dtype, device=card)
+        y = buf[offset:].view(x.shape)
+        y.copy_(x)
+        return y if dt is None else y.view(dt)
+    hd, bits, wl = compressed_rows(hub, dist, wlev, lo, dtype)
+    return put(hd), put(bits.view(np.int16), FLOATS[dtype]), put(wl)
+
+
+def _compressed_kernels_equal_plain(card, comp, lo, hi, q, st, tt, wq, Q,
+                                    num_levels):
+    """K5 and K6 (one launch each) equal their plain versions."""
+    _cuda.reset_launch_counts()
+    got = kwq.wcsd_query_ragged_compressed_cuda(*comp, lo, hi, q, st, tt, wq)
+    gotp = kwq.wcsd_profile_ragged_compressed_cuda(*comp, lo, hi, q, st, tt,
+                                                   Q + 1, num_levels)
+    assert _cuda.LAUNCHES["wcsd_query_ragged_compressed"] == 1
+    assert _cuda.LAUNCHES["wcsd_profile_ragged_compressed"] == 1
+    exp = kwq.wcsd_query_ragged_compressed_plain(*comp, lo, q, st, tt, wq)
+    expp = kwq.wcsd_profile_ragged_compressed_plain(*comp, lo, q, st, tt,
+                                                    Q + 1, num_levels)
+    assert torch.equal(got, exp)
+    assert torch.equal(gotp, expp)
+    return exp, expp
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("lane", [128, 48, 1])
+@pytest.mark.parametrize("case", ROW_CASES)
+def test_compressed_merge_kernels_take_any_tiles(card, case, lane, dtype):
+    """K5 and K6 (K1's and K2's kernels, decoding the compressed tiles as
+    they stage them) against their plain versions on K1's tiles of every
+    row case in the compressed format, lanes 128, 48 (96-byte hub rows,
+    48-byte level rows) and 1 (2- and 1-byte tiles), both float formats;
+    the worklist in shuffled order with its pads on the trash row at
+    TRASH_LEVEL, query levels from 0 to one above every cell, profiles at
+    5 bins."""
+    rng = np.random.default_rng(lane * 100 + ROW_CASES.index(case) + 11)
+    T, Q, top = 120, 200, 4
+    hub, dist, wlev = label_rows(rng, T, lane, case, top_level=top)
+    lo, hi = tile_spans(hub, wlev)
+    q, st, tt, _ = ragged_items(rng, Q, T, length=4 * Q + 40)
+    wq = np.concatenate([rng.integers(0, top + 2, Q),
+                         [TRASH_LEVEL]]).astype(np.int32)
+    perm = rng.permutation(len(q))
+    comp = _compressed_on_card(card, hub, dist, wlev, lo, dtype)
+    spans = [torch.from_numpy(a).to(card) for a in (lo, hi)]
+    items = [torch.from_numpy(a[perm]).to(card) for a in (q, st, tt)]
+    exp, expp = _compressed_kernels_equal_plain(
+        card, comp, *spans, *items, torch.from_numpy(wq).to(card), Q, top)
+    assert case == "pads-only" or (expp[:Q] < kwq.DEV_INF).any()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("case", ["store", "live-pad", "descending"])
+def test_compressed_merge_kernels_take_unaligned_arrays(card, case, dtype):
+    """K5 and K6 at lane 48 with every compressed array one element into
+    its buffer (no 4-cell loads: the stager's cell-at-a-time path)."""
+    rng = np.random.default_rng(ROW_CASES.index(case) + 23)
+    T, Q, lane, top = 120, 200, 48, 4
+    hub, dist, wlev = label_rows(rng, T, lane, case, top_level=top)
+    lo, hi = tile_spans(hub, wlev)
+    q, st, tt, _ = ragged_items(rng, Q, T, length=4 * Q + 40)
+    wq = np.concatenate([rng.integers(0, top + 2, Q),
+                         [TRASH_LEVEL]]).astype(np.int32)
+    comp = _compressed_on_card(card, hub, dist, wlev, lo, dtype, offset=1)
+    assert comp[0].data_ptr() % 8 and comp[2].data_ptr() % 4
+    spans = [torch.from_numpy(a).to(card) for a in (lo, hi)]
+    items = [torch.from_numpy(a).to(card) for a in (q, st, tt)]
+    exp, _ = _compressed_kernels_equal_plain(
+        card, comp, *spans, *items, torch.from_numpy(wq).to(card), Q, top)
+    assert (exp[:Q] < kwq.DEV_INF).any()
+
+
+@pytest.mark.parametrize("dtype", ["bfloat16", "float16"])
+@pytest.mark.parametrize("lane", [128, 48, 1])
+def test_compressed_kernels_on_shuffled_store_tiles(card, built, lane,
+                                                    dtype):
+    """K5 and K6 against their plain versions on a real store's compressed
+    tiles, and on the same tiles with every tile's cells shuffled (which
+    the merge check refuses, so the all-pairs branch answers), lanes 128,
+    48 and 1, both float formats."""
+    g, idx = built
+    eng = DeviceQueryEngine(idx, lane=lane, device=card)
+    comp = idx.labels.compressed_arena(lane=lane, dtype=dtype)
+    assert comp.num_overflow_tiles == 0
+    arrays = [torch.from_numpy(comp.hub_delta).to(card),
+              torch.from_numpy(comp.dist.view(np.int16)).to(card)
+              .view(FLOATS[dtype]),
+              torch.from_numpy(comp.wlev).to(card)]
+    lo, hi = eng._arena[3], eng._arena[4]
+    s, t, wl = random_queries(g, 1000, seed=lane + 3)
+    st, q, si, ti = _worklist(eng, s, t, wl)
+    wq = torch.cat([st[2], torch.tensor([TRASH_LEVEL], dtype=torch.int32,
+                                        device=card)])
+    Q = st.shape[1]
+    gen = torch.Generator(device=card).manual_seed(lane)
+    perm = torch.rand(arrays[0].shape, generator=gen,
+                      device=card).argsort(dim=1)
+    shuffled = [a.gather(1, perm) for a in arrays]
+    if lane > 1:
+        ok = (arrays[0][:, 1:] >= arrays[0][:, :-1]) | (arrays[0][:, 1:] < 0)
+        assert ok.all()              # the store's tiles are hub-sorted
+        assert not torch.equal(shuffled[0], arrays[0])
+    for tiles in (arrays, shuffled):
+        exp, expp = _compressed_kernels_equal_plain(
+            card, tiles, lo, hi, q, si, ti, wq, Q, g.num_levels)
+        assert (exp[:Q] < kwq.DEV_INF).any()
 
 
 def _skewed_index(V=300, W=4, lane=128, seed=0):
