@@ -5,7 +5,7 @@
 
 Builds the eleven CUDA kernels from the three sources in
 `src/repro_torch/csrc/` (one `nvcc` per source, started together), then
-drives seven paths of the port on the card, each with the launch counts
+drives eight paths of the port on the card, each with the launch counts
 reset just before it and read just after it:
 
 1. the main path: `scale_free(2^17, m=4, num_levels=5, seed=0)` -> the
@@ -27,7 +27,20 @@ reset just before it and read just after it:
    in epoch flushes;
 6. single-root constrained BFS at V = 2^17 through `ops.frontier_relax`
    (K10), round by round, from three roots;
-7. xDeepFM serving at full width (`configs.xdeepfm_arch.get_config()`:
+7. the dynamic index, `scale_free(2^13, m=4, num_levels=5, seed=0)` (cut
+   from 2^17: one update re-runs the sequential Algorithm 3 on the host
+   for every root of the edge's connected component, here the whole
+   graph, ~x3 a doubling of V): a card build (K3, K4) served
+   statically, then a dynamic,
+   WAL-backed `WCSDServer(graph=g, wal_path=...)` through two update
+   batches (1 insert at the middle level + 1 delete each), each followed
+   by 2^18 queries and 2^14 profiles over the delta-extended arena (one
+   K1 / K2 launch a flush) held against a card build from scratch of the
+   mutated graph and the host BFS; a warm start from the v0 WCX
+   checkpoint replaying the WAL; `compact()` on the card, byte-identical
+   to the fresh build; a WCX round trip of the compacted base; and the
+   seeded chaos schedule (200 steps, a crash at step 100) on the card;
+8. xDeepFM serving at full width (`configs.xdeepfm_arch.get_config()`:
    8,031,232 embedding rows, CIN 200-200-200, MLP 400-400, random
    weights from seed 0): 256 `serve_p99` batches of 512 and 4
    `serve_bulk` batches of 262,144 from `CTRStream`, host to host, and
@@ -56,7 +69,11 @@ the bucket-pair and padded answers the ragged server's over the whole
 stream; every BFS round equals the plain version and the final levels the
 host BFS at every level; 64 pairs are checked against the host BFS at
 every level, and a 2,000-vertex build on the card against the same build
-on the CPU, byte for byte. The V = 2^17 store's compressed arena is built
+on the CPU, byte for byte. K1 and K2 are also held against their plain
+versions on the first flushes over the dynamic index's delta-extended
+arena and over its static arena, timed, with the share of meeting items
+that pass the merge check (held at 1.0 over the items that touch a
+delta tile). The V = 2^17 store's compressed arena is built
 too: its overflowed tiles are counted and, where there are any, an engine
 asked for ``compressed=True`` must serve it uncompressed and say so.
 
@@ -1101,7 +1118,7 @@ def compressed_serve_phase(device) -> tuple[dict, list, tuple]:
 
 def bucket_pair_phase(idx, qs, ps, out_ragged, prof_ragged, device
                       ) -> tuple[dict, list]:
-    """Path 3: the V = 2^17 index through WCSDServer(dispatch=
+    """Path 4: the V = 2^17 index through WCSDServer(dispatch=
     "bucket_pair") in epoch flushes. One K7 launch per scalar flush, one
     K8 launch per profile flush, every sub-batch equal to its plain path,
     the whole stream equal to the ragged server's. Returns the phase
@@ -1557,6 +1574,353 @@ def frontier_relax_phase(g, device) -> tuple[dict, list]:
     return phase, [kern]
 
 
+# -------------------------------------------------------- dynamic index
+LOG2_V_DYN = 13          # the dynamic index: scale_free(2^13, m=4, 5 levels)
+LOG2_DYN_QUERIES = 18    # served scalar queries per graph version
+LOG2_DYN_PROFILES = 14   # served profile queries per graph version
+DYN_UPDATES = 2          # update batches, each 1 insert + 1 delete
+WAL_PROBES = 8           # fsynced WAL appends timed alone
+CHAOS = dict(steps=200, seed=3, crash_step=100)  # the acceptance schedule
+DYN_DIR = os.path.join(ROOT, "build", "dynamic")
+
+
+def dyn_mutation(g, k: int):
+    """Update batch k: one insert at the middle quality level between
+    vertices k and V/2 + k (an upsert where the edge exists) and one
+    delete of the k-th edge."""
+    mid = float(g.levels[g.num_levels // 2])
+    e = int(np.flatnonzero(g.edges_src < g.edges_dst)[k])
+    return ([(k, g.num_nodes // 2 + k, mid)],
+            [(int(g.edges_src[e]), int(g.edges_dst[e]))])
+
+
+def check_bfs_sample(engine, g, seed: int, what: str) -> None:
+    """``BFS_PAIRS`` random pairs answered by ``engine`` (profiles, and
+    scalar queries at every level) against the host BFS of ``g``."""
+    rng = np.random.default_rng(seed)
+    V, W = g.num_nodes, g.num_levels
+    bs_ = rng.integers(0, V, BFS_PAIRS)
+    bt_ = rng.integers(0, V, BFS_PAIRS)
+    got = engine.query_profile(bs_, bt_)
+    got_s = np.stack([engine.query(bs_, bt_, np.full(len(bs_), w, np.int32))
+                      for w in range(W + 1)], axis=1)
+    ctx = multiprocessing.get_context("spawn")
+    with concurrent.futures.ProcessPoolExecutor(
+            8, mp_context=ctx, initializer=_bfs_init, initargs=(g,)) as pool:
+        exp = np.array(list(pool.map(
+            _bfs_row, [(int(a), int(b)) for a, b in zip(bs_, bt_)])))
+    if not (np.array_equal(got, exp) and np.array_equal(got_s, exp)):
+        fail(f"{what}: sampled answers differ from the host BFS")
+
+
+def check_ragged_flushes(what: str, srv, log, launches: dict) -> None:
+    """Every logged flush was one K1 (scalar) or K2 (profile) launch, no
+    other kernel ran, and every flush equals the plain path."""
+    nq = sum(1 for r in log if r[0] == "query")
+    np_ = sum(1 for r in log if r[0] == "profile")
+    check_path_launches(what, launches, MAIN_PATH[:2], {
+        "wcsd_query_ragged": nq, "wcsd_profile_ragged": np_})
+    bad = sum(1 for rec in log
+              if not np.array_equal(rec[4].wait(),
+                                    plain_flush(srv.engine, rec)))
+    if bad:
+        fail(f"{what}: {bad} flushes differ from the plain path")
+
+
+def delta_flush_record(engine, rec, profile: bool, T0, iters: int) -> dict:
+    """K1 (or K2) on one recorded flush of a ragged engine, held against
+    its plain version and timed (CUDA events and device time), with the
+    share of meeting items whose tiles pass the merge check, overall and
+    over the items that touch a tile at or past ``T0`` (the delta region
+    of a dynamic index's arena; None for a static one)."""
+    import torch
+    from repro_torch.kernels import wcsd_query as kwq
+    hub, dist, wlev, lo, hi, qidx, stile, ttile, wq, rows = \
+        flush_inputs(engine, rec)
+    L = engine.num_levels
+    if profile:
+        name = "wcsd_profile_ragged"
+
+        def kern():
+            return kwq.wcsd_profile_ragged_cuda(hub, dist, wlev, lo, hi, qidx,
+                                                stile, ttile, rows, L)
+
+        def plain():
+            return kwq.wcsd_profile_ragged_plain(hub, dist, wlev, qidx, stile,
+                                                 ttile, rows, L)
+        ok = mergeable_rows(hub, wlev < 0)
+        merge = ok[stile] & ok[ttile]
+    else:
+        name = "wcsd_query_ragged"
+
+        def kern():
+            return kwq.wcsd_query_ragged_cuda(hub, dist, wlev, lo, hi, qidx,
+                                              stile, ttile, wq)
+
+        def plain():
+            return kwq.wcsd_query_ragged_plain(hub, dist, wlev, qidx, stile,
+                                               ttile, wq)
+        lev = wq[qidx]
+        merge = (mergeable_at(hub, dist, wlev, stile, lev)
+                 & mergeable_at(hub, dist, wlev, ttile, lev))
+    a, b = kern(), plain()
+    torch.cuda.synchronize()
+    err = int((a.long() - b.long()).abs().max().item())
+    real = qidx < rows - 1
+    meet = real & (lo[stile] <= hi[ttile]) & (lo[ttile] <= hi[stile])
+    delta = ((stile >= T0) | (ttile >= T0)) if T0 is not None \
+        else torch.zeros_like(meet)
+    n_m = int(meet.sum().item())
+    n_dm = int((meet & delta).sum().item())
+    return {"name": name, "max_abs_err": err,
+            "ms": cuda_ms(kern, iters), "plain_ms": cuda_ms(plain, 2),
+            "device_ms": device_ms(kern, iters, name),
+            "worklist": int(qidx.shape[0]),
+            "meeting_items": n_m,
+            "delta_items": int((real & delta).sum().item()),
+            "delta_meeting_items": n_dm,
+            "merge_share": int((merge & meet).sum().item()) / max(n_m, 1),
+            "delta_merge_share": (int((merge & meet & delta).sum().item())
+                                  / n_dm if n_dm else None)}
+
+
+def dynamic_phase(device) -> dict:
+    """Path 7: the dynamic index at V = 2^13 (see the module docstring).
+    The caller sets the launch counts to 0 just before; the path's counts
+    are read at its end, before the kernels' own comparisons and timings,
+    and the chaos schedule is counted on its own after them. Returns the
+    phase record."""
+    import shutil
+    import torch
+    from repro_torch.checkpoint.ckpt import (UpdateWAL, load_packed_index,
+                                             save_packed_index)
+    from repro_torch.checkpoint.fault import run_chaos_schedule
+    from repro_torch.core.generators import random_queries, scale_free
+    from repro_torch.core.serve import WCSDServer
+    from repro_torch.core.wc_index_batched import \
+        build_wc_index_batched_packed
+    from repro_torch.kernels import _cuda
+
+    V = 1 << LOG2_V_DYN
+    shutil.rmtree(DYN_DIR, ignore_errors=True)
+    os.makedirs(DYN_DIR)
+    phase_t0 = time.perf_counter()
+    g = scale_free(V, m=4, num_levels=5, seed=0)
+    qs = random_queries(g, 1 << LOG2_DYN_QUERIES, seed=1)
+    ps = random_queries(g, 1 << LOG2_DYN_PROFILES, seed=2)[:2]
+    n_req = len(qs[0]) + len(ps[0])
+
+    def since(before: dict) -> dict:
+        torch.cuda.synchronize()
+        return {k: n - before[k] for k, n in _cuda.LAUNCHES.items()}
+
+    # 1. build on the card (K3/K4), checkpoint v0, serve it statically
+    before = dict(_cuda.LAUNCHES)
+    t0 = time.perf_counter()
+    idx0, bstats = build_wc_index_batched_packed(g, batch_size=BATCH,
+                                                 device=device)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    check_path_launches("dynamic: build", since(before), MAIN_PATH[2:], {})
+    ckpt = os.path.join(DYN_DIR, "base_v0.wcx")
+    save_packed_index(ckpt, idx0, graph_version=0)
+    st_log = []
+    before = dict(_cuda.LAUNCHES)
+    st_srv, _, _, st_wall = serve_epoch(idx0, qs, ps, MAX_BATCH, st_log,
+                                        device)
+    check_ragged_flushes("dynamic: static serving", st_srv, st_log,
+                         since(before))
+    progress(f"dynamic: V={V} built in {build_s:.1f} s, served statically "
+             f"in {st_wall:.1f} s")
+
+    # 2-4. two update batches through a WAL-backed dynamic server; after
+    # each, the stream served equals a card build from scratch of the
+    # mutated graph and the host BFS, one K1 / K2 launch a flush
+    wal = os.path.join(DYN_DIR, "updates.wal")
+    srv = WCSDServer(idx0, graph=g, max_batch=MAX_BATCH,
+                     compact_threshold=None, wal_path=wal, device=device)
+    updates, first = [], None
+    for k in range(DYN_UPDATES):
+        ins, dels = dyn_mutation(srv.index.graph, k)
+        t0 = time.perf_counter()
+        ustats = srv.apply_updates(ins, dels)
+        torch.cuda.synchronize()
+        apply_s = time.perf_counter() - t0
+        if srv.index.delta.is_empty():
+            fail(f"dynamic: update {k} left an empty delta")
+        log = []
+        record_flushes(srv.engine, log)
+        before = dict(_cuda.LAUNCHES)
+        t0 = time.perf_counter()
+        out = srv.query_many(*qs)
+        prof = srv.query_profile_many(*ps)
+        wall = time.perf_counter() - t0
+        check_ragged_flushes(f"dynamic: update {k}", srv, log, since(before))
+        t0 = time.perf_counter()
+        fresh, _ = build_wc_index_batched_packed(srv.index.graph,
+                                                 batch_size=BATCH,
+                                                 device=device)
+        torch.cuda.synchronize()
+        fresh_s = time.perf_counter() - t0
+        _, f_out, f_prof, _ = serve_epoch(fresh, qs, ps, MAX_BATCH, [],
+                                          device)
+        if not (np.array_equal(out, f_out) and np.array_equal(prof, f_prof)):
+            fail(f"dynamic: update {k}: answers differ from a build from "
+                 "scratch of the mutated graph")
+        check_bfs_sample(srv.engine, srv.index.graph, 3 + k,
+                         f"dynamic: update {k}")
+        T0 = srv.index.base.labels.arena().num_tiles
+        if first is None:
+            first = (srv.engine, next(r for r in log if r[0] == "query"),
+                     next(r for r in log if r[0] == "profile"), T0)
+        updates.append({
+            "inserts": ins, "deletes": dels, "update_apply_s": apply_s,
+            **ustats, "arena_tiles": srv.engine.arena.num_tiles,
+            "delta_tiles": srv.engine.arena.num_tiles - T0,
+            "wall_s": wall, "requests_per_s": n_req / wall,
+            "query_dispatches": sum(1 for r in log if r[0] == "query"),
+            "profile_dispatches": sum(1 for r in log if r[0] == "profile"),
+            "fresh_build_s": fresh_s, "equal_fresh_build": True,
+            "bfs_pairs": BFS_PAIRS, "bfs_equal": True})
+        progress(f"dynamic: update {k} applied in {apply_s:.1f} s "
+                 f"({ustats['affected_roots']} affected roots, "
+                 f"{ustats['delta_rows']} delta rows), served in "
+                 f"{wall:.1f} s, equal to a fresh build and the BFS")
+    last_out, last_prof = out, prof
+
+    # dynamic against static serving on the same graph, interleaved
+    rps = {"static": [], "dynamic": []}
+    for side in ("static", "dynamic", "dynamic", "static"):
+        _, _, _, w = serve_epoch(fresh if side == "static" else srv.index,
+                                 qs, ps, MAX_BATCH, [], device)
+        rps[side].append(n_req / w)
+
+    # 7. warm start: the v0 checkpoint plus the WAL's two records
+    t0 = time.perf_counter()
+    base, _ = load_packed_index(ckpt)
+    rep = WCSDServer(base, graph=g, max_batch=MAX_BATCH,
+                     compact_threshold=None, wal_path=wal, device=device)
+    replayed = rep.replay_wal()
+    torch.cuda.synchronize()
+    replay_s = time.perf_counter() - t0
+    if replayed != DYN_UPDATES or rep.graph_version != srv.graph_version:
+        fail(f"dynamic: replay applied {replayed} records to version "
+             f"{rep.graph_version}, the server is at {srv.graph_version}")
+    if not (np.array_equal(rep.query_many(*qs), last_out)
+            and np.array_equal(rep.query_profile_many(*ps), last_prof)):
+        fail("dynamic: the replayed server's answers differ")
+    progress(f"dynamic: WAL replayed in {replay_s:.1f} s")
+
+    # 5. compaction on the card, byte-identical to the fresh build
+    before = dict(_cuda.LAUNCHES)
+    t0 = time.perf_counter()
+    cstats = srv.compact()
+    torch.cuda.synchronize()
+    compact_s = time.perf_counter() - t0
+    compact_launches = since(before)
+    check_path_launches("dynamic: compaction", compact_launches,
+                        MAIN_PATH[2:], {})
+    for name in ("order", "rank", "levels"):
+        if not np.array_equal(getattr(srv.index.base, name),
+                              getattr(fresh, name)):
+            fail(f"dynamic: compacted {name} differs from the fresh build")
+    for name in ("hub_rank", "dist", "wlev", "offsets", "bucket_widths",
+                 "bucket_of", "slot_of"):
+        a, b = getattr(srv.index.base.labels, name), getattr(fresh.labels,
+                                                             name)
+        if a.dtype != b.dtype or not np.array_equal(a, b):
+            fail(f"dynamic: compacted PackedLabels.{name} differs from the "
+                 "fresh build")
+    if not srv.index.delta.is_empty() or srv.wal.records():
+        fail("dynamic: compaction left a delta or WAL records behind")
+
+    # 6. WCX round trip of the compacted base
+    path = os.path.join(DYN_DIR, "base_compacted.wcx")
+    t0 = time.perf_counter()
+    save_packed_index(path, srv.index.base, graph_version=srv.graph_version)
+    save_s = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    loaded, hdr = load_packed_index(path)
+    load_s = time.perf_counter() - t0
+    if hdr["graph_version"] != srv.graph_version or \
+            loaded.checksums() != fresh.checksums():
+        fail("dynamic: the loaded index differs from the compacted one")
+    _, l_out, l_prof, _ = serve_epoch(loaded, qs, ps, MAX_BATCH, [], device)
+    if not (np.array_equal(l_out, last_out)
+            and np.array_equal(l_prof, last_prof)):
+        fail("dynamic: the loaded index serves other answers")
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    check_path_launches("dynamic", launches, MAIN_PATH, {})
+    path_s = time.perf_counter() - phase_t0
+    progress(f"dynamic: compacted in {compact_s:.1f} s, byte-identical; "
+             f"WCX round trip {save_s:.2f} / {load_s:.2f} s")
+
+    # the kernels on the first delta-extended flush against the static one
+    eng, qrec, prec, T0 = first
+    kern = {"static": [delta_flush_record(st_srv.engine, r, r[0] ==
+                                          "profile", None, 20)
+                       for r in (next(r for r in st_log if r[0] == "query"),
+                                 next(r for r in st_log
+                                      if r[0] == "profile"))],
+            "delta_extended": [delta_flush_record(eng, qrec, False, T0, 20),
+                               delta_flush_record(eng, prec, True, T0, 20)]}
+    for side, recs in kern.items():
+        for r in recs:
+            if r["max_abs_err"]:
+                fail(f"dynamic: {r['name']} on the {side} arena differs "
+                     f"from its plain version ({r['max_abs_err']})")
+    for r in kern["delta_extended"]:
+        if not r["delta_meeting_items"] or r["delta_merge_share"] != 1.0:
+            fail(f"dynamic: {r['name']}: merge share "
+                 f"{r['delta_merge_share']} over "
+                 f"{r['delta_meeting_items']} delta items")
+
+    # the WAL's fsynced append, alone
+    probe = UpdateWAL(os.path.join(DYN_DIR, "probe.wal"))
+    t0 = time.perf_counter()
+    for k in range(WAL_PROBES):
+        probe.append(*dyn_mutation(g, k), graph_version=k + 1)
+    wal_append_s = (time.perf_counter() - t0) / WAL_PROBES
+
+    # 8. the chaos schedule on the card, counted on its own
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    chaos = run_chaos_schedule(dict(device=device),
+                               workdir=os.path.join(DYN_DIR, "chaos"),
+                               **CHAOS)
+    torch.cuda.synchronize()
+    chaos_s = time.perf_counter() - t0
+    chaos_launches = {k: n for k, n in _cuda.LAUNCHES.items() if n}
+    if chaos["final_mode"] != "primary" or chaos["crashes"] != 1 or \
+            chaos["answered"] != chaos["submitted"] or \
+            not all(chaos_launches.get(k) for k in MAIN_PATH[:2]):
+        fail(f"dynamic: chaos schedule {chaos}, launches {chaos_launches}")
+    progress(f"dynamic: chaos schedule passed in {chaos_s:.1f} s")
+    return {"phase": "dynamic", "V": V, "edges": g.num_edges,
+            "levels": g.num_levels, "queries": len(qs[0]),
+            "profile_queries": len(ps[0]), "max_batch": MAX_BATCH,
+            "build_s": build_s, "rounds": bstats["rounds"],
+            "entries": bstats["entries"], "static_wall_s": st_wall,
+            "static_requests_per_s": n_req / st_wall,
+            "updates": updates,
+            "interleaved_requests_per_s": rps,
+            "dynamic_over_static": [d / s_ for d, s_ in
+                                    zip(rps["dynamic"], rps["static"])],
+            "compact_s": compact_s, "compact_rounds": cstats["rounds"],
+            "compact_launches": {k: compact_launches[k]
+                                 for k in MAIN_PATH[2:]},
+            "compact_equal_fresh_build": True,
+            "wcx_bytes": os.path.getsize(path), "save_s": save_s,
+            "load_s": load_s, "replay_s": replay_s,
+            "replayed_records": replayed, "replay_equal": True,
+            "wal_append_s": wal_append_s, "path_s": path_s,
+            "launches": {k: launches[k] for k in MAIN_PATH},
+            "kernels": kern, "chaos": chaos, "chaos_s": chaos_s,
+            "chaos_launches": chaos_launches}
+
+
 # ------------------------------------------------------ xDeepFM serving
 XDEEPFM_PATH = ("cin_layer",)
 P99_BATCH, P99_BATCHES = 512, 256      # serve_p99: batches served
@@ -1648,7 +2012,7 @@ def cin_layer_timing(cfg, layer: int, x1, x0, w, iters: int,
 def xdeepfm_phase(cfg, device, p99=(P99_BATCH, P99_BATCHES),
                   bulk=(BULK_BATCH, BULK_BATCHES), n_cand=N_CAND,
                   ) -> tuple[dict, list]:
-    """Path 7: the xDeepFM serving path at ``cfg``'s widths: `XDeepFM`
+    """Path 8: the xDeepFM serving path at ``cfg``'s widths: `XDeepFM`
     from a seeded CUDA generator serving ``p99`` = (batch, batches) and
     ``bulk`` from `CTRStream`, host to host (numpy ids in, numpy logits
     out; the stream's generation off the clock), and one query against
@@ -2005,24 +2369,10 @@ def main() -> int:
                           srv_e.engine.query(ps, pt, np.zeros(len(ps),
                                                               np.int32))):
         fail("profile level 0 differs from the scalar query")
-    rng = np.random.default_rng(3)
-    bs_ = rng.integers(0, V, BFS_PAIRS)
-    bt_ = rng.integers(0, V, BFS_PAIRS)
-    W = g.num_levels
-    got = srv_e.engine.query_profile(bs_, bt_)
-    got_s = np.stack([srv_e.engine.query(bs_, bt_, np.full(len(bs_), w,
-                                                           np.int32))
-                      for w in range(W + 1)], axis=1)
-    ctx = multiprocessing.get_context("spawn")
-    with concurrent.futures.ProcessPoolExecutor(
-            8, mp_context=ctx, initializer=_bfs_init, initargs=(g,)) as pool:
-        exp = np.array(list(pool.map(
-            _bfs_row, [(int(a), int(b)) for a, b in zip(bs_, bt_)])))
-    if not (np.array_equal(got, exp) and np.array_equal(got_s, exp)):
-        fail("sampled answers differ from the host BFS")
+    check_bfs_sample(srv_e.engine, g, 3, "main path")
     progress("served answers equal the plain path and the host BFS")
     serve["bfs_pairs"] = int(BFS_PAIRS)
-    serve["bfs_levels"] = W + 1
+    serve["bfs_levels"] = g.num_levels + 1
     serve["bfs_equal"] = True
 
     # --------------------- compressed fallback, compressed, bucket-pair
@@ -2041,6 +2391,11 @@ def main() -> int:
     pad_serve, pad_kernels = padded_serve_phase(idx, (s, t, wl), (ps, pt),
                                                 out_e, prof_e, dev)
     relax, relax_kernels = frontier_relax_phase(g, dev)
+
+    # ------------------------- the dynamic index: updates, WAL, chaos
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    dyn = dynamic_phase(dev)
 
     # ------------------------------------------ xDeepFM serving (K11)
     xdf, xdf_kernels = xdeepfm_phase(get_config(), dev)
@@ -2078,6 +2433,7 @@ def main() -> int:
     emit(bp_serve)
     emit(pad_serve)
     emit(relax)
+    emit(dyn)
     emit(xdf)
     emit({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",

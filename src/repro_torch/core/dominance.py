@@ -10,6 +10,23 @@ from __future__ import annotations
 import numpy as np
 
 
+def pareto_filter(d: np.ndarray, w: np.ndarray) -> np.ndarray:
+    """Boolean mask of non-dominated (d, w) pairs (d min-better, w
+    max-better). Ties: among equal (d, w) keeps one. O(n log n)."""
+    n = len(d)
+    if n == 0:
+        return np.zeros(0, dtype=bool)
+    order = np.lexsort((-w, d))  # d asc, then w desc
+    ws = w[order]
+    inc = np.maximum.accumulate(ws)
+    keep_sorted = np.empty(n, dtype=bool)
+    keep_sorted[0] = True
+    keep_sorted[1:] = ws[1:] > inc[:-1]
+    keep = np.zeros(n, dtype=bool)
+    keep[order] = keep_sorted
+    return keep
+
+
 def pareto_csr_emit(v: np.ndarray, hub: np.ndarray, d: np.ndarray,
                     w: np.ndarray, num_nodes: int
                     ) -> tuple[np.ndarray, np.ndarray]:

@@ -1,7 +1,7 @@
 """Graph data structures for quality-constrained shortest distance (WCSD).
 
-Host-side numpy, a copy of the reference package's `core/graph.py` (the
-parts the port's build and serve path need). Qualities are canonicalized
+Host-side numpy, a copy of the reference package's `core/graph.py`
+(`Graph`, `mutate_edges`, `expand_frontier_csr`). Qualities are canonicalized
 to integer *levels*: ``levels`` is the ascending sorted array of distinct
 edge qualities, and each edge stores the index of its quality in
 ``levels``. A query threshold ``w`` maps to the smallest level ``l`` with
@@ -90,6 +90,29 @@ class Graph:
     def degree(self) -> np.ndarray:
         return (self.indptr[1:] - self.indptr[:-1]).astype(np.int64)
 
+    def level_of(self, w: float) -> int:
+        """Smallest level index l with levels[l] >= w (== num_levels if none)."""
+        return int(np.searchsorted(self.levels, w, side="left"))
+
+    def neighbors(self, u: int) -> tuple[np.ndarray, np.ndarray]:
+        s, e = int(self.indptr[u]), int(self.indptr[u + 1])
+        return self.nbr[s:e], self.nbr_level[s:e]
+
+    def filtered(self, min_level: int) -> "Graph":
+        """Subgraph with only edges of level >= min_level (same vertex set,
+        same global level table)."""
+        half = self.edges_src < self.edges_dst
+        keep = half & (self.edges_level >= min_level)
+        g = Graph.from_edges(self.num_nodes, self.edges_src[keep],
+                             self.edges_dst[keep],
+                             self.levels[self.edges_level[keep]])
+        return _with_levels(g, self.levels)
+
+    def memory_bytes(self) -> int:
+        return int(self.indptr.nbytes + self.nbr.nbytes + self.nbr_level.nbytes
+                   + self.edges_src.nbytes + self.edges_dst.nbytes
+                   + self.edges_level.nbytes + self.levels.nbytes)
+
     def padded_adjacency(self, max_deg: Optional[int] = None,
                          pad_node: int = -1):
         """Return ([V, D] neighbor ids, [V, D] levels) padded with sentinel.
@@ -112,6 +135,66 @@ class Graph:
         nbr_pad[rows, cols] = self.nbr[src]
         lvl_pad[rows, cols] = self.nbr_level[src]
         return nbr_pad, lvl_pad
+
+
+def _with_levels(g: Graph, levels: np.ndarray) -> Graph:
+    """``g`` re-expressed over the global level table ``levels`` (a superset
+    of its own): `from_edges` re-derives the table from the qualities that
+    survive, so level indices are mapped back to keep their meaning."""
+    if len(g.levels) == len(levels) and np.array_equal(g.levels, levels):
+        return g
+    lut = np.searchsorted(levels, g.levels).astype(np.int32)
+    return dataclasses.replace(
+        g, nbr_level=lut[g.nbr_level] if len(g.nbr_level) else g.nbr_level,
+        edges_level=lut[g.edges_level] if len(g.edges_level)
+        else g.edges_level,
+        levels=levels.copy())
+
+
+def mutate_edges(g: Graph, inserts=(), deletes=()) -> Graph:
+    """New `Graph` with ``deletes`` removed and ``inserts`` added/upserted.
+
+    ``inserts`` is an iterable of ``(u, v, quality)``; ``deletes`` of
+    ``(u, v)`` (orientation-insensitive). The global level table is kept
+    verbatim, so an inserted quality must already be one of ``g.levels``
+    (a new quality value re-bins every stored level: rebuild instead).
+    Inserting over an existing edge replaces its quality (upsert). The
+    result carries ``version = g.version + 1``."""
+    half = g.edges_src < g.edges_dst
+    u = g.edges_src[half].astype(np.int64)
+    v = g.edges_dst[half].astype(np.int64)
+    lvl = g.edges_level[half].copy()
+    drop = set()
+    for a, b in deletes:
+        drop.add((min(int(a), int(b)), max(int(a), int(b))))
+    ins_u, ins_v, ins_l = [], [], []
+    for a, b, q in inserts:
+        a, b = int(a), int(b)
+        if a == b:
+            raise ValueError(f"self loop ({a}, {b}) cannot be inserted")
+        li = int(np.searchsorted(g.levels, q, side="left"))
+        if li >= len(g.levels) or g.levels[li] != q:
+            raise ValueError(
+                f"inserted quality {q!r} is not in the graph's level table "
+                f"{g.levels.tolist()}; a new quality value re-bins every "
+                "label level — rebuild the index instead")
+        drop.add((min(a, b), max(a, b)))  # upsert: replace, don't dedup-max
+        ins_u.append(a)
+        ins_v.append(b)
+        ins_l.append(li)
+    if drop:
+        keys = np.minimum(u, v) * g.num_nodes + np.maximum(u, v)
+        drop_keys = np.array([a * g.num_nodes + b for a, b in drop],
+                             dtype=np.int64)
+        keep = ~np.isin(keys, drop_keys)
+        u, v, lvl = u[keep], v[keep], lvl[keep]
+    u2 = np.concatenate([u, np.asarray(ins_u, dtype=np.int64)])
+    v2 = np.concatenate([v, np.asarray(ins_v, dtype=np.int64)])
+    l2 = np.concatenate([lvl, np.asarray(ins_l, dtype=np.int32)])
+    g2 = Graph.from_edges(g.num_nodes, u2.astype(np.int32),
+                          v2.astype(np.int32), g.levels[l2])
+    return dataclasses.replace(_with_levels(g2, g.levels),
+                               version=g.version + 1)
 
 
 def graph_from_arrays(arrays: dict) -> Graph:

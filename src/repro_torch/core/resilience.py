@@ -9,9 +9,9 @@ imports), shared by `core/serve.py` (the enforcement point) and
   * `IndexIntegrityError` -- a CRC32 blob self-check failed.
   * `FlushRetryExhausted` -- the watchdog ran out of retries at the
     bottom of the fallback ladder; the batch was re-queued.
-  * `WALError` / `WALReplayError` -- the update write-ahead log cannot be
-    read, or its tail does not connect to the warm-start state (the
-    vocabulary of the WAL, which is not ported yet).
+  * `WALError` / `WALReplayError` -- the update write-ahead log
+    (`checkpoint/ckpt.py::UpdateWAL`) cannot be read, or its tail does
+    not connect to the warm-start state.
   * `RetryPolicy` -- deadline / budget / exponential backoff with jitter.
   * `build_fallback_ladder` -- the declared degradation sequence from a
     server's engine config down to the plain padded oracle.

@@ -32,12 +32,20 @@ the padded store with ``layout="padded"`` -- with
     (fault injection, `checkpoint/fault.py`). A kernel that does not
     build, load or launch (`kernels._cuda.KernelError`) and a CUDA error
     are not engine faults: they propagate at once, with the batch
-    re-queued, and never demote the server to a plain rung.
+    re-queued, and never demote the server to a plain rung;
+  * the dynamic index: ``graph=`` wraps the index in a `DynamicWCIndex`.
+    `apply_updates` flushes what is queued, mutates the graph, folds the
+    corrected rows into the delta store and rebuilds the engine over the
+    delta-extended arena (a flush stays one K1 or K2 launch); crossing
+    ``compact_threshold`` runs `compact`, the device build (K3, K4) on
+    the server's device. Every answer is stamped with the graph version
+    it was computed against (`result_full`, `result_with_staleness`).
+    ``wal_path=`` logs every update batch to an `UpdateWAL` before the
+    index is touched (fsynced unless ``wal_fsync=False``), and
+    `replay_wal` re-applies the log's tail on a warm start.
 
 Not ported yet (the constructor raises `NotImplementedError`): the
-sharded backend, the dynamic index (``graph=``) and the update WAL
-(``wal_path=``). Until the dynamic index is, every answer's graph version
-is 0, as the reference gives for a static index.
+sharded backend.
 """
 from __future__ import annotations
 
@@ -48,11 +56,13 @@ from typing import Optional
 
 import numpy as np
 
+from ..checkpoint.ckpt import UpdateWAL
 from ..kernels._cuda import NOT_RETRYABLE, resolve_device
 from .query import DeviceQueryEngine, PendingResult
 from .resilience import (FlushRetryExhausted, RetryPolicy,
-                         UnknownRequestError, build_fallback_ladder)
-from .wc_index import PackedWCIndex
+                         UnknownRequestError, WALReplayError,
+                         build_fallback_ladder)
+from .wc_index import DynamicWCIndex, PackedWCIndex, WCIndex
 
 
 @dataclasses.dataclass
@@ -72,6 +82,7 @@ class ServeStats:
     exhausted: int = 0            # a retry budget ran out (demote or raise)
     demotions: int = 0            # fallback-ladder steps down
     promotions: int = 0           # healthy probe windows stepping back up
+    wal_appends: int = 0          # update batches logged to the WAL
 
 
 class _Lane:
@@ -148,13 +159,17 @@ class _Lane:
 
 
 class WCSDServer:
-    def __init__(self, idx: PackedWCIndex | None = None,
+    def __init__(self, idx: WCIndex | PackedWCIndex | None = None,
                  max_batch: int = 1024, memo_capacity: int = 65536,
                  layout: str = "csr", undirected: bool = True,
                  backend: str = "device", dispatch: str = "ragged",
                  compressed: bool = False, use_pallas: bool = True,
-                 engine=None, graph=None, max_wait_us: float | None = None,
+                 engine=None, graph=None,
+                 compact_threshold: float | None = 0.25,
+                 compact_kwargs: dict | None = None,
+                 max_wait_us: float | None = None,
                  min_batch: int = 1, wal_path: str | None = None,
+                 wal_fsync: bool = True,
                  flush_timeout_ms: float | None = None,
                  max_retries: int = 3, backoff_base_ms: float = 1.0,
                  backoff_factor: float = 2.0, jitter: float = 0.5,
@@ -166,19 +181,22 @@ class WCSDServer:
         # (a flush when max_batch requests are queued, or on demand).
         # flush_timeout_ms/max_retries/backoff_*/jitter/probe_interval arm
         # the flush watchdog and the fallback ladder; engine= serves a
-        # prebuilt engine (no ladder: mode "injected").
+        # prebuilt engine (no ladder: mode "injected"). graph= makes the
+        # server dynamic; compact_kwargs are the device builder's keywords
+        # for `compact` (the compaction always builds on the server's
+        # device).
         if backend == "sharded":
             raise NotImplementedError("backend='sharded' (the sharded "
                                       "engine) is not ported yet")
         if backend != "device":
             raise ValueError(f"unknown backend: {backend!r} (expected "
                              "'device')")
-        if graph is not None:
-            raise NotImplementedError("graph= (dynamic index serving) is not "
-                                      "ported yet")
-        if wal_path is not None:
-            raise NotImplementedError("wal_path= (update WAL) is not ported "
-                                      "yet")
+        if graph is not None and engine is not None:
+            raise ValueError("graph= (dynamic serving) cannot be combined "
+                             "with an injected engine= — the server must "
+                             "be able to rebuild the engine after an update")
+        self.compact_threshold = compact_threshold
+        self._compact_kwargs = dict(compact_kwargs or {})
         self.retry_policy = RetryPolicy(
             flush_timeout_ms=flush_timeout_ms, max_retries=int(max_retries),
             backoff_base_ms=float(backoff_base_ms),
@@ -191,6 +209,8 @@ class WCSDServer:
         self._healthy = 0            # consecutive retry-free drains
         self._retry_snapshot = 0     # retry-event total at last drain
         self._retrying = False       # a drain is mid-retry: poll() backs off
+        if graph is not None and not isinstance(idx, DynamicWCIndex):
+            idx = DynamicWCIndex(idx, graph)
         self.index = idx
         if engine is not None:
             self.engine = engine
@@ -207,6 +227,10 @@ class WCSDServer:
                 mesh=None, device_budget_bytes=None, multi_pod=False)
             self._ladder = build_fallback_ladder(self._engine_config)
             self.engine = self._make_engine()
+        self.wal = None
+        if wal_path is not None:
+            self.wal = UpdateWAL(wal_path, base_version=self.graph_version,
+                                 fsync=wal_fsync)
         self.max_batch = int(max_batch)
         self.max_wait_us = None if max_wait_us is None else float(max_wait_us)
         self.min_batch = max(1, int(min_batch))
@@ -224,6 +248,10 @@ class WCSDServer:
         # hits); popped with the answer, read via result_with_mode
         self.result_modes: dict[int, str] = {}
         self.profile_result_modes: dict[int, str] = {}
+        # the graph version each answer was computed against, popped with
+        # it (the staleness flags)
+        self.result_versions: dict[int, int] = {}
+        self.profile_result_versions: dict[int, int] = {}
         self._next_rid = 0
         # enqueue→deliver latency: stamped per rid at submit, recorded
         # (µs) the moment the answer lands in the result dict
@@ -247,7 +275,87 @@ class WCSDServer:
 
     @property
     def graph_version(self) -> int:
-        return 0   # static index: the dynamic slice is not ported yet
+        return int(getattr(self.index, "graph_version", 0))
+
+    # ----------------------------------------------------------- dynamic
+    def _require_dynamic(self, what: str) -> None:
+        if not isinstance(self.index, DynamicWCIndex):
+            raise ValueError(f"{what} requires a dynamic server — "
+                             "construct WCSDServer(idx, graph=g, ...)")
+
+    def apply_updates(self, inserts=(), deletes=()) -> dict:
+        """Mutate the served graph and fold the label corrections into the
+        delta store (`DynamicWCIndex.apply_updates`). Queued and in-flight
+        requests are flushed first: their answers keep the graph version
+        they were stamped with and read back as stale. The memos are
+        dropped and the engine is rebuilt over the delta-extended store;
+        crossing ``compact_threshold`` runs `compact` before returning.
+        With a WAL, the batch is logged (and fsynced) before the index is
+        touched, so a crash after the append loses nothing: `replay_wal`
+        on a warm start re-applies it."""
+        self._require_dynamic("apply_updates")
+        self.flush()
+        inserts = [(int(u), int(v), float(q)) for u, v, q in inserts]
+        deletes = [(int(u), int(v)) for u, v in deletes]
+        if self.wal is not None:
+            self.wal.append(inserts, deletes,
+                            graph_version=self.graph_version + 1)
+            self.stats.wal_appends += 1
+        stats = self.index.apply_updates(inserts=inserts, deletes=deletes)
+        self.memo.clear()
+        self.profile_memo.clear()
+        self.engine = self._make_engine()
+        stats["compacted"] = False
+        if (self.compact_threshold is not None
+                and self.index.delta_ratio() >= self.compact_threshold):
+            self.compact()
+            stats["compacted"] = True
+        return stats
+
+    def compact(self, **build_kwargs) -> dict:
+        """Fold the delta into a fresh base store (the device build on the
+        current graph, on the server's device: byte-identical to a build
+        from scratch) and rebuild the engine over it. The answers do not
+        change, so the memos survive; a WAL restarts at the current
+        version."""
+        self._require_dynamic("compact")
+        self.flush()
+        kw = dict(self._compact_kwargs)
+        kw.update(build_kwargs)
+        stats = self.index.compact(device=self.device, **kw)
+        self.engine = self._make_engine()
+        if self.wal is not None:
+            self.wal.truncate(self.graph_version)
+        return stats
+
+    def replay_wal(self) -> int:
+        """Warm start: re-apply the WAL's records past the server's graph
+        version, in order. Returns the number applied. Raises
+        `WALReplayError` where the log does not reach back to this
+        server's version or skips one. Replayed batches are not logged
+        again."""
+        if self.wal is None:
+            raise ValueError("replay_wal requires a WAL-backed server — "
+                             "construct WCSDServer(..., wal_path=...)")
+        self._require_dynamic("replay_wal")
+        n = 0
+        for rec in self.wal.replay(self.graph_version):
+            if rec["graph_version"] != self.graph_version + 1:
+                raise WALReplayError(
+                    f"WAL record jumps to graph version "
+                    f"{rec['graph_version']} but the server is at "
+                    f"{self.graph_version}")
+            self.flush()
+            self.index.apply_updates(
+                inserts=[(int(u), int(v), float(q))
+                         for u, v, q in rec["inserts"]],
+                deletes=[(int(u), int(v)) for u, v in rec["deletes"]])
+            n += 1
+        if n:
+            self.memo.clear()
+            self.profile_memo.clear()
+            self.engine = self._make_engine()
+        return n
 
     # -------------------------------------------------------- resilience
     @property
@@ -411,6 +519,7 @@ class WCSDServer:
         if key in self.memo:
             self.memo.move_to_end(key)
             self.results[rid] = self.memo[key]
+            self.result_versions[rid] = self.graph_version
             self.result_modes[rid] = "memo"
             self.stats.memo_hits += 1
             self._deliver(rid)
@@ -419,6 +528,7 @@ class WCSDServer:
             # a cached profile answers every level of its pair
             self.profile_memo.move_to_end(pkey)
             self.results[rid] = int(self.profile_memo[pkey][w_level])
+            self.result_versions[rid] = self.graph_version
             self.result_modes[rid] = "memo"
             self._memo_put(key, self.results[rid])
             self.stats.memo_hits += 1
@@ -438,6 +548,7 @@ class WCSDServer:
         if key in self.profile_memo:
             self.profile_memo.move_to_end(key)
             self.profile_results[rid] = self.profile_memo[key].copy()
+            self.profile_result_versions[rid] = self.graph_version
             self.profile_result_modes[rid] = "memo"
             self.stats.memo_hits += 1
             self._deliver(rid)
@@ -584,6 +695,7 @@ class WCSDServer:
         if self._scalar.inflight is None and self._profile.inflight is None:
             return
         t0 = time.perf_counter()
+        ver = self.graph_version
         self._retrying = True
         try:
             landed = self._land(self._scalar)
@@ -592,11 +704,13 @@ class WCSDServer:
                 mode = self.mode
                 for rid, key, d in zip(rids, keys, out.tolist()):
                     self.results[rid] = d
+                    self.result_versions[rid] = ver
                     self.result_modes[rid] = mode
                     self._memo_put(key, d)
                     self._deliver(rid)
                 for rid, pos in extra:  # duplicates riding a batch slot
                     self.results[rid] = int(out[pos])
+                    self.result_versions[rid] = ver
                     self.result_modes[rid] = mode
                     self._deliver(rid)
             landed = self._land(self._profile)
@@ -607,6 +721,7 @@ class WCSDServer:
                     # np.array COPIES: the memo owns its staircase
                     arr = np.array(prof, dtype=np.int32)
                     self.profile_results[rid] = arr.copy()
+                    self.profile_result_versions[rid] = ver
                     self.profile_result_modes[rid] = mode
                     self.profile_memo[key] = arr
                     if len(self.profile_memo) > self.memo_capacity:
@@ -615,6 +730,7 @@ class WCSDServer:
                 for rid, pos in extra:
                     self.profile_results[rid] = np.array(out[pos],
                                                          dtype=np.int32)
+                    self.profile_result_versions[rid] = ver
                     self.profile_result_modes[rid] = mode
                     self._deliver(rid)
         finally:
@@ -645,7 +761,8 @@ class WCSDServer:
             elif rid in self._scalar.pending_rids:
                 self.flush()
         if rid in self.results:
-            return (self.results.pop(rid), self.graph_version,
+            return (self.results.pop(rid),
+                    self.result_versions.pop(rid, self.graph_version),
                     self.result_modes.pop(rid, self.mode))
         raise UnknownRequestError(rid)
 
@@ -656,7 +773,9 @@ class WCSDServer:
             elif rid in self._profile.pending_rids:
                 self.flush()
         if rid in self.profile_results:
-            return (self.profile_results.pop(rid), self.graph_version,
+            return (self.profile_results.pop(rid),
+                    self.profile_result_versions.pop(rid,
+                                                     self.graph_version),
                     self.profile_result_modes.pop(rid, self.mode))
         raise UnknownRequestError(rid)
 
@@ -677,8 +796,9 @@ class WCSDServer:
         return self._pop_result(rid)
 
     def result_with_staleness(self, rid: int):
-        """``(value, stale)``: stale iff the answer predates the served
-        graph version (never, for a static index)."""
+        """``(value, stale)``: stale iff the answer was computed against an
+        earlier graph version than the server now holds (it was queued or
+        in flight when `apply_updates` ran; never, for a static index)."""
         value, ver, _mode = self._pop_result(rid)
         return value, ver < self.graph_version
 

@@ -999,3 +999,91 @@ def test_xdeepfm_forward_on_card(card):
         assert (cf[:, a:a + k].cpu() - e).abs().max() <= 1e-4 * e.abs().max()
         a += k
     assert (lg.cpu() - lc).abs().max() <= 1e-5 * lc.abs().max()
+
+
+def _dynamic_pair(g, device, updates):
+    """A dynamic server over ``g`` on ``device`` after ``updates`` (lists
+    of (inserts, deletes)); no auto compaction."""
+    idx, _ = build_wc_index_batched_packed(g, device="cpu")
+    srv = WCSDServer(idx, graph=g, max_batch=1024, compact_threshold=None,
+                     device=device)
+    for ins, dels in updates:
+        srv.apply_updates(ins, dels)
+    return srv
+
+
+def _updates(g):
+    mid = float(g.levels[g.num_levels // 2])
+    e = int(np.flatnonzero(g.edges_src < g.edges_dst)[7])
+    return [([(3, g.num_nodes - 5, mid)], [(int(g.edges_src[e]),
+                                            int(g.edges_dst[e]))]),
+            ([(11, g.num_nodes // 2, mid)], [(0, int(g.nbr[0]))])]
+
+
+@pytest.mark.parametrize("shuffle", [False, True])
+@pytest.mark.parametrize("lane", [128, 48])
+def test_ragged_kernels_on_delta_extended_arena(card, shuffle, lane):
+    """K1 and K2 against their plain versions on a dynamic index's arena
+    (the base tiles, then the delta region of corrected rows), on a
+    worklist that reaches delta tiles; with ``shuffle`` every delta
+    tile's cells are shuffled too (the merge check refuses them)."""
+    g = scale_free(400, m=4, num_levels=4, seed=0)
+    srv = _dynamic_pair(g, card, _updates(g))
+    eng = DeviceQueryEngine(srv.index, lane=lane, device=card)
+    T0 = srv.index.base.labels.arena(lane=lane).num_tiles
+    assert eng.arena.num_tiles > T0            # a delta region exists
+    s, t, wl = random_queries(g, 2000, seed=lane)
+    st, q, si, ti = _worklist(eng, s, t, wl)
+    assert ((si >= T0) | (ti >= T0)).any()
+    hub, dist, wlev, lo, hi = eng._arena[:5]
+    if shuffle:
+        gen = torch.Generator(device=card).manual_seed(lane)
+        perm = torch.rand(hub[T0:].shape, generator=gen,
+                          device=card).argsort(dim=1)
+        hub, dist, wlev = (torch.cat([a[:T0], a[T0:].gather(1, perm)])
+                           for a in (hub, dist, wlev))
+    wq = torch.cat([st[2], torch.tensor([TRASH_LEVEL], dtype=torch.int32,
+                                        device=card)])
+    a = kwq.wcsd_query_ragged_cuda(hub, dist, wlev, lo, hi, q, si, ti, wq)
+    b = kwq.wcsd_query_ragged_plain(hub, dist, wlev, q, si, ti, wq)
+    assert torch.equal(a, b)
+    rows = st.shape[1] + 1
+    a = kwq.wcsd_profile_ragged_cuda(hub, dist, wlev, lo, hi, q, si, ti,
+                                     rows, g.num_levels)
+    b = kwq.wcsd_profile_ragged_plain(hub, dist, wlev, q, si, ti, rows,
+                                      g.num_levels)
+    assert torch.equal(a, b)
+
+
+def test_dynamic_server_on_card_equals_cpu(card):
+    """The dynamic server on the card equals the same server on the CPU
+    through two updates (one K1 / K2 launch a flush over the
+    delta-extended arena) and a `compact()` (K3 / K4 on the card, a base
+    byte-identical to the CPU's compaction)."""
+    g = scale_free(400, m=4, num_levels=4, seed=0)
+    ups = _updates(g)
+    gpu = _dynamic_pair(g, card, [])
+    cpu = _dynamic_pair(g, "cpu", [])
+    s, t, wl = random_queries(g, 3000, seed=4)
+    for ins, dels in ups:
+        assert gpu.apply_updates(ins, dels) == cpu.apply_updates(ins, dels)
+        _cuda.reset_launch_counts()
+        b0 = gpu.stats.batches
+        got = gpu.query_many(s, t, wl)
+        b1 = gpu.stats.batches
+        gp = gpu.query_profile_many(s[:500], t[:500])
+        assert _cuda.LAUNCHES["wcsd_query_ragged"] == b1 - b0 > 1
+        assert _cuda.LAUNCHES["wcsd_profile_ragged"] == \
+            gpu.stats.batches - b1 == 1
+        np.testing.assert_array_equal(got, cpu.query_many(s, t, wl))
+        np.testing.assert_array_equal(
+            gp, cpu.query_profile_many(s[:500], t[:500]))
+    _cuda.reset_launch_counts()
+    gpu.compact()
+    assert _cuda.LAUNCHES["wc_prune_emit_batched"] > 0
+    cpu.compact()
+    for name in PACKED:
+        np.testing.assert_array_equal(getattr(gpu.index.base.labels, name),
+                                      getattr(cpu.index.base.labels, name))
+    np.testing.assert_array_equal(gpu.query_many(s, t, wl),
+                                  cpu.query_many(s, t, wl))

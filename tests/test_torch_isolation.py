@@ -221,8 +221,9 @@ def test_unported_engine_features_raise():
     """The padded layout is ported and builds; ``cap`` and
     ``use_pallas=False`` with the CSR layout raise `ValueError`;
     bucket-pair dispatch and the compressed arena are ported, but not
-    together (as in the reference); the sharded backend, ``graph=`` and
-    ``wal_path=`` still raise `NotImplementedError`."""
+    together (as in the reference); the sharded backend still raises
+    `NotImplementedError`, while ``graph=`` and ``wal_path=`` (the
+    dynamic index and the update WAL) build."""
     from repro_torch.core.query import DeviceQueryEngine
     from repro_torch.core.serve import WCSDServer
     g, idx = _tiny()
@@ -249,10 +250,9 @@ def test_unported_engine_features_raise():
         DeviceQueryEngine(idx, device="cpu", cap=4)
     with pytest.raises(ValueError, match="use_pallas"):
         DeviceQueryEngine(idx, device="cpu", use_pallas=False)
-    for kw, name in ((dict(backend="sharded"), "sharded"),
-                     (dict(graph=g), "graph="), (dict(wal_path="x"), "WAL")):
-        with pytest.raises(NotImplementedError, match=name):
-            WCSDServer(idx, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="sharded"):
+        WCSDServer(idx, device="cpu", backend="sharded")
+    assert WCSDServer(idx, device="cpu", graph=g).graph_version == 0
 
 
 def test_kernel_library_is_keyed_on_its_source():

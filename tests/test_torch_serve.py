@@ -157,17 +157,20 @@ def test_bulk_apis_match_reference(world):
     assert srv.query_profile_many([], []).shape == (0, g.num_levels + 1)
 
 
-def test_unported_features_raise(world):
-    """What is not ported raises `NotImplementedError`; the compressed
-    arena and bucket-pair dispatch are ported, but not together (the
-    reference raises `ValueError` for that pair too); the flush watchdog
-    and the padded layout are ported and build."""
+def test_unported_features_raise(world, tmp_path):
+    """What is not ported (the sharded backend) raises
+    `NotImplementedError`; the dynamic index (``graph=``) and the update
+    WAL (``wal_path=``) are ported and build; the compressed arena and
+    bucket-pair dispatch are ported, but not together (the reference
+    raises `ValueError` for that pair too); the flush watchdog and the
+    padded layout are ported and build."""
     g, idx, tidx, _ = world
-    for kw, name in ((dict(backend="sharded"), "sharded"),
-                     (dict(graph=g), "graph="),
-                     (dict(wal_path="x.wal"), "WAL")):
-        with pytest.raises(NotImplementedError, match=name):
-            TServer(tidx, device="cpu", **kw)
+    with pytest.raises(NotImplementedError, match="sharded"):
+        TServer(tidx, device="cpu", backend="sharded")
+    from _torch_parity import port_graph
+    dyn = TServer(tidx, device="cpu", graph=port_graph(g),
+                  wal_path=str(tmp_path / "x.wal"))
+    assert dyn.graph_version == 0 and dyn.wal.records() == []
     assert TServer(tidx, device="cpu", compressed=True).engine.compressed
     assert TServer(tidx, device="cpu",
                    dispatch="bucket_pair").engine.dispatch == "bucket_pair"
