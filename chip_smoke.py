@@ -5,7 +5,7 @@
 
 Builds the eleven CUDA kernels from the three sources in
 `src/repro_torch/csrc/` (one `nvcc` per source, started together), then
-drives eight paths of the port on the card, each with the launch counts
+drives nine paths of the port on the card, each with the launch counts
 reset just before it and read just after it:
 
 1. the main path: `scale_free(2^17, m=4, num_levels=5, seed=0)` -> the
@@ -45,7 +45,21 @@ reset just before it and read just after it:
    weights from seed 0): 256 `serve_p99` batches of 512 and 4
    `serve_bulk` batches of 262,144 from `CTRStream`, host to host, and
    one `retrieval_cand` query against 1,000,000 candidates; one K11
-   launch per CIN layer of every forward.
+   launch per CIN layer of every forward;
+9. the sharded serving engine (run right after the ladder): 8 logical
+   shards on the card, as an 8-shard and a 2x4 (pod, data) mesh. Every
+   placement of every layout (ragged, bucket-pair, padded; replicated
+   and row-sharded labels) on the V = 2^17 index, and the compressed
+   arena on the V = 2^15 store, over a prefix of its stream, equal to
+   the device server, every call launching its kernel once per shard
+   (K1/K2, K5/K6, K7/K8, K9; the padded profiles are the plain join);
+   the row-sharded flush's host plan, tile gather and worklist lengths,
+   and shard 0's K1 / K2 on the engine's own launch inputs over its
+   gathered tiles against their plain versions; epoch servers
+   (device, replicated, row-sharded, row-sharded, replicated, device)
+   over 2^18 queries + 2^14 profiles with K1 = 8 x scalar flushes and
+   K2 = 8 x profile flushes; and `launch.dryrun`'s `run_serve` and
+   `run_chaos` at full size on the card.
 
 Then every kernel is held against its plain PyTorch version on inputs
 captured from its path (exact int32 equality; K3 at the build's heaviest
@@ -1921,6 +1935,264 @@ def dynamic_phase(device) -> dict:
             "chaos_launches": chaos_launches}
 
 
+# ---------------------------------------------------- sharded serving
+SHARDS = 8               # logical shards of the serving meshes
+LOG2_SHARD_Q = 16        # queries of each CSR sharded engine check
+LOG2_SHARD_P = 12        # profiles of the same
+LOG2_SHARD_SERVE = (18, 14)  # queries, profiles of each served run
+SHARD_PATH = {  # the kernel each placement's scalar / profile call runs
+    ("csr", "ragged", False): ("wcsd_query_ragged", "wcsd_profile_ragged"),
+    ("csr", "ragged", True): ("wcsd_query_ragged_compressed",
+                              "wcsd_profile_ragged_compressed"),
+    ("csr", "bucket_pair", False): ("wcsd_query_segmented",
+                                    "wcsd_profile_segmented"),
+    ("padded", "dense", False): ("wcsd_query_gathered", None)}
+
+
+def _launched(before: dict) -> dict:
+    from repro_torch.kernels import _cuda
+    return {k: n - before[k] for k, n in _cuda.LAUNCHES.items()
+            if n != before[k]}
+
+
+def sharded_engine_check(name, idx, mesh, qs, ps, out, prof, **kw) -> dict:
+    """One `ShardedQueryEngine` over a prefix of a stream: its answers
+    must equal the device server's, and every placement must launch its
+    kernel once per shard per call (the padded layout's profiles are the
+    plain join and launch none)."""
+    import torch
+    from repro_torch.core.query import ShardedQueryEngine
+    from repro_torch.kernels import _cuda
+    s, t, wl = qs
+    t0 = time.perf_counter()
+    eng = ShardedQueryEngine(idx, mesh=mesh, **kw)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    want_sharded = kw.get("device_budget_bytes") is not None
+    if (eng.mode == "sharded_labels") != want_sharded:
+        fail(f"sharded {name}: placement {eng.mode}")
+    if kw.get("compressed") and not eng.compressed:
+        fail(f"sharded {name}: not served compressed")
+    q_kernel, p_kernel = SHARD_PATH[(eng.layout, eng.dispatch,
+                                     eng.compressed)]
+    rec = {"leg": name, "mode": eng.mode, "mesh": list(mesh.shape),
+           "layout": eng.layout, "dispatch": eng.dispatch,
+           "compressed": eng.compressed, "queries": len(s),
+           "profiles": len(ps[0]), "build_s": build_s,
+           "store_bytes_per_device": eng.store_bytes_per_device}
+    for kind, call, exp, kernel in (
+            ("query", lambda: eng.query(s, t, wl), out, q_kernel),
+            ("profile", lambda: eng.query_profile(*ps), prof, p_kernel)):
+        torch.cuda.synchronize()
+        before = dict(_cuda.LAUNCHES)
+        t0 = time.perf_counter()
+        got = call()
+        rec[f"{kind}_s"] = time.perf_counter() - t0
+        launched = _launched(before)
+        rec[f"{kind}_launches"] = launched
+        if not np.array_equal(got, exp):
+            fail(f"sharded {name}: {kind} answers differ from the device "
+                 f"server ({int((got != exp).sum())} of {len(got)})")
+        want = {} if kernel is None else {kernel: eng.ndev}
+        if launched != want:
+            fail(f"sharded {name}: a {kind} call launched {launched}, "
+                 f"expected {want}")
+    del eng
+    torch.cuda.empty_cache()
+    progress(f"sharded {name}: equal to the device server "
+             f"({rec['query_s']:.2f} + {rec['profile_s']:.2f} s)")
+    return rec
+
+
+def row_sharded_breakdown(engine, qs, ps) -> dict:
+    """The row-sharded flush of ``MAX_BATCH`` queries (and a profile flush
+    of a quarter as many): the host plan's ms, `ragged_tile_gather`'s
+    event ms, G and the bytes it moves, the balanced worklist lengths
+    against the unbalanced slices' max and mean; and shard 0's K1 and K2
+    launches (the engine's own `_shard_launch_args`) held against their
+    plain versions, exactly, timed."""
+    import torch
+    from repro_torch.distributed.collectives import ragged_tile_gather
+    from repro_torch.kernels import wcsd_query as kwq
+    s, t, wl = (a[:MAX_BATCH] for a in qs)
+    stq = engine._stage_ragged(s, t, wl)
+    t0 = time.perf_counter()
+    bal, _ = engine._balance_ragged(stq)
+    uniq = engine._gather_plan(bal)
+    plan_s = time.perf_counter() - t0
+    fl = engine._row_sharded_flush(stq)
+    tc = engine._tile_cnt_np
+    b = stq.shape[1] // engine.ndev
+    slices = (tc[stq[0]].astype(np.int64) * tc[stq[1]]).reshape(
+        engine.ndev, b).sum(1)
+    args, wq = engine._shard_launch_args(fl, 0)
+    h, d, w, lo, hi, qidx, sloc, tloc, _ = args
+    lane = int(h.shape[1])
+    cell = sum(x.element_size() for x in (h, d, w))
+    G = int(uniq.shape[1])
+    gather_ms = cuda_ms(lambda: ragged_tile_gather(
+        engine._blocks, uniq.reshape(-1), engine._tiles_per), 10)
+    rec = {"flush_queries": len(s), "host_plan_ms": plan_s * 1e3,
+           "tile_gather_ms": gather_ms, "G": G,
+           "gather_bytes": int(engine.ndev * G * lane * cell),
+           "distinct_tiles": [int(len(np.unique(u))) for u in uniq],
+           "balanced_worklist_lens": fl.lens,
+           "unbalanced_max_slice": int(slices.max()),
+           "unbalanced_mean_slice": float(slices.mean())}
+    L = engine.num_levels
+    a = kwq.wcsd_query_ragged_cuda(h, d, w, lo, hi, qidx, sloc, tloc, wq)
+    p = kwq.wcsd_query_ragged_plain(h, d, w, qidx, sloc, tloc, wq)
+    torch.cuda.synchronize()
+    rec["shard_k1_max_abs_err"] = int((a.long() - p.long()).abs().max())
+    rec["shard_k1_ms"] = cuda_ms(lambda: kwq.wcsd_query_ragged_cuda(
+        h, d, w, lo, hi, qidx, sloc, tloc, wq), 20)
+    rec["shard_k1_plain_ms"] = cuda_ms(lambda: kwq.wcsd_query_ragged_plain(
+        h, d, w, qidx, sloc, tloc, wq), 2)
+    pf = engine._row_sharded_flush(engine._stage_ragged(
+        ps[0][:MAX_BATCH // 4], ps[1][:MAX_BATCH // 4]))
+    (h, d, w, lo, hi, qidx, sloc, tloc, _), _ = \
+        engine._shard_launch_args(pf, 0)
+    rows = pf.stq.shape[1] // engine.ndev + 1
+    a = kwq.wcsd_profile_ragged_cuda(h, d, w, lo, hi, qidx, sloc, tloc,
+                                     rows, L)
+    p = kwq.wcsd_profile_ragged_plain(h, d, w, qidx, sloc, tloc, rows, L)
+    torch.cuda.synchronize()
+    rec["shard_k2_max_abs_err"] = int((a.long() - p.long()).abs().max())
+    rec["shard_k2_ms"] = cuda_ms(lambda: kwq.wcsd_profile_ragged_cuda(
+        h, d, w, lo, hi, qidx, sloc, tloc, rows, L), 20)
+    rec["shard_k2_plain_ms"] = cuda_ms(
+        lambda: kwq.wcsd_profile_ragged_plain(h, d, w, qidx, sloc, tloc,
+                                              rows, L), 2)
+    if rec["shard_k1_max_abs_err"] or rec["shard_k2_max_abs_err"]:
+        fail(f"row-sharded shard 0: K1/K2 over the gathered tiles differ "
+             f"from their plain versions ({rec['shard_k1_max_abs_err']}, "
+             f"{rec['shard_k2_max_abs_err']})")
+    return rec
+
+
+def sharded_serve(idx, qs, ps, out, prof, device, **kw) -> dict:
+    """One epoch server over the stream, launch counts reset just before
+    and read just after: a sharded server must launch K1 ``ndev`` times
+    per scalar flush and K2 ``ndev`` times per profile flush, a device
+    server once each; the answers must equal ``out`` / ``prof``."""
+    import torch
+    from repro_torch.kernels import _cuda
+    log = []
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    srv, got, gprof, wall = serve_epoch(idx, qs, ps, MAX_BATCH, log, device,
+                                        **kw)
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    summ = serve_summary(srv, wall, len(qs[0]) + len(ps[0]), log)
+    ndev = getattr(srv.engine, "ndev", 1)
+    check_path_launches(f"{kw.get('backend', 'device')} server", launches,
+                        MAIN_PATH[:2], {
+                            "wcsd_query_ragged":
+                                ndev * summ["query_dispatches"],
+                            "wcsd_profile_ragged":
+                                ndev * summ["profile_dispatches"]})
+    if not (np.array_equal(got, out) and np.array_equal(gprof, prof)):
+        fail(f"{kw} server answers differ from the device server")
+    return {"backend": kw.get("backend", "device"),
+            "mode": getattr(srv.engine, "mode", "device"), "ndev": ndev,
+            "launches": {k: launches[k] for k in MAIN_PATH[:2]}, **summ}
+
+
+def sharded_phase(idx, qs, ps, out_e, prof_e, comp_world, device) -> dict:
+    """Path 8: the sharded serving engine on the card. An 8-shard mesh and
+    a 2x4 (pod, data) mesh; every placement of every layout on the V =
+    2^17 index (and the compressed arena on the V = 2^15 world) over a
+    prefix of its stream, equal to the device server; the row-sharded
+    flush's breakdown and shard 0's K1/K2 against their plain versions;
+    epoch servers (replicated and row-sharded labels, interleaved with a
+    device server) over 2^18 queries + 2^14 profiles; and the dry run
+    (`launch.dryrun.run_serve` / `run_chaos`, full size) on the card."""
+    import torch
+    from repro_torch.kernels._cuda import resolve_device
+    from repro_torch.launch.dryrun import run_chaos, run_serve
+    from repro_torch.launch.mesh import make_serving_mesh
+    t_phase = time.perf_counter()
+    card = resolve_device(device)
+    mesh = make_serving_mesh([card] * SHARDS)
+    mesh24 = make_serving_mesh([card] * SHARDS, multi_pod=True)
+    rec = {"phase": "sharded", "shards": SHARDS,
+           "cuda_device_count": torch.cuda.device_count(),
+           "physical_devices": len(mesh.physical_devices()),
+           "meshes": [list(mesh.shape), list(mesh24.shape)]}
+
+    def pre(stream, n):
+        return tuple(a[:n] for a in stream)
+
+    nq, np_ = 1 << LOG2_SHARD_Q, 1 << LOG2_SHARD_P
+    q16, p12 = pre(qs, nq), pre(ps, np_)
+    o16, r12 = out_e[:nq], prof_e[:np_]
+    legs = []
+    for name, m, kw in (
+            ("ragged-replicated", mesh, {}),
+            ("ragged-row-sharded", mesh, {"device_budget_bytes": 1}),
+            ("ragged-replicated-2x4", mesh24, {}),
+            ("ragged-row-sharded-2x4", mesh24, {"device_budget_bytes": 1}),
+            ("bucket-pair-replicated", mesh, {"dispatch": "bucket_pair"}),
+            ("bucket-pair-row-sharded", mesh, {"dispatch": "bucket_pair",
+                                              "device_budget_bytes": 1}),
+            ("padded-replicated", mesh, {"layout": "padded"}),
+            ("padded-row-sharded", mesh, {"layout": "padded",
+                                          "device_budget_bytes": 1})):
+        legs.append(sharded_engine_check(name, idx, m, q16, p12, o16, r12,
+                                         **kw))
+    cidx, cqs, cps, cout, cprof = comp_world
+    for name, kw in (("compressed-replicated", {}),
+                     ("compressed-row-sharded", {"device_budget_bytes": 1})):
+        legs.append(sharded_engine_check(
+            name, cidx, mesh, pre(cqs, nq), pre(cps, np_), cout[:nq],
+            cprof[:np_], compressed=True, **kw))
+    rec["engines"] = legs
+
+    from repro_torch.core.query import ShardedQueryEngine
+    eng = ShardedQueryEngine(idx, mesh=mesh, device_budget_bytes=1)
+    rec["row_sharded_flush"] = row_sharded_breakdown(eng, qs, ps)
+    del eng
+    progress(f"row-sharded flush: {rec['row_sharded_flush']}")
+
+    nq, np_ = (1 << n for n in LOG2_SHARD_SERVE)
+    qs18, ps14 = pre(qs, nq), pre(ps, np_)
+    o18, r14 = out_e[:nq], prof_e[:np_]
+    runs = []
+    for kw in ({}, {"backend": "sharded", "mesh": mesh},
+               {"backend": "sharded", "mesh": mesh,
+                "device_budget_bytes": 1},
+               {"backend": "sharded", "mesh": mesh,
+                "device_budget_bytes": 1},
+               {"backend": "sharded", "mesh": mesh}, {}):
+        runs.append(sharded_serve(idx, qs18, ps14, o18, r14, device, **kw))
+        progress(f"served {runs[-1]['backend']} {runs[-1]['mode']}: "
+                 f"{runs[-1]['requests_per_s']:.0f} requests/s")
+    rec["served"] = runs
+
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        try:
+            run_serve(quick=False, device=card)
+        except SystemExit as err:
+            fail(f"dry run on the card: {err}")
+    rec["dryrun_serve_s"] = time.perf_counter() - t0
+    t0 = time.perf_counter()
+    with contextlib.redirect_stdout(sys.stderr):
+        try:
+            chaos = run_chaos(quick=False, device=card)
+        except SystemExit as err:
+            fail(f"chaos dry run on the card: {err}")
+    rec["dryrun_chaos_s"] = time.perf_counter() - t0
+    rec["chaos"] = {tag: {k: s[k] for k in (
+        "submitted", "answered", "injected", "demotions", "promotions",
+        "error_retries", "timeout_retries", "final_mode")}
+        for tag, s in chaos}
+    rec["phase_s"] = time.perf_counter() - t_phase
+    progress(f"sharded phase {rec['phase_s']:.1f} s")
+    return rec
+
+
 # ------------------------------------------------------ xDeepFM serving
 XDEEPFM_PATH = ("cin_layer",)
 P99_BATCH, P99_BATCHES = 512, 256      # serve_p99: batches served
@@ -2383,6 +2655,8 @@ def main() -> int:
              f"{fallback['tiles']} tiles overflow")
     comp_serve, comp_kernels, comp_world = compressed_serve_phase(dev)
     ladder = ladder_phase(*comp_world, dev)
+    sharded = sharded_phase(idx, (s, t, wl), (ps, pt), out_e, prof_e,
+                            comp_world, dev)
     del comp_world
     bp_serve, bp_kernels = bucket_pair_phase(idx, (s, t, wl), (ps, pt),
                                              out_e, prof_e, dev)
@@ -2430,6 +2704,7 @@ def main() -> int:
     emit(fallback)
     emit(comp_serve)
     emit(ladder)
+    emit(sharded)
     emit(bp_serve)
     emit(pad_serve)
     emit(relax)

@@ -1,11 +1,15 @@
 """WCSD serving: request batching over the device query engine.
 
-Port of the reference package's `core/serve.py` (`WCSDServer` with
-``backend="device"``): requests accumulate into batches that the engine
-answers -- one kernel launch per flush with ``dispatch="ragged"`` (over
-the compressed arena with ``compressed=True``), one launch per populated
-bucket pair with ``dispatch="bucket_pair"``, one K9 launch per flush over
-the padded store with ``layout="padded"`` -- with
+Port of the reference package's `core/serve.py` (`WCSDServer`):
+requests accumulate into batches that the engine answers -- one kernel
+launch per flush with ``dispatch="ragged"`` (over the compressed arena
+with ``compressed=True``), one launch per populated bucket pair with
+``dispatch="bucket_pair"``, one K9 launch per flush over the padded store
+with ``layout="padded"`` -- on one device (``backend="device"``,
+`DeviceQueryEngine`) or split over the shards of a mesh
+(``backend="sharded"``, `ShardedQueryEngine` over ``mesh``, by default
+every visible CUDA device: one launch per shard per flush, the labels
+replicated or, past ``device_budget_bytes``, row-sharded) -- with
 
   * an LRU memo (symmetric ``(s <= t)`` keys when ``undirected``) and
     piggyback dedup: a key already pending or in flight occupies one
@@ -42,10 +46,8 @@ the padded store with ``layout="padded"`` -- with
     it was computed against (`result_full`, `result_with_staleness`).
     ``wal_path=`` logs every update batch to an `UpdateWAL` before the
     index is touched (fsynced unless ``wal_fsync=False``), and
-    `replay_wal` re-applies the log's tail on a warm start.
-
-Not ported yet (the constructor raises `NotImplementedError`): the
-sharded backend.
+    `replay_wal` re-applies the log's tail on a warm start. A dynamic
+    sharded server serves the delta-extended arena on its mesh.
 """
 from __future__ import annotations
 
@@ -58,7 +60,7 @@ import numpy as np
 
 from ..checkpoint.ckpt import UpdateWAL
 from ..kernels._cuda import NOT_RETRYABLE, resolve_device
-from .query import DeviceQueryEngine, PendingResult
+from .query import DeviceQueryEngine, PendingResult, ShardedQueryEngine
 from .resilience import (FlushRetryExhausted, RetryPolicy,
                          UnknownRequestError, WALReplayError,
                          build_fallback_ladder)
@@ -174,7 +176,9 @@ class WCSDServer:
                  max_retries: int = 3, backoff_base_ms: float = 1.0,
                  backoff_factor: float = 2.0, jitter: float = 0.5,
                  probe_interval: int = 8, retry_seed: int = 0,
-                 engine_wrapper=None, device=None):
+                 engine_wrapper=None, device=None, mesh=None,
+                 device_budget_bytes: int | None = None,
+                 multi_pod: bool = False):
         # undirected=False disables the symmetric memo canonicalization
         # for indices over directed graphs. max_wait_us/min_batch turn on
         # continuous batching; max_wait_us=None keeps epoch flushes
@@ -184,13 +188,13 @@ class WCSDServer:
         # prebuilt engine (no ladder: mode "injected"). graph= makes the
         # server dynamic; compact_kwargs are the device builder's keywords
         # for `compact` (the compaction always builds on the server's
-        # device).
-        if backend == "sharded":
-            raise NotImplementedError("backend='sharded' (the sharded "
-                                      "engine) is not ported yet")
-        if backend != "device":
+        # device). backend="sharded" serves over ``mesh``
+        # (`launch.mesh.make_serving_mesh`; None: every visible CUDA
+        # device); ``device`` (by default the mesh's first device) is where
+        # the single-device ladder rungs and the compaction run.
+        if backend not in ("device", "sharded"):
             raise ValueError(f"unknown backend: {backend!r} (expected "
-                             "'device')")
+                             "'device' or 'sharded')")
         if graph is not None and engine is not None:
             raise ValueError("graph= (dynamic serving) cannot be combined "
                              "with an injected engine= — the server must "
@@ -218,13 +222,16 @@ class WCSDServer:
             raise ValueError("WCSDServer needs an index (idx=) or a "
                              "prebuilt engine (engine=)")
         else:
+            if device is None and mesh is not None:
+                device = mesh.devices[0]
             self.device = resolve_device(device)
             # the reference's engine config keys, so that the ladder is
             # the reference's for the same settings
             self._engine_config = dict(
                 backend=backend, use_pallas=use_pallas, interpret=None,
                 layout=layout, dispatch=dispatch, compressed=compressed,
-                mesh=None, device_budget_bytes=None, multi_pod=False)
+                mesh=mesh, device_budget_bytes=device_budget_bytes,
+                multi_pod=multi_pod)
             self._ladder = build_fallback_ladder(self._engine_config)
             self.engine = self._make_engine()
         self.wal = None
@@ -267,7 +274,14 @@ class WCSDServer:
             eng = self._engine_wrapper(eng)
         return eng
 
-    def _build_engine(self, cfg: dict) -> DeviceQueryEngine:
+    def _build_engine(self, cfg: dict):
+        if cfg["backend"] == "sharded":
+            return ShardedQueryEngine(
+                self.index, mesh=cfg["mesh"], use_pallas=cfg["use_pallas"],
+                layout=cfg["layout"],
+                device_budget_bytes=cfg["device_budget_bytes"],
+                multi_pod=cfg["multi_pod"], dispatch=cfg["dispatch"],
+                compressed=cfg["compressed"])
         return DeviceQueryEngine(
             self.index, layout=cfg["layout"], dispatch=cfg["dispatch"],
             compressed=cfg["compressed"], use_pallas=cfg["use_pallas"],
@@ -785,8 +799,8 @@ class WCSDServer:
 
     def result_with_mode(self, rid: int):
         """``(value, mode)``: the answer and the ladder rung that computed
-        it ("primary", "uncompressed", "bucket_pair", "oracle", or "memo"
-        for a cache hit)."""
+        it ("primary", "uncompressed", "replicated", "single_device",
+        "bucket_pair", "oracle", or "memo" for a cache hit)."""
         value, _ver, mode = self._pop_result(rid)
         return value, mode
 

@@ -40,6 +40,11 @@ def round_to_lane(n: int, lane: int = LANE) -> int:
     return max(lane, -(-int(n) // lane) * lane)
 
 
+def ceil_to(n: int, m: int) -> int:
+    """Smallest multiple of ``m`` >= ``n``."""
+    return -(-int(n) // m) * m
+
+
 def _concat_ranges(lengths: np.ndarray) -> np.ndarray:
     """[0..l0), [0..l1), ... concatenated, vectorized."""
     lengths = np.asarray(lengths, dtype=np.int64)

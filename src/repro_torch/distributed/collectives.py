@@ -1,0 +1,195 @@
+"""Collectives of the sharded serving engine, over per-shard tensors.
+
+Port of the reference package's `distributed/collectives.py`. The
+reference runs these inside `shard_map`, where each device sees its own
+block and a `psum` / `psum_scatter` combines them. The port has one
+controller (`launch.mesh`): a collective takes the list of every shard's
+block, in the mesh's row-major linear order, and returns the list of
+every shard's result, each on that shard's device.
+
+The row gathers behind the row-sharded label store: shard k owns the
+contiguous block of rows ``[k * rows_per_shard, (k + 1) * rows_per_shard)``
+of an array, and a gather of global row ids hands each consumer the rows
+it asked for. The reference sums every shard's contribution (its owned
+rows, zeros elsewhere); the port gathers each row from its owner
+(`index_select` on the owner's block, then ``.to`` the consumer's
+device), which is the same result for every dtype: one real addend plus
+zeros. A row id outside every block gathers all zeros, as the sum does;
+the reference's per-shard addend (`_owned_contribution`) has no
+counterpart here. Row ids are host arrays (a tensor is copied to the
+host), so the owner partition is planned without a device sync; each
+physical device gets the local ids in one copy.
+"""
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+
+def hierarchical_psum(xs, shape):
+    """Sum over a ``(pods, inner)`` mesh in two phases, inner first, then
+    across pods. ``xs`` holds one tensor per shard in row-major order;
+    returns the total on every shard's device."""
+    n_pod, n_inner = shape
+    pods = []
+    for p in range(n_pod):
+        acc = xs[p * n_inner]
+        for x in xs[p * n_inner + 1:(p + 1) * n_inner]:
+            acc = acc + x.to(acc.device)
+        pods.append(acc)
+    total = pods[0]
+    for x in pods[1:]:
+        total = total + x.to(total.device)
+    return [total.to(x.device) for x in xs]
+
+
+def axis_linear_index(coords, shape) -> int:
+    """A shard's linear index from its mesh coordinates, row-major in
+    axis order (an int is a 1-D mesh's coordinate)."""
+    if isinstance(coords, (int, np.integer)):
+        return int(coords)
+    idx = 0
+    for c, n in zip(coords, shape):
+        idx = idx * int(n) + int(c)
+    return idx
+
+
+def batch_slice(x, shard: int, n_local: int):
+    """Shard ``shard``'s contiguous slice of a replicated batch-axis
+    array: ``x[shard * n_local : (shard + 1) * n_local]``, the slice the
+    scattering gathers below hand it."""
+    return x[shard * n_local:(shard + 1) * n_local]
+
+
+class _GatherPlan:
+    """Who gathers which rows from whom. ``rows`` is ``[K, m]``: consumer
+    k (shard k) receives rows ``rows[k]`` in that order. Each consumer's
+    ids are sorted by owner (stable) on the host, so every (owner,
+    consumer) pair is one contiguous run; the owner-major list of local
+    ids goes to each physical device once."""
+
+    def __init__(self, rows, rows_per_shard: int, devices):
+        if torch.is_tensor(rows):
+            rows = rows.cpu().numpy()
+        R = np.asarray(rows, dtype=np.int64)
+        self.n = n = len(devices)
+        self.devices = devices
+        K, m = R.shape
+        per = int(rows_per_shard)
+        owner = np.where((R >= 0) & (R < n * per), R // per, n)
+        self.order = np.argsort(owner, axis=1, kind="stable")
+        so = np.take_along_axis(owner, self.order, 1)
+        local = np.take_along_axis(R, self.order, 1) - so * per
+        # counts[k, o]: rows consumer k takes from owner o (o == n: nobody)
+        self.counts = np.stack([np.bincount(so[k], minlength=n + 1)
+                                for k in range(K)]) if K else \
+            np.zeros((0, n + 1), np.int64)
+        starts = np.zeros_like(self.counts)
+        starts[:, 1:] = np.cumsum(self.counts, axis=1)[:, :-1]
+        segs, self.owner_off = [], np.zeros(n + 1, np.int64)
+        for o in range(n):
+            for k in range(K):
+                segs.append(local[k, starts[k, o]:starts[k, o]
+                                  + self.counts[k, o]])
+            self.owner_off[o + 1] = self.owner_off[o] + self.counts[:, o].sum()
+        flat = np.concatenate(segs) if segs else np.zeros(0, np.int64)
+        self._flat = flat
+        self._flat_dev: dict = {}
+        self.identity = [bool((self.order[k] == np.arange(m)).all())
+                         for k in range(K)]
+        self._perm_dev: dict = {}
+
+    def _ids(self, o: int) -> torch.Tensor:
+        dev = self.devices[o]
+        if dev not in self._flat_dev:
+            self._flat_dev[dev] = torch.from_numpy(self._flat).to(dev)
+        return self._flat_dev[dev][self.owner_off[o]:self.owner_off[o + 1]]
+
+    def apply(self, blocks):
+        """Gather from one array given as its per-shard ``blocks``:
+        returns consumer k's ``[m, ...]`` rows on shard k's device."""
+        n = self.n
+        got = [blocks[o].index_select(0, self._ids(o))
+               if self.counts[:, o].sum() else None for o in range(n)]
+        out = []
+        for k in range(self.counts.shape[0]):
+            dev = blocks[k].device
+            pieces = []
+            for o in range(n):
+                c = int(self.counts[k, o])
+                if c:
+                    a = int(self.counts[:k, o].sum())
+                    pieces.append(got[o][a:a + c].to(dev))
+            nobody = int(self.counts[k, n])
+            if nobody:
+                pieces.append(torch.zeros((nobody,) + tuple(
+                    blocks[k].shape[1:]), dtype=blocks[k].dtype, device=dev))
+            if not pieces:
+                res = torch.empty((0,) + tuple(blocks[k].shape[1:]),
+                                  dtype=blocks[k].dtype, device=dev)
+            elif len(pieces) == 1:
+                res = pieces[0]
+            else:
+                res = torch.cat(pieces)
+            if not self.identity[k]:
+                if k not in self._perm_dev:
+                    self._perm_dev[k] = torch.from_numpy(
+                        self.order[k]).to(dev)
+                res = torch.empty_like(res).index_copy_(
+                    0, self._perm_dev[k], res)
+            out.append(res.contiguous())
+        return out
+
+
+def _scatter_rows(rows, n: int) -> np.ndarray:
+    if torch.is_tensor(rows):
+        rows = rows.cpu().numpy()
+    rows = np.asarray(rows)
+    if rows.shape[0] % n:
+        raise ValueError(f"{rows.shape[0]} row ids do not split over {n} "
+                         "shards")
+    return rows.reshape(n, rows.shape[0] // n)
+
+
+def _devices(blocks):
+    return [b.device for b in blocks]
+
+
+def row_gather_psum(shards, rows, rows_per_shard: int):
+    """Gather global ``rows`` (``[B]``, replicated) from an array whose
+    per-shard blocks are ``shards``: every shard receives all ``[B, ...]``
+    gathered rows."""
+    if torch.is_tensor(rows):
+        rows = rows.cpu().numpy()
+    rows = np.asarray(rows)
+    R = np.broadcast_to(rows, (len(shards),) + rows.shape)
+    return _GatherPlan(R, rows_per_shard, _devices(shards)).apply(shards)
+
+
+def row_gather_psum_scatter(shards, rows, rows_per_shard: int):
+    """`row_gather_psum` fused with a batch split: shard k receives only
+    its ``B / n`` slice of the gathered rows (``B`` divisible by the shard
+    count)."""
+    R = _scatter_rows(rows, len(shards))
+    return _GatherPlan(R, rows_per_shard, _devices(shards)).apply(shards)
+
+
+def multi_row_gather_psum_scatter(arrays, rows, rows_per_shard: int):
+    """`row_gather_psum_scatter` over several same-sharded arrays in one
+    call: ``arrays`` holds each array's per-shard blocks, of any dtype
+    and rank. Returns, per shard, the tuple of its gathered slices."""
+    arrays = [list(a) for a in arrays]
+    plan = _GatherPlan(_scatter_rows(rows, len(arrays[0])), rows_per_shard,
+                       _devices(arrays[0]))
+    per_array = [plan.apply(a) for a in arrays]
+    return [tuple(g[k] for g in per_array) for k in range(len(arrays[0]))]
+
+
+def ragged_tile_gather(arrays, rows, rows_per_shard: int):
+    """The worklist tile gather of the row-sharded ragged dispatch:
+    ``rows`` concatenates every shard's tile list in linear shard order,
+    and shard k receives exactly its own list's tiles of each array
+    (the int32 trio, or the compressed int16 / float16-format / int8
+    one: a selection moves every dtype exactly, so the reference's
+    int16 bit-pattern route for floats is not needed)."""
+    return multi_row_gather_psum_scatter(arrays, rows, rows_per_shard)

@@ -1087,3 +1087,159 @@ def test_dynamic_server_on_card_equals_cpu(card):
                                       getattr(cpu.index.base.labels, name))
     np.testing.assert_array_equal(gpu.query_many(s, t, wl),
                                   cpu.query_many(s, t, wl))
+
+
+# ------------------------------------------------- the sharded engine
+SHARD_LEGS = [  # layout, dispatch, compressed, device_budget_bytes, 2x4
+    ("csr", "ragged", False, None, False), ("csr", "ragged", False, 1, False),
+    ("csr", "ragged", False, None, True), ("csr", "ragged", False, 1, True),
+    ("csr", "ragged", True, None, False), ("csr", "ragged", True, 1, False),
+    ("csr", "bucket_pair", False, None, False),
+    ("csr", "bucket_pair", False, 1, False),
+    ("padded", "ragged", False, None, False),
+    ("padded", "ragged", False, 1, False)]
+
+
+@pytest.mark.parametrize("leg", SHARD_LEGS,
+                         ids=lambda x: "-".join(map(str, x)))
+def test_sharded_engine_on_card_equals_device_engine(card, built, leg):
+    """An 8-shard mesh on the card answers as `DeviceQueryEngine` on the
+    card in every placement, and every call launches its kernel once per
+    shard (the padded layout's profiles are the plain join: none)."""
+    from repro_torch.core.query import ShardedQueryEngine
+    from repro_torch.launch.mesh import make_serving_mesh
+    layout, dispatch, compressed, budget, multi_pod = leg
+    g, idx = built
+    s, t, wl = random_queries(g, 3000, seed=5)
+    ps, pt, _ = random_queries(g, 500, seed=6)
+    dev = DeviceQueryEngine(idx, layout=layout, dispatch=dispatch,
+                            compressed=compressed, device=card)
+    exp, prof = dev.query(s, t, wl), dev.query_profile(ps, pt)
+    mesh = make_serving_mesh([card] * 8, multi_pod=multi_pod)
+    eng = ShardedQueryEngine(idx, mesh=mesh, layout=layout,
+                             dispatch=dispatch, compressed=compressed,
+                             device_budget_bytes=budget)
+    assert eng.compressed == compressed and eng.ndev == 8
+    assert eng.mode == ("replicated" if budget is None else "sharded_labels")
+    kernels = {("csr", "ragged", False): ("wcsd_query_ragged",
+                                          "wcsd_profile_ragged"),
+               ("csr", "ragged", True): ("wcsd_query_ragged_compressed",
+                                         "wcsd_profile_ragged_compressed"),
+               ("csr", "bucket_pair", False): ("wcsd_query_segmented",
+                                               "wcsd_profile_segmented"),
+               ("padded", "dense", False): ("wcsd_query_gathered", None)}[
+        (eng.layout, eng.dispatch, compressed)]
+    for (kind, call, want_out), kernel in zip(
+            (("query", lambda: eng.query_async(s, t, wl), exp),
+             ("profile", lambda: eng.query_profile_async(ps, pt), prof)),
+            kernels):
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        handle = call()
+        launched = {k: n for k, n in _cuda.LAUNCHES.items() if n}
+        got = handle.wait()
+        assert handle.ready()
+        np.testing.assert_array_equal(got, want_out, err_msg=kind)
+        assert launched == ({} if kernel is None else {kernel: 8}), \
+            (kind, launched)
+
+
+def test_row_sharded_shard_kernels_equal_plain(card, built):
+    """One row-sharded shard's K1 and K2 over its gathered tiles, on the
+    engine's own launch arguments (`_shard_launch_args`: the worklist
+    relabelled into the gather buffer), equal their plain versions
+    exactly."""
+    from repro_torch.core.query import ShardedQueryEngine
+    from repro_torch.launch.mesh import make_serving_mesh
+    g, idx = built
+    eng = ShardedQueryEngine(idx, mesh=make_serving_mesh([card] * 8),
+                             device_budget_bytes=1)
+    s, t, wl = random_queries(g, 2000, seed=9)
+    fl = eng._row_sharded_flush(eng._stage_ragged(s, t, wl))
+    for k in (0, 7):
+        (h, d, w, lo, hi, qidx, sloc, tloc, _), wq = \
+            eng._shard_launch_args(fl, k)
+        assert torch.equal(
+            kwq.wcsd_query_ragged_cuda(h, d, w, lo, hi, qidx, sloc, tloc,
+                                       wq),
+            kwq.wcsd_query_ragged_plain(h, d, w, qidx, sloc, tloc, wq))
+    fl = eng._row_sharded_flush(eng._stage_ragged(s[:500], t[:500]))
+    rows, L = fl.stq.shape[1] // 8 + 1, eng.num_levels
+    for k in (0, 7):
+        (h, d, w, lo, hi, qidx, sloc, tloc, _), wq = \
+            eng._shard_launch_args(fl, k)
+        assert wq is None
+        assert torch.equal(
+            kwq.wcsd_profile_ragged_cuda(h, d, w, lo, hi, qidx, sloc, tloc,
+                                         rows, L),
+            kwq.wcsd_profile_ragged_plain(h, d, w, qidx, sloc, tloc, rows,
+                                          L))
+
+
+def test_sharded_server_on_card_serves_the_dry_run(card):
+    """`launch.dryrun.run_serve` (quick) on 8 shards of the card."""
+    from repro_torch.launch.dryrun import run_serve
+    run_serve(quick=True, device=card)
+
+
+@pytest.mark.parametrize("leg", SHARD_LEGS,
+                         ids=lambda x: "-".join(map(str, x)))
+def test_sharded_engine_over_several_cards(card, built, leg):
+    """A mesh over every visible card (and 2 shards a card, and a 2 x n/2
+    pod mesh where the count is even): each shard's blocks live on its
+    own card, its launches run there, and the answers equal
+    `DeviceQueryEngine` on card 0. Skips with fewer than two cards."""
+    from repro_torch.core.query import ShardedQueryEngine
+    from repro_torch.launch.mesh import make_serving_mesh
+    n = torch.cuda.device_count()
+    if n < 2:
+        pytest.skip("needs two or more CUDA devices")
+    layout, dispatch, compressed, budget, multi_pod = leg
+    cards = [torch.device("cuda", i) for i in range(n)]
+    g, idx = built
+    s, t, wl = random_queries(g, 3000, seed=15)
+    ps, pt, _ = random_queries(g, 500, seed=16)
+    dev = DeviceQueryEngine(idx, layout=layout, dispatch=dispatch,
+                            compressed=compressed, device=cards[0])
+    exp, prof = dev.query(s, t, wl), dev.query_profile(ps, pt)
+    meshes = [make_serving_mesh(cards * 2)]
+    if multi_pod and n % 2 == 0:
+        meshes.append(make_serving_mesh(cards, multi_pod=True))
+    elif not multi_pod:
+        meshes.append(make_serving_mesh())
+    for mesh in meshes:
+        eng = ShardedQueryEngine(idx, mesh=mesh, layout=layout,
+                                 dispatch=dispatch, compressed=compressed,
+                                 device_budget_bytes=budget)
+        assert len(eng.mesh.physical_devices()) == n
+        if eng.mode == "sharded_labels":     # hub blocks, shard by shard
+            hub = (eng._tiles[0][0][0] if eng.dispatch == "bucket_pair"
+                   else eng._blocks[0])
+            assert [b.device for b in hub] == list(mesh.devices)
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        h = eng.query_async(s, t, wl)
+        np.testing.assert_array_equal(h.wait(), exp)
+        assert h.ready()
+        np.testing.assert_array_equal(eng.query_profile(ps, pt), prof)
+        assert max(_cuda.LAUNCHES.values()) == mesh.size
+
+
+def test_sharded_server_over_several_cards(card, built):
+    """`WCSDServer(backend="sharded")` over every visible card equals the
+    device server, replicated and row-sharded, with the single-device
+    rungs on the server's device. Skips with fewer than two cards."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    if torch.cuda.device_count() < 2:
+        pytest.skip("needs two or more CUDA devices")
+    g, idx = built
+    s, t, wl = random_queries(g, 5000, seed=17)
+    ps, pt, _ = random_queries(g, 800, seed=18)
+    ref = WCSDServer(idx, max_batch=1024, device=card)
+    exp, prof = ref.query_many(s, t, wl), ref.query_profile_many(ps, pt)
+    for budget in (None, 1):
+        srv = WCSDServer(idx, max_batch=1024, backend="sharded",
+                         mesh=make_serving_mesh(), device_budget_bytes=budget)
+        assert srv.device == torch.device("cuda", 0)
+        np.testing.assert_array_equal(srv.query_many(s, t, wl), exp)
+        np.testing.assert_array_equal(srv.query_profile_many(ps, pt), prof)

@@ -1,10 +1,9 @@
-"""The port stands alone: `repro_torch`, `chip_smoke.py` and
-`scripts/chip_ab.py` import neither `jax` nor the reference package
-`repro`; entry points default to the card
-and raise where there is none; the CUDA launchers refuse CPU tensors
-(K11's also mixed dtypes and wrong ranks); and the features not ported
-yet raise `NotImplementedError` (the engine configurations the reference
-refuses raise `ValueError`)."""
+"""The port stands alone: `repro_torch`, `chip_smoke.py`,
+`scripts/chip_ab.py` and `scripts/chip_mesh.py` import neither `jax` nor
+the reference package `repro`; entry points default to the card and
+raise where there is none; the CUDA launchers refuse CPU tensors (K11's
+also mixed dtypes and wrong ranks); and the engine configurations the
+reference refuses raise `ValueError`."""
 import os
 import pkgutil
 import re
@@ -29,11 +28,15 @@ def _port_modules():
 
 def test_import_every_module_without_jax_or_repro():
     mods = _port_modules()
-    assert len(mods) >= 28, mods
+    assert len(mods) >= 36, mods
     for m in ("repro_torch.checkpoint.fault", "repro_torch.models.xdeepfm",
               "repro_torch.models.common", "repro_torch.data.recsys",
               "repro_torch.configs.xdeepfm_arch",
-              "repro_torch.kernels.cin_fuse"):
+              "repro_torch.kernels.cin_fuse", "repro_torch.launch",
+              "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
+              "repro_torch.distributed",
+              "repro_torch.distributed.collectives",
+              "repro_torch.configs.wcsd_serve"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -55,10 +58,11 @@ _BANNED = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
 
 def test_source_scan_finds_no_jax_or_repro_import():
     files = [os.path.join(REPO, "chip_smoke.py"),
-             os.path.join(REPO, "scripts", "chip_ab.py")]
+             os.path.join(REPO, "scripts", "chip_ab.py"),
+             os.path.join(REPO, "scripts", "chip_mesh.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 29
+    assert len(files) >= 39
     for path in files:
         with open(path) as f:
             text = f.read()
@@ -96,6 +100,14 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
         WCSDServer(idx)
     with pytest.raises(RuntimeError, match="no CUDA device"):
         WCSDServer(idx, device="cuda")
+    from repro_torch.core.query import ShardedQueryEngine
+    from repro_torch.launch.mesh import make_serving_mesh
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        make_serving_mesh()
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        ShardedQueryEngine(idx)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        WCSDServer(idx, backend="sharded")
     from repro_torch.configs.xdeepfm_arch import smoke_config
     from repro_torch.models.xdeepfm import XDeepFM
     with pytest.raises(RuntimeError, match="no CUDA device"):
@@ -221,8 +233,8 @@ def test_unported_engine_features_raise():
     """The padded layout is ported and builds; ``cap`` and
     ``use_pallas=False`` with the CSR layout raise `ValueError`;
     bucket-pair dispatch and the compressed arena are ported, but not
-    together (as in the reference); the sharded backend still raises
-    `NotImplementedError`, while ``graph=`` and ``wal_path=`` (the
+    together (as in the reference); the sharded backend serves over a
+    mesh of CPU shards, and ``graph=`` and ``wal_path=`` (the
     dynamic index and the update WAL) build."""
     from repro_torch.core.query import DeviceQueryEngine
     from repro_torch.core.serve import WCSDServer
@@ -250,8 +262,11 @@ def test_unported_engine_features_raise():
         DeviceQueryEngine(idx, device="cpu", cap=4)
     with pytest.raises(ValueError, match="use_pallas"):
         DeviceQueryEngine(idx, device="cpu", use_pallas=False)
-    with pytest.raises(NotImplementedError, match="sharded"):
-        WCSDServer(idx, device="cpu", backend="sharded")
+    from repro_torch.launch.mesh import make_serving_mesh
+    srv = WCSDServer(idx, backend="sharded", device="cpu",
+                     mesh=make_serving_mesh([torch.device("cpu")] * 8))
+    assert srv.engine.ndev == 8
+    assert srv.query_many([0, 3], [5, 3], [0, 1])[1] == 0
     assert WCSDServer(idx, device="cpu", graph=g).graph_version == 0
 
 

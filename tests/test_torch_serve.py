@@ -158,15 +158,21 @@ def test_bulk_apis_match_reference(world):
 
 
 def test_unported_features_raise(world, tmp_path):
-    """What is not ported (the sharded backend) raises
-    `NotImplementedError`; the dynamic index (``graph=``) and the update
+    """The sharded backend serves over a mesh of CPU shards; the dynamic
+    index (``graph=``) and the update
     WAL (``wal_path=``) are ported and build; the compressed arena and
     bucket-pair dispatch are ported, but not together (the reference
     raises `ValueError` for that pair too); the flush watchdog and the
     padded layout are ported and build."""
     g, idx, tidx, _ = world
-    with pytest.raises(NotImplementedError, match="sharded"):
-        TServer(tidx, device="cpu", backend="sharded")
+    import torch
+    from repro_torch.launch.mesh import make_serving_mesh
+    sh = TServer(tidx, backend="sharded",
+                 mesh=make_serving_mesh([torch.device("cpu")] * 8))
+    assert sh.engine.ndev == 8 and sh.mode == "primary"
+    np.testing.assert_array_equal(sh.query_many([0, 1], [1, 0], [0, 0]),
+                                  TServer(tidx, device="cpu").query_many(
+                                      [0, 1], [1, 0], [0, 0]))
     from _torch_parity import port_graph
     dyn = TServer(tidx, device="cpu", graph=port_graph(g),
                   wal_path=str(tmp_path / "x.wal"))
