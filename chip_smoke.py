@@ -3,9 +3,9 @@
 
     python3 chip_smoke.py            # from the root of a checkout
 
-Builds the eleven CUDA kernels from the three sources in
+Builds the twelve CUDA kernels from the four sources in
 `src/repro_torch/csrc/` (one `nvcc` per source, started together), then
-drives nine paths of the port on the card, each with the launch counts
+drives eleven paths of the port on the card, each with the launch counts
 reset just before it and read just after it:
 
 1. the main path: `scale_free(2^17, m=4, num_levels=5, seed=0)` -> the
@@ -59,7 +59,21 @@ reset just before it and read just after it:
    (device, replicated, row-sharded, row-sharded, replicated, device)
    over 2^18 queries + 2^14 profiles with K1 = 8 x scalar flushes and
    K2 = 8 x profile flushes; and `launch.dryrun`'s `run_serve` and
-   `run_chaos` at full size on the card.
+   `run_chaos` at full size on the card;
+10. xDeepFM training at full width (`get_config()`, train_batch B =
+   65,536, AdamW lr 1e-3 from `configs.xdeepfm_arch.TRAIN_OPT`): a
+   `Trainer` with a `CheckpointManager` over 8 steps from `CTRStream`
+   (per step: K11 three times forward and eight times backward, dx1 and
+   dx0 with x0' split in two where it is 200 wide, and K12 three times),
+   then a `FaultTolerantRunner` over the same steps with a failure at
+   step 5, ending bit for bit on the Trainer's parameters and moments;
+   one step with ``accum_steps=4`` and one with ``compress_grads=True``
+   held against the first; a whole step's gradient at 2,048 rows
+   against the plain path on the card; one step's device time by
+   kernel from `torch.profiler` (a warm-up step, then the traced one);
+11. the port's examples (`examples/quickstart_torch.py`,
+   `examples/serve_wcsd_torch.py`) at their default sizes on the card,
+   their own asserts included.
 
 Then every kernel is held against its plain PyTorch version on inputs
 captured from its path (exact int32 equality; K3 at the build's heaviest
@@ -73,8 +87,11 @@ record also times the gather before it); K11, 3xTF32 on the tensor cores
 summed in fp32 in another order, within 1e-4 of each layer's max |ref|
 on the model's own activations and at the reference test's tolerance on
 unit-normal inputs, and 8 rows of one batch against the plain forward
-in float64 on the CPU, and bit-identical across two launches) and timed
-with CUDA events; every served flush (every
+in float64 on the CPU, and bit-identical across two launches; K12 and
+K11's forward and backward calls on one train step's own inputs, within
+1e-4 of each output's max |ref| and bit-identical across two launches,
+K12's einsum on the whole batch too) and timed with CUDA events; every
+served flush (every
 sub-batch, for bucket-pair) is checked against the plain path; every
 served logit is finite and the retrieval top 100 equals float64's on
 the host; the compressed answers equal an uncompressed
@@ -2296,7 +2313,6 @@ def xdeepfm_phase(cfg, device, p99=(P99_BATCH, P99_BATCHES),
     max), and 8 rows against the plain forward in float64 on the CPU;
     the retrieval top 100 against float64 on the host. Returns the phase
     record and K11's kernel record."""
-    import copy
     import dataclasses
     import torch
     from repro_torch.configs.xdeepfm_arch import _SHAPE_SPECS
@@ -2413,9 +2429,10 @@ def xdeepfm_phase(cfg, device, p99=(P99_BATCH, P99_BATCHES),
         pooled.append(xk.sum(-1))
     feat_rel = layer_rel_errs(feat_k, torch.cat(pooled, -1), widths)
     n = ANCHOR_ROWS
-    cin64 = copy.deepcopy(model.cin).to("cpu", torch.float64)
-    mlp64 = copy.deepcopy(model.mlp).to("cpu", torch.float64)
-    log64, feat64 = X.head(cin64, mlp64, model.bias.double().cpu(),
+    tree64 = {g: {k: v.to("cpu", torch.float64) for k, v in
+                  X.param_tree(model)[g].items()} for g in ("cin", "mlp")}
+    log64, feat64 = X.head(tree64["cin"], tree64["mlp"],
+                           model.bias.double().cpu(),
                            emb[:n].double().cpu(), lin[:n].double().cpu())
     anchor_feat = layer_rel_errs(feat_k[:n], feat64, widths)
     anchor_logits = rel_err(logits_k[:n], log64)
@@ -2508,6 +2525,510 @@ def xdeepfm_phase(cfg, device, p99=(P99_BATCH, P99_BATCHES),
                                            "splits")},
             "serve_p99_layers": p99_rec, "serve_bulk_layers": bulk_rec}
     return phase, [kern]
+
+
+# ------------------------------------------------ xDeepFM training (K11, K12)
+TRAIN_PATH = ("cin_layer", "cin_weight_grad")
+TRAIN_BATCH = 65536          # the train_batch shape
+TRAIN_STEPS = 8              # Trainer steps, then the runner's
+TRAIN_CKPT_EVERY = 4
+TRAIN_FAIL_STEP = 5          # the runner's injected failure
+GRAD_CHECK_ROWS = 2048       # the card-vs-plain gradient check's batch
+# K12 and K11's backward calls timed on the step's own inputs
+TRAIN_ITERS, TRAIN_PLAIN_ITERS = 2, 1
+TRAIN_DIR = os.path.join(ROOT, "build", "train_ckpt")
+# K12 sums B*D = 655,360 products per output in fp32 (16,384 a slice,
+# then 40 slices in order): ~sqrt(16,384) * 2^-24 ~ 1e-5 of the largest;
+# K11's backward calls are K11 (3xTF32): both are held as K11 is, within
+# CIN_REL_TOL of each output's max |ref|. Loss and accumulated /
+# compressed steps: float32 sums in another order.
+TRAIN_LOSS_REL_TOL = 1e-5
+
+
+@contextlib.contextmanager
+def plain_on_card():
+    """Every `ops` wrapper takes its plain version, whatever the device:
+    the plain path on the card, to hold the kernels' path against."""
+    from repro_torch.kernels import ops as kops
+    real = kops._on_card
+    kops._on_card = lambda x, what: False
+    try:
+        yield
+    finally:
+        kops._on_card = real
+
+
+@contextlib.contextmanager
+def capture_cin_calls(calls: list):
+    """Records the arguments of every K11 (``("cin_layer", x1, x0, w)``)
+    and K12 (``("cin_weight_grad", g, x1, x0)``) call the CIN's forward and
+    backward make through `ops`."""
+    from repro_torch.kernels import ops as kops
+    fwd, wgrad = kops._cin_forward, kops.cin_weight_grad
+
+    def cin(x1, x0, w):
+        calls.append(("cin_layer", x1, x0, w))
+        return fwd(x1, x0, w)
+
+    def dw(g, x1, x0):
+        calls.append(("cin_weight_grad", g, x1, x0))
+        return wgrad(g, x1, x0)
+
+    kops._cin_forward, kops.cin_weight_grad = cin, dw
+    try:
+        yield
+    finally:
+        kops._cin_forward, kops.cin_weight_grad = fwd, wgrad
+
+
+def train_launches_per_step(cfg) -> dict:
+    """K11 and K12 launches of one train step: K11 once a layer forward;
+    backward, dx1 once and dx0 once per part of x0' (the layer's input
+    channels, split where K11 cannot hold them); K12 once a layer."""
+    from repro_torch.kernels import cin_fuse as kcin
+    hs = [cfg.n_sparse] + list(cfg.cin_layers[:-1])
+    L = len(cfg.cin_layers)
+    return {"cin_layer": L + sum(1 + len(kcin.cin_m_parts(h)) for h in hs),
+            "cin_weight_grad": L}
+
+
+def train_kernel_record(kind: str, args, iters: int, plain_iters: int
+                        ) -> dict:
+    """One captured K11 or K12 call at its step's shapes: the kernel
+    against its plain version (relative to the output's max) and against
+    itself (bit-identical), its time, its plain version's, one
+    `torch.einsum` of the same function, and its bound. Both are fp32
+    contractions of the same FLOP, bounded as K11 is bounded everywhere:
+    three times the FLOP at the dense TF32 rate (3xTF32, the card's peak
+    for fp32-accurate products), or the bytes, whichever is larger; the
+    FLOP once at the SIMT fp32 rate stands beside it (``bound_fp32_ms``).
+    K12's einsum runs on the whole batch (it forms the [B, H, M, D] outer
+    product of x1 and x0 first: ~20 GB at the train shape); K11's
+    backward calls' on a chunk of the plain version's rows
+    (``library_rows``), where the outer product at B = 65,536 would not
+    fit, and their ``library_ms`` is null."""
+    import torch
+    from repro_torch.kernels import cin_fuse as kcin
+    if kind == "cin_layer":
+        x1, x0, w = args
+        B, H, M, D, K = kcin.cin_shapes(x1, x0, w)
+        cuda, plain = kcin.cin_layer_cuda, kcin.cin_layer_plain
+        rows = min(B, kcin.cin_chunk_rows(H, M, D))
+        eq, lib_args = "bhd,bmd,khm->bkd", (x1[:rows], x0[:rows], w)
+        out_numel = B * K * D
+    else:
+        g, x1, x0 = args
+        B, H, M, D, K = kcin.cin_grad_shapes(g, x1, x0)
+        cuda, plain = kcin.cin_weight_grad_cuda, kcin.cin_weight_grad_plain
+        rows = B
+        eq, lib_args = "bhd,bmd,bkd->khm", (x1, x0, g)
+        out_numel = K * H * M
+    a, again, b = cuda(*args), cuda(*args), plain(*args)
+    torch.cuda.synchronize()
+    flop = 2.0 * B * K * H * M * D
+    nbytes = 4.0 * (sum(x.numel() for x in args) + out_numel)
+    to = 3 * flop / TF32_FLOPS_PER_S * 1e3
+    tb = nbytes / HBM_BYTES_PER_S * 1e3
+    rec = {"kind": kind, "B": B, "H": H, "M": M, "D": D, "K": K,
+           "flop": flop, "bytes": nbytes,
+           "max_abs_err": float((a - b).abs().max()),
+           "max_abs_tol": CIN_REL_TOL * float(b.abs().max()),
+           "rel_err": rel_err(a, b), "deterministic": bool(torch.equal(
+               a, again))}
+    if rows == B:
+        rec["library_rel_err"] = rel_err(torch.einsum(eq, *lib_args), b)
+    del a, again, b
+    lib = cuda_ms(lambda: torch.einsum(eq, *lib_args), plain_iters)
+    ms = cuda_ms(lambda: cuda(*args), iters)
+    rec.update(ms=ms, tflop_per_s=flop / ms * 1e-9,
+               plain_ms=cuda_ms(lambda: plain(*args), plain_iters),
+               bound_ms=max(to, tb),
+               bound_by="operations" if to >= tb else "bytes",
+               bound_3xtf32_ms=max(to, tb),
+               bound_fp32_ms=max(flop / FP32_FLOPS_PER_S * 1e3, tb),
+               library_ms=lib if rows == B else None,
+               library_rows=rows, library_rows_ms=lib)
+    if kind == "cin_layer":
+        rec["splits"] = kcin.cin_plan(x1.device, B, H, M, D, K, False)[0]
+    else:
+        rec["splits"] = kcin.cin_grad_splits(B, D)
+    return rec
+
+
+def step_profile(fn, per_step: dict) -> dict:
+    """Device time of one call of ``fn`` by kernel, from a
+    `torch.profiler` trace of the second of two calls (the first warms
+    the trace up: a trace of one call alone has shown none of the
+    forward's K11 launches): K11's kernels (the W image, the 3xTF32 GEMM,
+    its split sum), K12's (its GEMM, its split sum), and everything else,
+    with the top ten kernels by device time. ``launches_in_trace`` counts
+    K11's and K12's GEMM kernels; ``complete`` says whether they match
+    ``per_step``. None where the trace shows no device time."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile, schedule
+    wall = 0.0
+    with profile(activities=[ProfilerActivity.CUDA],
+                 schedule=schedule(wait=0, warmup=1, active=1,
+                                   repeat=1)) as prof:
+        for _ in range(2):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            prof.step()
+    rows = []
+    for e in prof.key_averages():
+        t = getattr(e, "device_time_total", None)
+        t = e.cuda_time_total if t is None else t
+        if t:
+            rows.append((e.key, t / 1e3, e.count))
+    if not rows:
+        return None
+    rows.sort(key=lambda r: -r[1])
+
+    def kernel(name, subs):
+        return any(s in name.split("(")[0] for s in subs)
+
+    group = {"k11_ms": ("cin_layer_kernel", "cin_w_image_kernel",
+                        "cin_split_sum_kernel"),
+             "k12_ms": ("cin_weight_grad_kernel",
+                        "cin_grad_split_sum_kernel")}
+    gemm = {"cin_layer": ("cin_layer_kernel",),
+            "cin_weight_grad": ("cin_weight_grad_kernel",)}
+    out = {k: sum(ms for name, ms, _ in rows if kernel(name, subs))
+           for k, subs in group.items()}
+    seen = {k: sum(c for name, _, c in rows if kernel(name, subs))
+            for k, subs in gemm.items()}
+    busy = sum(ms for _, ms, _ in rows)
+    out.update(device_busy_ms=busy, other_ms=busy - sum(out.values()),
+               wall_ms=wall * 1e3, idle_share=max(0.0, 1 - busy / (
+                   wall * 1e3)),
+               launches_in_trace=seen, complete=seen == dict(per_step),
+               top=[{"kernel": n[:120], "ms": ms, "count": c}
+                    for n, ms, c in rows[:10]])
+    return out
+
+
+def xdeepfm_train_phase(cfg, device, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
+                        grad_rows=GRAD_CHECK_ROWS) -> tuple[dict, list]:
+    """Path 10: xDeepFM training at ``cfg``'s widths through the port's
+    training entry points: `XDeepFM` weights from seed 0 as a parameter
+    tree, `CTRStream(batch, seed=0)` (step s reads the stream at cursor
+    s), `make_train_step_for(cfg)` (AdamW, lr 1e-3, no weight decay). A
+    `Trainer` with a `CheckpointManager` (every 4 steps) runs ``steps``
+    steps, launches counted (per step: K11 once a layer forward, dx1 and
+    dx0 backward, K12 once a layer). Then a `FaultTolerantRunner` over
+    the same steps with a failure injected at step 5 must end bit for bit
+    on the Trainer's parameters and moments. One step with
+    ``accum_steps=4`` and one with ``compress_grads=True`` are held
+    against the first step; a whole step's gradient on the card against
+    the plain path on the card at ``grad_rows`` rows; K12 and K11's
+    forward and backward calls of one step against their plain versions,
+    timed; a traced step. Returns the phase record and K12's kernel
+    record (K11's records at the train shapes go into the phase
+    record)."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.checkpoint.fault import FaultTolerantRunner
+    from repro_torch.configs.xdeepfm_arch import (TRAIN_OPT,
+                                                  make_train_step_for,
+                                                  train_flops)
+    from repro_torch.data.recsys import CTRStream
+    from repro_torch.kernels import _cuda
+    from repro_torch.kernels import cin_fuse as kcin
+    from repro_torch.models import xdeepfm as X
+    from repro_torch.train.grad_compress import quantize_int8
+    from repro_torch.train.loop import Trainer, value_and_grad
+    from repro_torch.train.optim import global_norm, init_opt_state
+    from repro_torch.train.tree import flatten_with_paths
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    phase_t0 = time.perf_counter()
+    L = len(cfg.cin_layers)
+
+    def batch_for_step(s, rows=batch):
+        st = CTRStream(cfg.field_vocabs, cfg.field_offsets, rows, seed=0)
+        st.set_cursor(s)
+        return st.next_batch()
+
+    params0 = X.param_tree(X.XDeepFM(cfg, device=device, seed=0))
+    opt0 = init_opt_state(TRAIN_OPT, params0)
+    step = make_train_step_for(cfg)
+    loss_fn = lambda p, b: X.loss_fn(p, cfg, b)  # noqa: E731
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+
+    # ------------------------- the Trainer, launches counted
+    per_step = train_launches_per_step(cfg)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    base = torch.cuda.memory_allocated()
+    _cuda.reset_launch_counts()
+    trainer = Trainer(step, params0, opt0,
+                      checkpoint_manager=CheckpointManager(
+                          os.path.join(TRAIN_DIR, "trainer"), keep=1),
+                      ckpt_every=TRAIN_CKPT_EVERY)
+    hist = trainer.run(batch_for_step(s) for s in range(steps))
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    peak = torch.cuda.max_memory_allocated()
+    check_path_launches("xdeepfm_train", launches, TRAIN_PATH,
+                        {k: steps * n for k, n in per_step.items()})
+    losses = [h["loss"] for h in hist]
+    if not all(np.isfinite(losses)):
+        fail(f"xdeepfm_train: a loss is not finite: {losses}")
+    step_s = [h["time_s"] for h in hist]
+    med = float(np.median(step_s[1:] if len(step_s) > 1 else step_s))
+    flop = train_flops(cfg, batch)
+    progress(f"xdeepfm_train: {steps} steps of B={batch}: first "
+             f"{step_s[0]:.2f} s, median {med:.3f} s, "
+             f"{batch / med:.0f} samples/s, {flop / med * 1e-12:.2f} "
+             f"TFLOP/s, peak {peak / 2**30:.2f} GiB "
+             f"({(peak - base) / 2**30:.2f} above the phase's start); "
+             f"launches a step {per_step}; "
+             f"losses {[round(x, 5) for x in losses]}")
+
+    # ------------------------- restart runner, bit for bit
+    t0 = time.perf_counter()
+    runner = FaultTolerantRunner(
+        step, params0, opt0, CheckpointManager(
+            os.path.join(TRAIN_DIR, "runner"), keep=1),
+        ckpt_every=TRAIN_CKPT_EVERY,
+        failure_schedule={TRAIN_FAIL_STEP: RuntimeError(
+            f"injected failure at step {TRAIN_FAIL_STEP}")})
+    log = runner.run(None, max_steps=steps, batch_for_step=batch_for_step)
+    runner_s = time.perf_counter() - t0
+    a = flatten_with_paths({"params": trainer.params,
+                            "opt_state": trainer.opt_state})
+    b = flatten_with_paths({"params": runner.params,
+                            "opt_state": runner.opt_state})
+    differ = [k for k in a if not torch.equal(a[k], b[k])]
+    if runner.restarts != 1 or runner.step != steps or differ:
+        fail(f"xdeepfm_train: the restarted run ({runner.restarts} "
+             f"restarts, step {runner.step}) differs from the "
+             f"uninterrupted one in {differ}")
+    replayed = [r["step"] for r in log if r["event"] == "step"]
+    shutil.rmtree(TRAIN_DIR, ignore_errors=True)
+    del runner, a, b
+    progress(f"xdeepfm_train: restarted at step {TRAIN_FAIL_STEP}, "
+             f"replayed {replayed}; final state bit-identical "
+             f"({runner_s:.1f} s)")
+
+    # ------------------------- accumulation, compression, K11/K12 inputs
+    b0 = batch_for_step(0)
+    m0 = hist[0]
+    _, _, m4 = make_train_step_for(cfg, accum_steps=4)(params0, opt0, b0)
+    _, _, mc = make_train_step_for(cfg, compress_grads=True)(params0, opt0,
+                                                             b0)
+    calls = []
+    with capture_cin_calls(calls):
+        loss, grads = value_and_grad(loss_fn)(params0, b0)
+    torch.cuda.synchronize()
+    flat = flatten_with_paths(grads)
+    gn = float(global_norm(grads))
+    err2 = bound2 = 0.0
+    ghat = {}
+    for k, gk in flat.items():
+        q, s = quantize_int8(gk)
+        ghat[k] = q.to(torch.float32) * s
+        err2 += float(((ghat[k] - gk) ** 2).sum())
+        bound2 += int((gk != 0).sum()) * float(s) ** 2 / 4
+    gn_hat = float(global_norm(ghat))
+    del ghat, flat
+    accum = {"loss": float(m4["loss"]), "grad_norm": float(m4["grad_norm"]),
+             "loss_rel": abs(float(m4["loss"]) - m0["loss"]) / m0["loss"],
+             "grad_norm_rel": abs(float(m4["grad_norm"]) - m0["grad_norm"])
+             / m0["grad_norm"]}
+    comp = {"loss": float(mc["loss"]), "grad_norm": float(mc["grad_norm"]),
+            "grad_norm_uncompressed": gn, "grad_norm_dequantized": gn_hat,
+            "quantization_err_norm": err2 ** 0.5,
+            "quantization_err_bound": bound2 ** 0.5}
+    if max(accum["loss_rel"], accum["grad_norm_rel"]) > TRAIN_LOSS_REL_TOL:
+        fail(f"xdeepfm_train: accum_steps=4 differs from one batch: "
+             f"{accum} against {m0}")
+    if (comp["loss"] != m0["loss"] or abs(gn - m0["grad_norm"])
+            > TRAIN_LOSS_REL_TOL * gn
+            or abs(comp["grad_norm"] - gn_hat) > TRAIN_LOSS_REL_TOL * gn_hat
+            or comp["quantization_err_norm"]
+            > comp["quantization_err_bound"]):
+        fail(f"xdeepfm_train: compress_grads=True: {comp} against {m0}")
+    progress(f"xdeepfm_train: accum_steps=4 loss {accum['loss']:.7f} / "
+             f"grad norm {accum['grad_norm']:.7f} against "
+             f"{m0['loss']:.7f} / {m0['grad_norm']:.7f}; compressed grad "
+             f"norm {comp['grad_norm']:.7f} (quantization error "
+             f"{comp['quantization_err_norm']:.3e} <= "
+             f"{comp['quantization_err_bound']:.3e})")
+    del grads
+
+    # ------------------------- where one step's device time goes
+    prof = step_profile(lambda: step(params0, opt0, b0), per_step)
+
+    # ------------------------- K12 and K11's backward calls, timed
+    # (backward runs the layers last to first: dx1, then dx0's parts)
+    roles = [(f"dx{x} layer {i}", i) for i in reversed(range(L))
+             for x in ["1"] + ["0"] * len(kcin.cin_m_parts(
+                 ([cfg.n_sparse] + list(cfg.cin_layers))[i]))]
+    k11_calls = [c[1:] for c in calls if c[0] == "cin_layer"]
+    k11_fwd_args, k11_args = k11_calls[:L], k11_calls[L:]
+    k12_args = [c[1:] for c in calls if c[0] == "cin_weight_grad"][::-1]
+    del calls, k11_calls
+    if len(k11_fwd_args) != L or len(k11_args) != len(roles) or \
+            len(k12_args) != L:
+        fail(f"xdeepfm_train: a step made {len(k11_fwd_args)} K11 "
+             f"forward, {len(k11_args)} K11 backward and {len(k12_args)} "
+             f"K12 calls, expected {L}, {len(roles)} and {L}")
+    with torch.no_grad():
+        k11_fwd = [dict(train_kernel_record(
+            "cin_layer", [t.detach() for t in args], TRAIN_ITERS,
+            TRAIN_PLAIN_ITERS), call=f"forward layer {i}", layer=i)
+            for i, args in enumerate(k11_fwd_args)]
+        k11_back = [dict(train_kernel_record(
+            "cin_layer", [t.detach() for t in args], TRAIN_ITERS,
+            TRAIN_PLAIN_ITERS), call=role, layer=i)
+            for args, (role, i) in zip(k11_args, roles)]
+        k12 = [dict(train_kernel_record(
+            "cin_weight_grad", [t.detach() for t in args], TRAIN_ITERS,
+            TRAIN_PLAIN_ITERS), layer=i) for i, args in enumerate(k12_args)]
+    del k11_fwd_args, k11_args, k12_args
+    for name, recs in (("K11 forward", k11_fwd), ("K11 backward", k11_back),
+                       ("K12", k12)):
+        bad = [r for r in recs if r["max_abs_err"] > r["max_abs_tol"]
+               or not r["deterministic"]]
+        if bad:
+            fail(f"xdeepfm_train: {name} differs from its plain version "
+                 f"or from itself: {bad}")
+    progress("xdeepfm_train: K12 " + ", ".join(
+        f"{r['ms']:.2f} ms (H={r['H']})" for r in k12) + "; K11 "
+        + ", ".join(f"{r['call']} {r['ms']:.2f} ms"
+                    for r in k11_fwd + k11_back))
+    if prof is not None:
+        progress(f"xdeepfm_train: traced step: device busy "
+                 f"{prof['device_busy_ms']:.1f} of {prof['wall_ms']:.1f} ms "
+                 f"(idle {prof['idle_share']:.3f}); K11 "
+                 f"{prof['k11_ms']:.1f} ms, K12 {prof['k12_ms']:.1f} ms; "
+                 f"launches in the trace {prof['launches_in_trace']} "
+                 f"(complete: {prof['complete']})")
+
+    # ------------------------- a whole step's gradient against plain
+    bg = batch_for_step(0, grad_rows)
+    _cuda.reset_launch_counts()
+    l_k, g_k = value_and_grad(loss_fn)(params0, bg)
+    _, g_k2 = value_and_grad(loss_fn)(params0, bg)
+    torch.cuda.synchronize()
+    grad_launches = dict(_cuda.LAUNCHES)
+    with plain_on_card():
+        l_p, g_p = value_and_grad(loss_fn)(params0, bg)
+    torch.cuda.synchronize()
+    fk, fk2, fp = (flatten_with_paths(t) for t in (g_k, g_k2, g_p))
+    leaf_rel = {k: rel_err(fk[k], fp[k]) for k in fp
+                if float(fp[k].abs().max()) > 0}
+    grad_same = all(torch.equal(fk[k], fk2[k]) for k in fk)
+    loss_rel = abs(float(l_k) - float(l_p)) / abs(float(l_p))
+    if max(leaf_rel.values()) > CIN_REL_TOL or not grad_same or \
+            loss_rel > TRAIN_LOSS_REL_TOL:
+        fail(f"xdeepfm_train: the step's gradient at {grad_rows} rows "
+             f"differs from the plain path (loss {loss_rel}, leaves "
+             f"{leaf_rel}, repeatable {grad_same})")
+    if grad_launches != {k: (2 * per_step[k] if k in per_step else 0)
+                         for k in grad_launches}:
+        fail(f"xdeepfm_train: the gradient check launched "
+             f"{grad_launches}")
+    del g_k, g_k2, g_p, fk, fk2, fp
+    progress(f"xdeepfm_train: a step's gradient at {grad_rows} rows "
+             f"within {max(leaf_rel.values()):.2e} of the plain path's "
+             f"leaves, repeatable")
+
+    phase_s = time.perf_counter() - phase_t0
+    k11_fwd_ms = sum(r["ms"] for r in k11_fwd)
+    k11_ms = sum(r["ms"] for r in k11_back)
+    k12_ms = sum(r["ms"] for r in k12)
+    phase = {"phase": "xdeepfm_train", "config": dataclasses.asdict(cfg),
+             "batch": batch, "steps": steps, "optimizer": dataclasses.asdict(
+                 TRAIN_OPT),
+             "losses": losses, "step_s": step_s, "first_step_s": step_s[0],
+             "median_step_s": med, "samples_per_s": batch / med,
+             "train_flop": flop, "tflop_per_s": flop / med * 1e-12,
+             "launches": {k: launches[k] for k in TRAIN_PATH},
+             "launches_per_step": per_step,
+             "max_memory_allocated": peak, "allocated_before": base,
+             "peak_above_before": peak - base,
+             "ckpt_every": TRAIN_CKPT_EVERY,
+             "restart": {"fail_step": TRAIN_FAIL_STEP,
+                         "restarts": 1, "steps_run": replayed,
+                         "runner_s": runner_s, "bit_identical": True},
+             "accum_steps_4": accum, "compress_grads": comp,
+             "grad_check": {"rows": grad_rows, "loss_rel": loss_rel,
+                            "leaf_rel": leaf_rel, "repeatable": grad_same,
+                            "launches": grad_launches},
+             "step_profile": prof,
+             "k11_forward_ms_per_step": k11_fwd_ms,
+             "k11_backward_ms_per_step": k11_ms,
+             "k12_ms_per_step": k12_ms,
+             "k11_forward": k11_fwd, "k11_backward": k11_back,
+             "k12_layers": k12,
+             "phase_s": phase_s}
+    main = k12[1 if L > 1 else 0]
+    kern = {"name": "cin_weight_grad", "route": "cuda",
+            "source": "src/repro_torch/csrc/cin_grad.cu",
+            "replaces": ("none: the gradient of "
+                         "src/repro/kernels/cin_fuse.py:39, which the "
+                         "reference differentiates in XLA "
+                         "(src/repro/models/xdeepfm.py:133)"),
+            "launches": launches["cin_weight_grad"],
+            **{k: main[k] for k in ("max_abs_err", "max_abs_tol", "ms",
+                                    "plain_ms", "bound_ms", "bound_by",
+                                    "bound_3xtf32_ms", "bound_fp32_ms",
+                                    "library_ms", "library_rel_err",
+                                    "deterministic", "splits")},
+            "arithmetic": "fp32 (SIMT)",
+            "shape": {k: main[k] for k in ("B", "H", "M", "D", "K")},
+            "train_layers": k12}
+    return phase, [kern]
+
+
+# ------------------------------------------------------------ the examples
+EXAMPLES = {  # example -> the kernels its card run must launch
+    "quickstart_torch": ("wcsd_query_ragged",),
+    "serve_wcsd_torch": ("wcsd_query_gathered", "wcsd_query_ragged",
+                         "wcsd_profile_ragged"),
+}
+
+
+def examples_phase() -> dict:
+    """Path 11: the port's examples (`examples/quickstart_torch.py`,
+    `examples/serve_wcsd_torch.py`) at their default sizes on the card,
+    their own asserts included (the quickstart: the index against the
+    constrained-BFS oracle and the engine's K1 batch against it; the
+    serving example: the padded, CSR and 8-shard legs equal, BFS spot
+    checks, the profile staircases and their memo). Their printout goes
+    to stderr; each one's launches are counted."""
+    import importlib.util
+    import torch
+    from repro_torch.kernels import _cuda
+    out = {"phase": "examples"}
+    for name, path in EXAMPLES.items():
+        spec = importlib.util.spec_from_file_location(
+            name, os.path.join(ROOT, "examples", f"{name}.py"))
+        mod = importlib.util.module_from_spec(spec)
+        spec.loader.exec_module(mod)
+        torch.cuda.synchronize()
+        _cuda.reset_launch_counts()
+        t0 = time.perf_counter()
+        with contextlib.redirect_stdout(sys.stderr):
+            res = mod.main([])
+        torch.cuda.synchronize()
+        launches = dict(_cuda.LAUNCHES)
+        check_path_launches(f"examples: {name}", launches, path, {})
+        out[name] = {"wall_s": time.perf_counter() - t0,
+                     "launches": {k: launches[k] for k in path}}
+        if name == "quickstart_torch":
+            out[name]["counts"] = res
+        progress(f"examples: {name} passed on the card in "
+                 f"{out[name]['wall_s']:.1f} s, launches "
+                 f"{out[name]['launches']}")
+    return out
 
 
 # ------------------------------------------------------------------- main
@@ -2674,6 +3195,17 @@ def main() -> int:
     # ------------------------------------------ xDeepFM serving (K11)
     xdf, xdf_kernels = xdeepfm_phase(get_config(), dev)
 
+    # ----------------------------------- xDeepFM training (K11, K12)
+    train, train_kernels = xdeepfm_train_phase(get_config(), dev)
+    k11 = xdf_kernels[0]
+    k11.update(serve_launches=k11["launches"],
+               train_launches=train["launches"]["cin_layer"],
+               train_backward_calls=train["k11_backward"])
+    k11["launches"] += train["launches"]["cin_layer"]
+
+    # --------------------------------------------------- the examples
+    examples = examples_phase()
+
     # ----------------------------------------- kernels vs plain, timed
     if cap.k3 is None or cap.k4 is None or cap.k4_dense is None:
         fail("no build round was captured for the kernel phases")
@@ -2688,7 +3220,7 @@ def main() -> int:
                            launches["wc_relax_batched"],
                            steps["wc_relax_batched"], 50),
     ] + comp_kernels + bp_kernels + pad_kernels + relax_kernels \
-        + xdf_kernels
+        + xdf_kernels + train_kernels
     for k in kernels:
         if k["max_abs_err"] > k.get("max_abs_tol", 0):
             fail(f"kernel {k['name']} differs from its plain version "
@@ -2710,6 +3242,8 @@ def main() -> int:
     emit(relax)
     emit(dyn)
     emit(xdf)
+    emit(train)
+    emit(examples)
     emit({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

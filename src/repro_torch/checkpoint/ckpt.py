@@ -1,8 +1,15 @@
-"""On-disk WC-Index persistence and the crash-safe update WAL, host numpy:
-the port's own reader and writer of the reference package's formats
-(`checkpoint/ckpt.py` there), so that each package loads the files the
-other writes, byte for byte the same for the same index.
+"""Checkpoints, on-disk WC-Index persistence and the crash-safe update
+WAL, host numpy: the port's own reader and writer of the reference
+package's formats (`checkpoint/ckpt.py` there), so that each package
+loads the files the other writes, byte for byte the same for the same
+index.
 
+  * `CheckpointManager`: training state (a tree of tensors, `train.tree`)
+    as ``step_%08d/state.npz`` + ``manifest.json``, written to a ``.tmp``
+    directory and moved into place with `os.replace`, the oldest removed
+    beyond ``keep``. The npz keys are the reference's (``params/cin/w0``,
+    ``opt_state/.m/embed``, ``opt_state/.step``), so a checkpoint of
+    either package restores in the other.
   * `save_packed_index` / `load_packed_index`: the WCX v2 file (magic,
     JSON header, 64-byte aligned blobs with a CRC32 each, mmap loads,
     read-only arrays) and the typed `IndexPersistenceError` family.
@@ -13,11 +20,89 @@ from __future__ import annotations
 
 import json
 import os
+import shutil
 import zlib
 
 import numpy as np
+import torch
 
 from ..core.resilience import IndexIntegrityError, WALError, WALReplayError
+from ..train.tree import flatten_with_paths, unflatten_like
+
+
+def _host(leaf) -> np.ndarray:
+    if torch.is_tensor(leaf):
+        return leaf.detach().cpu().numpy()
+    return np.asarray(leaf)
+
+
+class CheckpointManager:
+    def __init__(self, directory: str, keep: int = 3):
+        self.dir = directory
+        self.keep = keep
+        os.makedirs(directory, exist_ok=True)
+
+    # ----------------------------------------------------------------- save
+    def save(self, step: int, state, extra: dict | None = None) -> str:
+        path = os.path.join(self.dir, f"step_{step:08d}")
+        tmp = path + ".tmp"
+        os.makedirs(tmp, exist_ok=True)
+        arrays = {k: _host(v) for k, v in flatten_with_paths(state).items()}
+        np.savez(os.path.join(tmp, "state.npz"), **arrays)
+        manifest = {
+            "step": step,
+            "leaves": {k: {"shape": list(a.shape), "dtype": str(a.dtype)}
+                       for k, a in arrays.items()},
+            "extra": extra or {},
+        }
+        with open(os.path.join(tmp, "manifest.json"), "w") as f:
+            json.dump(manifest, f, indent=1)
+        if os.path.exists(path):
+            shutil.rmtree(path)
+        os.replace(tmp, path)
+        self._gc()
+        return path
+
+    # -------------------------------------------------------------- restore
+    def _steps(self) -> list[int]:
+        return sorted(int(d.split("_")[1]) for d in os.listdir(self.dir)
+                      if d.startswith("step_") and not d.endswith(".tmp"))
+
+    def latest_step(self) -> int | None:
+        steps = self._steps()
+        return steps[-1] if steps else None
+
+    def restore(self, like_state, step: int | None = None):
+        """(state, step): the checkpoint at ``step`` (the latest by
+        default) in the structure of ``like_state``, whose leaves' shapes
+        must match. A tensor leaf comes back as a tensor of the saved
+        dtype on that leaf's device, any other leaf as a numpy array."""
+        if step is None:
+            step = self.latest_step()
+        if step is None:
+            raise FileNotFoundError(f"no checkpoints in {self.dir}")
+        path = os.path.join(self.dir, f"step_{step:08d}")
+        restored = {}
+        with np.load(os.path.join(path, "state.npz")) as data:
+            for k, leaf in flatten_with_paths(like_state).items():
+                a = data[k]
+                want = tuple(getattr(leaf, "shape", np.shape(leaf)))
+                if tuple(a.shape) != want:
+                    raise ValueError(f"shape mismatch for {k}: {a.shape} vs "
+                                     f"{want}")
+                restored[k] = (torch.from_numpy(a).to(leaf.device)
+                               if torch.is_tensor(leaf) else a)
+        return unflatten_like(like_state, restored), step
+
+    def manifest(self, step: int) -> dict:
+        path = os.path.join(self.dir, f"step_{step:08d}", "manifest.json")
+        with open(path) as f:
+            return json.load(f)
+
+    def _gc(self):
+        for s in self._steps()[:-self.keep]:
+            shutil.rmtree(os.path.join(self.dir, f"step_{s:08d}"),
+                          ignore_errors=True)
 
 
 # ---------------------------------------------------------------------------

@@ -1,21 +1,130 @@
-"""Fault injection for the serving path, ported from the reference
-package's `checkpoint/fault.py`: a seeded fault schedule, an engine
+"""Fault tolerance, ported from the reference package's
+`checkpoint/fault.py`.
+
+Training: `Heartbeat` (a simulated heartbeat table) and
+`FaultTolerantRunner`, the checkpoint/restart loop a multi-host launcher
+runs per host: dead peers -> `remesh_fn` to the survivors and a restore;
+a step that raises -> restore the latest checkpoint and replay from its
+step (`batch_for_step`); the step time watched for stragglers.
+
+Serving: a seeded fault schedule, an engine
 wrapper that raises or hangs on the schedule's draws (the flush watchdog
 and fallback ladder of `core/serve.py` must absorb both), in-memory and
 on-disk bit flips for the integrity checks, a torn write (`crashing_open`)
 and a torn WAL tail (`tear_file_tail`), and the seeded end-to-end chaos
 schedule `run_chaos_schedule` over a dynamic, WAL-backed server.
-(`Heartbeat` and `FaultTolerantRunner` belong to the training substrate,
-which the port does not carry.)
 """
 from __future__ import annotations
 
+import dataclasses
 import os
 import shutil
+import time
+from typing import Callable, Iterable, Optional
 
 import numpy as np
 
 from ..core.query import PendingResult
+from ..train.loop import StepTimeMonitor, _scalar
+from .ckpt import CheckpointManager
+
+
+@dataclasses.dataclass
+class Heartbeat:
+    """Simulated heartbeat table for N workers."""
+    n_workers: int
+    timeout_s: float = 10.0
+    last: dict = dataclasses.field(default_factory=dict)
+
+    def beat(self, worker: int, t: Optional[float] = None):
+        self.last[worker] = time.monotonic() if t is None else t
+
+    def dead_workers(self, now: Optional[float] = None) -> list[int]:
+        now = time.monotonic() if now is None else now
+        return [w for w in range(self.n_workers)
+                if now - self.last.get(w, -1e18) > self.timeout_s]
+
+
+class FaultTolerantRunner:
+    """Wraps a train step with restart-on-failure + straggler accounting.
+
+    failure_schedule: {step: Exception} injected before the step runs
+    (tests); in production the exception comes from the collective layer.
+    remesh_fn: called with the surviving worker count when a peer dies;
+    returns a (train_step, params, opt_state) rebuilt for the smaller mesh
+    (elastic scaling)."""
+
+    def __init__(self, train_step: Callable, params, opt_state,
+                 ckpt: CheckpointManager, *, ckpt_every: int = 5,
+                 max_restarts: int = 10,
+                 failure_schedule: Optional[dict] = None,
+                 heartbeat: Optional[Heartbeat] = None,
+                 remesh_fn: Optional[Callable] = None):
+        self.train_step = train_step
+        self.params = params
+        self.opt_state = opt_state
+        self.ckpt = ckpt
+        self.ckpt_every = ckpt_every
+        self.max_restarts = max_restarts
+        self.failures = dict(failure_schedule or {})
+        self.heartbeat = heartbeat
+        self.remesh_fn = remesh_fn
+        self.monitor = StepTimeMonitor()
+        self.restarts = 0
+        self.step = 0
+        self.log: list[dict] = []
+
+    def _restore(self):
+        state, step = self.ckpt.restore(
+            {"params": self.params, "opt_state": self.opt_state})
+        self.params = state["params"]
+        self.opt_state = state["opt_state"]
+        self.step = step
+        self.restarts += 1
+        if self.restarts > self.max_restarts:
+            raise RuntimeError("restart budget exhausted")
+
+    def run(self, batches: Iterable, max_steps: int,
+            batch_for_step: Optional[Callable] = None):
+        """batch_for_step(step) lets restarts replay the right batch
+        (deterministic data cursor)."""
+        it = iter(batches) if batches is not None else None
+        self.ckpt.save(self.step, {"params": self.params,
+                                   "opt_state": self.opt_state})
+        while self.step < max_steps:
+            if self.heartbeat:
+                dead = self.heartbeat.dead_workers()
+                if dead and self.remesh_fn:
+                    self.train_step, self.params, self.opt_state = \
+                        self.remesh_fn(self.heartbeat.n_workers - len(dead))
+                    self.heartbeat = Heartbeat(
+                        self.heartbeat.n_workers - len(dead),
+                        self.heartbeat.timeout_s)
+                    self._restore()
+            batch = (batch_for_step(self.step) if batch_for_step
+                     else next(it))
+            t0 = time.perf_counter()
+            try:
+                if self.step in self.failures:
+                    raise self.failures.pop(self.step)
+                self.params, self.opt_state, m = self.train_step(
+                    self.params, self.opt_state, batch)
+                loss = _scalar(m["loss"])
+            except Exception as e:  # noqa: BLE001 (restart on any fault)
+                self.log.append({"step": self.step, "event": "failure",
+                                 "error": repr(e)})
+                self._restore()
+                continue
+            dt = time.perf_counter() - t0
+            straggler = self.monitor.observe(dt)
+            self.log.append({"step": self.step, "event": "step",
+                             "loss": loss, "time_s": dt,
+                             "straggler": straggler})
+            self.step += 1
+            if self.step % self.ckpt_every == 0:
+                self.ckpt.save(self.step, {"params": self.params,
+                                           "opt_state": self.opt_state})
+        return self.log
 
 
 # The index saver (`ckpt.save_packed_index`) takes an injectable

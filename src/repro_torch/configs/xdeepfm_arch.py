@@ -1,10 +1,15 @@
 """xdeepfm [arXiv:1803.05170]: 39 sparse fields, embed_dim 10, CIN
 200-200-200, MLP 400-400. Shapes: train_batch (65,536), serve_p99 (512),
 serve_bulk (262,144), retrieval_cand (1 query x 1,000,000 candidates).
-The port serves the last three; training is not ported yet."""
+The port serves the last three and trains train_batch (`TRAIN_OPT`,
+`make_train_step_for`, `train_flops`: the reference's `make_cell`
+"train" shape without its dry-run shardings)."""
 from __future__ import annotations
 
+from ..models import xdeepfm as X
 from ..models.xdeepfm import XDeepFMConfig
+from ..train.loop import make_train_step
+from ..train.optim import OptimizerConfig
 
 SHAPES = ["train_batch", "serve_p99", "serve_bulk", "retrieval_cand"]
 
@@ -45,3 +50,20 @@ def flops_fwd(cfg: XDeepFMConfig, B: int) -> float:
         d_in = w
     f += 2.0 * B * d_in
     return f
+
+
+# the train_batch shape's optimizer (the reference's `make_cell`)
+TRAIN_OPT = OptimizerConfig(lr=1e-3, weight_decay=0.0)
+
+
+def train_flops(cfg: XDeepFMConfig, B: int) -> float:
+    """A train step's model FLOP at batch B: three forwards' worth (the
+    reference's ``meta["model_flops"]``)."""
+    return 3.0 * flops_fwd(cfg, B)
+
+
+def make_train_step_for(cfg: XDeepFMConfig,
+                        opt_cfg: OptimizerConfig = TRAIN_OPT, **kw):
+    """`make_train_step` over the functional xDeepFM loss at ``cfg``
+    (``kw``: ``accum_steps``, ``compress_grads``)."""
+    return make_train_step(lambda p, b: X.loss_fn(p, cfg, b), opt_cfg, **kw)

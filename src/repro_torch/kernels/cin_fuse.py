@@ -10,6 +10,17 @@ cin_layer_ref`, in the TPU kernel's form (the outer product z as a
 [b*D, H*M] matrix against w as [H*M, K]), chunked over B so that z
 stays under `CIN_CHUNK_BYTES`: unchunked it would be B*H*M*D floats,
 81.8 GB at B = 262,144 and the model's widths.
+
+K12, the weight gradient of a CIN layer (`cin_weight_grad_cuda`, CUDA
+source `repro_torch/csrc/cin_grad.cu`), and its plain version
+`cin_weight_grad_plain` live here too:
+
+    dw[k, h, m] = sum_{b, d} g[b, k, d] * x1[b, h, d] * x0[b, m, d]
+
+g [B, K, D], x1 [B, H, D], x0 [B, M, D] -> [K, H, M] float32. It has no
+Pallas counterpart: the reference differentiates its jnp CIN in XLA.
+The input gradients are K11 itself (`ops.CinLayer`); `cin_m_parts`
+splits an x0 wider than K11's shared memory holds (`CIN_MAX_M`).
 """
 from __future__ import annotations
 
@@ -20,6 +31,15 @@ from . import _cuda
 CIN_CHUNK_BYTES = 1 << 30   # one [b, D, H, M] outer product, at most
 CIN_DTYPES = (torch.float32, torch.bfloat16)
 _PLANS: dict[tuple, tuple] = {}  # `cin_plan` by (device, shapes, bf16)
+# The widest x0 K11 takes: a block stages its 64 rows of x0 (64 * M
+# words) beside 48,256 words of W, A and x1 stages and 2 * 64 row offsets
+# (`cin_smem_words` in csrc/cin_fuse.cu at M >= 32), in at most 232,448
+# bytes: 4 * (48,256 + 64 * M + 3 * 64 * 2) <= 232,448 gives M <= 148.
+CIN_MAX_M = 148
+# K12 splits its contraction (n = b * D + d) into slices of this many
+# rows, each summed by its own blocks into a workspace slice; a last
+# launch adds the slices in index order.
+CIN_GRAD_SPLIT_ROWS = 16384
 
 
 def cin_chunk_rows(H: int, M: int, D: int, itemsize: int = 4) -> int:
@@ -106,6 +126,81 @@ def cin_layer_cuda(x1, x0, w):
         x1.data_ptr(), x0.data_ptr(), w.data_ptr(), out.data_ptr(),
         work.data_ptr(), wimg.data_ptr(), B, H, M, D, K, int(bf16), S,
         _cuda.stream_ptr(x1.device))
+    _cuda.check_launch(err, what)
+    _cuda.LAUNCHES[what] += 1
+    return out
+
+
+def cin_m_parts(M: int) -> list[tuple[int, int]]:
+    """x0's channels cut into the fewest near-equal [a, b) parts of at most
+    `CIN_MAX_M` each (one part where M fits): 200 -> (0, 100), (100,
+    200)."""
+    n = max(1, -(-M // CIN_MAX_M))
+    return [(i * M // n, (i + 1) * M // n) for i in range(n)]
+
+
+def cin_grad_shapes(g, x1, x0) -> tuple[int, int, int, int, int]:
+    """(B, H, M, D, K) of a weight gradient's inputs; raises on a wrong
+    rank or shapes that do not agree."""
+    if g.dim() != 3 or x1.dim() != 3 or x0.dim() != 3:
+        raise ValueError("cin_weight_grad: expected g [B, K, D], x1 "
+                         "[B, H, D], x0 [B, M, D]")
+    B, K, D = g.shape
+    H, M = x1.shape[1], x0.shape[1]
+    if x1.shape != (B, H, D) or x0.shape != (B, M, D):
+        raise ValueError(f"cin_weight_grad: shapes disagree: g "
+                         f"{tuple(g.shape)}, x1 {tuple(x1.shape)}, x0 "
+                         f"{tuple(x0.shape)}")
+    return B, H, M, D, K
+
+
+def cin_weight_grad_plain(g, x1, x0):
+    """Plain version of K12: the GEMM ``dw[k, r] = sum_n G[n, k] Z[n, r]``
+    (n = b * D + d, r = h * M + m, Z the outer product of x1 and x0, as
+    K11's plain version forms it), chunked over B so that Z stays under
+    `CIN_CHUNK_BYTES`, the chunks added in order. float32 (float64 where
+    an input is float64). Returns [K, H, M]."""
+    B, H, M, D, K = cin_grad_shapes(g, x1, x0)
+    dt = torch.promote_types(torch.promote_types(g.dtype, x1.dtype),
+                             torch.promote_types(x0.dtype, torch.float32))
+    g, x1, x0 = g.to(dt), x1.to(dt), x0.to(dt)
+    out = torch.zeros((K, H * M), dtype=dt, device=g.device)
+    step = cin_chunk_rows(H, M, D, out.element_size())
+    for a in range(0, B, step):
+        xa, xb = x1[a:a + step].transpose(1, 2), x0[a:a + step].transpose(1, 2)
+        n = xa.shape[0]
+        z = (xa[:, :, :, None] * xb[:, :, None, :]).reshape(n * D, H * M)
+        gt = g[a:a + step].transpose(1, 2).reshape(n * D, K)
+        out += gt.t() @ z
+    return out.reshape(K, H, M)
+
+
+def cin_grad_splits(B: int, D: int) -> int:
+    """K12's contraction slices at batch B: one per `CIN_GRAD_SPLIT_ROWS`
+    rows of n = b * D + d (at least one)."""
+    return max(1, -(-(B * D) // CIN_GRAD_SPLIT_ROWS))
+
+
+def cin_weight_grad_cuda(g, x1, x0):
+    """Launch K12 on the current stream: the SIMT fp32 GEMM over the
+    contraction's slices into an fp32 workspace, then (where there is
+    more than one slice) the in-order sum of the slices. Scratch: S * K *
+    H * M floats, S = `cin_grad_splits`. g, x1 and x0 float32,
+    contiguous, on one CUDA device; any B. Returns [K, H, M] float32."""
+    what = "cin_weight_grad"
+    B, H, M, D, K = cin_grad_shapes(g, x1, x0)
+    dts = {"g": torch.float32, "x1": torch.float32, "x0": torch.float32}
+    _cuda.check_cuda_args(what, g.device, dtypes=dts, g=g, x1=x1, x0=x0)
+    out = torch.empty((K, H, M), dtype=torch.float32, device=g.device)
+    if out.numel() == 0:                  # nothing to compute: no launch
+        return out
+    S = cin_grad_splits(B, D)
+    work = torch.empty((S, K, H, M) if S > 1 else (0,), dtype=torch.float32,
+                       device=g.device)
+    err = _cuda.library("cin_grad").cin_weight_grad_launch(
+        g.data_ptr(), x1.data_ptr(), x0.data_ptr(), out.data_ptr(),
+        work.data_ptr(), B, H, M, D, K, S, CIN_GRAD_SPLIT_ROWS,
+        _cuda.stream_ptr(g.device))
     _cuda.check_launch(err, what)
     _cuda.LAUNCHES[what] += 1
     return out

@@ -253,11 +253,78 @@ def frontier_relax(nbr_pad, lvl_pad, Fw, R):
     return _frontier.frontier_relax_gathered_plain(fw_nbr, lvl_pad, R)
 
 
-def cin_layer(x1, x0, w):
-    """One xDeepFM CIN layer (reference `ops.py:cin_layer`): x1 [B, H, D],
-    x0 [B, M, D], w [K, H, M] -> [B, K, D] float32. K11 on the card (any
-    B; the reference pads B to its block of 8, K11 masks its edge), the
-    plain version on the CPU."""
+def _cin_forward(x1, x0, w):
+    """K11 on the card (any B; the reference pads B to its block of 8,
+    K11 masks its edge), the plain version on the CPU."""
     if _on_card(x1, "cin_layer"):
         return _cin.cin_layer_cuda(x1, x0, w)
     return _cin.cin_layer_plain(x1, x0, w)
+
+
+def cin_layer_split(x1, x0, w):
+    """`_cin_forward` over x0's channels cut into `cin_fuse.cin_m_parts`
+    (one call where M fits K11's shared memory), each part with its slice
+    of w, the parts' outputs added in index order. The same calls on
+    either device."""
+    parts = _cin.cin_m_parts(x0.shape[1])
+    if len(parts) == 1:
+        return _cin_forward(x1, x0, w)
+    out = None
+    for a, b in parts:
+        y = _cin_forward(x1, x0[:, a:b].contiguous(),
+                         w[:, :, a:b].contiguous())
+        out = y if out is None else out + y
+    return out
+
+
+def cin_weight_grad(g, x1, x0):
+    """The weight gradient of a CIN layer, ``dw[k, h, m] = sum_{b, d}
+    g[b, k, d] x1[b, h, d] x0[b, m, d]`` -> [K, H, M] float32: K12 on the
+    card, its plain version on the CPU."""
+    if _on_card(g, "cin_weight_grad"):
+        return _cin.cin_weight_grad_cuda(g, x1, x0)
+    return _cin.cin_weight_grad_plain(g, x1, x0)
+
+
+class CinLayer(torch.autograd.Function):
+    """A CIN layer with its gradient on the same kernels, for g = dL/dout
+    [B, K, D]:
+
+      dx1 = cin_layer(g, x0, w.permute(1, 0, 2))   K11, H' = K, K' = H
+      dx0 = cin_layer(g, x1, w.permute(2, 0, 1))   K11, H' = K, M' = H,
+                                                   K' = M (split where
+                                                   M' passes CIN_MAX_M)
+      dw  = cin_weight_grad(g, x1, x0)             K12
+
+    Where x1 and x0 are one tensor (the first layer: both are the
+    embeddings), autograd adds the two contributions."""
+
+    @staticmethod
+    def forward(ctx, x1, x0, w):
+        ctx.save_for_backward(x1, x0, w)
+        return _cin_forward(x1, x0, w)
+
+    @staticmethod
+    def backward(ctx, g):
+        x1, x0, w = ctx.saved_tensors
+        g = g.contiguous()
+        dx1 = dx0 = dw = None
+        if ctx.needs_input_grad[0]:
+            dx1 = _cin_forward(g, x0, w.permute(1, 0, 2).contiguous())
+        if ctx.needs_input_grad[1]:
+            dx0 = cin_layer_split(g, x1, w.permute(2, 0, 1).contiguous())
+        if ctx.needs_input_grad[2]:
+            dw = cin_weight_grad(g, x1, x0)
+        return dx1, dx0, dw
+
+
+def cin_layer(x1, x0, w):
+    """One xDeepFM CIN layer (reference `ops.py:cin_layer`): x1 [B, H, D],
+    x0 [B, M, D], w [K, H, M] -> [B, K, D] float32. K11 on the card, the
+    plain version on the CPU. Where an input requires a gradient (and
+    grad mode is on) it goes through `CinLayer`, whose backward runs K11
+    and K12; otherwise it is the forward alone, as serving calls it."""
+    if torch.is_grad_enabled() and (x1.requires_grad or x0.requires_grad
+                                    or w.requires_grad):
+        return CinLayer.apply(x1, x0, w)
+    return _cin_forward(x1, x0, w)

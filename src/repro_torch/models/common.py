@@ -1,5 +1,6 @@
 """Shared model building blocks of the port. Only what its models use so
-far: `trunc_normal`, the reference's `models/common.py:trunc_normal`."""
+far: `trunc_normal`, the reference's `models/common.py:trunc_normal`, and
+`gather_rows`, an embedding gather whose gradient is deterministic."""
 from __future__ import annotations
 
 import math
@@ -27,3 +28,38 @@ def trunc_normal(shape, generator: torch.Generator, scale: float = 1.0,
     edge = torch.nextafter(torch.tensor(2.0), torch.tensor(0.0)).item()
     x = x.clamp(-edge, edge)
     return (std * x).to(dtype)
+
+
+class _GatherRows(torch.autograd.Function):
+    """``table[ids]`` whose backward sums each id's rows by sorting: a
+    stable sort of the ids, then `torch.segment_reduce` over each run of
+    equal ids (one sequential sum per row, in the order the ids came),
+    written into a zero table. `index_select`'s own backward scatters
+    with float atomics on the card, so two runs could differ in their
+    last bits; this one gives the same bits every run."""
+
+    @staticmethod
+    def forward(ctx, table, ids):
+        ctx.save_for_backward(ids)
+        ctx.rows = table.shape[0]
+        return table.index_select(0, ids)
+
+    @staticmethod
+    def backward(ctx, grad):
+        (ids,) = ctx.saved_tensors
+        order = torch.argsort(ids, stable=True)
+        uniq, counts = torch.unique_consecutive(ids[order],
+                                                return_counts=True)
+        sums = torch.segment_reduce(grad[order], "sum", lengths=counts,
+                                    unsafe=True)
+        out = grad.new_zeros((ctx.rows,) + tuple(grad.shape[1:]))
+        out[uniq] = sums
+        return out, None
+
+
+def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
+    """Rows ``ids`` (int64 [n]) of ``table`` [R, ...]: `index_select`,
+    with a deterministic gradient where ``table`` requires one."""
+    if torch.is_grad_enabled() and table.requires_grad:
+        return _GatherRows.apply(table, ids)
+    return table.index_select(0, ids)

@@ -1,5 +1,5 @@
-"""xDeepFM (arXiv:1803.05170) serving path: sparse embeddings + CIN + DNN
-+ linear, the port of the reference's `models/xdeepfm.py`.
+"""xDeepFM (arXiv:1803.05170): sparse embeddings + CIN + DNN + linear,
+the port of the reference's `models/xdeepfm.py`, serving and training.
 
 Parameters keep the reference's names and layouts (``embed [R, D]``,
 ``linear [R, 1]``, ``bias [1]``, ``cin.w{i} [K, H, M]``, ``cin.out_w``,
@@ -11,10 +11,15 @@ reference's model path computes the same contraction as a `lax.scan`
 over D slices; its Pallas kernel is the fused form). The MLP is a plain
 `torch.matmul`, as the reference leaves it to XLA.
 
-This is the serving path: parameters do not require gradients, and
-`loss_fn` is an evaluation loss. Training, and the CIN gradient, are not
-ported yet. The reference's `PartitionSpec`s belong to its dry run and
-have no counterpart here.
+The model is one functional path, `forward` / `loss_fn(params, cfg,
+batch)` over a nested dict of tensors, the reference's signature
+(`param_tree` gives a module's, `params_to_numpy` their numpy copy).
+Serving calls the `XDeepFM` module, which runs that path over its own
+weights; they do not require gradients. Training's gradients come from
+autograd, through `ops.CinLayer` (K11 and K12 on the card) and
+`common.gather_rows` (a deterministic embedding gradient). The
+reference's `PartitionSpec`s belong to its dry run and have no
+counterpart here.
 """
 from __future__ import annotations
 
@@ -26,7 +31,7 @@ from torch import nn
 
 from ..kernels import ops
 from ..kernels._cuda import resolve_device
-from .common import trunc_normal
+from .common import gather_rows, trunc_normal
 
 
 @dataclasses.dataclass(frozen=True)
@@ -118,32 +123,73 @@ class _Group(nn.Module):
 
 
 # ------------------------------------------------------------------ forward
-def cin_features(cin: nn.Module, x0: torch.Tensor) -> torch.Tensor:
+def cin_features(cin: dict, x0: torch.Tensor) -> torch.Tensor:
     """Compressed Interaction Network: one `ops.cin_layer` per layer
-    (K11 on the card). x0 [B, M, D]; returns [B, sum(cin_layers)], each
-    layer's output summed over D."""
+    (K11 on the card). ``cin`` is the dict of its weights; x0 [B, M, D];
+    returns [B, sum(cin_layers)], each layer's output summed over D."""
     xk, pooled, i = x0, [], 0
-    while hasattr(cin, f"w{i}"):
-        out = ops.cin_layer(xk, x0, getattr(cin, f"w{i}"))   # [B, K, D]
+    while f"w{i}" in cin:
+        out = ops.cin_layer(xk, x0, cin[f"w{i}"])             # [B, K, D]
         pooled.append(out.sum(-1))
         xk, i = out, i + 1
     return torch.cat(pooled, dim=-1)
 
 
-def head(cin: nn.Module, mlp: nn.Module, bias: torch.Tensor,
-         emb: torch.Tensor, lin: torch.Tensor):
+def head(cin: dict, mlp: dict, bias: torch.Tensor, emb: torch.Tensor,
+         lin: torch.Tensor):
     """Logits from gathered embeddings ``emb`` [B, F, D] and the linear
-    term ``lin`` [B]: the CIN, the MLP and the bias. Returns (logits [B],
-    cin_feat [B, sum(cin_layers)])."""
+    term ``lin`` [B]: the CIN, the MLP and the bias (``cin`` and ``mlp``
+    dicts of their weights). Returns (logits [B], cin_feat
+    [B, sum(cin_layers)])."""
     B, F, D = emb.shape
     cin_feat = cin_features(cin, emb)
-    cin_logit = (cin_feat @ cin.out_w)[:, 0]
+    cin_logit = (cin_feat @ cin["out_w"])[:, 0]
     h, i = emb.reshape(B, F * D), 0
-    while hasattr(mlp, f"w{i}"):
-        h = torch.relu(h @ getattr(mlp, f"w{i}") + getattr(mlp, f"b{i}"))
+    while f"w{i}" in mlp:
+        h = torch.relu(h @ mlp[f"w{i}"] + mlp[f"b{i}"])
         i += 1
-    dnn_logit = (h @ mlp.out_w)[:, 0]
+    dnn_logit = (h @ mlp["out_w"])[:, 0]
     return lin + cin_logit + dnn_logit + bias[0], cin_feat
+
+
+def embed(params: dict, cfg, ids):
+    """Gather the embeddings [B, F, D] and the summed linear term [B] of
+    int32 global row ids [B, F] (a tensor or a numpy array; moved to the
+    parameters' device) through `gather_rows`."""
+    ids = torch.as_tensor(ids, device=params["embed"].device)
+    if ids.dtype != torch.int32:
+        raise TypeError(f"ids must be int32, got {ids.dtype}")
+    if ids.dim() != 2 or ids.shape[1] != cfg.n_sparse:
+        raise ValueError(f"ids must be [B, {cfg.n_sparse}], got "
+                         f"{tuple(ids.shape)}")
+    B, F = ids.shape
+    flat = ids.reshape(-1).long()
+    emb = gather_rows(params["embed"], flat).reshape(B, F, cfg.embed_dim)
+    lin = gather_rows(params["linear"], flat).reshape(B, F).sum(-1)
+    return emb, lin
+
+
+def logits_and_cin(params: dict, cfg, ids):
+    """(logits [B], pooled CIN features [B, sum(cin_layers)]) of int32
+    ids [B, F] under ``params``, a nested dict of tensors as `param_tree`
+    returns (leaves may require gradients)."""
+    emb, lin = embed(params, cfg, ids)
+    return head(params["cin"], params["mlp"], params["bias"], emb, lin)
+
+
+def forward(params: dict, cfg, batch: dict) -> torch.Tensor:
+    """The reference's `forward`: logits [B] of ``batch["ids"]``."""
+    return logits_and_cin(params, cfg, batch["ids"])[0]
+
+
+def loss_fn(params: dict, cfg, batch: dict) -> torch.Tensor:
+    """The reference's `loss_fn`: mean binary cross-entropy of the logits
+    against ``batch["labels"]``, in the numerically stable form."""
+    logits = forward(params, cfg, batch)
+    y = torch.as_tensor(batch["labels"], device=logits.device).float()
+    loss = logits.clamp_min(0) - logits * y + torch.log1p(
+        torch.exp(-logits.abs()))
+    return loss.mean()
 
 
 class XDeepFM(nn.Module):
@@ -151,7 +197,8 @@ class XDeepFM(nn.Module):
     raises where there is none); tests pass ``device="cpu"``. Weights are
     drawn as the reference's `init_params` draws them (zeros for biases,
     ``0.01 * normal`` for ``embed``, `trunc_normal` for the rest), from a
-    `torch.Generator` on the device seeded with ``seed``."""
+    `torch.Generator` on the device seeded with ``seed``. Its calls run
+    the functional path over `param_tree(self)`."""
 
     def __init__(self, cfg: XDeepFMConfig, device=None, seed: int = 0):
         super().__init__()
@@ -182,38 +229,14 @@ class XDeepFM(nn.Module):
         return self.embed.device
 
     def embed_rows(self, ids):
-        """Gather the embeddings [B, F, D] and the summed linear term [B]
-        of int32 global row ids [B, F] (a tensor or a numpy array; moved
-        to the model's device)."""
-        ids = torch.as_tensor(ids, device=self.device)
-        if ids.dtype != torch.int32:
-            raise TypeError(f"ids must be int32, got {ids.dtype}")
-        if ids.dim() != 2 or ids.shape[1] != self.cfg.n_sparse:
-            raise ValueError(f"ids must be [B, {self.cfg.n_sparse}], got "
-                             f"{tuple(ids.shape)}")
-        B, F = ids.shape
-        flat = ids.reshape(-1).long()
-        emb = self.embed.index_select(0, flat).reshape(B, F,
-                                                       self.cfg.embed_dim)
-        lin = self.linear.index_select(0, flat).reshape(B, F).sum(-1)
-        return emb, lin
+        """`embed` under the module's weights."""
+        return embed(param_tree(self), self.cfg, ids)
 
     def forward(self, ids, return_cin: bool = False):
         """Logits [B] of int32 ids [B, F]; with ``return_cin`` also the
         pooled CIN features [B, sum(cin_layers)]."""
-        emb, lin = self.embed_rows(ids)
-        logits, cin_feat = head(self.cin, self.mlp, self.bias, emb, lin)
+        logits, cin_feat = logits_and_cin(param_tree(self), self.cfg, ids)
         return (logits, cin_feat) if return_cin else logits
-
-
-def loss_fn(model: XDeepFM, batch: dict) -> torch.Tensor:
-    """Mean binary cross-entropy of the logits against ``batch["labels"]``,
-    in the numerically stable form."""
-    logits = model(batch["ids"])
-    y = torch.as_tensor(batch["labels"], device=logits.device).float()
-    loss = logits.clamp_min(0) - logits * y + torch.log1p(
-        torch.exp(-logits.abs()))
-    return loss.mean()
 
 
 def retrieval_scores(model: XDeepFM, query_ids, cand_emb):
@@ -236,6 +259,36 @@ def _flatten(tree: dict, prefix: str = "") -> dict:
         else:
             flat[path] = val
     return flat
+
+
+def _nest(flat: dict) -> dict:
+    out: dict = {}
+    for path, v in flat.items():
+        *groups, name = path.split(".")
+        node = out
+        for g in groups:
+            node = node.setdefault(g, {})
+        node[name] = v
+    return out
+
+
+def param_tree(model: XDeepFM) -> dict:
+    """The module's parameters as the reference's nested dict (``embed``,
+    ``linear``, ``bias``, ``cin: {w0, ..., out_w}``, ``mlp: {...}``), each
+    leaf a detached tensor sharing the parameter's storage: the
+    functional `forward` and `loss_fn` take it, and a train step's
+    updates come back as new tensors without touching the module."""
+    return _nest({n: p.detach() for n, p in model.named_parameters()})
+
+
+def params_to_numpy(params) -> dict:
+    """The reference's nested dict of numpy float32 arrays, from an
+    `XDeepFM` module or a nested dict of tensors (the inverse of
+    `params_from_numpy`)."""
+    if isinstance(params, nn.Module):
+        params = param_tree(params)
+    return _nest({p: v.detach().cpu().numpy()
+                  for p, v in _flatten(params).items()})
 
 
 def params_from_numpy(cfg: XDeepFMConfig, tree: dict, device=None,

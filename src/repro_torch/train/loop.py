@@ -1,0 +1,149 @@
+"""The train step and the host loop that runs it, the reference package's
+`train/loop.py` in PyTorch.
+
+`make_train_step` keeps the reference's functional contract,
+``train_step(params, opt_state, batch) -> (params, opt_state, metrics)``,
+over a nested dict of tensors: the gradient comes from
+`torch.autograd.grad` on leaves made from the parameters (no copy), and
+the update returns new tensors. `Trainer` drives steps, waits for each
+loss on the host, watches the step time (`StepTimeMonitor`) and saves
+checkpoints.
+"""
+from __future__ import annotations
+
+import dataclasses
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from . import optim as O
+from .grad_compress import compress_decompress
+from .tree import flatten_with_paths, tree_map, unflatten_like
+
+
+def value_and_grad(loss_fn: Callable):
+    """``(params, batch) -> (loss, grads)``: the loss (detached) and its
+    gradient with respect to every leaf of ``params``, in its structure."""
+
+    def fn(params, batch):
+        flat = {k: v.detach().requires_grad_(True)
+                for k, v in flatten_with_paths(params).items()}
+        with torch.enable_grad():
+            loss = loss_fn(unflatten_like(params, flat), batch)
+            grads = torch.autograd.grad(loss, list(flat.values()))
+        return loss.detach(), unflatten_like(params, dict(zip(flat, grads)))
+
+    return fn
+
+
+def _microbatches(batch: dict, accum_steps: int) -> list:
+    """The batch's leading axis split into ``accum_steps`` equal parts, in
+    order (numpy arrays or tensors)."""
+    split = {k: v.reshape((accum_steps, -1) + tuple(v.shape[1:]))
+             for k, v in batch.items()}
+    return [{k: v[i] for k, v in split.items()} for i in range(accum_steps)]
+
+
+def make_train_step(loss_fn: Callable, opt_cfg: O.OptimizerConfig,
+                    accum_steps: int = 1, compress_grads: bool = False):
+    """loss_fn(params, batch) -> scalar. Returns
+    train_step(params, opt_state, batch) -> (params, opt_state, metrics).
+
+    accum_steps > 1: the batch's leading axis is split into microbatches;
+    their losses and gradients are summed in order from zero, then
+    divided by ``accum_steps``. compress_grads: each gradient tensor is
+    int8-quantized and dequantized before the optimizer (no residual is
+    carried, as in the reference's step)."""
+    grad_fn = value_and_grad(loss_fn)
+
+    def train_step(params, opt_state, batch):
+        if accum_steps == 1:
+            loss, grads = grad_fn(params, batch)
+        else:
+            loss = 0.0
+            grads = tree_map(lambda p: torch.zeros(p.shape,
+                                                   dtype=torch.float32,
+                                                   device=p.device), params)
+            for mb in _microbatches(batch, accum_steps):
+                l, g = grad_fn(params, mb)
+                loss = loss + l
+                grads = tree_map(torch.add, grads, g)
+            loss = loss / accum_steps
+            grads = tree_map(lambda g: g / accum_steps, grads)
+        if compress_grads:
+            grads = tree_map(lambda g: compress_decompress(g)[0], grads)
+        params, opt_state, m = O.apply_updates(opt_cfg, params, grads,
+                                               opt_state)
+        m["loss"] = loss
+        return params, opt_state, m
+
+    return train_step
+
+
+@dataclasses.dataclass
+class StepTimeMonitor:
+    """EMA-based straggler detector: flags steps whose duration exceeds
+    mean + z * std of the running estimate."""
+    alpha: float = 0.1
+    z: float = 3.0
+    mean: float = 0.0
+    var: float = 0.0
+    n: int = 0
+    stragglers: int = 0
+
+    def observe(self, dt: float) -> bool:
+        self.n += 1
+        if self.n == 1:
+            self.mean = dt
+            return False
+        is_straggler = dt > self.mean + self.z * (self.var ** 0.5 + 1e-9) \
+            and self.n > 5
+        d = dt - self.mean
+        self.mean += self.alpha * d
+        self.var = (1 - self.alpha) * (self.var + self.alpha * d * d)
+        if is_straggler:
+            self.stragglers += 1
+        return is_straggler
+
+
+def _scalar(v) -> float:
+    """A metric as a host float (waits for the device where it is a
+    tensor there)."""
+    return v.item() if torch.is_tensor(v) else float(np.asarray(v))
+
+
+class Trainer:
+    """Host loop: runs steps, records metrics, periodic checkpoints.
+    Each step's time runs until its loss is on the host (`.item()`)."""
+
+    def __init__(self, train_step, params, opt_state, *,
+                 checkpoint_manager=None, ckpt_every: int = 0):
+        self.train_step = train_step
+        self.params = params
+        self.opt_state = opt_state
+        self.ckpt = checkpoint_manager
+        self.ckpt_every = ckpt_every
+        self.monitor = StepTimeMonitor()
+        self.history: list[dict] = []
+        self.step = 0
+
+    def run(self, batches, max_steps: Optional[int] = None):
+        for batch in batches:
+            t0 = time.perf_counter()
+            self.params, self.opt_state, m = self.train_step(
+                self.params, self.opt_state, batch)
+            rec = {k: _scalar(v) for k, v in m.items()}
+            dt = time.perf_counter() - t0
+            straggler = self.monitor.observe(dt)
+            rec.update(step=self.step, time_s=dt, straggler=straggler)
+            self.history.append(rec)
+            self.step += 1
+            if self.ckpt and self.ckpt_every and \
+                    self.step % self.ckpt_every == 0:
+                self.ckpt.save(self.step, {"params": self.params,
+                                           "opt_state": self.opt_state})
+            if max_steps and self.step >= max_steps:
+                break
+        return self.history

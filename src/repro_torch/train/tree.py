@@ -1,0 +1,65 @@
+"""Nested containers of tensors, in the reference's (JAX's) tree order.
+
+The port's parameters and optimizer states are nested dicts of tensors,
+with `NamedTuple`s (`optim.AdamWState`) around them, as the reference's
+pytrees are. A dict's keys are walked in sorted order and a tuple's
+items (a `NamedTuple`'s fields) in their own order, as
+`jax.tree_util` walks them; that order fixes the global gradient norm's
+sum and a checkpoint's keys. ``None`` is an empty subtree.
+"""
+from __future__ import annotations
+
+
+def _is_namedtuple(x) -> bool:
+    return isinstance(x, tuple) and hasattr(x, "_fields")
+
+
+def flatten_with_paths(tree, prefix: str = "") -> dict:
+    """{path: leaf} in tree order. A path joins the keys with "/": a dict
+    key as it is, a sequence index as a number, a `NamedTuple` field as
+    ``.name`` (the reference checkpoint's own spelling)."""
+    out = {}
+
+    def walk(node, path):
+        if node is None:
+            return
+        if isinstance(node, dict):
+            items = ((str(k), node[k]) for k in sorted(node))
+        elif _is_namedtuple(node):
+            items = ((f".{f}", getattr(node, f)) for f in node._fields)
+        elif isinstance(node, (list, tuple)):
+            items = ((str(i), v) for i, v in enumerate(node))
+        else:
+            out[path] = node
+            return
+        for key, child in items:
+            walk(child, f"{path}/{key}" if path else key)
+
+    walk(tree, prefix)
+    return out
+
+
+def tree_leaves(tree) -> list:
+    return list(flatten_with_paths(tree).values())
+
+
+def tree_map(fn, tree, *rest):
+    """``fn`` over the leaves of ``tree`` (and the matching leaves of
+    ``rest``, which share its structure); the result has its structure."""
+    if tree is None:
+        return None
+    if isinstance(tree, dict):
+        return {k: tree_map(fn, tree[k], *(r[k] for r in rest))
+                for k in sorted(tree)}
+    if _is_namedtuple(tree):
+        return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
+    return fn(tree, *rest)
+
+
+def unflatten_like(like, values: dict):
+    """``like``'s structure with each leaf replaced by ``values[path]``
+    (paths as `flatten_with_paths` spells them)."""
+    paths = iter(flatten_with_paths(like))
+    return tree_map(lambda _: values[next(paths)], like)

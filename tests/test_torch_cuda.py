@@ -1243,3 +1243,104 @@ def test_sharded_server_over_several_cards(card, built):
         assert srv.device == torch.device("cuda", 0)
         np.testing.assert_array_equal(srv.query_many(s, t, wl), exp)
         np.testing.assert_array_equal(srv.query_profile_many(ps, pt), prof)
+
+
+# --------------------------------------------------------- training (K12)
+def _cin_grad_inputs(card, B, H, M, D, K, seed):
+    rng = np.random.default_rng(seed)
+    return [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(
+        card) for s in ((B, K, D), (B, H, D), (B, M, D))]
+
+
+def _rel(a, b):
+    return float((a.double() - b.double()).abs().max()
+                 / b.double().abs().max())
+
+
+@pytest.mark.parametrize("B,H,M,D,K", [(512, 39, 39, 10, 200),
+                                       (512, 200, 39, 10, 200),
+                                       (2048, 200, 39, 10, 200),
+                                       (37, 200, 39, 10, 200),
+                                       (700, 39, 39, 10, 200),
+                                       (5, 13, 7, 3, 11), (1, 1, 1, 1, 1)])
+def test_cin_weight_grad_kernel_equals_plain(card, B, H, M, D, K):
+    """K12 against its plain version on the card, at the shapes of the
+    model's three layers (2,048 rows: two contraction slices), odd B and
+    odd widths, within 1e-4 of max |ref| (fp32 sums of B*D terms in
+    another order); one launch a call, two launches bit-identical."""
+    from repro_torch.kernels import cin_fuse as kcin
+    torch.backends.cuda.matmul.allow_tf32 = False
+    x = _cin_grad_inputs(card, B, H, M, D, K, B + H)
+    _cuda.reset_launch_counts()
+    got = kcin.cin_weight_grad_cuda(*x)
+    again = kcin.cin_weight_grad_cuda(*x)
+    assert _cuda.LAUNCHES["cin_weight_grad"] == 2
+    exp = kcin.cin_weight_grad_plain(*x)
+    torch.cuda.synchronize()
+    assert got.shape == (K, H, M) and torch.equal(got, again)
+    assert _rel(got, exp) <= 1e-4
+
+
+@pytest.mark.parametrize("H", [39, 200])
+def test_cin_backward_on_card_equals_plain(card, H, monkeypatch):
+    """A CIN layer's three gradients on the card (K11 for dx1 and dx0,
+    with x0' = x1 split in two K11 calls at H = 200; K12 for dw) against
+    the same backward through the plain versions on the card, within
+    1e-4 of max |ref|; the launches are as planned."""
+    from repro_torch.kernels import ops as kops
+    torch.backends.cuda.matmul.allow_tf32 = False
+    B, M, D, K = 512, 39, 10, 200
+    g, x1, x0 = _cin_grad_inputs(card, B, H, M, D, K, H)
+    w = torch.randn((K, H, M), generator=torch.Generator(card).manual_seed(
+        1), device=card) * 0.05
+
+    def grads():
+        ts = [t.clone().requires_grad_() for t in (x1, x0, w)]
+        return torch.autograd.grad(kops.cin_layer(*ts), ts, g)
+
+    _cuda.reset_launch_counts()
+    got = grads()
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["cin_layer"] == 1 + 1 + (2 if H > 148 else 1)
+    assert _cuda.LAUNCHES["cin_weight_grad"] == 1
+    again = grads()
+    monkeypatch.setattr(kops, "_on_card", lambda x, what: False)
+    exp = grads()
+    for name, a, b, c in zip(("dx1", "dx0", "dw"), got, again, exp):
+        assert torch.equal(a, b), name
+        assert _rel(a, c) <= 1e-4, name
+
+
+def test_xdeepfm_train_step_on_card_equals_plain(card, monkeypatch):
+    """One train step's loss and every gradient leaf at the full CIN and
+    MLP widths (cut vocabulary), B = 256: the card's kernels against the
+    plain versions on the card, within 1e-4 of each leaf's max; the
+    gradient is bit-identical across two runs."""
+    from repro_torch.configs import xdeepfm_arch as arch
+    from repro_torch.data.recsys import CTRStream
+    from repro_torch.kernels import ops as kops
+    from repro_torch.models import xdeepfm as X
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.tree import flatten_with_paths
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = X.XDeepFMConfig("xdeepfm-narrow-vocab", big_vocab=64,
+                          small_vocab=16)
+    params = X.param_tree(X.XDeepFM(cfg, device=card, seed=0))
+    batch = CTRStream(cfg.field_vocabs, cfg.field_offsets, 256,
+                      seed=0).next_batch()
+    vg = value_and_grad(lambda p, b: X.loss_fn(p, cfg, b))
+    _cuda.reset_launch_counts()
+    loss, grads = vg(params, batch)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["cin_layer"] == 3 + 2 + 3 + 3
+    assert _cuda.LAUNCHES["cin_weight_grad"] == 3
+    _, again = vg(params, batch)
+    monkeypatch.setattr(kops, "_on_card", lambda x, what: False)
+    loss_p, plain = vg(params, batch)
+    assert abs(float(loss) - float(loss_p)) <= 1e-6 * abs(float(loss_p))
+    a, b, c = (flatten_with_paths(t) for t in (grads, again, plain))
+    for k in c:
+        assert torch.equal(a[k], b[k]), k
+        if c[k].abs().max() > 0:
+            assert _rel(a[k], c[k]) <= 1e-4, k
+    assert arch.train_flops(cfg, 256) > 0

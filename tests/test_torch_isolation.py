@@ -1,6 +1,7 @@
 """The port stands alone: `repro_torch`, `chip_smoke.py`,
-`scripts/chip_ab.py` and `scripts/chip_mesh.py` import neither `jax` nor
-the reference package `repro`; entry points default to the card and
+`scripts/chip_ab.py`, `scripts/chip_mesh.py` and the port's examples
+import neither `jax` nor the reference package `repro`; entry points
+default to the card and
 raise where there is none; the CUDA launchers refuse CPU tensors (K11's
 also mixed dtypes and wrong ranks); and the engine configurations the
 reference refuses raise `ValueError`."""
@@ -36,7 +37,9 @@ def test_import_every_module_without_jax_or_repro():
               "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
               "repro_torch.distributed",
               "repro_torch.distributed.collectives",
-              "repro_torch.configs.wcsd_serve"):
+              "repro_torch.configs.wcsd_serve", "repro_torch.train",
+              "repro_torch.train.optim", "repro_torch.train.loop",
+              "repro_torch.train.grad_compress", "repro_torch.train.tree"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -59,7 +62,9 @@ _BANNED = re.compile(r"^\s*(import\s+jax\b|from\s+jax\b|"
 def test_source_scan_finds_no_jax_or_repro_import():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "scripts", "chip_ab.py"),
-             os.path.join(REPO, "scripts", "chip_mesh.py")]
+             os.path.join(REPO, "scripts", "chip_mesh.py"),
+             os.path.join(REPO, "examples", "quickstart_torch.py"),
+             os.path.join(REPO, "examples", "serve_wcsd_torch.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) >= 39

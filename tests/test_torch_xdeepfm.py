@@ -224,8 +224,9 @@ def test_forward_matches_reference(world, name):
 def test_loss_matches_reference(world, name):
     cfg, params, model, batch = world(name)
     exp = float(jx.loss_fn(params, cfg, batch))
-    got = float(tx.loss_fn(model, {"ids": torch.from_numpy(batch["ids"]),
-                                   "labels": batch["labels"]}))
+    got = float(tx.loss_fn(tx.param_tree(model), model.cfg,
+                           {"ids": torch.from_numpy(batch["ids"]),
+                            "labels": batch["labels"]}))
     assert abs(got - exp) <= 1e-6 * abs(exp), (got, exp)
 
 
