@@ -63,8 +63,9 @@ reset just before it and read just after it:
 10. xDeepFM training at full width (`get_config()`, train_batch B =
    65,536, AdamW lr 1e-3 from `configs.xdeepfm_arch.TRAIN_OPT`): a
    `Trainer` with a `CheckpointManager` over 8 steps from `CTRStream`
-   (per step: K11 three times forward and eight times backward, dx1 and
-   dx0 with x0' split in two where it is 200 wide, and K12 three times),
+   (per step: K11 nine times, the wide kernel three times forward and
+   for dx1 of the two 200-wide layers, the narrow kernel for the three
+   dx0 and the first layer's dx1, one call each; and K12 three times),
    then a `FaultTolerantRunner` over the same steps with a failure at
    step 5, ending bit for bit on the Trainer's parameters and moments;
    one step with ``accum_steps=4`` and one with ``compress_grads=True``
@@ -88,9 +89,10 @@ summed in fp32 in another order, within 1e-4 of each layer's max |ref|
 on the model's own activations and at the reference test's tolerance on
 unit-normal inputs, and 8 rows of one batch against the plain forward
 in float64 on the CPU, and bit-identical across two launches; K12 and
-K11's forward and backward calls on one train step's own inputs, within
-1e-4 of each output's max |ref| and bit-identical across two launches,
-K12's einsum on the whole batch too) and timed with CUDA events; every
+K11's forward and backward calls (wide and narrow kernel) on one train
+step's own inputs, within 1e-4 of each output's max |ref| and
+bit-identical across two launches, each one's einsum on the whole batch
+too) and timed with CUDA events; every
 served flush (every
 sub-batch, for bucket-pair) is checked against the plain path; every
 served logit is finite and the retrieval top 100 equals float64's on
@@ -2528,7 +2530,7 @@ def xdeepfm_phase(cfg, device, p99=(P99_BATCH, P99_BATCHES),
 
 
 # ------------------------------------------------ xDeepFM training (K11, K12)
-TRAIN_PATH = ("cin_layer", "cin_weight_grad")
+TRAIN_PATH = ("cin_layer", "cin_layer_narrow", "cin_weight_grad")
 TRAIN_BATCH = 65536          # the train_batch shape
 TRAIN_STEPS = 8              # Trainer steps, then the runner's
 TRAIN_CKPT_EVERY = 4
@@ -2582,14 +2584,30 @@ def capture_cin_calls(calls: list):
 
 
 def train_launches_per_step(cfg) -> dict:
-    """K11 and K12 launches of one train step: K11 once a layer forward;
-    backward, dx1 once and dx0 once per part of x0' (the layer's input
-    channels, split where K11 cannot hold them); K12 once a layer."""
+    """K11 and K12 launches of one train step (float32): K11 once a layer
+    forward (K = the layer's width, M = the fields) and backward, dx1
+    once (K' = the layer's input width H) and dx0 once per part of x0'
+    (K' = the fields, M' = H: one part where the call is narrow, else
+    split where the wide kernel cannot hold x0'); each K11 call on the
+    narrow kernel where K' <= 64, else on the wide one; K12 once a
+    layer. At `get_config()`'s widths: 5 wide, 4 narrow, 3 K12."""
+    import torch
     from repro_torch.kernels import cin_fuse as kcin
-    hs = [cfg.n_sparse] + list(cfg.cin_layers[:-1])
-    L = len(cfg.cin_layers)
-    return {"cin_layer": L + sum(1 + len(kcin.cin_m_parts(h)) for h in hs),
-            "cin_weight_grad": L}
+    out = {"cin_layer": 0, "cin_layer_narrow": 0, "cin_weight_grad": 0}
+    M = cfg.n_sparse
+
+    def k11(K, parts=1):
+        kind = ("cin_layer_narrow" if kcin.cin_narrow(K, torch.float32)
+                else "cin_layer")
+        out[kind] += parts
+
+    for H, K in zip([M] + list(cfg.cin_layers[:-1]), cfg.cin_layers):
+        k11(K)                                        # forward
+        k11(H)                                        # dx1
+        k11(M, len(kcin.cin_m_parts(H, kcin.cin_narrow(
+            M, torch.float32))))                      # dx0
+        out["cin_weight_grad"] += 1
+    return out
 
 
 def train_kernel_record(kind: str, args, iters: int, plain_iters: int
@@ -2602,25 +2620,21 @@ def train_kernel_record(kind: str, args, iters: int, plain_iters: int
     three times the FLOP at the dense TF32 rate (3xTF32, the card's peak
     for fp32-accurate products), or the bytes, whichever is larger; the
     FLOP once at the SIMT fp32 rate stands beside it (``bound_fp32_ms``).
-    K12's einsum runs on the whole batch (it forms the [B, H, M, D] outer
-    product of x1 and x0 first: ~20 GB at the train shape); K11's
-    backward calls' on a chunk of the plain version's rows
-    (``library_rows``), where the outer product at B = 65,536 would not
-    fit, and their ``library_ms`` is null."""
+    The einsum runs on the whole batch (at B = 65,536 it fits the H100's
+    80 GB at every training shape). ``kernel`` names the K11 kernel the
+    call took (narrow or wide)."""
     import torch
     from repro_torch.kernels import cin_fuse as kcin
     if kind == "cin_layer":
         x1, x0, w = args
         B, H, M, D, K = kcin.cin_shapes(x1, x0, w)
         cuda, plain = kcin.cin_layer_cuda, kcin.cin_layer_plain
-        rows = min(B, kcin.cin_chunk_rows(H, M, D))
-        eq, lib_args = "bhd,bmd,khm->bkd", (x1[:rows], x0[:rows], w)
+        eq, lib_args = "bhd,bmd,khm->bkd", (x1, x0, w)
         out_numel = B * K * D
     else:
         g, x1, x0 = args
         B, H, M, D, K = kcin.cin_grad_shapes(g, x1, x0)
         cuda, plain = kcin.cin_weight_grad_cuda, kcin.cin_weight_grad_plain
-        rows = B
         eq, lib_args = "bhd,bmd,bkd->khm", (x1, x0, g)
         out_numel = K * H * M
     a, again, b = cuda(*args), cuda(*args), plain(*args)
@@ -2635,8 +2649,7 @@ def train_kernel_record(kind: str, args, iters: int, plain_iters: int
            "max_abs_tol": CIN_REL_TOL * float(b.abs().max()),
            "rel_err": rel_err(a, b), "deterministic": bool(torch.equal(
                a, again))}
-    if rows == B:
-        rec["library_rel_err"] = rel_err(torch.einsum(eq, *lib_args), b)
+    rec["library_rel_err"] = rel_err(torch.einsum(eq, *lib_args), b)
     del a, again, b
     lib = cuda_ms(lambda: torch.einsum(eq, *lib_args), plain_iters)
     ms = cuda_ms(lambda: cuda(*args), iters)
@@ -2646,12 +2659,14 @@ def train_kernel_record(kind: str, args, iters: int, plain_iters: int
                bound_by="operations" if to >= tb else "bytes",
                bound_3xtf32_ms=max(to, tb),
                bound_fp32_ms=max(flop / FP32_FLOPS_PER_S * 1e3, tb),
-               library_ms=lib if rows == B else None,
-               library_rows=rows, library_rows_ms=lib)
+               library_ms=lib)
     if kind == "cin_layer":
-        rec["splits"] = kcin.cin_plan(x1.device, B, H, M, D, K, False)[0]
+        narrow = kcin.cin_narrow(K, x1.dtype)
+        rec["kernel"] = "cin_layer_narrow" if narrow else "cin_layer"
+        rec["splits"] = 1 if narrow else kcin.cin_plan(
+            x1.device, B, H, M, D, K, False)[0]
     else:
-        rec["splits"] = kcin.cin_grad_splits(B, D)
+        rec["splits"] = kcin.cin_grad_plan(g.device, B, H, M, D, K)
     return rec
 
 
@@ -2659,11 +2674,12 @@ def step_profile(fn, per_step: dict) -> dict:
     """Device time of one call of ``fn`` by kernel, from a
     `torch.profiler` trace of the second of two calls (the first warms
     the trace up: a trace of one call alone has shown none of the
-    forward's K11 launches): K11's kernels (the W image, the 3xTF32 GEMM,
-    its split sum), K12's (its GEMM, its split sum), and everything else,
-    with the top ten kernels by device time. ``launches_in_trace`` counts
-    K11's and K12's GEMM kernels; ``complete`` says whether they match
-    ``per_step``. None where the trace shows no device time."""
+    forward's K11 launches): K11's kernels (wide: the W image, the 3xTF32
+    GEMM, its split sum; narrow: its w images and its GEMM), K12's (its
+    GEMM, its split sum), and everything else, with the top ten kernels
+    by device time. ``launches_in_trace`` counts the three GEMM kernels;
+    ``complete`` says whether they match ``per_step``. None where the
+    trace shows no device time."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     wall = 0.0
@@ -2692,9 +2708,12 @@ def step_profile(fn, per_step: dict) -> dict:
 
     group = {"k11_ms": ("cin_layer_kernel", "cin_w_image_kernel",
                         "cin_split_sum_kernel"),
+             "k11_narrow_ms": ("cin_narrow_kernel",
+                               "cin_narrow_w_image_kernel"),
              "k12_ms": ("cin_weight_grad_kernel",
                         "cin_grad_split_sum_kernel")}
     gemm = {"cin_layer": ("cin_layer_kernel",),
+            "cin_layer_narrow": ("cin_narrow_kernel",),
             "cin_weight_grad": ("cin_weight_grad_kernel",)}
     out = {k: sum(ms for name, ms, _ in rows if kernel(name, subs))
            for k, subs in group.items()}
@@ -2869,7 +2888,8 @@ def xdeepfm_train_phase(cfg, device, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
     # (backward runs the layers last to first: dx1, then dx0's parts)
     roles = [(f"dx{x} layer {i}", i) for i in reversed(range(L))
              for x in ["1"] + ["0"] * len(kcin.cin_m_parts(
-                 ([cfg.n_sparse] + list(cfg.cin_layers))[i]))]
+                 ([cfg.n_sparse] + list(cfg.cin_layers))[i],
+                 kcin.cin_narrow(cfg.n_sparse, torch.float32)))]
     k11_calls = [c[1:] for c in calls if c[0] == "cin_layer"]
     k11_fwd_args, k11_args = k11_calls[:L], k11_calls[L:]
     k12_args = [c[1:] for c in calls if c[0] == "cin_weight_grad"][::-1]
@@ -2906,8 +2926,10 @@ def xdeepfm_train_phase(cfg, device, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
     if prof is not None:
         progress(f"xdeepfm_train: traced step: device busy "
                  f"{prof['device_busy_ms']:.1f} of {prof['wall_ms']:.1f} ms "
-                 f"(idle {prof['idle_share']:.3f}); K11 "
-                 f"{prof['k11_ms']:.1f} ms, K12 {prof['k12_ms']:.1f} ms; "
+                 f"(idle {prof['idle_share']:.3f}); K11 wide "
+                 f"{prof['k11_ms']:.1f} ms, narrow "
+                 f"{prof['k11_narrow_ms']:.1f} ms, K12 "
+                 f"{prof['k12_ms']:.1f} ms; "
                  f"launches in the trace {prof['launches_in_trace']} "
                  f"(complete: {prof['complete']})")
 
@@ -2977,15 +2999,31 @@ def xdeepfm_train_phase(cfg, device, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
                          "reference differentiates in XLA "
                          "(src/repro/models/xdeepfm.py:133)"),
             "launches": launches["cin_weight_grad"],
-            **{k: main[k] for k in ("max_abs_err", "max_abs_tol", "ms",
-                                    "plain_ms", "bound_ms", "bound_by",
-                                    "bound_3xtf32_ms", "bound_fp32_ms",
-                                    "library_ms", "library_rel_err",
-                                    "deterministic", "splits")},
-            "arithmetic": "fp32 (SIMT)",
+            **{k: main.get(k) for k in (
+                "max_abs_err", "max_abs_tol", "ms", "plain_ms", "bound_ms",
+                "bound_by", "bound_3xtf32_ms", "bound_fp32_ms", "library_ms",
+                "library_rel_err", "deterministic", "splits")},
+            "arithmetic": "3xtf32",
             "shape": {k: main[k] for k in ("B", "H", "M", "D", "K")},
             "train_layers": k12}
-    return phase, [kern]
+    # the narrow K11 kernel: its record at the largest narrow call (dx0
+    # of the last 200-wide layer where there is one)
+    narrow = [r for r in k11_back if r["kernel"] == "cin_layer_narrow"]
+    if not narrow:
+        return phase, [kern]
+    big = max(narrow, key=lambda r: r["flop"])
+    nkern = {"name": "cin_layer_narrow", "route": "cuda",
+             "source": "src/repro_torch/csrc/cin_narrow.cu",
+             "replaces": "src/repro/kernels/cin_fuse.py:39",
+             "launches": launches["cin_layer_narrow"],
+             **{k: big.get(k) for k in (
+                 "max_abs_err", "max_abs_tol", "ms", "plain_ms", "bound_ms",
+                 "bound_by", "bound_3xtf32_ms", "bound_fp32_ms",
+                 "library_ms", "library_rel_err", "deterministic")},
+             "arithmetic": "3xtf32", "call": big["call"],
+             "shape": {k: big[k] for k in ("B", "H", "M", "D", "K")},
+             "train_calls": narrow}
+    return phase, [kern, nkern]
 
 
 # ------------------------------------------------------------ the examples
@@ -3200,7 +3238,8 @@ def main() -> int:
     k11 = xdf_kernels[0]
     k11.update(serve_launches=k11["launches"],
                train_launches=train["launches"]["cin_layer"],
-               train_backward_calls=train["k11_backward"])
+               train_backward_calls=[r for r in train["k11_backward"]
+                                     if r["kernel"] == "cin_layer"])
     k11["launches"] += train["launches"]["cin_layer"]
 
     # --------------------------------------------------- the examples

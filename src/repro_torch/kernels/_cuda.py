@@ -21,7 +21,7 @@ import torch
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[3] / "build"
-SOURCES = ("wcsd_query", "frontier", "cin_fuse", "cin_grad")
+SOURCES = ("wcsd_query", "frontier", "cin_fuse", "cin_narrow", "cin_grad")
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17",
               "-O3", "-shared", "-Xcompiler", "-fPIC")
 
@@ -33,7 +33,7 @@ LAUNCHES = {"wcsd_query_ragged": 0, "wcsd_profile_ragged": 0,
             "wcsd_profile_ragged_compressed": 0,
             "wcsd_query_segmented": 0, "wcsd_profile_segmented": 0,
             "wcsd_query_gathered": 0, "frontier_relax_gathered": 0,
-            "cin_layer": 0, "cin_weight_grad": 0}
+            "cin_layer": 0, "cin_layer_narrow": 0, "cin_weight_grad": 0}
 
 _P, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 # the C prototype of every exported function, by source: set once when
@@ -66,11 +66,17 @@ PROTOTYPES = {
         "cin_layer_wimg_words": [_I] * 3,
         "cin_layer_launch": [_P] * 6 + [_I] * 7 + [_P],
     },
+    "cin_narrow": {
+        "cin_narrow_wimg_words": [_I] * 3,
+        "cin_narrow_launch": [_P] * 5 + [_I] * 5 + [_P],
+    },
     "cin_grad": {
-        "cin_weight_grad_launch": [_P] * 5 + [_I] * 7 + [_P],
+        "cin_weight_grad_gimg_words": [_I] * 3,
+        "cin_weight_grad_launch": [_P] * 6 + [_I] * 6 + [_P],
     },
 }
-RESTYPES = {"cin_layer_wimg_words": _LL}
+RESTYPES = {"cin_layer_wimg_words": _LL, "cin_narrow_wimg_words": _LL,
+            "cin_weight_grad_gimg_words": _LL}
 
 _libs: dict[str, ctypes.CDLL] = {}
 _lock = threading.Lock()

@@ -3,8 +3,13 @@ cin_layer`): its CUDA launcher and, beside it, its plain PyTorch version.
 
     out[b, k, d] = sum_{h, m} w[k, h, m] * x1[b, h, d] * x0[b, m, d]
 
-x1 [B, H, D], x0 [B, M, D], w [K, H, M] -> [B, K, D] float32. The CUDA
-source is `repro_torch/csrc/cin_fuse.cu` (3xTF32 on the tensor cores).
+x1 [B, H, D], x0 [B, M, D], w [K, H, M] -> [B, K, D] float32. On the
+card a call goes to one of two CUDA kernels (3xTF32 on the tensor
+cores): float32 calls with at most `CIN_NARROW_MAX_K` output channels
+(the CIN backward's dx0, and dx1 of the first layer) to the narrow
+instance `repro_torch/csrc/cin_narrow.cu`, which never forms the outer
+product and takes any M; every other call (the forward, serving, and
+bfloat16 at any K) to the wide kernel `repro_torch/csrc/cin_fuse.cu`.
 The plain version translates the reference's `kernels/ref.py:
 cin_layer_ref`, in the TPU kernel's form (the outer product z as a
 [b*D, H*M] matrix against w as [H*M, K]), chunked over B so that z
@@ -12,15 +17,16 @@ stays under `CIN_CHUNK_BYTES`: unchunked it would be B*H*M*D floats,
 81.8 GB at B = 262,144 and the model's widths.
 
 K12, the weight gradient of a CIN layer (`cin_weight_grad_cuda`, CUDA
-source `repro_torch/csrc/cin_grad.cu`), and its plain version
-`cin_weight_grad_plain` live here too:
+source `repro_torch/csrc/cin_grad.cu`, 3xTF32 on the tensor cores), and
+its plain version `cin_weight_grad_plain` live here too:
 
     dw[k, h, m] = sum_{b, d} g[b, k, d] * x1[b, h, d] * x0[b, m, d]
 
 g [B, K, D], x1 [B, H, D], x0 [B, M, D] -> [K, H, M] float32. It has no
 Pallas counterpart: the reference differentiates its jnp CIN in XLA.
 The input gradients are K11 itself (`ops.CinLayer`); `cin_m_parts`
-splits an x0 wider than K11's shared memory holds (`CIN_MAX_M`).
+splits an x0 wider than the wide kernel's shared memory holds
+(`CIN_MAX_M`).
 """
 from __future__ import annotations
 
@@ -31,15 +37,23 @@ from . import _cuda
 CIN_CHUNK_BYTES = 1 << 30   # one [b, D, H, M] outer product, at most
 CIN_DTYPES = (torch.float32, torch.bfloat16)
 _PLANS: dict[tuple, tuple] = {}  # `cin_plan` by (device, shapes, bf16)
-# The widest x0 K11 takes: a block stages its 64 rows of x0 (64 * M
-# words) beside 48,256 words of W, A and x1 stages and 2 * 64 row offsets
-# (`cin_smem_words` in csrc/cin_fuse.cu at M >= 32), in at most 232,448
-# bytes: 4 * (48,256 + 64 * M + 3 * 64 * 2) <= 232,448 gives M <= 148.
+# The widest x0 the wide K11 kernel takes: a block stages its 64 rows of
+# x0 (64 * M words) beside 48,256 words of W, A and x1 stages and 2 * 64
+# row offsets (`cin_smem_words` in csrc/cin_fuse.cu at M >= 32), in at
+# most 232,448 bytes: 4 * (48,256 + 64 * M + 3 * 64 * 2) <= 232,448 gives
+# M <= 148.
 CIN_MAX_M = 148
-# K12 splits its contraction (n = b * D + d) into slices of this many
-# rows, each summed by its own blocks into a workspace slice; a last
-# launch adds the slices in index order.
-CIN_GRAD_SPLIT_ROWS = 16384
+# The most output channels the narrow K11 kernel takes (its accumulators:
+# 2 rows x K / 4 a thread), for float32 inputs.
+CIN_NARROW_MAX_K = 64
+# K12 walks its contraction (n = b * D + d) in stages of this many n and
+# cuts it into at most CIN_GRAD_MAX_SPLITS slices of whole stages, each
+# summed by its own blocks into a workspace slice; a last launch adds the
+# slices in index order. One block a tile of CIN_GRAD_TILE (r, k), one
+# block an SM (its shared memory and registers).
+CIN_GRAD_STAGE_N = 24
+CIN_GRAD_TILE = (128, 200)
+CIN_GRAD_MAX_SPLITS = 64
 
 
 def cin_chunk_rows(H: int, M: int, D: int, itemsize: int = 4) -> int:
@@ -100,13 +114,25 @@ def cin_plan(device: torch.device, B: int, H: int, M: int, D: int, K: int,
     return _PLANS[key]
 
 
+def cin_narrow(K: int, dtype) -> bool:
+    """Whether a K11 call with K output channels and inputs of ``dtype``
+    goes to the narrow kernel on the card (float32, K <=
+    `CIN_NARROW_MAX_K`); bfloat16 always goes to the wide kernel."""
+    return dtype == torch.float32 and K <= CIN_NARROW_MAX_K
+
+
 def cin_layer_cuda(x1, x0, w):
-    """Launch K11 on the current stream: w laid out as per-stage TF32
-    hi/lo images, the 3xTF32 wgmma kernel and, where it splits the r axis
-    over S blocks, the in-order sum of the S partial slices (two or three
-    CUDA launches; scratch: the images and S * B * K * D floats). x1, x0
-    and w all float32 or all bfloat16, contiguous, on one CUDA device; any
-    B. Returns [B, K, D] float32."""
+    """Launch K11 on the current stream. Narrow calls (`cin_narrow`) take
+    the narrow kernel: w laid out as TF32 hi/lo images per (h stage, m
+    chunk), then the factorized 3xTF32 wgmma kernel (two CUDA launches;
+    scratch: the images); any M. Every other call takes the wide kernel:
+    w laid out as per-stage TF32 hi/lo images, the 3xTF32 wgmma kernel
+    and, where it splits the r axis over S blocks, the in-order sum of the
+    S partial slices (two or three CUDA launches; scratch: the images and
+    S * B * K * D floats); M at most `CIN_MAX_M`. x1, x0 and w all float32
+    or all bfloat16, contiguous, on one CUDA device; any B. Returns
+    [B, K, D] float32. A failure raises; no call falls back to the other
+    kernel or to the plain version."""
     what = "cin_layer"
     B, H, M, D, K = cin_shapes(x1, x0, w)
     if not (x1.dtype == x0.dtype == w.dtype):
@@ -117,6 +143,8 @@ def cin_layer_cuda(x1, x0, w):
     out = torch.empty((B, K, D), dtype=torch.float32, device=x1.device)
     if out.numel() == 0:                  # nothing to compute: no launch
         return out
+    if cin_narrow(K, x1.dtype):
+        return _cin_narrow_launch(x1, x0, w, out, B, H, M, D, K)
     bf16 = x1.dtype == torch.bfloat16
     S, words = cin_plan(x1.device, B, H, M, D, K, bf16)
     work = torch.empty((S, B, K, D) if S > 1 else (0,), dtype=torch.float32,
@@ -131,10 +159,26 @@ def cin_layer_cuda(x1, x0, w):
     return out
 
 
-def cin_m_parts(M: int) -> list[tuple[int, int]]:
+def _cin_narrow_launch(x1, x0, w, out, B, H, M, D, K):
+    """The narrow kernel's two launches into ``out`` (checked inputs)."""
+    what = "cin_layer_narrow"
+    lib = _cuda.library("cin_narrow")
+    wimg = torch.empty((lib.cin_narrow_wimg_words(H, M, K),),
+                       dtype=torch.int32, device=x1.device)
+    err = lib.cin_narrow_launch(
+        x1.data_ptr(), x0.data_ptr(), w.data_ptr(), out.data_ptr(),
+        wimg.data_ptr(), B, H, M, D, K, _cuda.stream_ptr(x1.device))
+    _cuda.check_launch(err, what)
+    _cuda.LAUNCHES[what] += 1
+    return out
+
+
+def cin_m_parts(M: int, narrow: bool = False) -> list[tuple[int, int]]:
     """x0's channels cut into the fewest near-equal [a, b) parts of at most
-    `CIN_MAX_M` each (one part where M fits): 200 -> (0, 100), (100,
-    200)."""
+    `CIN_MAX_M` each (one part where M fits, or where the call is narrow:
+    the narrow kernel takes any M): 200 -> (0, 100), (100, 200)."""
+    if narrow:
+        return [(0, M)]
     n = max(1, -(-M // CIN_MAX_M))
     return [(i * M // n, (i + 1) * M // n) for i in range(n)]
 
@@ -175,18 +219,42 @@ def cin_weight_grad_plain(g, x1, x0):
     return out.reshape(K, H, M)
 
 
-def cin_grad_splits(B: int, D: int) -> int:
-    """K12's contraction slices at batch B: one per `CIN_GRAD_SPLIT_ROWS`
-    rows of n = b * D + d (at least one)."""
-    return max(1, -(-(B * D) // CIN_GRAD_SPLIT_ROWS))
+def cin_grad_splits(B: int, H: int, M: int, D: int, K: int,
+                    sms: int) -> int:
+    """K12's contraction slices on a card of ``sms`` SMs: the count S <=
+    `CIN_GRAD_MAX_SPLITS` with the least work on the busiest SM (waves x
+    stages a slice; the fewest slices among equals), then S trimmed so
+    that no slice is empty. One block a `CIN_GRAD_TILE` tile and a
+    slice, one block an SM. 11 at train_batch and H = 39 (12 tiles: 132
+    blocks, one full wave)."""
+    stages = max(1, -(-(B * D) // CIN_GRAD_STAGE_N))
+    tiles = -(-(H * M) // CIN_GRAD_TILE[0]) * -(-K // CIN_GRAD_TILE[1])
+    best, best_cost = 1, -(-tiles // sms) * stages
+    for s in range(2, min(CIN_GRAD_MAX_SPLITS, stages) + 1):
+        per = -(-stages // s)
+        cost = -(-(tiles * -(-stages // per)) // sms) * per
+        if cost < best_cost:
+            best, best_cost = s, cost
+    per = -(-stages // best)
+    return -(-stages // per)
+
+
+def cin_grad_plan(device: torch.device, B: int, H: int, M: int, D: int,
+                  K: int) -> int:
+    """`cin_grad_splits` at these shapes on ``device``'s SM count."""
+    sms = torch.cuda.get_device_properties(device).multi_processor_count
+    return cin_grad_splits(B, H, M, D, K, sms)
 
 
 def cin_weight_grad_cuda(g, x1, x0):
-    """Launch K12 on the current stream: the SIMT fp32 GEMM over the
-    contraction's slices into an fp32 workspace, then (where there is
-    more than one slice) the in-order sum of the slices. Scratch: S * K *
-    H * M floats, S = `cin_grad_splits`. g, x1 and x0 float32,
-    contiguous, on one CUDA device; any B. Returns [K, H, M] float32."""
+    """Launch K12 on the current stream: g laid out as per-stage TF32
+    hi/lo images, the 3xTF32 wgmma GEMM over the contraction's slices
+    into an fp32 workspace, then (where there is more than one slice) the
+    in-order sum of the slices (two or three CUDA launches). Scratch: the
+    images (2 * B * D * 200 words a 200-column block of K, rounded up to
+    a stage) and S * K * H * M floats, S = `cin_grad_plan`. g, x1 and x0
+    float32, contiguous, on one CUDA device; any B. Returns [K, H, M]
+    float32. A failure raises; nothing falls back to the plain version."""
     what = "cin_weight_grad"
     B, H, M, D, K = cin_grad_shapes(g, x1, x0)
     dts = {"g": torch.float32, "x1": torch.float32, "x0": torch.float32}
@@ -194,12 +262,15 @@ def cin_weight_grad_cuda(g, x1, x0):
     out = torch.empty((K, H, M), dtype=torch.float32, device=g.device)
     if out.numel() == 0:                  # nothing to compute: no launch
         return out
-    S = cin_grad_splits(B, D)
+    S = cin_grad_plan(g.device, B, H, M, D, K)
+    lib = _cuda.library("cin_grad")
     work = torch.empty((S, K, H, M) if S > 1 else (0,), dtype=torch.float32,
                        device=g.device)
-    err = _cuda.library("cin_grad").cin_weight_grad_launch(
+    gimg = torch.empty((lib.cin_weight_grad_gimg_words(B, D, K),),
+                       dtype=torch.int32, device=g.device)
+    err = lib.cin_weight_grad_launch(
         g.data_ptr(), x1.data_ptr(), x0.data_ptr(), out.data_ptr(),
-        work.data_ptr(), B, H, M, D, K, S, CIN_GRAD_SPLIT_ROWS,
+        work.data_ptr(), gimg.data_ptr(), B, H, M, D, K, S,
         _cuda.stream_ptr(g.device))
     _cuda.check_launch(err, what)
     _cuda.LAUNCHES[what] += 1

@@ -255,7 +255,8 @@ def frontier_relax(nbr_pad, lvl_pad, Fw, R):
 
 def _cin_forward(x1, x0, w):
     """K11 on the card (any B; the reference pads B to its block of 8,
-    K11 masks its edge), the plain version on the CPU."""
+    K11 masks its edge; the narrow kernel where `cin_fuse.cin_narrow`
+    says so, else the wide one), the plain version on the CPU."""
     if _on_card(x1, "cin_layer"):
         return _cin.cin_layer_cuda(x1, x0, w)
     return _cin.cin_layer_plain(x1, x0, w)
@@ -263,10 +264,11 @@ def _cin_forward(x1, x0, w):
 
 def cin_layer_split(x1, x0, w):
     """`_cin_forward` over x0's channels cut into `cin_fuse.cin_m_parts`
-    (one call where M fits K11's shared memory), each part with its slice
-    of w, the parts' outputs added in index order. The same calls on
-    either device."""
-    parts = _cin.cin_m_parts(x0.shape[1])
+    (one call where the call is narrow or M fits the wide kernel's shared
+    memory), each part with its slice of w, the parts' outputs added in
+    index order. The same calls on either device."""
+    parts = _cin.cin_m_parts(x0.shape[1],
+                             _cin.cin_narrow(w.shape[0], x1.dtype))
     if len(parts) == 1:
         return _cin_forward(x1, x0, w)
     out = None
@@ -292,9 +294,14 @@ class CinLayer(torch.autograd.Function):
 
       dx1 = cin_layer(g, x0, w.permute(1, 0, 2))   K11, H' = K, K' = H
       dx0 = cin_layer(g, x1, w.permute(2, 0, 1))   K11, H' = K, M' = H,
-                                                   K' = M (split where
-                                                   M' passes CIN_MAX_M)
+                                                   K' = M (split only
+                                                   where the call is wide
+                                                   and M' passes
+                                                   CIN_MAX_M)
       dw  = cin_weight_grad(g, x1, x0)             K12
+
+    At the model's widths (M = 39) dx0 and the first layer's dx1 go to
+    the narrow K11 kernel, one call each.
 
     Where x1 and x0 are one tensor (the first layer: both are the
     embeddings), autograd adds the two contributions."""

@@ -911,14 +911,16 @@ def test_cin_kernel_equals_plain(card, B, H, M, D, K):
     """K11 against its plain version on unit-normal inputs, at the
     reference test's shapes (tolerance: `tests/test_kernels.py`'s, for
     fp32 sums of H*M terms in another order) and at B = 700, whose
-    B*D = 7,000 rows end in a ragged 64-row tile."""
+    B*D = 7,000 rows end in a ragged 64-row tile. K = 8 and 11 go to the
+    narrow kernel, K = 200 to the wide one."""
     from repro_torch.kernels import cin_fuse as kcin
     rng = np.random.default_rng(B)
     x = [torch.from_numpy(rng.standard_normal(s).astype(np.float32)).to(card)
          for s in ((B, H, D), (B, M, D), (K, H, M))]
     _cuda.reset_launch_counts()
     got = kcin.cin_layer_cuda(*x)
-    assert _cuda.LAUNCHES["cin_layer"] == 1
+    kind = "cin_layer_narrow" if K <= 64 else "cin_layer"
+    assert _cuda.LAUNCHES[kind] == 1 and sum(_cuda.LAUNCHES.values()) == 1
     exp = kcin.cin_layer_plain(*x)
     torch.cuda.synchronize()
     np.testing.assert_allclose(got.cpu().numpy(), exp.cpu().numpy(),
@@ -953,7 +955,9 @@ def test_cin_tensor_core_kernel_at_serve_shapes(card, B, H, M, D, K, dtype):
     the r axis: the tile grid is under the SM count) and at a ragged R =
     210 (M = 7, not a multiple of 8 or 4), both dtypes, within the fp32
     tolerance of `test_cin_kernel_equals_plain`; two launches on the same
-    inputs are bit-identical (the split partials are summed in order)."""
+    inputs are bit-identical (the split partials are summed in order).
+    K = 50 in float32 goes to the narrow kernel, in bfloat16 to the wide
+    one."""
     from repro_torch.kernels import cin_fuse as kcin
     torch.backends.cuda.matmul.allow_tf32 = False
     rng = np.random.default_rng(B + H + M)
@@ -963,12 +967,43 @@ def test_cin_tensor_core_kernel_at_serve_shapes(card, B, H, M, D, K, dtype):
     _cuda.reset_launch_counts()
     got = kcin.cin_layer_cuda(*x)
     again = kcin.cin_layer_cuda(*x)
-    assert _cuda.LAUNCHES["cin_layer"] == 2
+    kind = "cin_layer_narrow" if kcin.cin_narrow(K, x[0].dtype) \
+        else "cin_layer"
+    assert _cuda.LAUNCHES[kind] == 2 and sum(_cuda.LAUNCHES.values()) == 2
     exp = kcin.cin_layer_plain(*x)
     torch.cuda.synchronize()
     assert torch.equal(got, again)
     np.testing.assert_allclose(got.cpu().numpy(), exp.cpu().numpy(),
                                rtol=1e-4, atol=1e-5 * H * M ** 0.5)
+
+
+@pytest.mark.parametrize("B", [1, 37, 512, 2048])
+@pytest.mark.parametrize("M", [7, 39, 148, 149, 200])
+@pytest.mark.parametrize("K", [1, 8, 39, 40, 64])
+def test_cin_narrow_kernel_equals_plain(card, K, M, B):
+    """K11's narrow kernel (float32, K <= 64: the CIN backward's dx0 and
+    the first layer's dx1) against its plain version at H = 200 (the
+    backward's H' = K of the 200-wide layers), D = 10: every K of one to
+    eight 8-column groups, M up to the 200-wide layers' (past the wide
+    kernel's CIN_MAX_M = 148: one call), B from one row to a ragged last
+    block; within 1e-4 of max |ref| (3xTF32, as the wide kernel), two
+    launches bit-identical, one narrow launch a call and no other."""
+    from repro_torch.kernels import cin_fuse as kcin
+    torch.backends.cuda.matmul.allow_tf32 = False
+    H, D = 200, 10
+    rng = np.random.default_rng(K * 1000 + M + B)
+    x1, x0, w = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)).to(card) for s in ((B, H, D), (B, M, D), (K, H, M)))
+    w = w * 0.05
+    _cuda.reset_launch_counts()
+    got = kcin.cin_layer_cuda(x1, x0, w)
+    again = kcin.cin_layer_cuda(x1, x0, w)
+    assert _cuda.LAUNCHES["cin_layer_narrow"] == 2
+    assert sum(_cuda.LAUNCHES.values()) == 2
+    exp = kcin.cin_layer_plain(x1, x0, w)
+    torch.cuda.synchronize()
+    assert got.shape == (B, K, D) and torch.equal(got, again)
+    assert _rel(got, exp) <= 1e-4
 
 
 def test_xdeepfm_forward_on_card(card):
@@ -1262,12 +1297,18 @@ def _rel(a, b):
                                        (2048, 200, 39, 10, 200),
                                        (37, 200, 39, 10, 200),
                                        (700, 39, 39, 10, 200),
-                                       (5, 13, 7, 3, 11), (1, 1, 1, 1, 1)])
+                                       (5, 13, 7, 3, 11), (1, 1, 1, 1, 1),
+                                       (65536, 39, 39, 10, 200),
+                                       (64, 3, 150, 10, 300),
+                                       (33, 150, 1, 10, 8)])
 def test_cin_weight_grad_kernel_equals_plain(card, B, H, M, D, K):
-    """K12 against its plain version on the card, at the shapes of the
-    model's three layers (2,048 rows: two contraction slices), odd B and
-    odd widths, within 1e-4 of max |ref| (fp32 sums of B*D terms in
-    another order); one launch a call, two launches bit-identical."""
+    """K12 (3xTF32 on wgmma) against its plain version on the card, at
+    the shapes of the model's three layers (2,048 rows: the contraction
+    in `cin_grad_plan`'s slices), the first layer at train_batch (B =
+    65,536: 11 slices), odd B and odd widths (M > 128 and K > 200: an x0
+    range that wraps inside a 128-row tile, two column blocks; M = 1: 128
+    x1 channels a tile), within 1e-4 of max |ref| (fp32 sums of B*D terms
+    in another order); one launch a call, two launches bit-identical."""
     from repro_torch.kernels import cin_fuse as kcin
     torch.backends.cuda.matmul.allow_tf32 = False
     x = _cin_grad_inputs(card, B, H, M, D, K, B + H)
@@ -1283,10 +1324,11 @@ def test_cin_weight_grad_kernel_equals_plain(card, B, H, M, D, K):
 
 @pytest.mark.parametrize("H", [39, 200])
 def test_cin_backward_on_card_equals_plain(card, H, monkeypatch):
-    """A CIN layer's three gradients on the card (K11 for dx1 and dx0,
-    with x0' = x1 split in two K11 calls at H = 200; K12 for dw) against
-    the same backward through the plain versions on the card, within
-    1e-4 of max |ref|; the launches are as planned."""
+    """A CIN layer's three gradients on the card (K11 for dx1 and dx0, dx0
+    one call to the narrow kernel at either H, dx1 narrow at H = 39 and
+    wide at H = 200; K12 for dw) against the same backward through the
+    plain versions on the card, within 1e-4 of max |ref|; the launches
+    are as planned."""
     from repro_torch.kernels import ops as kops
     torch.backends.cuda.matmul.allow_tf32 = False
     B, M, D, K = 512, 39, 10, 200
@@ -1301,7 +1343,8 @@ def test_cin_backward_on_card_equals_plain(card, H, monkeypatch):
     _cuda.reset_launch_counts()
     got = grads()
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["cin_layer"] == 1 + 1 + (2 if H > 148 else 1)
+    assert _cuda.LAUNCHES["cin_layer"] == 1 + (H > 64)
+    assert _cuda.LAUNCHES["cin_layer_narrow"] == 1 + (H <= 64)
     assert _cuda.LAUNCHES["cin_weight_grad"] == 1
     again = grads()
     monkeypatch.setattr(kops, "_on_card", lambda x, what: False)
@@ -1315,7 +1358,9 @@ def test_xdeepfm_train_step_on_card_equals_plain(card, monkeypatch):
     """One train step's loss and every gradient leaf at the full CIN and
     MLP widths (cut vocabulary), B = 256: the card's kernels against the
     plain versions on the card, within 1e-4 of each leaf's max; the
-    gradient is bit-identical across two runs."""
+    gradient is bit-identical across two runs. K11 launches 9 times: the
+    wide kernel for the 3 forward calls and the 2 dx1 of the 200-wide
+    layers, the narrow one for the 3 dx0 and the first layer's dx1."""
     from repro_torch.configs import xdeepfm_arch as arch
     from repro_torch.data.recsys import CTRStream
     from repro_torch.kernels import ops as kops
@@ -1332,7 +1377,8 @@ def test_xdeepfm_train_step_on_card_equals_plain(card, monkeypatch):
     _cuda.reset_launch_counts()
     loss, grads = vg(params, batch)
     torch.cuda.synchronize()
-    assert _cuda.LAUNCHES["cin_layer"] == 3 + 2 + 3 + 3
+    assert _cuda.LAUNCHES["cin_layer"] == 3 + 2
+    assert _cuda.LAUNCHES["cin_layer_narrow"] == 4
     assert _cuda.LAUNCHES["cin_weight_grad"] == 3
     _, again = vg(params, batch)
     monkeypatch.setattr(kops, "_on_card", lambda x, what: False)

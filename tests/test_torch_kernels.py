@@ -537,3 +537,114 @@ def test_cin_3xtf32_emulation_keeps_fp32_tolerance(H, seed):
     assert err["3xtf32"] <= 1e-4 / 20, err
     assert err["fp32"] <= 1e-4 / 20, err
     assert err["tf32"] > 1e-4, err
+
+
+def _split3(a: torch.Tensor) -> tuple[torch.Tensor, torch.Tensor]:
+    """The hi and lo TF32 parts of an fp32 tensor, as the kernels split
+    their operands (lo = rna(a - hi))."""
+    hi = _tf32_rna(a)
+    return hi, _tf32_rna(a - hi)
+
+
+def _narrow_emulation(x1, x0, w, passes: int = 3):
+    """K11's narrow kernel (csrc/cin_narrow.cu) as it sums, in fp32: the
+    factorized form P[n, (m, k)] = sum_h x1[n, h] w[k, h, m] with h in
+    stages of 40 and (m, k) in chunks of 25 // ceil(K / 8) values of m,
+    each (stage, chunk)'s 3xTF32 products (lo*hi + hi*lo + hi*hi;
+    ``passes=1``: hi*hi alone) summed from zero, then out[n, k] +=
+    x0[n, m] * P[n, (m, k)] over the chunk's m in order. Returns [B, K,
+    D] float32."""
+    B, H, D = x1.shape
+    M, K = x0.shape[1], w.shape[0]
+    mpc = 25 // (-(-K // 8))
+    a = x1.transpose(1, 2).reshape(B * D, H)
+    x0n = x0.transpose(1, 2).reshape(B * D, M)
+    out = torch.zeros((B * D, K), dtype=torch.float32)
+    for h0 in range(0, H, 40):
+        ah, al = _split3(a[:, h0:h0 + 40])
+        for m0 in range(0, M, mpc):
+            wc = w[:, h0:h0 + 40, m0:m0 + mpc].permute(1, 2, 0)  # [h, m, k]
+            nm = wc.shape[1]
+            bh, bl = _split3(wc.reshape(wc.shape[0], nm * K))
+            d = ah @ bh if passes == 1 else al @ bh + ah @ bl + ah @ bh
+            d = d.reshape(B * D, nm, K)
+            for j in range(nm):
+                out = out + x0n[:, m0 + j, None] * d[:, j]
+    return out.reshape(B, D, K).transpose(1, 2)
+
+
+@pytest.mark.parametrize("seed", [0, 1])
+@pytest.mark.parametrize("M,K", [(200, 39), (39, 39), (148, 64), (7, 8)])
+def test_cin_narrow_emulation_keeps_fp32_tolerance(M, K, seed):
+    """The narrow K11 kernel's arithmetic (`_narrow_emulation`) at the
+    backward's shapes (H' = 200, D = 10; dx0 of a 200-wide layer: M' =
+    200, K' = 39; the first layer's dx1 and dx0: M' = K' = 39) and at the
+    edges of its K range, B = 4, unit-normal x, w * 0.05: within 1e-4 /
+    20 of the output's max against float64, as the plain fp32 version is;
+    single-pass TF32 is not within 1e-4."""
+    B, H, D = 4, 200, 10
+    rng = np.random.default_rng(seed)
+    x1, x0 = (torch.from_numpy(rng.standard_normal(s).astype(np.float32))
+              for s in ((B, H, D), (B, M, D)))
+    w = torch.from_numpy((rng.standard_normal((K, H, M)) * 0.05).astype(
+        np.float32))
+    ref = t_cin.cin_layer_plain(x1.double(), x0.double(), w.double())
+    scale = ref.abs().max()
+    err = {name: float((c.double() - ref).abs().max() / scale)
+           for name, c in (("3xtf32", _narrow_emulation(x1, x0, w)),
+                           ("tf32", _narrow_emulation(x1, x0, w, 1)),
+                           ("fp32", t_cin.cin_layer_plain(x1, x0, w)))}
+    assert err["3xtf32"] <= 1e-4 / 20, err
+    assert err["fp32"] <= 1e-4 / 20, err
+    assert err["tf32"] > 1e-4, err
+
+
+def _k12_emulation(g, x1, x0, splits: int, passes: int = 3):
+    """K12 (csrc/cin_grad.cu) as it sums, in fp32: C[r, k] = sum_n Z[n, r]
+    G[n, k] over n in stages of `cin_fuse.CIN_GRAD_STAGE_N`, each stage's
+    3xTF32 products summed from zero and added to the slice's fp32
+    accumulator, the contraction cut into ``splits`` slices of whole
+    stages, the slices added in index order. Returns [K, H, M]."""
+    B, K, D = g.shape
+    H, M = x1.shape[1], x0.shape[1]
+    N, sn = B * D, t_cin.CIN_GRAD_STAGE_N
+    z = (x1.transpose(1, 2)[:, :, :, None]
+         * x0.transpose(1, 2)[:, :, None, :]).reshape(N, H * M)
+    gn = g.transpose(1, 2).reshape(N, K)
+    stages = max(1, -(-N // sn))
+    per = -(-stages // splits)
+    assert -(-stages // per) == splits
+    out = None
+    for s in range(splits):
+        acc = torch.zeros((H * M, K), dtype=torch.float32)
+        for c in range(s * per, min(stages, (s + 1) * per)):
+            zh, zl = _split3(z[c * sn:(c + 1) * sn].t())
+            gh, gl = _split3(gn[c * sn:(c + 1) * sn])
+            acc = acc + (zh @ gh if passes == 1
+                         else zl @ gh + zh @ gl + zh @ gh)
+        out = acc if out is None else out + acc
+    return out.t().reshape(K, H, M)
+
+
+@pytest.mark.parametrize("H", [39, 200])
+def test_k12_3xtf32_emulation_keeps_fp32_tolerance(H):
+    """K12's arithmetic (`_k12_emulation`) at the model's widths (M = 39,
+    D = 10, K = 200), B = 96 (40 stages of 24 n, in the slices
+    `cin_grad_splits` chooses for 132 SMs, more than one), unit-normal
+    inputs: within 1e-4 / 20 of the output's max against float64, as
+    the plain fp32 version is; single-pass TF32 is not within 1e-4."""
+    B, M, D, K = 96, 39, 10, 200
+    splits = t_cin.cin_grad_splits(B, H, M, D, K, 132)
+    assert splits > 1
+    rng = np.random.default_rng(H)
+    g, x1, x0 = (torch.from_numpy(rng.standard_normal(s).astype(
+        np.float32)) for s in ((B, K, D), (B, H, D), (B, M, D)))
+    ref = t_cin.cin_weight_grad_plain(g.double(), x1.double(), x0.double())
+    scale = ref.abs().max()
+    err = {name: float((c.double() - ref).abs().max() / scale)
+           for name, c in (("3xtf32", _k12_emulation(g, x1, x0, splits)),
+                           ("tf32", _k12_emulation(g, x1, x0, splits, 1)),
+                           ("fp32", t_cin.cin_weight_grad_plain(g, x1, x0)))}
+    assert err["3xtf32"] <= 1e-4 / 20, err
+    assert err["fp32"] <= 1e-4 / 20, err
+    assert err["tf32"] > 1e-4, err

@@ -280,9 +280,11 @@ def test_cin_network_gradients_match_reference(xdf, name):
 
 def test_cin_max_m_is_k11_shared_memory_limit():
     """`CIN_MAX_M` is the widest x0 whose block fits the card's 232,448
-    bytes in K11's sizing (`cin_smem_words`, csrc/cin_fuse.cu):
-    3 * 2 * 32 * 208 W words + 2 * 2 * 32 * 64 A words + 64 * M x0 words
-    + 3 * 64 * hs x1 words + 2 * 64 offset words, hs = 31 // M + 2."""
+    bytes in the wide K11 kernel's sizing (`cin_smem_words`,
+    csrc/cin_fuse.cu): 3 * 2 * 32 * 208 W words + 2 * 2 * 32 * 64 A words
+    + 64 * M x0 words + 3 * 64 * hs x1 words + 2 * 64 offset words, hs =
+    31 // M + 2. Only wide calls split; the narrow kernel (csrc/
+    cin_narrow.cu) stages no x0 and takes any M in one call."""
     def words(M):
         hs = min((32 - 1) // M + 2, 32)
         return 3 * 2 * 32 * 208 + 2 * 2 * 32 * 64 + 64 * M + 3 * 64 * hs \
@@ -294,16 +296,20 @@ def test_cin_max_m_is_k11_shared_memory_limit():
     assert t_cin.cin_m_parts(39) == [(0, 39)]
     assert t_cin.cin_m_parts(148) == [(0, 148)]
     assert t_cin.cin_m_parts(149) == [(0, 74), (74, 149)]
+    assert t_cin.cin_m_parts(200, narrow=True) == [(0, 200)]
 
 
 @pytest.mark.parametrize("max_m", [3, 5, 148])
 def test_cin_split_matches_one_call(monkeypatch, max_m):
-    """The x0 split in parts of at most ``max_m`` channels equals one call
-    over all of them, within fp32 reordering; the calls go as planned."""
+    """The x0 split of a wide call in parts of at most ``max_m`` channels
+    equals one call over all of them, within fp32 reordering; the calls go
+    as planned (K = 7 is made wide here by setting `CIN_NARROW_MAX_K` to
+    0: narrow calls never split)."""
     x1, x0, w, _ = _cin_inputs(np.random.default_rng(max_m), 6, 9, 11, 4, 7)
     x1, x0, w = (torch.from_numpy(a) for a in (x1, x0, w))
     exp = t_cin.cin_layer_plain(x1, x0, w)
     monkeypatch.setattr(t_cin, "CIN_MAX_M", max_m)
+    monkeypatch.setattr(t_cin, "CIN_NARROW_MAX_K", 0)
     widths = []
     real = t_ops._cin_forward
     monkeypatch.setattr(t_ops, "_cin_forward", lambda a, b, c: (
@@ -338,10 +344,73 @@ def test_cin_weight_grad_plain_matches_einsum(monkeypatch, chunk):
 
 
 def test_cin_grad_splits_cover_the_contraction():
-    assert t_cin.cin_grad_splits(65536, 10) == 40
-    assert t_cin.cin_grad_splits(2048, 10) == 2
-    assert t_cin.cin_grad_splits(1, 10) == 1
-    assert t_cin.cin_grad_splits(0, 10) == 1
+    """K12's slices: whole stages of `CIN_GRAD_STAGE_N` n, none empty,
+    together the whole contraction, as the launcher checks them; at the
+    model's widths on 132 SMs, 11 slices of the 12 r-tiles of H = 39 (one
+    full wave) and 54 of the 61 of H = 200 (3,294 blocks, 24.95
+    waves)."""
+    assert t_cin.cin_grad_splits(65536, 39, 39, 10, 200, 132) == 11
+    assert t_cin.cin_grad_splits(65536, 200, 39, 10, 200, 132) == 54
+    assert t_cin.cin_grad_splits(1, 200, 39, 10, 200, 132) == 1
+    assert t_cin.cin_grad_splits(0, 200, 39, 10, 200, 132) == 1
+    for B, H, sms in [(65536, 39, 132), (2048, 200, 132), (700, 39, 7),
+                      (5, 13, 1), (37, 200, 132)]:
+        S = t_cin.cin_grad_splits(B, H, 39, 10, 200, sms)
+        stages = max(1, -(-(B * 10) // t_cin.CIN_GRAD_STAGE_N))
+        per = -(-stages // S)
+        assert 1 <= S <= t_cin.CIN_GRAD_MAX_SPLITS
+        assert (S - 1) * per < stages <= S * per
+
+
+def test_cin_backward_makes_one_dx0_call_per_layer(monkeypatch):
+    """At the model's CIN widths (200-200-200 over 39 fields) one step's
+    gradient makes 9 K11 calls, 3 forward and, per layer, dx1 and one dx0
+    (K' = 39: the narrow kernel, whose M' = the layer's input width, 200
+    at layers 1-2, is not split), and 3 K12 calls: 5 wide and 4 narrow,
+    as `chip_smoke.train_launches_per_step` counts them."""
+    import sys
+    sys.path.insert(0, os.path.join(os.path.dirname(__file__), ".."))
+    from chip_smoke import train_launches_per_step
+    calls, dws = [], []
+    fwd, wgrad = t_ops._cin_forward, t_ops.cin_weight_grad
+    monkeypatch.setattr(t_ops, "_cin_forward", lambda a, b, c: (
+        calls.append((c.shape[0], b.shape[1])), fwd(a, b, c))[1])
+    monkeypatch.setattr(t_ops, "cin_weight_grad", lambda *a: (
+        dws.append(a[1].shape[1]), wgrad(*a))[1])
+    cfg = tx.XDeepFMConfig("xdeepfm-narrow-vocab", big_vocab=64,
+                           small_vocab=16)
+    assert cfg.cin_layers == (200, 200, 200) and cfg.n_sparse == 39
+    params = tx.param_tree(tx.XDeepFM(cfg, device="cpu", seed=0))
+    batch = TStream(cfg.field_vocabs, cfg.field_offsets, 4,
+                    seed=0).next_batch()
+    value_and_grad(lambda p, b: tx.loss_fn(p, cfg, b))(params, batch)
+    narrow = sorted(c for c in calls if t_cin.cin_narrow(c[0],
+                                                         torch.float32))
+    assert len(calls) == 9 and sorted(dws) == [39, 200, 200]
+    assert narrow == [(39, 39), (39, 39), (39, 200), (39, 200)]
+    assert train_launches_per_step(cfg) == {
+        "cin_layer": 5, "cin_layer_narrow": 4, "cin_weight_grad": 3}
+
+
+@pytest.mark.parametrize("K,dtype,parts", [(65, torch.float32, 2),
+                                           (64, torch.float32, 1),
+                                           (8, torch.bfloat16, 2)])
+def test_wide_cin_calls_past_cin_max_m_still_split(monkeypatch, K, dtype,
+                                                   parts):
+    """A wide call (K' > 64, or bfloat16 at any K') whose x0' has more than
+    `CIN_MAX_M` = 148 channels is still cut into two K11 calls; a narrow
+    one (float32, K' <= 64) of the same width is one call. Either way the
+    result is one plain call's, within fp32 reordering."""
+    x1, x0, w, _ = _cin_inputs(np.random.default_rng(K), 3, 5, 149, 2, K)
+    x1, x0, w = (torch.from_numpy(a).to(dtype) for a in (x1, x0, w))
+    widths = []
+    real = t_ops._cin_forward
+    monkeypatch.setattr(t_ops, "_cin_forward", lambda a, b, c: (
+        widths.append(b.shape[1]), real(a, b, c))[1])
+    got = t_ops.cin_layer_split(x1, x0, w)
+    assert widths == ([149] if parts == 1 else [74, 75])
+    assert_leaf_rel(got.numpy(), t_cin.cin_layer_plain(x1, x0, w).numpy(),
+                    rel=1e-6)
 
 
 # ------------------------------------------------------ loss and gradients
