@@ -5,7 +5,7 @@
 
 Builds the twelve CUDA kernels from the four sources in
 `src/repro_torch/csrc/` (one `nvcc` per source, started together), then
-drives eleven paths of the port on the card, each with the launch counts
+drives twelve paths of the port on the card, each with the launch counts
 reset just before it and read just after it:
 
 1. the main path: `scale_free(2^17, m=4, num_levels=5, seed=0)` -> the
@@ -73,8 +73,28 @@ reset just before it and read just after it:
    against the plain path on the card; one step's device time by
    kernel from `torch.profiler` (a warm-up step, then the traced one);
 11. the port's examples (`examples/quickstart_torch.py`,
-   `examples/serve_wcsd_torch.py`) at their default sizes on the card,
-   their own asserts included.
+   `examples/serve_wcsd_torch.py`, `examples/wcsd_features_gnn_torch.py`)
+   at their default sizes on the card, their own asserts included;
+12. the GNN family (run right after the single-root BFS), on the main
+   path's V = 2^17 graph and index: the feature stage,
+   `data.graphs.distance_encoding` of all 131,072 vertices against the 8
+   highest-degree vertices at levels 0-4 (5,242,880 queries through one
+   ragged `DeviceQueryEngine`, one K1 launch a flush of 2^18), every
+   flush held against the engine's plain path on the card and every
+   vertex (64 sampled ones first) against the host BFS, clipped; then
+   GIN (5 x 64), PNA (4 x 75) and GatedGCN (16 x 70) at `get_config()`
+   width, 4 AdamW steps at each of the padded full_graph_sm (N 2,709,
+   E 21,504), molecule (N 3,841, E 32,768, 128 graphs) and minibatch_lg
+   (a `NeighborSampler` block of 1,024 seeds, fanouts 15-10, over the
+   graph, `pad_block`ed to N 184,832, E 337,920, bf16) shapes, each loss
+   finite and the last step re-run bit-identical, one fp32 full_graph_sm
+   forward per arch against the CPU (TF32 off, the real nodes within
+   1e-4 of max |ref|, the sink node within 2e-3); NequIP (5 layers, 32 channels, l <= 2) on
+   molecule with forces (a second derivative through the segment
+   backend) and on minibatch_lg energy-only in 8 edge chunks, 4 steps
+   each, energies invariant under a rotation within 1e-4, the last step
+   re-run bit-identical. No kernel of the port runs in the training
+   (the reference's message passing is not a Pallas kernel).
 
 Then every kernel is held against its plain PyTorch version on inputs
 captured from its path (exact int32 equality; K3 at the build's heaviest
@@ -1607,6 +1627,282 @@ def frontier_relax_phase(g, device) -> tuple[dict, list]:
     return phase, [kern]
 
 
+# ------------------------------------------------------- the GNN family
+GNN_LANDMARKS = 8        # the encodings' landmarks: the top-degree vertices
+GNN_CLIP = 32            # `distance_encoding`'s clip
+GNN_BFS_SAMPLE = 64      # encoded vertices also checked against the BFS
+GNN_STEPS = 4            # AdamW steps per arch and shape
+GNN_ARCHS = ("gin-tu", "pna", "gatedgcn")
+GNN_RUN_SHAPES = ("full_graph_sm", "molecule", "minibatch_lg")
+NEQUIP_RUN_SHAPES = ("molecule", "minibatch_lg")
+GNN_PARITY_TOL = 1e-4    # card vs CPU forward, of max |ref| (real nodes)
+GNN_SINK_PARITY_TOL = 2e-3  # the sink row, of max |ref| (PNA: 8.9e-4 on an H100)
+NEQUIP_ROT_TOL = 1e-4    # rotated energies, of max |E|
+GNN_FEATURE_PATH = ("wcsd_query_ragged",)
+
+
+def _sync(device) -> None:
+    import torch
+    if torch.device(device).type == "cuda":
+        torch.cuda.synchronize()
+
+
+def _bfs_dists(task):
+    from repro_torch.core.ref import wcsd_bfs_all
+    root, w = task
+    return wcsd_bfs_all(_BFS_GRAPH, root, w)
+
+
+def gnn_feature_stage(g, idx, device) -> tuple[dict, np.ndarray]:
+    """The feature stage: `data.graphs.distance_encoding` of every vertex
+    against the `GNN_LANDMARKS` highest-degree vertices at every level
+    below the top one (one `DeviceQueryEngine`, ragged: one K1 launch a
+    flush). Every flush is held against the engine's plain path on the
+    card; the encodings of `GNN_BFS_SAMPLE` sampled vertices (and of
+    every vertex, from the same BFS runs) against the host BFS from each
+    landmark at each level, clipped. Returns the record and the
+    encodings."""
+    import torch
+    from repro_torch.core.query import DeviceQueryEngine
+    from repro_torch.data import graphs as DG
+    from repro_torch.kernels import _cuda
+    V = g.num_nodes
+    landmarks = np.argsort(-g.degree(), kind="stable")[:GNN_LANDMARKS]
+    levels = list(range(g.num_levels))
+    eng = DeviceQueryEngine(idx, layout="csr", dispatch="ragged",
+                            device=device)
+    log = []
+    record_flushes(eng, log)
+    _sync(device)
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    enc = DG.distance_encoding(idx, np.arange(V), landmarks, levels,
+                               clip=GNN_CLIP, engine=eng)
+    _sync(device)
+    stage_s = time.perf_counter() - t0
+    launches = dict(_cuda.LAUNCHES)
+    check_path_launches("gnn feature stage", launches, GNN_FEATURE_PATH,
+                        {"wcsd_query_ragged": len(log)})
+    t0 = time.perf_counter()
+    bad = sum(1 for rec in log
+              if not np.array_equal(rec[4].wait(), plain_flush(eng, rec)))
+    plain_s = time.perf_counter() - t0
+    if bad:
+        fail(f"gnn feature stage: {bad} of {len(log)} flushes differ from "
+             "the plain path")
+    ctx = multiprocessing.get_context("spawn")
+    tasks = [(int(lm), w) for w in levels for lm in landmarks]
+    t0 = time.perf_counter()
+    with concurrent.futures.ProcessPoolExecutor(
+            8, mp_context=ctx, initializer=_bfs_init, initargs=(g,)) as pool:
+        exp = np.stack(list(pool.map(_bfs_dists, tasks)), axis=1)
+    bfs_s = time.perf_counter() - t0
+    exp = np.minimum(exp, GNN_CLIP).astype(np.float32)
+    sample = np.random.default_rng(6).choice(V, GNN_BFS_SAMPLE,
+                                             replace=False)
+    if not np.array_equal(enc[sample], exp[sample]):
+        fail("gnn feature stage: sampled encodings differ from the host BFS")
+    if not np.array_equal(enc, exp):
+        fail("gnn feature stage: encodings differ from the host BFS")
+    n_q = V * len(landmarks) * len(levels)
+    progress(f"gnn feature stage: {n_q:,} queries in {stage_s:.2f} s, "
+             f"{launches['wcsd_query_ragged']} K1 launches, every flush "
+             "equal to the plain path, every vertex to the host BFS")
+    rec = {"V": V, "landmarks": [int(x) for x in landmarks],
+           "levels": levels, "clip": GNN_CLIP, "queries": n_q,
+           "flush": DG.ENCODING_FLUSH, "flushes": len(log),
+           "k1_launches": launches["wcsd_query_ragged"],
+           "stage_s": stage_s, "queries_per_s": n_q / stage_s,
+           "plain_check_s": plain_s, "bfs_s": bfs_s,
+           "flushes_equal_plain": True, "bfs_sample": GNN_BFS_SAMPLE,
+           "bfs_vertices": V, "bfs_equal": True,
+           "mean_encoding": float(enc.mean())}
+    return rec, enc
+
+
+def _tree_equal(a, b) -> bool:
+    import torch
+    from repro_torch.train.tree import flatten_with_paths
+    fa, fb = flatten_with_paths(a), flatten_with_paths(b)
+    return fa.keys() == fb.keys() and all(torch.equal(fa[k], fb[k])
+                                          for k in fa)
+
+
+def _to_device(batch: dict, device) -> dict:
+    import torch
+    return {k: torch.from_numpy(np.ascontiguousarray(v)).to(device)
+            for k, v in batch.items()}
+
+
+def gnn_train_run(cfg, shape: str, batch: dict, device, steps=GNN_STEPS,
+                  rotate=False) -> dict:
+    """``steps`` AdamW steps of ``cfg`` (sized for ``shape``) from a seeded
+    init on ``batch`` (already on the device): every loss finite, the
+    last step re-run from its starting state bit-identical (parameters
+    and moments); the median step time, model TFLOP/s, peak memory
+    above the run's start, and a `torch.profiler` trace of one more step
+    (device busy ms, idle share, the top kernels). ``tflops_real_edges``
+    counts the model FLOP over the edges that are not sink self-edges
+    (the padding). With ``rotate`` (NequIP) the energies after
+    the steps are held invariant under a random rotation of ``pos``."""
+    import torch
+    from repro_torch.configs import gnn_common as GC
+    from repro_torch.models import common as C
+    from repro_torch.models import gnn as G
+    from repro_torch.models import nequip as NQ
+    from repro_torch.train import optim as O
+    nequip = isinstance(cfg, NQ.NequIPConfig)
+    model = (NQ.NequIP if nequip else G.GNN)(cfg, device=device, seed=0)
+    params = C.param_tree(model)
+    opt = O.init_opt_state(GC.TRAIN_OPT, params)
+    step = GC.make_train_step_for(cfg, shape)
+    N, E = GC.padded_sizes(shape)
+    _sync(device)
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+        base = torch.cuda.memory_allocated()
+    times, losses = [], []
+    for i in range(steps):
+        prev = (params, opt)
+        t0 = time.perf_counter()
+        params, opt, m = step(params, opt, batch)
+        losses.append(float(m["loss"]))          # waits for the step
+        times.append(time.perf_counter() - t0)
+    peak = (torch.cuda.max_memory_allocated() - base
+            if torch.device(device).type == "cuda" else None)
+    if not np.isfinite(losses).all():
+        fail(f"gnn {cfg.name} at {shape}: a loss is not finite: {losses}")
+    again = step(*prev, batch)
+    if not (_tree_equal(again[0], params) and _tree_equal(again[1], opt)):
+        fail(f"gnn {cfg.name} at {shape}: a re-run step is not "
+             "bit-identical")
+    profile = None
+    if torch.device(device).type == "cuda":
+        rows, wall = trace_second_call(lambda: step(params, opt, batch))
+        busy = sum(ms for _, ms, _ in rows)
+        profile = {"device_busy_ms": busy, "wall_ms": wall * 1e3,
+                   "idle_share": max(0.0, 1 - busy / (wall * 1e3)),
+                   "device_ops": sum(c for *_, c in rows),
+                   "top": [{"kernel": n[:100], "ms": ms, "count": c}
+                           for n, ms, c in rows[:6]]}
+    med = float(np.median(times))
+    flops = GC.model_flops(cfg, E, N)
+    sink = N - 1
+    real_e = int(((batch["edges_src"] != sink)
+                  | (batch["edges_dst"] != sink)).sum())
+    real_flops = GC.model_flops(cfg, real_e, N)
+    out = {"N": N, "E": E, "dtype": getattr(cfg, "compute_dtype",
+                                            "float32"),
+           "losses": losses, "step_ms": [t * 1e3 for t in times],
+           "median_step_ms": med * 1e3, "model_flops": flops,
+           "tflops": flops / med / 1e12, "real_edges": real_e,
+           "tflops_real_edges": real_flops / med / 1e12, "peak_bytes": peak,
+           "rerun_bit_identical": True, "profile": profile}
+    if nequip:
+        out["edge_chunk"] = GC.nequip_edge_chunk(E)
+        out["force_weight"] = GC.nequip_force_weight(shape)
+    if rotate:
+        from scipy.spatial.transform import Rotation
+        R = torch.tensor(Rotation.random(random_state=7).as_matrix(),
+                         dtype=torch.float32, device=batch["pos"].device)
+        ng = GC.n_graphs_of(cfg, shape)
+        chunk = GC.nequip_edge_chunk(E)
+        with torch.no_grad():
+            e1 = NQ.energy_fn(params, cfg, batch, n_graphs=ng,
+                              edge_chunk=chunk)
+            e2 = NQ.energy_fn(params, cfg, dict(batch, pos=batch["pos"]
+                                                @ R.T), n_graphs=ng,
+                              edge_chunk=chunk)
+        err = float((e1 - e2).abs().max() / e1.abs().max())
+        if not err <= NEQUIP_ROT_TOL:
+            fail(f"nequip at {shape}: energies change by {err:.2e} of max "
+                 "|E| under a rotation")
+        out["rotation_rel_err"] = err
+    progress(f"gnn {cfg.name} at {shape}: median step "
+             f"{out['median_step_ms']:.2f} ms, {out['tflops']:.3f} TFLOP/s "
+             f"({out['tflops_real_edges']:.3f} over real edges), "
+             f"losses {[round(x, 4) for x in losses]}")
+    return out
+
+
+def gnn_parity(cfg, batch_np: dict, device) -> dict:
+    """One fp32 forward at ``cfg`` (full width, full_graph_sm) on the
+    card against the same forward on the CPU, TF32 off on both sides:
+    the real nodes within `GNN_PARITY_TOL` of max |ref|, the sink node
+    within `GNN_SINK_PARITY_TOL`. The sink takes every padding edge, and
+    PNA's std aggregate there is a cancellation over hundreds of equal
+    messages."""
+    import torch
+    from repro_torch.models import common as C
+    from repro_torch.models import gnn as G
+    model = G.GNN(cfg, device="cpu", seed=0)
+    ref = G.forward(C.param_tree(model), cfg, batch_np).double()
+    got = G.forward(C.param_tree(model.to(device)), cfg,
+                    _to_device(batch_np, device)).double().cpu()
+    err = float((got - ref)[:-1].abs().max() / ref[:-1].abs().max())
+    err_sink = float((got - ref)[-1].abs().max() / ref.abs().max())
+    if not err <= GNN_PARITY_TOL:
+        fail(f"gnn {cfg.name}: the card's forward is {err:.2e} of max |ref| "
+             "from the CPU's")
+    if not err_sink <= GNN_SINK_PARITY_TOL:
+        fail(f"gnn {cfg.name}: the card's forward at the sink is "
+             f"{err_sink:.2e} of max |ref| from the CPU's")
+    return {"rel_err": err, "rel_err_sink": err_sink,
+            "tol": GNN_PARITY_TOL, "sink_tol": GNN_SINK_PARITY_TOL}
+
+
+def gnn_phase(g, idx, device) -> dict:
+    """Path 12: the GNN family on the card. The feature stage (every
+    vertex of the V = 2^17 graph encoded by `distance_encoding` through
+    K1); GIN, PNA and GatedGCN at `get_config()` width, each at the
+    padded shapes of full_graph_sm, molecule and minibatch_lg (a real
+    `NeighborSampler` block over ``g``, bf16), `GNN_STEPS` AdamW steps a
+    shape; one fp32 full_graph_sm forward per arch against the CPU;
+    NequIP at `get_config()` on molecule (the force loss) and
+    minibatch_lg (energy only, the reference's edge chunk)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import gnn_common as GC
+    from repro_torch.kernels import _cuda
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    t_phase = time.perf_counter()
+    features, _ = gnn_feature_stage(g, idx, device)
+    t0 = time.perf_counter()
+    batches = {shape: GC.cell_batch(shape, seed=1, graph=g)
+               for shape in GNN_RUN_SHAPES}
+    batch_s = time.perf_counter() - t0
+    on_card = {shape: _to_device(b, device) for shape, b in batches.items()}
+    _sync(device)
+    _cuda.reset_launch_counts()
+    archs = {}
+    for arch in GNN_ARCHS:
+        base = get_arch(arch).get_config()
+        archs[arch] = {shape: gnn_train_run(GC.shape_config(base, shape),
+                                            shape, on_card[shape], device)
+                       for shape in GNN_RUN_SHAPES}
+        archs[arch]["card_vs_cpu"] = gnn_parity(
+            GC.shape_config(base, "full_graph_sm"),
+            batches["full_graph_sm"], device)
+    nq = get_arch("nequip").get_config()
+    archs["nequip"] = {shape: gnn_train_run(GC.shape_config(nq, shape),
+                                            shape, on_card[shape], device,
+                                            rotate=True)
+                       for shape in NEQUIP_RUN_SHAPES}
+    _sync(device)
+    train_launches = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    if train_launches:
+        fail(f"gnn training launched kernels of the port: {train_launches}")
+    mb = batches["minibatch_lg"]
+    return {"phase": "gnn", "features": features, "batch_s": batch_s,
+            "minibatch_block": {
+                "seeds": GC.MINIBATCH_SEEDS,
+                "fanouts": list(GC.MINIBATCH_FANOUTS),
+                "sink_edges": int((mb["edges_dst"] == len(mb["feat"]) - 1
+                                   ).sum())},
+            "archs": archs, "wall_s": time.perf_counter() - t_phase}
+
+
 # -------------------------------------------------------- dynamic index
 LOG2_V_DYN = 13          # the dynamic index: scale_free(2^13, m=4, 5 levels)
 LOG2_DYN_QUERIES = 18    # served scalar queries per graph version
@@ -2670,16 +2966,10 @@ def train_kernel_record(kind: str, args, iters: int, plain_iters: int
     return rec
 
 
-def step_profile(fn, per_step: dict) -> dict:
-    """Device time of one call of ``fn`` by kernel, from a
-    `torch.profiler` trace of the second of two calls (the first warms
-    the trace up: a trace of one call alone has shown none of the
-    forward's K11 launches): K11's kernels (wide: the W image, the 3xTF32
-    GEMM, its split sum; narrow: its w images and its GEMM), K12's (its
-    GEMM, its split sum), and everything else, with the top ten kernels
-    by device time. ``launches_in_trace`` counts the three GEMM kernels;
-    ``complete`` says whether they match ``per_step``. None where the
-    trace shows no device time."""
+def trace_second_call(fn) -> tuple[list, float]:
+    """(rows, wall s) of the second of two calls of ``fn`` under a
+    `torch.profiler` CUDA trace: rows (name, device ms, count) by device
+    time, descending; wall the call's host time between two syncs."""
     import torch
     from torch.profiler import ProfilerActivity, profile, schedule
     wall = 0.0
@@ -2699,9 +2989,23 @@ def step_profile(fn, per_step: dict) -> dict:
         t = e.cuda_time_total if t is None else t
         if t:
             rows.append((e.key, t / 1e3, e.count))
+    rows.sort(key=lambda r: -r[1])
+    return rows, wall
+
+
+def step_profile(fn, per_step: dict) -> dict:
+    """Device time of one call of ``fn`` by kernel, from a
+    `torch.profiler` trace of the second of two calls (the first warms
+    the trace up: a trace of one call alone has shown none of the
+    forward's K11 launches): K11's kernels (wide: the W image, the 3xTF32
+    GEMM, its split sum; narrow: its w images and its GEMM), K12's (its
+    GEMM, its split sum), and everything else, with the top ten kernels
+    by device time. ``launches_in_trace`` counts the three GEMM kernels;
+    ``complete`` says whether they match ``per_step``. None where the
+    trace shows no device time."""
+    rows, wall = trace_second_call(fn)
     if not rows:
         return None
-    rows.sort(key=lambda r: -r[1])
 
     def kernel(name, subs):
         return any(s in name.split("(")[0] for s in subs)
@@ -3031,17 +3335,20 @@ EXAMPLES = {  # example -> the kernels its card run must launch
     "quickstart_torch": ("wcsd_query_ragged",),
     "serve_wcsd_torch": ("wcsd_query_gathered", "wcsd_query_ragged",
                          "wcsd_profile_ragged"),
+    "wcsd_features_gnn_torch": ("wcsd_query_ragged",),
 }
 
 
 def examples_phase() -> dict:
     """Path 11: the port's examples (`examples/quickstart_torch.py`,
-    `examples/serve_wcsd_torch.py`) at their default sizes on the card,
-    their own asserts included (the quickstart: the index against the
-    constrained-BFS oracle and the engine's K1 batch against it; the
-    serving example: the padded, CSR and 8-shard legs equal, BFS spot
-    checks, the profile staircases and their memo). Their printout goes
-    to stderr; each one's launches are counted."""
+    `examples/serve_wcsd_torch.py`, `examples/wcsd_features_gnn_torch.py`)
+    at their default sizes on the card, their own asserts included (the
+    quickstart: the index against the constrained-BFS oracle and the
+    engine's K1 batch against it; the serving example: the padded, CSR
+    and 8-shard legs equal, BFS spot checks, the profile staircases and
+    their memo; the GNN example: the GIN with WC-INDEX encodings, from
+    K1, beats the bare features). Their printout goes to stderr; each
+    one's launches are counted."""
     import importlib.util
     import torch
     from repro_torch.kernels import _cuda
@@ -3063,6 +3370,9 @@ def examples_phase() -> dict:
                      "launches": {k: launches[k] for k in path}}
         if name == "quickstart_torch":
             out[name]["counts"] = res
+        if name == "wcsd_features_gnn_torch":
+            out[name].update(acc_base=res["acc_base"],
+                             acc_wcsd=res["acc_wcsd"])
         progress(f"examples: {name} passed on the card in "
                  f"{out[name]['wall_s']:.1f} s, launches "
                  f"{out[name]['launches']}")
@@ -3225,6 +3535,9 @@ def main() -> int:
                                                 out_e, prof_e, dev)
     relax, relax_kernels = frontier_relax_phase(g, dev)
 
+    # ------------------ the GNN family: K1 encodings, GIN/PNA/GatedGCN
+    gnn = gnn_phase(g, idx, dev)
+
     # ------------------------- the dynamic index: updates, WAL, chaos
     torch.cuda.synchronize()
     _cuda.reset_launch_counts()
@@ -3248,9 +3561,10 @@ def main() -> int:
     # ----------------------------------------- kernels vs plain, timed
     if cap.k3 is None or cap.k4 is None or cap.k4_dense is None:
         fail("no build round was captured for the kernel phases")
+    k1_gnn = gnn["features"]["k1_launches"]
     kernels = [
         ragged_kernel_phase(srv_e.engine, qrec, False,
-                            launches["wcsd_query_ragged"], 50),
+                            launches["wcsd_query_ragged"] + k1_gnn, 50),
         ragged_kernel_phase(srv_e.engine, prec, True,
                             launches["wcsd_profile_ragged"], 50),
         prune_kernel_phase(cap.k3, launches["wc_prune_emit_batched"],
@@ -3260,6 +3574,8 @@ def main() -> int:
                            steps["wc_relax_batched"], 50),
     ] + comp_kernels + bp_kernels + pad_kernels + relax_kernels \
         + xdf_kernels + train_kernels
+    kernels[0].update(main_launches=launches["wcsd_query_ragged"],
+                      gnn_launches=k1_gnn)
     for k in kernels:
         if k["max_abs_err"] > k.get("max_abs_tol", 0):
             fail(f"kernel {k['name']} differs from its plain version "
@@ -3279,6 +3595,7 @@ def main() -> int:
     emit(bp_serve)
     emit(pad_serve)
     emit(relax)
+    emit(gnn)
     emit(dyn)
     emit(xdf)
     emit(train)

@@ -1,1 +1,3 @@
-"""Synthetic input streams of the port's models (`recsys.CTRStream`)."""
+"""Synthetic inputs of the port's models (`recsys.CTRStream`) and the
+graph pipeline (`graphs`: the neighbor sampler, padded blocks, synthetic
+graph tasks, WC-INDEX distance encodings)."""

@@ -1,2 +1,4 @@
-"""Models of the port: `xdeepfm` (serving path, kernel K11 in each CIN
-layer) and the init helper it shares (`common.trunc_normal`)."""
+"""Models of the port: `xdeepfm` (serving and training, kernel K11 in
+each CIN layer), the GNN family `gnn` (GIN, PNA, GatedGCN) and `nequip`,
+and what they share (`common`: init, the cross-entropy, the segment
+backend, parameter trees)."""

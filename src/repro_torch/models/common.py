@@ -1,11 +1,34 @@
-"""Shared model building blocks of the port. Only what its models use so
-far: `trunc_normal`, the reference's `models/common.py:trunc_normal`, and
-`gather_rows`, an embedding gather whose gradient is deterministic."""
+"""Shared model building blocks of the port: `trunc_normal`, the
+reference's `models/common.py:trunc_normal`; `cross_entropy_loss`, its
+`cross_entropy_loss`; the segment backend the graph models and the
+embedding gradient share; and the helpers that carry a nested parameter
+tree between numpy and a module.
+
+The segment backend replaces `jax.ops.segment_sum` / `segment_max` and
+the gathers ``x[ids]`` around them. A `SegmentPlan` sorts the ids once
+(stably) and splits every segment into runs of at most `SEGMENT_RUN`
+rows; a reduction sums each run in order, then the runs of a segment in
+order, level by level (`torch.segment_reduce` over lengths, one thread a
+run and column), so a long segment (a padded block's sink node) is not
+one long serial sum, and no float atomic is ever used: every run gives
+the same bits, on the card too. `segment_sum` and `segment_gather` are a
+pair of `torch.autograd.Function`s whose backwards are each other (the
+gather's gradient is the segment sum by the same ids, the sum's is the
+gather), so they differentiate any number of times. `segment_max` /
+`segment_min` split the gradient evenly among ties, as JAX does, and
+leave an empty segment at ``-inf`` / ``+inf``. Ids outside
+``[0, num_segments)`` are dropped by the reductions, as JAX drops them,
+and gather zeros."""
 from __future__ import annotations
 
+import functools
 import math
 
+import numpy as np
 import torch
+from torch import nn
+
+SEGMENT_RUN = 64   # rows a reduction sums serially before a next level
 
 
 def trunc_normal(shape, generator: torch.Generator, scale: float = 1.0,
@@ -30,36 +53,273 @@ def trunc_normal(shape, generator: torch.Generator, scale: float = 1.0,
     return (std * x).to(dtype)
 
 
-class _GatherRows(torch.autograd.Function):
-    """``table[ids]`` whose backward sums each id's rows by sorting: a
-    stable sort of the ids, then `torch.segment_reduce` over each run of
-    equal ids (one sequential sum per row, in the order the ids came),
-    written into a zero table. `index_select`'s own backward scatters
-    with float atomics on the card, so two runs could differ in their
-    last bits; this one gives the same bits every run."""
+def cross_entropy_loss(logits: torch.Tensor, labels, z_loss: float = 0.0
+                       ) -> torch.Tensor:
+    """Mean cross-entropy over the labels >= 0 (the others are masked),
+    with the reference's optional ``z_loss * lse**2``; every reduction in
+    float32, whatever the logits' dtype."""
+    labels = torch.as_tensor(labels, device=logits.device)
+    mask = (labels >= 0).to(torch.float32)
+    labels_c = labels.clamp_min(0).long()
+    lf = logits.to(torch.float32)
+    m = lf.detach().amax(dim=-1)
+    lse = m + torch.log(torch.exp(lf - m[..., None]).sum(-1))
+    onehot = torch.arange(logits.shape[-1], device=logits.device) \
+        == labels_c[..., None]
+    ll = torch.where(onehot, lf, 0.0).sum(-1)
+    loss = (lse - ll) * mask
+    if z_loss:
+        loss = loss + z_loss * (lse * mask) ** 2
+    return loss.sum() / mask.sum().clamp_min(1.0)
+
+
+# ---------------------------------------------------------- segment backend
+class SegmentPlan:
+    """The ids of a segment reduction (or of a gather), sorted once.
+
+    ``ids`` [n] int: the segment of each row; ``num_segments`` S. Ids
+    outside [0, S) go to a trash segment S that reductions drop;
+    ``trashed`` is their mask, or None where there is none. ``order``
+    is the stable sort of the ids; ``levels`` the run lengths of each
+    reduction level (the last one has S + 1 entries, zeros for empty
+    segments). Both are made at a reduction's first use, so a plan that
+    only gathers costs no sort. Build one per batch and pass it to every
+    op over the same ids: a plan costs a sort and a few host syncs."""
+
+    def __init__(self, ids, num_segments: int):
+        ids = torch.as_tensor(ids).long()
+        S = int(num_segments)
+        bad = (ids < 0) | (ids >= S)
+        self.num_segments = S
+        self.ids = torch.where(bad, S, ids)
+        self.trashed = bad if bool(bad.any()) else None
+
+    @functools.cached_property
+    def order(self) -> torch.Tensor:
+        return torch.argsort(self.ids, stable=True)
+
+    @functools.cached_property
+    def levels(self) -> list:
+        S, dev = self.num_segments, self.ids.device
+        counts = torch.bincount(self.ids, minlength=S + 1)
+        levels = []
+        while int(counts.max()) > SEGMENT_RUN:
+            nruns = (counts + SEGMENT_RUN - 1) // SEGMENT_RUN
+            seg = torch.repeat_interleave(torch.arange(S + 1, device=dev),
+                                          nruns)
+            first = torch.cumsum(nruns, 0) - nruns
+            j = torch.arange(seg.shape[0], device=dev) - first[seg]
+            levels.append(torch.clamp(counts[seg] - j * SEGMENT_RUN,
+                                      max=SEGMENT_RUN))
+            counts = nruns
+        levels.append(counts)
+        return levels
+
+    def __len__(self) -> int:
+        return self.ids.shape[0]
+
+
+def as_plan(ids, num_segments: int | None = None) -> SegmentPlan:
+    """``ids`` as a `SegmentPlan` (a plan passes through unchanged)."""
+    if isinstance(ids, SegmentPlan):
+        if num_segments is not None and num_segments != ids.num_segments:
+            raise ValueError(f"plan has {ids.num_segments} segments, "
+                             f"asked for {num_segments}")
+        return ids
+    if num_segments is None:
+        raise ValueError("num_segments is required with raw ids")
+    return SegmentPlan(ids, num_segments)
+
+
+def _reduce(x: torch.Tensor, plan: SegmentPlan, op: str) -> torch.Tensor:
+    """The plain reduction: ``op`` over each segment of rows of ``x``
+    ([n, ...] -> [S, ...]); sums accumulate in float32 at least."""
+    if x.shape[0] != len(plan):
+        raise ValueError(f"{x.shape[0]} rows for a plan of {len(plan)} ids")
+    tail = tuple(x.shape[1:])
+    y = x.reshape(x.shape[0], -1).index_select(0, plan.order)
+    if op == "sum" and y.dtype in (torch.bfloat16, torch.float16):
+        y = y.to(torch.float32)
+    for lengths in plan.levels:
+        y = torch.segment_reduce(y, op, lengths=lengths, unsafe=True)
+    return y[:plan.num_segments].to(x.dtype).reshape(
+        (plan.num_segments,) + tail)
+
+
+def _take(x: torch.Tensor, plan: SegmentPlan) -> torch.Tensor:
+    """``x[ids]`` with a zero row for trashed ids."""
+    S = plan.num_segments
+    if x.shape[0] != S:
+        raise ValueError(f"{x.shape[0]} rows for a plan of {S} segments")
+    if plan.trashed is None:
+        return x.index_select(0, plan.ids)
+    y = x.index_select(0, plan.ids.clamp_max(S - 1))
+    return y.masked_fill(plan.trashed.view((-1,) + (1,) * (y.dim() - 1)), 0)
+
+
+class _SegmentSum(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return _reduce(x, plan, "sum")
 
     @staticmethod
-    def forward(ctx, table, ids):
-        ctx.save_for_backward(ids)
-        ctx.rows = table.shape[0]
-        return table.index_select(0, ids)
+    def backward(ctx, g):
+        return _Gather.apply(g, ctx.plan), None
+
+
+class _Gather(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, plan):
+        ctx.plan = plan
+        return _take(x, plan)
 
     @staticmethod
-    def backward(ctx, grad):
-        (ids,) = ctx.saved_tensors
-        order = torch.argsort(ids, stable=True)
-        uniq, counts = torch.unique_consecutive(ids[order],
-                                                return_counts=True)
-        sums = torch.segment_reduce(grad[order], "sum", lengths=counts,
-                                    unsafe=True)
-        out = grad.new_zeros((ctx.rows,) + tuple(grad.shape[1:]))
-        out[uniq] = sums
-        return out, None
+    def backward(ctx, g):
+        return _SegmentSum.apply(g, ctx.plan), None
+
+
+class _SegmentExtreme(torch.autograd.Function):
+    """Segment max or min; the gradient of a segment is split evenly
+    among the rows that reach its extreme (its backward is built from
+    the differentiable pair, so it differentiates again)."""
+
+    @staticmethod
+    def forward(ctx, x, plan, op):
+        out = _reduce(x, plan, op)
+        ctx.plan = plan
+        ctx.save_for_backward(x, out)
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        x, out = ctx.saved_tensors
+        plan = ctx.plan
+        with torch.no_grad():
+            hit = (x == _take(out, plan)).to(g.dtype)
+            cnt = _reduce(hit, plan, "sum").clamp_min(1)
+        return _Gather.apply(g / cnt, plan) * hit, None, None
+
+
+def segment_sum(x: torch.Tensor, ids, num_segments: int | None = None
+                ) -> torch.Tensor:
+    """`jax.ops.segment_sum`: rows of ``x`` [n, ...] summed by segment
+    (``ids`` a `SegmentPlan` or int ids [n]) into [S, ...]; deterministic
+    and differentiable any number of times."""
+    return _SegmentSum.apply(x, as_plan(ids, num_segments))
+
+
+def segment_max(x: torch.Tensor, ids, num_segments: int | None = None
+                ) -> torch.Tensor:
+    """`jax.ops.segment_max`: ``-inf`` where a segment is empty; ties
+    share the gradient evenly."""
+    return _SegmentExtreme.apply(x, as_plan(ids, num_segments), "max")
+
+
+def segment_min(x: torch.Tensor, ids, num_segments: int | None = None
+                ) -> torch.Tensor:
+    """`jax.ops.segment_min`: ``+inf`` where a segment is empty; ties
+    share the gradient evenly."""
+    return _SegmentExtreme.apply(x, as_plan(ids, num_segments), "min")
+
+
+def segment_gather(x: torch.Tensor, ids) -> torch.Tensor:
+    """``x[ids]`` for a ``x`` of ``num_segments`` rows: its gradient is
+    `segment_sum` over the same plan (no float atomics, any order of
+    derivative)."""
+    return _Gather.apply(x, as_plan(ids, x.shape[0]))
 
 
 def gather_rows(table: torch.Tensor, ids: torch.Tensor) -> torch.Tensor:
-    """Rows ``ids`` (int64 [n]) of ``table`` [R, ...]: `index_select`,
-    with a deterministic gradient where ``table`` requires one."""
+    """Rows ``ids`` (int [n]) of ``table`` [R, ...]: `index_select` where
+    no gradient is wanted, else `segment_gather` (a deterministic
+    gradient)."""
     if torch.is_grad_enabled() and table.requires_grad:
-        return _GatherRows.apply(table, ids)
+        return segment_gather(table, ids)
     return table.index_select(0, ids)
+
+
+# ------------------------------------------------------ parameter trees
+def flatten_params(tree: dict, prefix: str = "") -> dict:
+    """A nested dict as {"a.b.c": leaf}."""
+    flat = {}
+    for key, val in tree.items():
+        path = f"{prefix}{key}"
+        if isinstance(val, dict):
+            flat.update(flatten_params(val, path + "."))
+        else:
+            flat[path] = val
+    return flat
+
+
+def nest_params(flat: dict) -> dict:
+    """The inverse of `flatten_params`."""
+    out: dict = {}
+    for path, v in flat.items():
+        *groups, name = path.split(".")
+        node = out
+        for g in groups:
+            node = node.setdefault(g, {})
+        node[name] = v
+    return out
+
+
+class ParamGroup(nn.Module):
+    """A named group of parameters (``cin``, ``layers``, ...)."""
+
+    def __init__(self, shapes: dict, device: torch.device):
+        super().__init__()
+        for name, shape in shapes.items():
+            self.register_parameter(name, nn.Parameter(
+                torch.empty(shape, device=device), requires_grad=False))
+
+
+def register_params(module: nn.Module, defs: dict, device) -> None:
+    """Register an uninitialised parameter for every ``path: shape`` of
+    ``defs`` on ``module`` (a path ``group.name`` in a `ParamGroup`);
+    they do not require gradients: training runs the functional path."""
+    groups: dict = {}
+    for path, shape in defs.items():
+        if "." in path:
+            group, name = path.split(".", 1)
+            groups.setdefault(group, {})[name] = shape
+        else:
+            module.register_parameter(path, nn.Parameter(
+                torch.empty(shape, device=device), requires_grad=False))
+    for group, shapes in groups.items():
+        module.add_module(group, ParamGroup(shapes, device))
+
+
+def param_tree(model: nn.Module) -> dict:
+    """A module's parameters as the reference's nested dict, each leaf a
+    detached tensor sharing the parameter's storage."""
+    return nest_params({n: p.detach() for n, p in model.named_parameters()})
+
+
+def tree_to_numpy(params) -> dict:
+    """A nested dict of numpy float32 arrays, from a module or a nested
+    dict of tensors."""
+    if isinstance(params, nn.Module):
+        params = param_tree(params)
+    return nest_params({p: v.detach().cpu().numpy()
+                        for p, v in flatten_params(params).items()})
+
+
+def load_numpy_tree(model: nn.Module, defs: dict, tree: dict) -> nn.Module:
+    """Copy the nested numpy tree ``tree`` into ``model``, whose
+    parameters are ``defs`` (path -> shape). A missing key, an extra key
+    or a shape that differs raises."""
+    flat = flatten_params(tree)
+    missing = sorted(set(defs) - set(flat))
+    extra = sorted(set(flat) - set(defs))
+    if missing or extra:
+        raise KeyError(f"params_from_numpy: missing {missing}, extra {extra}")
+    for path, val in flat.items():
+        if tuple(np.shape(val)) != tuple(defs[path]):
+            raise ValueError(f"params_from_numpy: {path} has shape "
+                             f"{tuple(np.shape(val))}, expected {defs[path]}")
+    with torch.no_grad():
+        for path, val in flat.items():
+            model.get_parameter(path).copy_(torch.tensor(
+                np.asarray(val, dtype=np.float32)))
+    return model

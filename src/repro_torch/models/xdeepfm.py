@@ -31,7 +31,8 @@ from torch import nn
 
 from ..kernels import ops
 from ..kernels._cuda import resolve_device
-from .common import gather_rows, trunc_normal
+from .common import (gather_rows, load_numpy_tree, param_tree,
+                     register_params, tree_to_numpy, trunc_normal)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -110,16 +111,6 @@ def param_defs(cfg: XDeepFMConfig) -> dict:
 
 def _is_bias(path: str) -> bool:
     return path.endswith("bias") or ".b" in path
-
-
-class _Group(nn.Module):
-    """A named group of parameters (``cin`` or ``mlp``)."""
-
-    def __init__(self, shapes: dict, device: torch.device):
-        super().__init__()
-        for name, shape in shapes.items():
-            self.register_parameter(name, nn.Parameter(
-                torch.empty(shape, device=device), requires_grad=False))
 
 
 # ------------------------------------------------------------------ forward
@@ -205,13 +196,7 @@ class XDeepFM(nn.Module):
         dev = resolve_device(device)
         self.cfg = cfg
         defs = param_defs(cfg)
-        for path in ("embed", "linear", "bias"):
-            self.register_parameter(path, nn.Parameter(
-                torch.empty(defs[path], device=dev), requires_grad=False))
-        for group in ("cin", "mlp"):
-            self.add_module(group, _Group(
-                {p.split(".", 1)[1]: s for p, s in defs.items()
-                 if p.startswith(group + ".")}, dev))
+        register_params(self, defs, dev)
         gen = torch.Generator(device=dev)
         gen.manual_seed(seed)
         with torch.no_grad():
@@ -250,45 +235,11 @@ def retrieval_scores(model: XDeepFM, query_ids, cand_emb):
     return scores, (top.values, top.indices)
 
 
-def _flatten(tree: dict, prefix: str = "") -> dict:
-    flat = {}
-    for key, val in tree.items():
-        path = f"{prefix}{key}"
-        if isinstance(val, dict):
-            flat.update(_flatten(val, path + "."))
-        else:
-            flat[path] = val
-    return flat
-
-
-def _nest(flat: dict) -> dict:
-    out: dict = {}
-    for path, v in flat.items():
-        *groups, name = path.split(".")
-        node = out
-        for g in groups:
-            node = node.setdefault(g, {})
-        node[name] = v
-    return out
-
-
-def param_tree(model: XDeepFM) -> dict:
-    """The module's parameters as the reference's nested dict (``embed``,
-    ``linear``, ``bias``, ``cin: {w0, ..., out_w}``, ``mlp: {...}``), each
-    leaf a detached tensor sharing the parameter's storage: the
-    functional `forward` and `loss_fn` take it, and a train step's
-    updates come back as new tensors without touching the module."""
-    return _nest({n: p.detach() for n, p in model.named_parameters()})
-
-
 def params_to_numpy(params) -> dict:
     """The reference's nested dict of numpy float32 arrays, from an
     `XDeepFM` module or a nested dict of tensors (the inverse of
     `params_from_numpy`)."""
-    if isinstance(params, nn.Module):
-        params = param_tree(params)
-    return _nest({p: v.detach().cpu().numpy()
-                  for p, v in _flatten(params).items()})
+    return tree_to_numpy(params)
 
 
 def params_from_numpy(cfg: XDeepFMConfig, tree: dict, device=None,
@@ -296,19 +247,5 @@ def params_from_numpy(cfg: XDeepFMConfig, tree: dict, device=None,
     """An `XDeepFM` holding the weights of ``tree``: the nested dict the
     reference's `init_params` returns, each leaf a numpy array. A missing
     key, an extra key or a shape that differs raises."""
-    flat = _flatten(tree)
-    want = param_defs(cfg)
-    missing = sorted(set(want) - set(flat))
-    extra = sorted(set(flat) - set(want))
-    if missing or extra:
-        raise KeyError(f"params_from_numpy: missing {missing}, extra {extra}")
-    for path, val in flat.items():
-        if tuple(np.shape(val)) != tuple(want[path]):
-            raise ValueError(f"params_from_numpy: {path} has shape "
-                             f"{tuple(np.shape(val))}, expected {want[path]}")
-    model = XDeepFM(cfg, device=device)
-    with torch.no_grad():
-        for path, val in flat.items():
-            model.get_parameter(path).copy_(torch.tensor(
-                np.asarray(val, dtype=np.float32)))
-    return model
+    return load_numpy_tree(XDeepFM(cfg, device=device), param_defs(cfg),
+                           tree)

@@ -1390,3 +1390,119 @@ def test_xdeepfm_train_step_on_card_equals_plain(card, monkeypatch):
         if c[k].abs().max() > 0:
             assert _rel(a[k], c[k]) <= 1e-4, k
     assert arch.train_flops(cfg, 256) > 0
+
+
+# ------------------------------------------------- the GNN family on the card
+def _tree_on(tree, device):
+    from repro_torch.train.tree import tree_map
+    return tree_map(lambda t: t.to(device), tree)
+
+
+@pytest.mark.parametrize("op", ["sum", "max", "min", "gather"])
+def test_segment_ops_on_card_bit_identical_and_equal_cpu(card, op):
+    """The segment backend on the card (a long segment split in runs
+    included): values, the gradient and the gradient of a gradient
+    bit-identical across two runs (no float atomics) and within 1e-5 of
+    the CPU's."""
+    from repro_torch.models import common as C
+    rng = np.random.default_rng(0)
+    ids = np.concatenate([rng.integers(0, 300, 20_000),
+                          np.full(30_000, 299)])     # a sink-like segment
+    x = rng.standard_normal((len(ids), 6)).astype(np.float32)
+    w = rng.standard_normal((300, 6)).astype(np.float32)
+
+    def run(device):
+        plan = C.SegmentPlan(torch.from_numpy(ids).to(device), 300)
+        if op == "gather":
+            xt = torch.from_numpy(w).to(device).requires_grad_(True)
+            y = C.segment_gather(xt, plan)
+            f = (torch.from_numpy(x).to(device) * y * y).sum()
+        else:
+            xt = torch.from_numpy(x).to(device).requires_grad_(True)
+            y = {"sum": C.segment_sum, "max": C.segment_max,
+                 "min": C.segment_min}[op](xt, plan)
+            f = (torch.from_numpy(w).to(device) * y * y).sum()
+        (g,) = torch.autograd.grad(f, xt, create_graph=True)
+        (h,) = torch.autograd.grad((g * g).sum(), xt)
+        return [t.detach() for t in (y, g, h)]
+
+    a, b, c = run(card), run(card), run("cpu")
+    for ta, tb, tc in zip(a, b, c):
+        assert torch.equal(ta, tb)
+        assert _rel(ta.cpu(), tc) <= 1e-5
+
+
+@pytest.mark.parametrize("arch", ["gin-tu", "pna", "gatedgcn"])
+def test_gnn_train_step_on_card_equals_cpu(card, arch):
+    """Two AdamW steps at smoke width on a padded molecule cell batch:
+    the loss and every updated parameter on the card within 1e-4 of the
+    CPU's (TF32 off), bit-identical across two runs on the card."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import gnn_common as GC
+    from repro_torch.models import common as C
+    from repro_torch.models import gnn as G
+    from repro_torch.train import optim as O
+    from repro_torch.train.tree import flatten_with_paths
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GC.shape_config(get_arch(arch).smoke_config(), "molecule")
+    batch = GC.cell_batch("molecule", seed=0)
+    step = GC.make_train_step_for(cfg, "molecule")
+    p0 = C.param_tree(G.GNN(cfg, device="cpu", seed=0))
+
+    def run(device):
+        p = _tree_on(p0, device)
+        o = O.init_opt_state(GC.TRAIN_OPT, p)
+        for _ in range(2):       # the first step's warm-up rate is 0
+            p, o, m = step(p, o, batch)
+        return float(m["loss"]), flatten_with_paths(p)
+
+    (la, pa), (lb, pb), (lc, pc) = run(card), run(card), run("cpu")
+    assert la == lb and abs(la - lc) <= 1e-5 * abs(lc)
+    for k in pc:
+        assert torch.equal(pa[k], pb[k]), k
+        assert _rel(pa[k].cpu(), pc[k]) <= 1e-4, k
+
+
+def test_nequip_force_step_on_card_equals_cpu(card):
+    """Two NequIP steps on the force loss (a second derivative through
+    the segment backend) at smoke width on the molecule cell: the card's
+    parameters within 1e-4 of the CPU's and bit-identical across runs."""
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import gnn_common as GC
+    from repro_torch.models import common as C
+    from repro_torch.models import nequip as NQ
+    from repro_torch.train import optim as O
+    from repro_torch.train.tree import flatten_with_paths
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = GC.shape_config(get_arch("nequip").smoke_config(), "molecule")
+    batch = GC.cell_batch("molecule", seed=0)
+    step = GC.make_train_step_for(cfg, "molecule")
+    p0 = C.param_tree(NQ.NequIP(cfg, device="cpu", seed=0))
+
+    def run(device):
+        p = _tree_on(p0, device)
+        o = O.init_opt_state(GC.TRAIN_OPT, p)
+        for _ in range(2):       # the first step's warm-up rate is 0
+            p, o, m = step(p, o, batch)
+        return float(m["loss"]), flatten_with_paths(p)
+
+    (la, pa), (lb, pb), (lc, pc) = run(card), run(card), run("cpu")
+    assert la == lb and abs(la - lc) <= 1e-5 * abs(lc)
+    for k in pc:
+        assert torch.equal(pa[k], pb[k]), k
+        assert _rel(pa[k].cpu(), pc[k]) <= 1e-4, k
+
+
+def test_distance_encoding_on_card_equals_cpu(card):
+    """The encodings through K1 on the card equal the engine's plain path
+    on the CPU, one K1 launch a flush."""
+    from repro_torch.data import graphs as DG
+    g = scale_free(400, m=4, num_levels=4, seed=0)
+    idx, _ = build_wc_index_batched_packed(g, device="cpu")
+    nodes, lms = np.arange(400), np.array([0, 7, 99])
+    _cuda.reset_launch_counts()
+    a = DG.distance_encoding(idx, nodes, lms, [0, 1, 2, 3], device=card)
+    torch.cuda.synchronize()
+    assert _cuda.LAUNCHES["wcsd_query_ragged"] == 1
+    b = DG.distance_encoding(idx, nodes, lms, [0, 1, 2, 3], device="cpu")
+    np.testing.assert_array_equal(a, b)

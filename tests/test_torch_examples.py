@@ -1,10 +1,11 @@
 """The port's examples (`examples/quickstart_torch.py`,
-`examples/serve_wcsd_torch.py`) run in-process on the CPU (the kernels'
-plain versions), their own asserts included, at cut sizes (their
-defaults, the reference examples' sizes, take ~100 s here): the
-quickstart's counts against the reference package's builders on the same
-graph, the serving example's answers against the reference's sequential
-index."""
+`examples/serve_wcsd_torch.py`, `examples/wcsd_features_gnn_torch.py`)
+run in-process on the CPU (the kernels' plain versions), their own
+asserts included, at cut sizes (their defaults, the reference examples'
+sizes, take ~100 s here): the quickstart's counts against the reference
+package's builders on the same graph, the serving example's answers
+against the reference's sequential index, the GNN example's labels and
+distance encodings against the reference's `distance_encoding`."""
 import importlib.util
 import os
 
@@ -14,6 +15,7 @@ import pytest
 from repro.core import build_wc_index, build_wc_index_batched, clean_index
 from repro.core.baselines import NaiveIndex
 from repro.core.generators import random_queries, road_grid, scale_free
+from repro.data.graphs import distance_encoding
 
 EXAMPLES = os.path.join(os.path.dirname(os.path.abspath(__file__)), "..",
                         "examples")
@@ -63,7 +65,31 @@ def test_serve_example_answers_equal_the_reference_index(capsys):
         assert tag in out
 
 
-@pytest.mark.parametrize("name", ["quickstart_torch", "serve_wcsd_torch"])
+def test_gnn_features_example_encodings_equal_the_reference(capsys):
+    """The GIN with WC-INDEX encodings beats the bare features (the
+    example's assert) at 300 vertices and 60 steps; its labels and
+    standardized encodings equal those from the reference's index."""
+    got = _load("wcsd_features_gnn_torch").main(
+        ["--device", "cpu", "--nodes", "300", "--steps", "60"])
+    g = scale_free(300, 3, num_levels=4, seed=0)
+    idx = build_wc_index(g)
+    nodes, hubs = np.arange(g.num_nodes), np.array([0, 1])
+    d = distance_encoding(idx, nodes, hubs, w_levels=[2])
+    np.testing.assert_array_equal(got["labels"],
+                                  (d.min(axis=1) <= 3).astype(np.int32))
+    enc = distance_encoding(idx, nodes, hubs, w_levels=[0, 2])
+    enc = (enc - enc.mean(0)) / (enc.std(0) + 1e-6)
+    np.testing.assert_array_equal(got["encodings"], enc)
+    assert got["acc_wcsd"] > got["acc_base"]
+    assert "WC-INDEX features improve the GNN" in capsys.readouterr().out
+
+
+CARD_ARGS = {"quickstart_torch": ["--grid", "4"],
+             "serve_wcsd_torch": ["--nodes", "40", "--queries", "10"],
+             "wcsd_features_gnn_torch": ["--nodes", "40", "--steps", "1"]}
+
+
+@pytest.mark.parametrize("name", list(CARD_ARGS))
 def test_examples_default_to_the_card(name):
     """With no ``--device`` an example runs on the card, and raises where
     there is none (no fallback to the CPU)."""
@@ -71,5 +97,4 @@ def test_examples_default_to_the_card(name):
     if torch.cuda.is_available():
         pytest.skip("this host has a card: the default would run there")
     with pytest.raises(RuntimeError, match="no CUDA device"):
-        _load(name).main(["--grid", "4"] if name == "quickstart_torch"
-                         else ["--nodes", "40", "--queries", "10"])
+        _load(name).main(CARD_ARGS[name])

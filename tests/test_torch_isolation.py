@@ -1,16 +1,17 @@
-"""The port stands alone: `repro_torch`, `chip_smoke.py`,
-`scripts/chip_ab.py`, `scripts/chip_mesh.py` and the port's examples
-import neither `jax` nor the reference package `repro`; entry points
-default to the card and
-raise where there is none; the CUDA launchers refuse CPU tensors (K11's
-also mixed dtypes and wrong ranks); and the engine configurations the
-reference refuses raise `ValueError`."""
+"""The port stands alone: `repro_torch` (the GNN family included),
+`chip_smoke.py`, the `scripts/chip_*.py` harnesses and the port's
+examples import neither `jax` nor the reference package `repro`; entry
+points default to the card and raise where there is none; the CUDA
+launchers refuse CPU tensors (K11's also mixed dtypes and wrong ranks);
+and the engine configurations the reference refuses raise
+`ValueError`."""
 import os
 import pkgutil
 import re
 import subprocess
 import sys
 
+import numpy as np
 import pytest
 import torch
 
@@ -39,7 +40,12 @@ def test_import_every_module_without_jax_or_repro():
               "repro_torch.distributed.collectives",
               "repro_torch.configs.wcsd_serve", "repro_torch.train",
               "repro_torch.train.optim", "repro_torch.train.loop",
-              "repro_torch.train.grad_compress", "repro_torch.train.tree"):
+              "repro_torch.train.grad_compress", "repro_torch.train.tree",
+              "repro_torch.models.gnn", "repro_torch.models.nequip",
+              "repro_torch.data.graphs", "repro_torch.configs.gnn_common",
+              "repro_torch.configs.gin_tu", "repro_torch.configs.pna",
+              "repro_torch.configs.gatedgcn",
+              "repro_torch.configs.nequip"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -63,8 +69,12 @@ def test_source_scan_finds_no_jax_or_repro_import():
     files = [os.path.join(REPO, "chip_smoke.py"),
              os.path.join(REPO, "scripts", "chip_ab.py"),
              os.path.join(REPO, "scripts", "chip_mesh.py"),
+             os.path.join(REPO, "scripts", "chip_gnn.py"),
+             os.path.join(REPO, "scripts", "chip_cin_ab.py"),
+             os.path.join(REPO, "scripts", "chip_gather_ab.py"),
              os.path.join(REPO, "examples", "quickstart_torch.py"),
-             os.path.join(REPO, "examples", "serve_wcsd_torch.py")]
+             os.path.join(REPO, "examples", "serve_wcsd_torch.py"),
+             os.path.join(REPO, "examples", "wcsd_features_gnn_torch.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
     assert len(files) >= 39
@@ -117,6 +127,17 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     from repro_torch.models.xdeepfm import XDeepFM
     with pytest.raises(RuntimeError, match="no CUDA device"):
         XDeepFM(smoke_config())
+    from repro_torch.configs import get_arch
+    from repro_torch.data.graphs import distance_encoding
+    from repro_torch.models.gnn import GNN
+    from repro_torch.models.nequip import NequIP
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        GNN(get_arch("gin-tu").smoke_config())
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        NequIP(get_arch("nequip").smoke_config())
+    # the encodings go through the engine on the card: no numpy fallback
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        distance_encoding(idx, np.arange(4), np.array([0]), [0])
 
 
 def test_cuda_launchers_refuse_cpu_tensors():
