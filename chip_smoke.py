@@ -5,7 +5,7 @@
 
 Builds the twelve CUDA kernels from the four sources in
 `src/repro_torch/csrc/` (one `nvcc` per source, started together), then
-drives twelve paths of the port on the card, each with the launch counts
+drives thirteen paths of the port on the card, each with the launch counts
 reset just before it and read just after it:
 
 1. the main path: `scale_free(2^17, m=4, num_levels=5, seed=0)` -> the
@@ -27,10 +27,12 @@ reset just before it and read just after it:
    in epoch flushes;
 6. single-root constrained BFS at V = 2^17 through `ops.frontier_relax`
    (K10), round by round, from three roots;
-7. the dynamic index, `scale_free(2^13, m=4, num_levels=5, seed=0)` (cut
+7. the dynamic index, `scale_free(2^12, m=4, num_levels=5, seed=0)` (cut
    from 2^17: one update re-runs the sequential Algorithm 3 on the host
    for every root of the edge's connected component, here the whole
-   graph, ~x3 a doubling of V): a card build (K3, K4) served
+   graph, ~x3 a doubling of V; cut from 2^13 to keep the whole run under
+   800 s of its 1,200 s as the LM phase joined): a card build (K3, K4)
+   served
    statically, then a dynamic,
    WAL-backed `WCSDServer(graph=g, wal_path=...)` through two update
    batches (1 insert at the middle level + 1 delete each), each followed
@@ -73,8 +75,9 @@ reset just before it and read just after it:
    against the plain path on the card; one step's device time by
    kernel from `torch.profiler` (a warm-up step, then the traced one);
 11. the port's examples (`examples/quickstart_torch.py`,
-   `examples/serve_wcsd_torch.py`, `examples/wcsd_features_gnn_torch.py`)
-   at their default sizes on the card, their own asserts included;
+   `examples/serve_wcsd_torch.py`, `examples/wcsd_features_gnn_torch.py`,
+   `examples/train_lm_torch.py`) at their default sizes on the card,
+   their own asserts included (the LM example launches no kernel);
 12. the GNN family (run right after the single-root BFS), on the main
    path's V = 2^17 graph and index: the feature stage,
    `data.graphs.distance_encoding` of all 131,072 vertices against the 8
@@ -94,7 +97,25 @@ reset just before it and read just after it:
    backend) and on minibatch_lg energy-only in 8 edge chunks, 4 steps
    each, energies invariant under a rotation within 1e-4, the last step
    re-run bit-identical. No kernel of the port runs in the training
-   (the reference's message passing is not a Pallas kernel).
+   (the reference's message passing is not a Pallas kernel);
+13. the LM family (run last), llama3-8b (32 x 4,096, GQA 32/8) and
+   qwen2-moe-a2.7b (24 x 2,048, 60 experts padded to 64, top-4, 4
+   shared, 16 dispatch shards) at `get_config()` width and depth,
+   random weights from seed 0 on the card's generator, served in bf16
+   with the router and shared output gate in float32: first the float32
+   checks at 2 layers of full width (a 128-token forward on the card
+   against the same forward on the CPU, TF32 off; 16 decode steps after
+   a 48-token prompt against the card's no-cache forward, each held
+   per position; bf16 forwards with cuBLAS's reduced-precision bf16
+   reductions on and off against the float32 one, printed); then
+   prefill_32k cut to one row of 32,768 `TokenStream` tokens (after a
+   4,096-token warm-up prefill re-run bit for bit; every logit finite;
+   qwen's dropped-token share) and decode_32k cut to 8 rows (qwen: 4)
+   of a 4,096-token (2,048) prompt in a 32,768-long cache and 32 greedy
+   steps over the whole cache, each timed, one traced, and each row's
+   no-cache bf16 forward over the same tokens (greedy share, printed).
+   No kernel of the port runs (the reference's attention and experts
+   are jnp ops outside any Pallas kernel).
 
 Then every kernel is held against its plain PyTorch version on inputs
 captured from its path (exact int32 equality; K3 at the build's heaviest
@@ -1904,7 +1925,7 @@ def gnn_phase(g, idx, device) -> dict:
 
 
 # -------------------------------------------------------- dynamic index
-LOG2_V_DYN = 13          # the dynamic index: scale_free(2^13, m=4, 5 levels)
+LOG2_V_DYN = 12          # the dynamic index: scale_free(2^12, m=4, 5 levels)
 LOG2_DYN_QUERIES = 18    # served scalar queries per graph version
 LOG2_DYN_PROFILES = 14   # served profile queries per graph version
 DYN_UPDATES = 2          # update batches, each 1 insert + 1 delete
@@ -2014,7 +2035,7 @@ def delta_flush_record(engine, rec, profile: bool, T0, iters: int) -> dict:
 
 
 def dynamic_phase(device) -> dict:
-    """Path 7: the dynamic index at V = 2^13 (see the module docstring).
+    """Path 7: the dynamic index at V = 2^12 (see the module docstring).
     The caller sets the launch counts to 0 just before; the path's counts
     are read at its end, before the kernels' own comparisons and timings,
     and the chaos schedule is counted on its own after them. Returns the
@@ -3330,12 +3351,400 @@ def xdeepfm_train_phase(cfg, device, batch=TRAIN_BATCH, steps=TRAIN_STEPS,
     return phase, [kern, nkern]
 
 
+# ------------------------------------------------------------- the LM family
+LM_ARCHS = ("llama3-8b", "qwen2-moe-a2.7b")
+LM_PREFILL = 32768       # prefill_32k's sequence, one row (cut from 32)
+LM_WARMUP = 4096         # the warm-up prefill, re-run for bit identity
+LM_DECODE = {            # decode_32k, cut from 128 rows
+    "llama3-8b": dict(batch=8, prompt=4096),
+    "qwen2-moe-a2.7b": dict(batch=4, prompt=2048)}
+LM_MAX_LEN = 32768       # decode_32k's cache length
+LM_DECODE_STEPS = 32     # greedy steps over the whole cache
+LM_CUT_LAYERS = 2        # depth of the float32 checks
+LM_PARITY_TOKENS = 128   # card vs CPU forward, one row
+LM_CUT_PROMPT = 48       # decode vs no-cache forward: prompt, then
+LM_CUT_STEPS = 16        # steps (64 tokens: no MoE token overflows)
+# The float32 checks hold the card to the per-position error of a
+# forward whose attention rounds its operands to bf16 (q * scale, k, the
+# probabilities, v, as the reference's does): a last-bit difference can
+# round one of them the other way and move that position. Gated: the
+# median position within LM_MEDIAN_TOL of max |ref|, every position
+# within LM_JUMP_TOL, greedy tokens equal at LM_ARGMAX_SHARE of them.
+LM_MEDIAN_TOL = 1e-3
+LM_JUMP_TOL = 0.1
+LM_ARGMAX_SHARE = 0.9
+
+
+def position_errors(got, ref) -> dict:
+    """Per-position max |got - ref| over the last axis, over max |ref|,
+    and greedy agreement (float64 on the host)."""
+    import torch
+    got = got.detach().double().cpu()
+    ref = ref.detach().double().cpu()
+    scale = float(ref.abs().max())
+    per = ((got - ref).abs().amax(-1) / scale).flatten()
+    return {"median": float(per.median()), "p90": float(per.quantile(0.9)),
+            "max": float(per.max()), "max_abs_ref": scale,
+            "argmax_equal": float((got.argmax(-1) == ref.argmax(-1))
+                                  .double().mean())}
+
+
+def check_positions(what: str, err: dict) -> None:
+    if not (err["median"] <= LM_MEDIAN_TOL and err["max"] <= LM_JUMP_TOL
+            and err["argmax_equal"] >= LM_ARGMAX_SHARE):
+        fail(f"lm {what}: per-position error {err} beyond median "
+             f"{LM_MEDIAN_TOL}, max {LM_JUMP_TOL}, argmax share "
+             f"{LM_ARGMAX_SHARE}")
+
+
+def lm_stream_tokens(vocab: int, batch: int, seq: int, device):
+    import torch
+    from repro_torch.data.lm import TokenStream
+    toks = TokenStream(vocab, seq, batch, seed=0).next_batch()["tokens"]
+    return torch.from_numpy(toks).to(device)
+
+
+def lm_cut_checks(base, device) -> dict:
+    """The float32 checks at `LM_CUT_LAYERS` layers of full width (seed
+    0 on the card's generator, float32 masters): one row of
+    `LM_PARITY_TOKENS` tokens through the card's forward and the CPU's
+    (TF32 off), and `LM_CUT_STEPS` decode steps after an
+    `LM_CUT_PROMPT`-token prompt against the card's no-cache forward."""
+    import dataclasses
+    import torch
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(base, n_layers=LM_CUT_LAYERS,
+                              compute_dtype="float32")
+    model = T.LM(cfg, device=device, seed=0)
+    params = C.param_tree(model)
+    toks = lm_stream_tokens(cfg.vocab, 1, LM_PARITY_TOKENS, device)
+    with torch.no_grad():
+        card = T.forward(params, cfg, toks)[0]
+        host = C.nest_params({k: v.cpu() for k, v in
+                              C.flatten_params(params).items()})
+        cpu = T.forward(host, cfg, toks.cpu())[0]
+    del host
+    parity = position_errors(card, cpu)
+    check_positions(f"{cfg.name} card vs CPU forward", parity)
+    prompt = lm_stream_tokens(cfg.vocab, 1, LM_CUT_PROMPT, device)
+    dec, fed, cache, _, _ = lm_greedy_decode(
+        params, cfg, prompt, device, steps=LM_CUT_STEPS,
+        max_len=LM_CUT_PROMPT + LM_CUT_STEPS)
+    del cache
+    decode = lm_vs_forward(params, cfg, prompt, fed, dec)
+    check_positions(f"{cfg.name} decode vs no-cache forward", decode)
+    # bf16 compute on the same weights, cuBLAS's reduced-precision bf16
+    # reductions allowed and not, each against the float32 forward
+    bf16 = dataclasses.replace(cfg, compute_dtype="bfloat16")
+    red = {}
+    flag = torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction
+    for allow in (True, False):
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            allow
+        with torch.no_grad():
+            red[str(allow).lower()] = position_errors(
+                T.forward(params, bf16, toks)[0], card)
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = flag
+    return {"layers": LM_CUT_LAYERS, "card_vs_cpu": parity,
+            "decode_vs_forward": decode,
+            "bf16_vs_fp32_reduced_precision_reduction": red,
+            "tol": {"median": LM_MEDIAN_TOL, "max": LM_JUMP_TOL,
+                    "argmax_share": LM_ARGMAX_SHARE}}
+
+
+class DropRecorder:
+    """Wraps `transformer.moe_apply` while a run lasts: each MoE call
+    also routes its tokens once more and keeps the count of (token,
+    choice) pairs that `moe_ffn` drops (tensors; no sync in the run)."""
+
+    def __init__(self):
+        self.dropped, self.pairs = [], 0
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        from repro_torch.models import transformer as T
+        self._orig = T.moe_apply
+
+        def recorded(x, wp, cfg):
+            _, _, idx = moe.route(x, wp["router"], cfg)
+            keep = moe.dispatch_plan(idx, cfg)[3]
+            self.dropped.append((~keep).sum())
+            self.pairs += keep.numel()
+            return self._orig(x, wp, cfg)
+
+        T.moe_apply = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import transformer as T
+        T.moe_apply = self._orig
+
+    def share(self) -> float:
+        return float(sum(int(d) for d in self.dropped)) / max(self.pairs, 1)
+
+
+def lm_prefill_run(model, cfg, device) -> dict:
+    """prefill_32k cut to one row: the warm-up at `LM_WARMUP` tokens, run
+    twice and held bit for bit, then `LM_PREFILL` tokens from
+    `TokenStream`, timed, every logit finite."""
+    import torch
+    from repro_torch.configs.lm_common import lm_flops_prefill
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    params = C.param_tree(model)
+    warm = lm_stream_tokens(cfg.vocab, 1, LM_WARMUP, device)
+    outs = []
+    for _ in range(2):
+        with torch.no_grad():
+            outs.append(T.prefill_step(params, cfg, warm,
+                                       return_logits=True))
+    (n0, c0, l0), (n1, c1, l1) = outs
+    if not (torch.equal(n0, n1) and torch.equal(l0, l1)
+            and all(torch.equal(c0[k], c1[k]) for k in ("k", "v"))):
+        fail(f"lm {cfg.name}: the warm-up prefill is not bit-identical on "
+             "its re-run")
+    del outs, c0, c1, l0, l1
+    toks = lm_stream_tokens(cfg.vocab, 1, LM_PREFILL, device)
+    _sync(device)
+    base = torch.cuda.memory_allocated() if torch.device(
+        device).type == "cuda" else 0
+    if torch.device(device).type == "cuda":
+        torch.cuda.reset_peak_memory_stats()
+    with DropRecorder() as rec, torch.no_grad():
+        t0 = time.perf_counter()
+        nxt, cache, logits = T.prefill_step(params, cfg, toks,
+                                            return_logits=True)
+        _sync(device)
+        wall = time.perf_counter() - t0
+    finite = bool(torch.isfinite(logits).all())
+    if not finite:
+        fail(f"lm {cfg.name} prefill_32k: a logit is not finite")
+    flops = lm_flops_prefill(cfg, 1, LM_PREFILL)
+    out = {"batch": 1, "seq": LM_PREFILL, "wall_s": wall,
+           "tokens_per_s": LM_PREFILL / wall,
+           "model_tflops": flops / wall / 1e12, "model_flop": flops,
+           "logits_finite": finite, "warmup_bit_identical": True,
+           "cache_gb": sum(c.numel() * c.element_size()
+                           for c in cache.values()) / 1e9,
+           "logits_gb": logits.numel() * logits.element_size() / 1e9}
+    if torch.device(device).type == "cuda":
+        out["peak_gb_above_start"] = (torch.cuda.max_memory_allocated()
+                                      - base) / 1e9
+    if cfg.moe:
+        out["dropped_share"] = rec.share()
+        out["moe_capL"] = max(max(int(LM_PREFILL * cfg.moe.top_k
+                                      / cfg.moe.padded_experts
+                                      * cfg.moe.capacity_factor), 4)
+                              // cfg.moe.dispatch_shards, 4)
+    return out
+
+
+def lm_greedy_decode(params, cfg, toks, device, steps=LM_DECODE_STEPS,
+                     max_len=LM_MAX_LEN, timed: bool = False):
+    """Prefill ``toks`` [B, P] into a ``max_len`` cache, then ``steps``
+    greedy steps over it. Returns (logits [B, steps, V], the fed tokens
+    [B, steps], the cache, prefill s, step s)."""
+    import torch
+    from repro_torch.models import transformer as T
+    B, P = toks.shape
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        nxt, pc = T.prefill_step(params, cfg, toks)
+        cache = T.init_cache(cfg, B, max_len, device=device)
+        for k in ("k", "v"):
+            cache[k][:, :, :P] = pc[k]
+        del pc
+    _sync(device)
+    prefill_s = time.perf_counter() - t0
+    fed, logits, step_s = [], [], []
+    with torch.no_grad():
+        for i in range(steps):
+            fed.append(nxt)
+            t0 = time.perf_counter()
+            nxt, lg, cache = T.decode_step(params, cfg, cache, nxt, P + i)
+            if timed:
+                _sync(device)
+            step_s.append(time.perf_counter() - t0)
+            logits.append(lg)
+    return (torch.stack(logits, 1), torch.stack(fed, 1), cache, prefill_s,
+            step_s)
+
+
+def lm_vs_forward(params, cfg, toks, fed, logits) -> dict:
+    """Each row's no-cache forward over the prompt and the fed tokens,
+    against the decode's logits at the same positions
+    (`position_errors`)."""
+    import torch
+    from repro_torch.models import transformer as T
+    P = toks.shape[1]
+    seq = torch.cat([toks, fed], 1)
+    with torch.no_grad():
+        full = torch.cat([T.forward(params, cfg, seq[b:b + 1])[0][:, P:]
+                          for b in range(len(seq))])
+    return position_errors(logits, full)
+
+
+def lm_decode_run(model, cfg, device) -> dict:
+    """decode_32k cut to `LM_DECODE[arch]` rows: a `LM_MAX_LEN` cache
+    filled by a prefill of the prompt, then `LM_DECODE_STEPS` greedy
+    steps, each over the whole cache, timed one by one; one step traced;
+    then each row's no-cache bf16 forward over the same tokens (printed).
+    For an MoE also at a capacity without drops (a forward drops tokens
+    at its capacity; a decode step's few tokens never overflow), and
+    again with the router and output gate rounded to bf16 for decode too
+    (the reference's decode routes with the float32 router, its forward
+    with the bf16 one)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs.lm_common import lm_flops_decode
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    spec = LM_DECODE[cfg.name]
+    B, P = spec["batch"], spec["prompt"]
+    params = C.param_tree(model)
+    toks = lm_stream_tokens(cfg.vocab, B, P, device)
+    _sync(device)
+    on_card = torch.device(device).type == "cuda"
+    base = torch.cuda.memory_allocated() if on_card else 0
+    if on_card:
+        torch.cuda.reset_peak_memory_stats()
+    logits, fed, cache, prefill_s, step_s = lm_greedy_decode(
+        params, cfg, toks, device, timed=True)
+    finite = bool(torch.isfinite(logits).all())
+    if not finite:
+        fail(f"lm {cfg.name} decode_32k: a logit is not finite")
+    peak = (torch.cuda.max_memory_allocated() - base) / 1e9 if on_card \
+        else None
+    prof = None
+    if on_card:
+        last = fed[:, -1]
+        with torch.no_grad():
+            rows, wall = trace_second_call(
+                lambda: T.decode_step(params, cfg, cache, last,
+                                      P + LM_DECODE_STEPS - 1))
+        busy = sum(ms for _, ms, _ in rows)
+        prof = {"device_busy_ms": busy, "wall_ms": wall * 1e3,
+                "idle_share": max(0.0, 1 - busy / (wall * 1e3)),
+                "top": [{"kernel": n[:120], "ms": ms, "count": c}
+                        for n, ms, c in rows[:8]]} if rows else None
+    del cache
+    if on_card:
+        torch.cuda.empty_cache()
+    agree = {"": lm_vs_forward(params, cfg, toks, fed, logits)}
+    if cfg.moe:
+        # capacity Ep / K: cap = N, so no shard's expert can overflow
+        roomy = dataclasses.replace(cfg, moe=dataclasses.replace(
+            cfg.moe, capacity_factor=cfg.moe.padded_experts
+            / cfg.moe.top_k))
+        agree["_no_drops"] = lm_vs_forward(params, roomy, toks, fed, logits)
+        rounded = dict(params, layers={
+            k: (v.to(torch.bfloat16).to(torch.float32)
+                if k in T.FP32_LEAVES else v)
+            for k, v in params["layers"].items()})
+        lg_r, fed_r, cache, _, _ = lm_greedy_decode(rounded, roomy, toks,
+                                                    device)
+        del cache
+        agree["_no_drops_bf16_router"] = lm_vs_forward(rounded, roomy, toks,
+                                                       fed_r, lg_r)
+    agree = {"vs_no_cache_forward_bf16" + tag: {
+        "greedy_equal_share": e["argmax_equal"],
+        "max_abs_dlogit_over_max_abs_logit": e["max"],
+        "median": e["median"]} for tag, e in agree.items()}
+    med = float(np.median(step_s))
+    flops = lm_flops_decode(cfg, B, LM_MAX_LEN)
+    kv = 2 * cfg.n_layers * B * LM_MAX_LEN * cfg.n_kv_heads * cfg.d_head * 2
+    return {"batch": B, "prompt": P, "max_len": LM_MAX_LEN,
+            "steps": LM_DECODE_STEPS, "prefill_s": prefill_s,
+            "step_ms_median": med * 1e3, "step_ms_first": step_s[0] * 1e3,
+            "step_ms_max": max(step_s) * 1e3,
+            "tokens_per_s": B / med, "model_tflops": flops / med / 1e12,
+            "model_flop_per_step": flops, "kv_cache_gb": kv / 1e9,
+            "logits_finite": finite, "peak_gb_above_start": peak,
+            "traced_step": prof, **agree}
+
+
+def lm_phase(device, configs=None) -> dict:
+    """Path 13: the LM family's serving path at full width. Per arch
+    (`LM_ARCHS`, ``configs`` overriding `get_config()`): the float32
+    checks at `LM_CUT_LAYERS` layers (`lm_cut_checks`), then a bf16
+    served copy (router and shared output gate float32) from seed 0 on
+    the card's generator: prefill_32k and decode_32k, each cut in
+    batch. No kernel of the port runs (the reference's attention and
+    experts are jnp ops, not Pallas kernels): every launch count must
+    stay 0."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.kernels import _cuda
+    from repro_torch.models import transformer as T
+    on_card = torch.device(device).type == "cuda"
+    if on_card:
+        torch.cuda.empty_cache()
+        torch.backends.cuda.matmul.allow_tf32 = False
+        torch.backends.cudnn.allow_tf32 = False
+    _sync(device)
+    _cuda.reset_launch_counts()
+    t_phase = time.perf_counter()
+    out = {"phase": "lm", "runs": {}}
+    for arch in LM_ARCHS:
+        cfg = (configs or {}).get(arch) or get_arch(arch).get_config()
+        t0 = time.perf_counter()
+        cut = lm_cut_checks(cfg, device)
+        cut["wall_s"] = time.perf_counter() - t0
+        if on_card:
+            torch.cuda.empty_cache()
+        # the served copy: bf16 but for the float32 router / out gate,
+        # cuBLAS's bf16 reductions in float32 (the reference's one rounding)
+        torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+            False
+        t0 = time.perf_counter()
+        model = T.LM(cfg, device=device, seed=0, dtype=torch.bfloat16)
+        _sync(device)
+        init_s = time.perf_counter() - t0
+        weights_gb = sum(p.numel() * p.element_size()
+                         for p in model.parameters()) / 1e9
+        t0 = time.perf_counter()
+        prefill = lm_prefill_run(model, cfg, device)
+        prefill["run_wall_s"] = time.perf_counter() - t0
+        if on_card:
+            torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        decode = lm_decode_run(model, cfg, device)
+        decode["run_wall_s"] = time.perf_counter() - t0
+        del model
+        if on_card:
+            torch.cuda.empty_cache()
+        out["runs"][arch] = {
+            "config": cfg.name, "layers": cfg.n_layers,
+            "d_model": cfg.d_model, "params": cfg.param_count(),
+            "active_params": cfg.active_param_count(),
+            "weights_gb": weights_gb, "init_s": init_s,
+            "cut_depth_fp32": cut, "prefill_32k": prefill,
+            "decode_32k": decode,
+            "reduced": [f"prefill_32k batch 32 -> 1",
+                        f"decode_32k batch 128 -> "
+                        f"{LM_DECODE[cfg.name]['batch']}, prompt "
+                        f"{LM_DECODE[cfg.name]['prompt']} tokens + "
+                        f"{LM_DECODE_STEPS} steps",
+                        "random weights (seed 0)"]}
+        progress(f"lm {arch}: prefill_32k {prefill['wall_s']:.2f} s "
+                 f"({prefill['tokens_per_s']:.0f} tokens/s), decode_32k "
+                 f"{decode['step_ms_median']:.2f} ms a step")
+    _sync(device)
+    launched = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    if launched:
+        fail(f"lm phase launched kernels of the port: {launched}")
+    out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
 # ------------------------------------------------------------ the examples
 EXAMPLES = {  # example -> the kernels its card run must launch
     "quickstart_torch": ("wcsd_query_ragged",),
     "serve_wcsd_torch": ("wcsd_query_gathered", "wcsd_query_ragged",
                          "wcsd_profile_ragged"),
     "wcsd_features_gnn_torch": ("wcsd_query_ragged",),
+    "train_lm_torch": (),
 }
 
 
@@ -3373,6 +3782,14 @@ def examples_phase() -> dict:
         if name == "wcsd_features_gnn_torch":
             out[name].update(acc_base=res["acc_base"],
                              acc_wcsd=res["acc_wcsd"])
+        if name == "train_lm_torch":
+            steps = [r for r in res if r["event"] == "step"]
+            out[name].update(
+                steps=len(steps), first_loss=steps[0]["loss"],
+                last_loss=steps[-1]["loss"],
+                failures=sum(r["event"] == "failure" for r in res),
+                median_step_s=float(np.median([r["time_s"]
+                                               for r in steps])))
         progress(f"examples: {name} passed on the card in "
                  f"{out[name]['wall_s']:.1f} s, launches "
                  f"{out[name]['launches']}")
@@ -3558,6 +3975,9 @@ def main() -> int:
     # --------------------------------------------------- the examples
     examples = examples_phase()
 
+    # ------------------- the LM family: prefill and decode at full width
+    lm = lm_phase(dev)
+
     # ----------------------------------------- kernels vs plain, timed
     if cap.k3 is None or cap.k4 is None or cap.k4_dense is None:
         fail("no build round was captured for the kernel phases")
@@ -3600,6 +4020,7 @@ def main() -> int:
     emit(xdf)
     emit(train)
     emit(examples)
+    emit(lm)
     emit({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

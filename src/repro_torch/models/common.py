@@ -1,6 +1,7 @@
 """Shared model building blocks of the port: `trunc_normal`, the
-reference's `models/common.py:trunc_normal`; `cross_entropy_loss`, its
-`cross_entropy_loss`; the segment backend the graph models and the
+reference's `models/common.py:trunc_normal`; the LM family's `rms_norm`,
+`rope_angles`, `apply_rope`, `swiglu`, `mlp` and `count_params`;
+`cross_entropy_loss`, its `cross_entropy_loss`; the segment backend the graph models and the
 embedding gradient share; and the helpers that carry a nested parameter
 tree between numpy and a module.
 
@@ -32,16 +33,19 @@ SEGMENT_RUN = 64   # rows a reduction sums serially before a next level
 
 
 def trunc_normal(shape, generator: torch.Generator, scale: float = 1.0,
-                 dtype=torch.float32) -> torch.Tensor:
+                 dtype=torch.float32, fan_in: int | None = None
+                 ) -> torch.Tensor:
     """``scale / sqrt(fan_in)`` times a standard normal truncated to
     [-2, 2], drawn from ``generator`` on its device. As in the reference,
     ``fan_in = shape[0]`` whatever the rank: for a CIN weight [K, H, M]
-    that is K. Draws as `jax.random.truncated_normal(-2, 2)` does (the
-    inverse CDF of a uniform on [erf(-2/sqrt 2), erf(2/sqrt 2)]), so the
-    distribution is the same; the numbers differ from JAX's for one
-    seed."""
+    that is K. A caller that draws one slice of a larger leaf at a time
+    passes the whole leaf's ``fan_in``. Draws as
+    `jax.random.truncated_normal(-2, 2)` does (the inverse CDF of a
+    uniform on [erf(-2/sqrt 2), erf(2/sqrt 2)]), so the distribution is
+    the same; the numbers differ from JAX's for one seed."""
     shape = tuple(shape)
-    fan_in = shape[0] if len(shape) >= 1 else 1
+    if fan_in is None:
+        fan_in = shape[0] if len(shape) >= 1 else 1
     std = scale / math.sqrt(max(fan_in, 1))
     lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
     u = torch.empty(shape, dtype=torch.float32, device=generator.device)
@@ -51,6 +55,62 @@ def trunc_normal(shape, generator: torch.Generator, scale: float = 1.0,
     edge = torch.nextafter(torch.tensor(2.0), torch.tensor(0.0)).item()
     x = x.clamp(-edge, edge)
     return (std * x).to(dtype)
+
+
+def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
+             ) -> torch.Tensor:
+    """RMS norm over the last axis in float32, rounded back to ``x``'s
+    dtype, then times ``scale`` (promoted as the reference promotes)."""
+    dt = x.dtype
+    xf = x.to(torch.float32)
+    var = (xf * xf).mean(-1, keepdim=True)
+    return (xf * torch.rsqrt(var + eps)).to(dt) * scale
+
+
+def rope_angles(positions, d_head: int, theta: float = 10000.0,
+                dtype=torch.float32):
+    """positions: [...] int -> (sin, cos) of shape [..., d_head // 2] in
+    ``dtype``; the angles in float32."""
+    positions = torch.as_tensor(positions)
+    half = d_head // 2
+    freqs = 1.0 / (theta ** (torch.arange(0, half, dtype=torch.float32,
+                                          device=positions.device) / half))
+    ang = positions.to(torch.float32)[..., None] * freqs
+    return torch.sin(ang).to(dtype), torch.cos(ang).to(dtype)
+
+
+def apply_rope(x: torch.Tensor, sin: torch.Tensor, cos: torch.Tensor
+               ) -> torch.Tensor:
+    """x: [..., T, H, Dh]; sin / cos: [..., T, Dh // 2], broadcast over
+    the heads (the rotate-half convention)."""
+    half = x.shape[-1] // 2
+    x1, x2 = x[..., :half], x[..., half:]
+    sin = sin[..., None, :]
+    cos = cos[..., None, :]
+    return torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
+
+
+def swiglu(x, w_gate, w_up, w_down):
+    """LLaMA-style gated MLP. x: [..., D]."""
+    g = torch.nn.functional.silu(x @ w_gate)
+    return (g * (x @ w_up)) @ w_down
+
+
+def mlp(params_prefix, x, ws, act=torch.relu):
+    """Plain MLP given a list of (w, b); ``act`` between layers."""
+    del params_prefix
+    for i, (w, b) in enumerate(ws):
+        x = x @ w + b
+        if i + 1 < len(ws):
+            x = act(x)
+    return x
+
+
+def count_params(tree) -> int:
+    """Elements over the leaves of a nested container of tensors or
+    arrays."""
+    from ..train.tree import tree_leaves
+    return int(sum(math.prod(x.shape) for x in tree_leaves(tree)))
 
 
 def cross_entropy_loss(logits: torch.Tensor, labels, z_loss: float = 0.0
@@ -267,27 +327,27 @@ def nest_params(flat: dict) -> dict:
 class ParamGroup(nn.Module):
     """A named group of parameters (``cin``, ``layers``, ...)."""
 
-    def __init__(self, shapes: dict, device: torch.device):
-        super().__init__()
-        for name, shape in shapes.items():
-            self.register_parameter(name, nn.Parameter(
-                torch.empty(shape, device=device), requires_grad=False))
+
+def register_tensors(module: nn.Module, flat: dict) -> None:
+    """Register every ``path: tensor`` of ``flat`` on ``module`` as a
+    parameter that does not require gradients (training runs the
+    functional path), sharing the tensor's storage and keeping its dtype
+    (a path ``group.name`` in a `ParamGroup`)."""
+    for path, t in flat.items():
+        target = module
+        if "." in path:
+            group, path = path.split(".", 1)
+            if not hasattr(module, group):
+                module.add_module(group, ParamGroup())
+            target = getattr(module, group)
+        target.register_parameter(path, nn.Parameter(t, requires_grad=False))
 
 
 def register_params(module: nn.Module, defs: dict, device) -> None:
-    """Register an uninitialised parameter for every ``path: shape`` of
-    ``defs`` on ``module`` (a path ``group.name`` in a `ParamGroup`);
-    they do not require gradients: training runs the functional path."""
-    groups: dict = {}
-    for path, shape in defs.items():
-        if "." in path:
-            group, name = path.split(".", 1)
-            groups.setdefault(group, {})[name] = shape
-        else:
-            module.register_parameter(path, nn.Parameter(
-                torch.empty(shape, device=device), requires_grad=False))
-    for group, shapes in groups.items():
-        module.add_module(group, ParamGroup(shapes, device))
+    """Register an uninitialised float32 parameter for every ``path:
+    shape`` of ``defs`` on ``module`` (`register_tensors`)."""
+    register_tensors(module, {path: torch.empty(shape, device=device)
+                              for path, shape in defs.items()})
 
 
 def param_tree(model: nn.Module) -> dict:
@@ -297,12 +357,19 @@ def param_tree(model: nn.Module) -> dict:
 
 
 def tree_to_numpy(params) -> dict:
-    """A nested dict of numpy float32 arrays, from a module or a nested
-    dict of tensors."""
+    """A nested dict of numpy arrays, from a module or a nested dict of
+    tensors; bfloat16 and float16 leaves come back as float32 (numpy has
+    no bfloat16), the others in their own dtype."""
     if isinstance(params, nn.Module):
         params = param_tree(params)
-    return nest_params({p: v.detach().cpu().numpy()
-                        for p, v in flatten_params(params).items()})
+
+    def host(v):
+        v = v.detach()
+        if v.dtype in (torch.bfloat16, torch.float16):
+            v = v.to(torch.float32)
+        return v.cpu().numpy()
+
+    return nest_params({p: host(v) for p, v in flatten_params(params).items()})
 
 
 def load_numpy_tree(model: nn.Module, defs: dict, tree: dict) -> nn.Module:

@@ -1,0 +1,379 @@
+"""Decoder-only LM (dense and MoE), the LLaMA / Qwen / DBRX family: the
+reference's `models/transformer.py` in PyTorch.
+
+Parameters are the reference's nested dict (``embed``, ``final_norm``,
+``lm_head``, ``layers: {ln1, wq, ...}``), the layer weights stacked on a
+leading ``n_layers`` axis and run by a Python loop over it. Masters are
+float32 and the forward casts each float32 leaf to
+``cfg.compute_dtype``, as the reference does before its layer scan; so
+`forward` (and `prefill_step`, `loss_fn`) routes MoE tokens with a
+bfloat16-rounded router, while `decode_step`, like the reference's,
+reads the layer leaves as they are (its router and shared output gate
+stay float32). A served copy (`init_params(..., dtype=torch.bfloat16)`
+or `LM(cfg, dtype=torch.bfloat16)`) holds every leaf in bfloat16 except
+those two, which stay float32, and so gives the reference's numbers on
+both paths at half the memory. The reference's `PartitionSpec`s,
+`abstract_params` and `param_shardings` belong to its dry run and have
+no counterpart.
+
+Decode reads and writes the KV cache [L, B, S, Hkv, Dh] in place: a
+step writes its keys and values at ``pos`` (clamped so the write fits,
+as ``dynamic_update_slice`` clamps) and attends over the whole
+preallocated cache, masking positions past ``pos``. Attention
+(`attention.gqa_attention`) and the experts (`moe.moe_apply`) are
+PyTorch tensor ops, as the reference's are jnp ops outside any Pallas
+kernel.
+"""
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional
+
+import torch
+import torch.nn.functional as F
+from torch import nn
+from torch.utils.checkpoint import checkpoint
+
+from ..kernels._cuda import resolve_device
+from .attention import gqa_attention
+from .common import (apply_rope, cross_entropy_loss, flatten_params,
+                     gather_rows, load_numpy_tree, nest_params, param_tree,
+                     register_tensors, rms_norm, rope_angles, tree_to_numpy,
+                     trunc_normal)
+from .moe import MoEConfig, moe_apply
+
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# leaves a served copy keeps in float32: decode routes with them uncast
+FP32_LEAVES = ("router", "shared_out_gate")
+NORM_LEAVES = ("ln1", "ln2", "final_norm")
+
+
+@dataclasses.dataclass(frozen=True)
+class LMConfig:
+    name: str
+    n_layers: int
+    d_model: int
+    n_heads: int
+    n_kv_heads: int
+    d_ff: int
+    vocab: int
+    d_head: int = 128
+    qkv_bias: bool = False
+    rope_theta: float = 1e6
+    moe: Optional[MoEConfig] = None
+    window: Optional[int] = None          # sliding-window attention (opt-in)
+    compute_dtype: str = "bfloat16"
+    remat: str = "full"                   # none | full
+    # the reference's tensor-parallel plan; kept so the configs compare
+    tp_size: int = 16
+
+    @property
+    def heads_shardable(self) -> bool:
+        return self.n_heads % self.tp_size == 0
+
+    def param_count(self) -> int:
+        d, L = self.d_model, self.n_layers
+        qkv = d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head
+        o = self.n_heads * self.d_head * d
+        if self.moe:
+            m = self.moe
+            ffn = 3 * d * m.d_ff_expert * m.num_experts
+            if m.num_shared:
+                ffn += 3 * d * m.d_ff_expert * m.num_shared
+                if m.shared_gate:
+                    ffn += d
+            ffn += d * m.padded_experts  # router
+        else:
+            ffn = 3 * d * self.d_ff
+        return L * (qkv + o + ffn + 2 * d) + 2 * self.vocab * d + d
+
+    def active_param_count(self) -> int:
+        """Params touched per token (MoE: top_k + shared experts only)."""
+        if not self.moe:
+            return self.param_count()
+        d, L, m = self.d_model, self.n_layers, self.moe
+        qkv = d * (self.n_heads + 2 * self.n_kv_heads) * self.d_head
+        o = self.n_heads * self.d_head * d
+        ffn = 3 * d * m.d_ff_expert * (m.top_k + m.num_shared)
+        ffn += d * m.padded_experts
+        return L * (qkv + o + ffn + 2 * d) + 2 * self.vocab * d + d
+
+
+# --------------------------------------------------------------- params
+def param_defs(cfg: LMConfig) -> dict:
+    """{path: shape}, the reference's `param_defs` without its
+    PartitionSpecs."""
+    L, d, V = cfg.n_layers, cfg.d_model, cfg.vocab
+    hq = cfg.n_heads * cfg.d_head
+    hkv = cfg.n_kv_heads * cfg.d_head
+    defs = {
+        "embed": (V, d),
+        "final_norm": (d,),
+        "lm_head": (d, V),
+        "layers.ln1": (L, d),
+        "layers.ln2": (L, d),
+        "layers.wq": (L, d, hq),
+        "layers.wk": (L, d, hkv),
+        "layers.wv": (L, d, hkv),
+        "layers.wo": (L, hq, d),
+    }
+    if cfg.qkv_bias:
+        defs.update({"layers.bq": (L, hq), "layers.bk": (L, hkv),
+                     "layers.bv": (L, hkv)})
+    if cfg.moe:
+        m = cfg.moe
+        E, Fe = m.padded_experts, m.d_ff_expert
+        defs.update({
+            "layers.router": (L, d, E),
+            "layers.w_gate": (L, E, d, Fe),
+            "layers.w_up": (L, E, d, Fe),
+            "layers.w_down": (L, E, Fe, d),
+        })
+        if m.num_shared:
+            Fs = Fe * m.num_shared
+            defs.update({
+                "layers.shared_gate_w": (L, d, Fs),
+                "layers.shared_up": (L, d, Fs),
+                "layers.shared_down": (L, Fs, d),
+            })
+            if m.shared_gate:
+                defs["layers.shared_out_gate"] = (L, d, 1)
+    else:
+        defs.update({
+            "layers.w_gate": (L, d, cfg.d_ff),
+            "layers.w_up": (L, d, cfg.d_ff),
+            "layers.w_down": (L, cfg.d_ff, d),
+        })
+    return defs
+
+
+def leaf_dtype(path: str, dtype) -> torch.dtype:
+    """The dtype a leaf is held in for a copy in ``dtype``: the router
+    and the shared output gate stay float32."""
+    return torch.float32 if path.endswith(FP32_LEAVES) else dtype
+
+
+def init_params(cfg: LMConfig, generator: torch.Generator,
+                dtype=torch.float32) -> dict:
+    """The reference's `init_params` with a `torch.Generator` (on the
+    device the weights go to): norms one, every other leaf
+    `trunc_normal` with ``fan_in = shape[0]`` of the whole leaf (for a
+    stacked layer leaf [L, ...] that is L, as in the reference). A
+    stacked leaf is drawn a layer at a time and each slice cast to its
+    dtype as it comes (`leaf_dtype`), so a bfloat16 copy of a
+    full-width model never holds a whole leaf in float32."""
+    dev = generator.device
+    flat = {}
+    for path, shape in sorted(param_defs(cfg).items()):
+        dt = leaf_dtype(path, dtype)
+        if path.endswith(NORM_LEAVES):
+            flat[path] = torch.ones(shape, dtype=dt, device=dev)
+        elif path.startswith("layers."):
+            leaf = torch.empty(shape, dtype=dt, device=dev)
+            for i in range(shape[0]):
+                leaf[i] = trunc_normal(shape[1:], generator, fan_in=shape[0])
+            flat[path] = leaf
+        else:
+            flat[path] = trunc_normal(shape, generator).to(dt)
+    return nest_params(flat)
+
+
+# -------------------------------------------------------------- forward
+def _layer(cfg: LMConfig, x, lp: dict, sin, cos, cache=None, pos=None,
+           kv_valid_len=None):
+    """One decoder layer. x: [B, T, D]; cache: (k, v) [B, S, Hkv, Dh],
+    written in place at ``pos``. Returns (x, (k, v), aux)."""
+    B, T, d = x.shape
+    dt = x.dtype
+    h = rms_norm(x, lp["ln1"].to(dt))
+    q = h @ lp["wq"].to(dt)
+    k = h @ lp["wk"].to(dt)
+    v = h @ lp["wv"].to(dt)
+    if cfg.qkv_bias:
+        q = q + lp["bq"].to(dt)
+        k = k + lp["bk"].to(dt)
+        v = v + lp["bv"].to(dt)
+    q = q.reshape(B, T, cfg.n_heads, cfg.d_head)
+    k = k.reshape(B, T, cfg.n_kv_heads, cfg.d_head)
+    v = v.reshape(B, T, cfg.n_kv_heads, cfg.d_head)
+    q = apply_rope(q, sin, cos)
+    k = apply_rope(k, sin, cos)
+    if cache is not None:
+        ck, cv = cache
+        at = min(max(int(pos), 0), ck.shape[1] - T)
+        ck[:, at:at + T] = k.to(ck.dtype)
+        cv[:, at:at + T] = v.to(cv.dtype)
+        new_cache = (ck, cv)
+        attn = gqa_attention(q, ck, cv, causal=False, q_offset=pos,
+                             kv_valid_len=kv_valid_len, window=cfg.window)
+    else:
+        new_cache = (k, v)  # exposed for prefill cache collection
+        attn = gqa_attention(q, k, v, causal=True, window=cfg.window)
+    x = x + attn.reshape(B, T, -1) @ lp["wo"].to(dt)
+
+    h = rms_norm(x, lp["ln2"].to(dt))
+    if cfg.moe:
+        wp = {k2: lp[k2] for k2 in ("router", "w_gate", "w_up", "w_down",
+                                    "shared_gate_w", "shared_up",
+                                    "shared_down", "shared_out_gate")
+              if k2 in lp}
+        y, aux = moe_apply(h.reshape(B * T, d), wp, cfg.moe)
+        y = y.reshape(B, T, d)
+    else:
+        g = F.silu(h @ lp["w_gate"].to(dt))
+        y = (g * (h @ lp["w_up"].to(dt))) @ lp["w_down"].to(dt)
+        aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    return x + y, new_cache, aux
+
+
+def _embed(params: dict, tokens, dt) -> torch.Tensor:
+    emb = params["embed"]
+    tokens = torch.as_tensor(tokens, device=emb.device)
+    rows = gather_rows(emb, tokens.reshape(-1).long())
+    return rows.reshape(tuple(tokens.shape) + (emb.shape[1],)).to(dt)
+
+
+def forward(params: dict, cfg: LMConfig, tokens, collect_kv: bool = False):
+    """tokens: [B, T] -> (logits [B, T, vocab] in the compute dtype, aux)
+    and, with ``collect_kv``, the per-layer (k, v) lists. Each float32
+    layer leaf is cast to the compute dtype first (the reference casts
+    before its scan); with ``cfg.remat == "full"`` and a gradient
+    wanted, each layer is recomputed in the backward."""
+    dt = DTYPES[cfg.compute_dtype]
+    x = _embed(params, tokens, dt)
+    T = x.shape[1]
+    sin, cos = rope_angles(torch.arange(T, device=x.device), cfg.d_head,
+                           cfg.rope_theta, dt)
+    layers = params["layers"]
+    remat = (cfg.remat == "full" and not collect_kv
+             and torch.is_grad_enabled())
+    aux = torch.zeros((), dtype=torch.float32, device=x.device)
+    ks, vs = [], []
+    for i in range(cfg.n_layers):
+        lp = {k: (v[i].to(dt) if v.dtype == torch.float32 else v[i])
+              for k, v in layers.items()}
+        if remat:
+            x, _, a = checkpoint(lambda x_, lp_: _layer(cfg, x_, lp_, sin,
+                                                        cos),
+                                 x, lp, use_reentrant=False)
+        else:
+            x, (k, v), a = _layer(cfg, x, lp, sin, cos)
+            if collect_kv:
+                ks.append(k)
+                vs.append(v)
+        aux = aux + a
+    x = rms_norm(x, params["final_norm"].to(dt))
+    logits = x @ params["lm_head"].to(dt)
+    if collect_kv:
+        return logits, aux / cfg.n_layers, (ks, vs)
+    return logits, aux / cfg.n_layers
+
+
+def loss_fn(params: dict, cfg: LMConfig, batch: dict) -> torch.Tensor:
+    logits, aux = forward(params, cfg, batch["tokens"])
+    labels = torch.as_tensor(batch["labels"], device=logits.device)
+    return cross_entropy_loss(logits, labels) + aux
+
+
+def prefill_step(params: dict, cfg: LMConfig, tokens,
+                 return_logits: bool = False):
+    """Inference prefill: run the prompt [B, T]; returns (next tokens
+    [B], the KV cache {"k", "v"} [L, B, T, Hkv, Dh] in bfloat16), the
+    layout `decode_step` takes, and with ``return_logits`` the prompt's
+    logits [B, T, vocab] after them."""
+    tokens = torch.as_tensor(tokens, device=params["embed"].device)
+    logits, _, (ks, vs) = forward(params, cfg, tokens, collect_kv=True)
+    nxt = torch.argmax(logits[:, -1, :], dim=-1).to(tokens.dtype)
+    cache = {"k": torch.stack([k.to(torch.bfloat16) for k in ks]),
+             "v": torch.stack([v.to(torch.bfloat16) for v in vs])}
+    del ks, vs
+    if return_logits:
+        return nxt, cache, logits
+    return nxt, cache
+
+
+def init_cache(cfg: LMConfig, batch: int, max_len: int,
+               dtype=torch.bfloat16, device=None) -> dict:
+    """A zeroed cache {"k", "v"} [L, batch, max_len, Hkv, Dh]."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    dev = resolve_device(device)
+    return {"k": torch.zeros(shape, dtype=dtype, device=dev),
+            "v": torch.zeros(shape, dtype=dtype, device=dev)}
+
+
+def decode_step(params: dict, cfg: LMConfig, cache: dict, tokens, pos):
+    """One serving step: tokens [B] at position ``pos`` (an int or a 0-d
+    tensor). Writes the step's keys and values into ``cache`` in place
+    and returns (next tokens [B], logits [B, vocab], the cache). The
+    layer leaves are read uncast, as the reference's decode scan reads
+    them."""
+    dt = DTYPES[cfg.compute_dtype]
+    pos = int(pos)
+    x = _embed(params, tokens, dt)[:, None, :]                  # [B, 1, D]
+    sin, cos = rope_angles(torch.full((1,), pos, device=x.device),
+                           cfg.d_head, cfg.rope_theta, dt)
+    sin, cos = sin[None], cos[None]                             # [1, 1, Dh/2]
+    layers = params["layers"]
+    for i in range(cfg.n_layers):
+        lp = {k: v[i] for k, v in layers.items()}
+        x, _, _ = _layer(cfg, x, lp, sin, cos,
+                         cache=(cache["k"][i], cache["v"][i]), pos=pos,
+                         kv_valid_len=pos + 1)
+    x = rms_norm(x, params["final_norm"].to(dt))
+    logits = (x @ params["lm_head"].to(dt))[:, 0, :]
+    tokens = torch.as_tensor(tokens, device=logits.device)
+    nxt = torch.argmax(logits, dim=-1).to(tokens.dtype)
+    return nxt, logits, cache
+
+
+# ------------------------------------------------------------ the module
+class LM(nn.Module):
+    """An LM on one device. ``device=None`` means the card (it raises
+    where there is none); tests pass ``device="cpu"``. Weights come from
+    `init_params` with a `torch.Generator` on the device seeded with
+    ``seed``, held in ``dtype`` (float32 masters, or a bfloat16 served
+    copy whose router and shared output gate stay float32); calls run
+    the functional entry points over `param_tree(self)` (the parameters
+    do not require gradients: training runs the functional path)."""
+
+    def __init__(self, cfg: LMConfig, device=None, seed: int = 0,
+                 dtype=torch.float32):
+        super().__init__()
+        dev = resolve_device(device)
+        self.cfg = cfg
+        gen = torch.Generator(device=dev)
+        gen.manual_seed(seed)
+        with torch.no_grad():
+            register_tensors(self, flatten_params(
+                init_params(cfg, gen, dtype=dtype)))
+
+    @property
+    def device(self) -> torch.device:
+        return self.embed.device
+
+    def forward(self, tokens):
+        return forward(param_tree(self), self.cfg, tokens)
+
+    def prefill(self, tokens):
+        return prefill_step(param_tree(self), self.cfg, tokens)
+
+    def init_cache(self, batch: int, max_len: int) -> dict:
+        return init_cache(self.cfg, batch, max_len, device=self.device)
+
+    def decode(self, cache: dict, tokens, pos):
+        return decode_step(param_tree(self), self.cfg, cache, tokens, pos)
+
+
+def params_to_numpy(params) -> dict:
+    """The reference's nested dict of numpy float32 arrays, from an `LM`
+    or a nested dict of tensors."""
+    return tree_to_numpy(params)
+
+
+def params_from_numpy(cfg: LMConfig, tree: dict, device=None,
+                      dtype=torch.float32) -> LM:
+    """An `LM` holding the weights of ``tree`` (the reference's nested
+    `init_params` dict of numpy arrays) in ``dtype`` (`leaf_dtype`); a
+    missing or extra key or a shape that differs raises."""
+    return load_numpy_tree(LM(cfg, device=device, dtype=dtype),
+                           param_defs(cfg), tree)

@@ -1506,3 +1506,120 @@ def test_distance_encoding_on_card_equals_cpu(card):
     assert _cuda.LAUNCHES["wcsd_query_ragged"] == 1
     b = DG.distance_encoding(idx, nodes, lms, [0, 1, 2, 3], device="cpu")
     np.testing.assert_array_equal(a, b)
+
+
+# ------------------------------------------------------------ the LM family
+def _lm(arch, compute_dtype="float32", **moe_kw):
+    import dataclasses
+    from repro_torch.configs import get_arch
+    cfg = dataclasses.replace(get_arch(arch).smoke_config(),
+                              compute_dtype=compute_dtype)
+    if moe_kw and cfg.moe:
+        cfg = dataclasses.replace(cfg, moe=dataclasses.replace(cfg.moe,
+                                                               **moe_kw))
+    return cfg
+
+
+def _positions(got, ref, tol=1e-5, jump=3e-2):
+    """Per-position errors of logits [..., V]: the median within ``tol``
+    of max |ref|, every one within ``jump`` (attention rounds its operands
+    to bf16, so a last-bit difference can move a position), greedy
+    tokens all equal."""
+    got, ref = got.double().cpu(), ref.double().cpu()
+    per = (got - ref).abs().amax(-1).flatten() / ref.abs().max()
+    assert float(per.median()) <= tol, per
+    assert float(per.max()) <= jump, per
+    assert torch.equal(got.argmax(-1), ref.argmax(-1))
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen2-moe-a2.7b",
+                                  "qwen2.5-14b"])
+def test_lm_forward_on_card_equals_cpu(card, arch):
+    """The smoke config's float32-compute forward on the card against the
+    same weights on the CPU, TF32 off."""
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm(arch)
+    model = T.LM(cfg, device="cpu", seed=0)
+    batch = TokenStream(cfg.vocab, 32, 2, seed=0).next_batch()
+    with torch.no_grad():
+        ref, _ = T.forward(C.param_tree(model), cfg, batch["tokens"])
+        got, _ = T.forward(C.param_tree(model.to(card)), cfg,
+                           batch["tokens"])
+    _positions(got, ref)
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen2-moe-a2.7b"])
+def test_lm_decode_on_card_equals_the_no_cache_forward(card, arch):
+    """Prefill 24 tokens, 8 greedy decode steps on the card; each step's
+    logits against the card's forward over the same tokens (float32
+    compute; the MoE at capacity factor 8, where no token is dropped);
+    the prefill re-runs bit for bit."""
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm(arch, capacity_factor=8.0)
+    model = T.LM(cfg, device=card, seed=0)
+    toks = torch.randint(0, cfg.vocab, (2, 24),
+                         generator=torch.Generator().manual_seed(0)).to(card)
+    with torch.no_grad():
+        n0, c0 = model.prefill(toks)
+        n1, c1 = model.prefill(toks)
+        assert torch.equal(n0, n1) and torch.equal(c0["k"], c1["k"]) \
+            and torch.equal(c0["v"], c1["v"])
+        cache = model.init_cache(2, 32)
+        for k in ("k", "v"):
+            cache[k][:, :, :24] = c0[k]
+        nxt, fed, logits = n0, [], []
+        for i in range(8):
+            fed.append(nxt)
+            nxt, lg, cache = model.decode(cache, nxt, 24 + i)
+            logits.append(lg)
+        full, _ = model(torch.cat([toks, torch.stack(fed, 1)], 1))
+    _positions(torch.stack(logits, 1), full[:, 24:])
+
+
+def test_lm_served_copy_routes_as_the_float32_masters(card):
+    """A bf16 served copy (router and shared output gate float32) gives
+    the float32 masters' bf16-compute numbers bit for bit on the card:
+    the forward (router rounded to bf16, as the reference's forward
+    casts it) and the decode (the float32 router, as the reference's
+    decode reads it)."""
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    cfg = _lm("qwen2-moe-a2.7b", "bfloat16")
+    masters = C.param_tree(T.LM(cfg, device=card, seed=0))
+    served = C.param_tree(T.LM(cfg, device=card, seed=0,
+                               dtype=torch.bfloat16))
+    assert served["layers"]["router"].dtype == torch.float32
+    assert served["layers"]["shared_out_gate"].dtype == torch.float32
+    assert served["layers"]["w_up"].dtype == torch.bfloat16
+    toks = torch.randint(0, cfg.vocab, (4, 16),
+                         generator=torch.Generator().manual_seed(1)).to(card)
+    with torch.no_grad():
+        fa, _ = T.forward(masters, cfg, toks)
+        fb, _ = T.forward(served, cfg, toks)
+        assert torch.equal(fa, fb)
+        na, ca = T.prefill_step(masters, cfg, toks)
+        for k in ("k", "v"):
+            ca[k] = torch.nn.functional.pad(ca[k], (0, 0, 0, 0, 0, 4))
+        cb = {k: v.clone() for k, v in ca.items()}
+        xa, la, _ = T.decode_step(masters, cfg, ca, na, 16)
+        xb, lb, _ = T.decode_step(served, cfg, cb, na, 16)
+    assert torch.equal(la, lb) and torch.equal(xa, xb)
+
+
+def test_bf16_matmul_route_on_card_equals_the_upcast(card):
+    """Attention's contraction on the card (one `torch.bmm` with a float32
+    output from bf16 operands, strided like a cache) against the CPU's
+    upcast route: float32 sums of the same exact products."""
+    from repro_torch.models.attention import bf16_matmul_f32
+    g = torch.Generator().manual_seed(2)
+    a = torch.randn(8, 4, 128, generator=g).to(torch.bfloat16)
+    k = torch.randn(4096, 8, 128, generator=g).to(torch.bfloat16)
+    ref = bf16_matmul_f32(a, k.permute(1, 2, 0))
+    with torch.no_grad():
+        got = bf16_matmul_f32(a.to(card), k.to(card).permute(1, 2, 0))
+    assert got.dtype == torch.float32
+    assert _rel(got.cpu(), ref) <= 1e-6

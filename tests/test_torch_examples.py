@@ -1,11 +1,13 @@
 """The port's examples (`examples/quickstart_torch.py`,
-`examples/serve_wcsd_torch.py`, `examples/wcsd_features_gnn_torch.py`)
-run in-process on the CPU (the kernels' plain versions), their own
+`examples/serve_wcsd_torch.py`, `examples/wcsd_features_gnn_torch.py`,
+`examples/train_lm_torch.py`) run in-process on the CPU (the kernels' plain versions), their own
 asserts included, at cut sizes (their defaults, the reference examples'
 sizes, take ~100 s here): the quickstart's counts against the reference
 package's builders on the same graph, the serving example's answers
 against the reference's sequential index, the GNN example's labels and
-distance encodings against the reference's `distance_encoding`."""
+distance encodings against the reference's `distance_encoding`, the LM
+example's first loss against the reference example's on the same
+weights."""
 import importlib.util
 import os
 
@@ -84,9 +86,51 @@ def test_gnn_features_example_encodings_equal_the_reference(capsys):
     assert "WC-INDEX features improve the GNN" in capsys.readouterr().out
 
 
+def test_train_lm_example_restarts_and_its_loss_falls(capsys):
+    """At a tiny size (d 32, 2 layers, 30 steps of 4 x 64 tokens, lr
+    1e-2): the loss falls, the injected failure at step 15 is survived by
+    one restart from the step-0 checkpoint (saves come every 25 steps), and the first step's loss
+    from the reference example's weights (`init_params(cfg, key(0))`,
+    carried across) equals the reference example's first loss (its
+    `loss_fn` on `TokenStream` batch 0) within 2e-3 (bf16 compute)."""
+    import jax
+    import jax.numpy as jnp
+    from repro.data.lm import TokenStream
+    from repro.models import transformer as RT
+    args = ["--device", "cpu", "--lr", "1e-2", "--steps", "30",
+            "--d-model", "32", "--layers", "2", "--seq", "64",
+            "--batch", "4"]
+    # the reference example's config at these arguments
+    cfg = RT.LMConfig(name="lm-100m", n_layers=2, d_model=32, n_heads=8,
+                      n_kv_heads=4, d_ff=128, vocab=32000, d_head=4,
+                      tp_size=1)
+    params = jax.jit(RT.init_params, static_argnums=0)(cfg,
+                                                       jax.random.key(0))
+    batch = TokenStream(cfg.vocab, 64, 4, seed=0).next_batch()
+    ref_loss = float(jax.jit(lambda p, b: RT.loss_fn(p, cfg, b))(
+        params, {k: jnp.asarray(v) for k, v in batch.items()}))
+    log = _load("train_lm_torch").main(
+        args, init=jax.tree_util.tree_map(np.asarray, params))
+    steps = [r for r in log if r["event"] == "step"]
+    fails = [r for r in log if r["event"] == "failure"]
+    assert len(fails) == 1 and fails[0]["step"] == 15
+    assert [r["step"] for r in steps] == list(range(15)) + list(range(30))
+    assert steps[0]["loss"] == pytest.approx(ref_loss, rel=2e-3)
+    first = np.mean([r["loss"] for r in steps[:5]])
+    last = np.mean([r["loss"] for r in steps[-5:]])
+    # the replayed steps repeat the first ones bit for bit
+    assert [r["loss"] for r in steps[15:30]] == [r["loss"]
+                                                 for r in steps[:15]]
+    assert last < first - 0.3, (first, last)
+    assert "1 restart(s)" in capsys.readouterr().out
+
+
 CARD_ARGS = {"quickstart_torch": ["--grid", "4"],
              "serve_wcsd_torch": ["--nodes", "40", "--queries", "10"],
-             "wcsd_features_gnn_torch": ["--nodes", "40", "--steps", "1"]}
+             "wcsd_features_gnn_torch": ["--nodes", "40", "--steps", "1"],
+             "train_lm_torch": ["--steps", "1", "--d-model", "16",
+                                "--layers", "1", "--seq", "8",
+                                "--batch", "1"]}
 
 
 @pytest.mark.parametrize("name", list(CARD_ARGS))

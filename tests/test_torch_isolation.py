@@ -1,4 +1,4 @@
-"""The port stands alone: `repro_torch` (the GNN family included),
+"""The port stands alone: `repro_torch` (the GNN and LM families included),
 `chip_smoke.py`, the `scripts/chip_*.py` harnesses and the port's
 examples import neither `jax` nor the reference package `repro`; entry
 points default to the card and raise where there is none; the CUDA
@@ -30,7 +30,7 @@ def _port_modules():
 
 def test_import_every_module_without_jax_or_repro():
     mods = _port_modules()
-    assert len(mods) >= 36, mods
+    assert len(mods) >= 46, mods
     for m in ("repro_torch.checkpoint.fault", "repro_torch.models.xdeepfm",
               "repro_torch.models.common", "repro_torch.data.recsys",
               "repro_torch.configs.xdeepfm_arch",
@@ -45,7 +45,15 @@ def test_import_every_module_without_jax_or_repro():
               "repro_torch.data.graphs", "repro_torch.configs.gnn_common",
               "repro_torch.configs.gin_tu", "repro_torch.configs.pna",
               "repro_torch.configs.gatedgcn",
-              "repro_torch.configs.nequip"):
+              "repro_torch.configs.nequip", "repro_torch.data.lm",
+              "repro_torch.models.attention", "repro_torch.models.moe",
+              "repro_torch.models.transformer",
+              "repro_torch.configs.lm_common",
+              "repro_torch.configs.llama3_8b",
+              "repro_torch.configs.qwen2_moe_a2_7b",
+              "repro_torch.configs.dbrx_132b",
+              "repro_torch.configs.qwen25_14b",
+              "repro_torch.configs.codeqwen15_7b"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -72,12 +80,14 @@ def test_source_scan_finds_no_jax_or_repro_import():
              os.path.join(REPO, "scripts", "chip_gnn.py"),
              os.path.join(REPO, "scripts", "chip_cin_ab.py"),
              os.path.join(REPO, "scripts", "chip_gather_ab.py"),
+             os.path.join(REPO, "scripts", "chip_lm.py"),
              os.path.join(REPO, "examples", "quickstart_torch.py"),
              os.path.join(REPO, "examples", "serve_wcsd_torch.py"),
-             os.path.join(REPO, "examples", "wcsd_features_gnn_torch.py")]
+             os.path.join(REPO, "examples", "wcsd_features_gnn_torch.py"),
+             os.path.join(REPO, "examples", "train_lm_torch.py")]
     for root, _, names in os.walk(PORT):
         files += [os.path.join(root, n) for n in names if n.endswith(".py")]
-    assert len(files) >= 39
+    assert len(files) >= 50
     for path in files:
         with open(path) as f:
             text = f.read()
@@ -138,6 +148,24 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
     # the encodings go through the engine on the card: no numpy fallback
     with pytest.raises(RuntimeError, match="no CUDA device"):
         distance_encoding(idx, np.arange(4), np.array([0]), [0])
+    from repro_torch.models import transformer as T
+    for arch in ("llama3-8b", "qwen2-moe-a2.7b"):
+        cfg = get_arch(arch).smoke_config()
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            T.LM(cfg)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            T.LM(cfg, dtype=torch.bfloat16)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            T.init_cache(cfg, 1, 8)
+        with pytest.raises(RuntimeError, match="no CUDA device"):
+            T.params_from_numpy(cfg, T.params_to_numpy(T.LM(cfg, "cpu")))
+    import importlib.util
+    spec = importlib.util.spec_from_file_location(
+        "train_lm_torch", os.path.join(REPO, "examples", "train_lm_torch.py"))
+    example = importlib.util.module_from_spec(spec)
+    spec.loader.exec_module(example)
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        example.main(["--steps", "1", "--d-model", "16", "--layers", "1"])
 
 
 def test_cuda_launchers_refuse_cpu_tensors():
