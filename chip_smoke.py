@@ -5,7 +5,7 @@
 
 Builds the twelve CUDA kernels from the four sources in
 `src/repro_torch/csrc/` (one `nvcc` per source, started together), then
-drives thirteen paths of the port on the card, each with the launch counts
+drives fourteen paths of the port on the card, each with the launch counts
 reset just before it and read just after it:
 
 1. the main path: `scale_free(2^17, m=4, num_levels=5, seed=0)` -> the
@@ -98,7 +98,7 @@ reset just before it and read just after it:
    each, energies invariant under a rotation within 1e-4, the last step
    re-run bit-identical. No kernel of the port runs in the training
    (the reference's message passing is not a Pallas kernel);
-13. the LM family (run last), llama3-8b (32 x 4,096, GQA 32/8) and
+13. the LM family, llama3-8b (32 x 4,096, GQA 32/8) and
    qwen2-moe-a2.7b (24 x 2,048, 60 experts padded to 64, top-4, 4
    shared, 16 dispatch shards) at `get_config()` width and depth,
    random weights from seed 0 on the card's generator, served in bf16
@@ -115,7 +115,18 @@ reset just before it and read just after it:
    steps over the whole cache, each timed, one traced, and each row's
    no-cache bf16 forward over the same tokens (greedy share, printed).
    No kernel of the port runs (the reference's attention and experts
-   are jnp ops outside any Pallas kernel).
+   are jnp ops outside any Pallas kernel);
+14. the dry-run matrix (run last, `launch.dryrun`): all 84 cells (the
+   40 arch x shape cells and wcsd-serve's 2, on the 16 x 16 and 2 x 16 x
+   16 production meshes) built with their per-card argument and output
+   bytes; llama3-8b and qwen2-moe-a2.7b decode_32k, gin-tu
+   full_graph_sm, nequip molecule, xdeepfm train_batch and wcsd-serve
+   serve_1m counted on meta tensors at full width; wcsd-serve serve_1m
+   (2^20 queries, K9) and profile_1m (2^17 staircases, the plain join)
+   and xdeepfm serve_p99 and retrieval_cand (K11) run on the card at
+   their global sizes from seeded arguments, each timed beside its
+   counted peak and one-card roofline bound; 4,096 of serve_1m's
+   answers held against K9's plain version, exactly.
 
 Then every kernel is held against its plain PyTorch version on inputs
 captured from its path (exact int32 equality; K3 at the build's heaviest
@@ -3796,6 +3807,122 @@ def examples_phase() -> dict:
     return out
 
 
+# -------------------------------------------------------- the dry run
+DRYRUN_COUNTED = (("llama3-8b", "decode_32k"), ("qwen2-moe-a2.7b",
+                                                "decode_32k"),
+                  ("gin-tu", "full_graph_sm"), ("nequip", "molecule"),
+                  ("xdeepfm", "train_batch"), ("wcsd-serve", "serve_1m"))
+DRYRUN_EXECUTED = (("wcsd-serve", "serve_1m"), ("wcsd-serve", "profile_1m"),
+                   ("xdeepfm", "serve_p99"), ("xdeepfm", "retrieval_cand"))
+DRYRUN_PATH = ("wcsd_query_gathered", "cin_layer")
+K9_SLICE = 4096          # serve_1m queries held against K9's plain version
+
+
+def dryrun_cells() -> dict:
+    """Every cell of the dry-run matrix on both production meshes: the
+    40 of `configs.all_cells` and wcsd-serve's 2, by (arch, shape,
+    multi_pod)."""
+    from repro_torch.configs import all_cells, get_arch
+    cells = {}
+    for mp in (False, True):
+        for arch, shape, cell in all_cells(mp):
+            cells[(arch, shape, mp)] = cell
+        w = get_arch("wcsd-serve")
+        for shape in w.SHAPES:
+            cells[("wcsd-serve", shape, mp)] = w.make_cell(shape,
+                                                           multi_pod=mp)
+    return cells
+
+
+def k9_slice_check(result: dict):
+    """``check`` for serve_1m's executed warm-up step: its first
+    `K9_SLICE` answers equal K9's plain version on the same gathered rows,
+    exactly; the share of those queries whose rows pass K9's merge check
+    and the share answered (a hub meet) go into ``result``."""
+    import torch
+    from repro_torch.kernels import ops as kops
+    from repro_torch.kernels import wcsd_query as kwq
+
+    def check(args, out):
+        hub, dist, wlev, count, s, t, w = args
+        sl = slice(0, K9_SLICE)
+        hs, ds, ht, dt = kops.gather_padded_rows(hub, dist, wlev, count,
+                                                 s[sl], t[sl], w[sl])
+        exp = kops._to_inf_dist(kwq.wcsd_query_gathered_plain(hs, ds, ht,
+                                                              dt))
+        if not torch.equal(out[sl], exp):
+            bad = int((out[sl] != exp).sum())
+            fail(f"dryrun serve_1m: {bad} of {K9_SLICE} answers differ "
+                 "from K9's plain version")
+        ok = (mergeable_rows(hs, ds >= kwq.DEV_INF)
+              & mergeable_rows(ht, dt >= kwq.DEV_INF))
+        result.update(k9_slice=K9_SLICE, k9_slice_equal_plain=True,
+                      merge_share=float(ok.float().mean()),
+                      answered_share=float((exp < INF_DIST).float().mean()))
+
+    return check
+
+
+def dryrun_phase(device) -> dict:
+    """Path 14: the dry-run matrix (`launch.dryrun`) on the card's terms.
+    Builds all 84 cells and their per-card argument and output bytes on
+    both production meshes; counts one cell a family at full width on
+    meta tensors (`DRYRUN_COUNTED`); runs on the card at their global
+    sizes the cells of `DRYRUN_EXECUTED` (serve_1m through K9: 2^20
+    queries against a 2^20 x 256 store whose rows hold sorted hubs and
+    their pads at the end; profile_1m through the plain profile join;
+    serve_p99 and retrieval_cand through K11), each one warm-up step and
+    the median of 3 timed, beside its counted peak and one-card bound;
+    and holds `K9_SLICE` of serve_1m's answers against K9's plain
+    version. K9 and K11 must launch; the counts launch nothing."""
+    import torch
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch import dryrun as D
+    torch.cuda.empty_cache()
+    t_phase = time.perf_counter()
+    cells = dryrun_cells()
+    per_card = {f"{a}|{s}|{D.mesh_name(mp)}": D.cell_bytes(c, mp)
+                for (a, s, mp), c in cells.items()}
+    build_s = time.perf_counter() - t_phase
+    counted = {}
+    for arch, shape in DRYRUN_COUNTED + DRYRUN_EXECUTED:
+        if (arch, shape) in counted:
+            continue
+        counts, _ = D.count_cell(cells[(arch, shape, False)])
+        counted[(arch, shape)] = counts
+    torch.cuda.synchronize()
+    _cuda.reset_launch_counts()
+    executed = {}
+    for arch, shape in DRYRUN_EXECUTED:
+        extra = {}
+        ex = D.execute_cell(cells[(arch, shape, False)],
+                            counted[(arch, shape)], device,
+                            check=(k9_slice_check(extra)
+                                   if shape == "serve_1m" else None))
+        if "step_ms" not in ex:
+            fail(f"dryrun {arch} {shape} did not run: {ex}")
+        executed[f"{arch}|{shape}"] = {**ex, **extra}
+        progress(f"dryrun {arch} {shape}: {ex['step_ms']:.3f} ms a step, "
+                 f"peak {ex['peak_bytes']} B (counted "
+                 f"{ex['counted_peak_bytes']} B), roofline share "
+                 f"{ex['roofline_share']}")
+    torch.cuda.synchronize()
+    launches = dict(_cuda.LAUNCHES)
+    check_path_launches("dryrun", launches, DRYRUN_PATH, {})
+    if not executed["wcsd-serve|serve_1m"].get("k9_slice_equal_plain"):
+        fail("dryrun serve_1m: the K9 slice was not checked")
+    keep = ("flops", "hbm_bytes", "moved_bytes", "int_ops", "peak_bytes",
+            "argument_bytes", "ops", "count_s")
+    return {"phase": "dryrun", "cells": len(cells), "build_s": build_s,
+            "per_card_bytes": per_card,
+            "counted": {f"{a}|{s}": {**{k: c[k] for k in keep},
+                                     "kernels": c["kernels"]}
+                        for (a, s), c in counted.items()},
+            "executed": executed,
+            "launches": {k: launches[k] for k in DRYRUN_PATH},
+            "wall_s": time.perf_counter() - t_phase}
+
+
 # ------------------------------------------------------------------- main
 def main() -> int:
     import torch
@@ -3978,6 +4105,10 @@ def main() -> int:
     # ------------------- the LM family: prefill and decode at full width
     lm = lm_phase(dev)
 
+    # ----------------------- the dry-run matrix: counts, one-card runs
+    dry = dryrun_phase(dev)
+    progress(f"dryrun: {dry['cells']} cells, phase {dry['wall_s']:.1f} s")
+
     # ----------------------------------------- kernels vs plain, timed
     if cap.k3 is None or cap.k4 is None or cap.k4_dense is None:
         fail("no build round was captured for the kernel phases")
@@ -3996,6 +4127,10 @@ def main() -> int:
         + xdf_kernels + train_kernels
     kernels[0].update(main_launches=launches["wcsd_query_ragged"],
                       gnn_launches=k1_gnn)
+    for k in kernels:   # K9 and K11 also ran on the dry run's path
+        if k["name"] in dry["launches"]:
+            k.update(dryrun_launches=dry["launches"][k["name"]])
+            k["launches"] += dry["launches"][k["name"]]
     for k in kernels:
         if k["max_abs_err"] > k.get("max_abs_tol", 0):
             fail(f"kernel {k['name']} differs from its plain version "
@@ -4021,6 +4156,7 @@ def main() -> int:
     emit(train)
     emit(examples)
     emit(lm)
+    emit(dry)
     emit({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",
         "ms", "plain_ms", "bound_ms", "bound_by", "library_ms")}

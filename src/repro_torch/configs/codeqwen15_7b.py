@@ -1,7 +1,7 @@
 """codeqwen1.5-7b [hf:Qwen/CodeQwen1.5-7B]: 32L d=4096 32H (kv=32, MHA)
 d_ff=13440, vocab 92416, QKV bias (qwen1.5 arch)."""
 from ..models.transformer import LMConfig
-from .lm_common import LM_SHAPES
+from .lm_common import LM_SHAPES, make_lm_cell
 
 SHAPES = list(LM_SHAPES)
 
@@ -18,3 +18,7 @@ def smoke_config() -> LMConfig:
         name="codeqwen-smoke", n_layers=2, d_model=64, n_heads=4,
         n_kv_heads=4, d_ff=128, vocab=128, d_head=16, qkv_bias=True,
         tp_size=1)
+
+
+def make_cell(shape: str, multi_pod: bool = False):
+    return make_lm_cell(get_config(), shape, multi_pod)

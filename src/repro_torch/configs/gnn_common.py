@@ -1,6 +1,6 @@
-"""Shared shapes and train steps of the GNN-family architectures (GIN,
-PNA, GatedGCN, NequIP), the port of the reference's
-`configs/gnn_common.py` without its dry-run cells.
+"""Shared shapes, train steps and dry-run cells of the GNN-family
+architectures (GIN, PNA, GatedGCN, NequIP), the port of the reference's
+`configs/gnn_common.py`.
 
 Shapes (assigned):
   full_graph_sm  Cora-like full batch: 2,708 nodes / 10,556 edges / d=1433
@@ -15,9 +15,9 @@ Shapes (assigned):
 N padded to 512 where the shape shards its nodes), `shape_config` the
 configuration a shape runs (its d_feat, classes, task, bf16 where the
 nodes shard), `cell_batch` a synthetic batch at those sizes, and
-`make_train_step_for` the train step. The reference's `make_gnn_cell` /
-`make_nequip_cell` lower JAX programs for its dry run and have no
-counterpart here.
+`make_train_step_for` the train step, and `make_gnn_cell` /
+`make_nequip_cell` a shape's dry-run `Cell` (edge arrays over ("pod",
+"data"), node arrays too where the shape shards its nodes).
 """
 from __future__ import annotations
 
@@ -29,8 +29,11 @@ import torch
 from ..data.graphs import NeighborSampler, pad_block, synthetic_molecules
 from ..models import gnn as G
 from ..models import nequip as NQ
+from ..launch.mesh import Spec as P
+from ..train import optim as O
 from ..train.loop import make_train_step
 from ..train.optim import OptimizerConfig
+from .cell import Cell, abstract, materialize, train_outs
 
 
 def _ceil_to(x: int, m: int) -> int:
@@ -59,6 +62,18 @@ MINIBATCH_FANOUTS = (15, 10)
 
 # the cells' optimizer (the reference's `make_gnn_cell` / `make_nequip_cell`)
 TRAIN_OPT = OptimizerConfig(lr=1e-3, weight_decay=0.0)
+
+
+def _bd(multi_pod: bool):
+    return ("pod", "data") if multi_pod else "data"
+
+
+def padded_edges(spec: dict, multi_pod: bool) -> int:
+    """The reference's padded edge count of a shape spec (symmetrized
+    unless the spec says ``shape_sym=False``, rounded up to 1024)."""
+    raw = spec["n_edges_raw"] * (2 if spec["shape_sym"] else 1) \
+        if "shape_sym" in spec else spec["n_edges_raw"] * 2
+    return _ceil_to(raw, 1024)
 
 
 def padded_sizes(shape: str) -> tuple[int, int]:
@@ -223,3 +238,107 @@ def cell_batch(shape: str, seed: int = 0, graph=None) -> dict:
     out["edges_dst"] = np.concatenate([dst, np.full(pad_e, N - 1)]).astype(
         np.int32)
     return out
+
+
+def _param_count(mod, cfg) -> int:
+    return sum(int(np.prod(s)) for s in mod.param_defs(cfg).values())
+
+
+def make_gnn_cell(cfg: G.GNNConfig, shape: str, multi_pod: bool = False,
+                  arch_name: str | None = None) -> Cell:
+    """The dry-run cell of a GIN / PNA / GatedGCN ``cfg`` at ``shape``:
+    a train step over the padded batch (`padded_sizes`), ``cfg`` sized
+    by `shape_config`."""
+    spec = GNN_SHAPES[shape]
+    bd = _bd(multi_pod)
+    N, E = padded_sizes(shape)
+    cfg = shape_config(cfg, shape)
+    ap = G.abstract_params(cfg)
+    ps = G.param_shardings(cfg)
+    nspec = P(bd, None) if spec["shard_nodes"] else P(None, None)
+    lspec = P(bd) if spec["shard_nodes"] else P(None)
+    batch = {"feat": abstract((N, spec["d_feat"])),
+             "edges_src": abstract((E,), torch.int32),
+             "edges_dst": abstract((E,), torch.int32)}
+    bspec = {"feat": nspec, "edges_src": P(bd), "edges_dst": P(bd)}
+    if spec["graph_level"]:
+        batch["graph_id"] = abstract((N,), torch.int32)
+        batch["labels"] = abstract((spec["n_graphs"],), torch.int32)
+        bspec["graph_id"] = P(None)
+        bspec["labels"] = P(None)
+    else:
+        batch["labels"] = abstract((N,), torch.int32)
+        bspec["labels"] = lspec
+    ao = O.abstract_opt_state(TRAIN_OPT, ap)
+    osd = O.opt_state_shardings(TRAIN_OPT, ps)
+    meta = {"family": "gnn", "scan_trips": 1,   # python-loop layers
+            "model_flops": gnn_model_flops(cfg, E, N),
+            "n_nodes": N, "n_edges": E, "params": _param_count(G, cfg)}
+    if "note" in spec:
+        meta["note"] = spec["note"]
+    return Cell(arch_name or cfg.name, shape, "train",
+                make_train_step_for(cfg, shape), (ap, ao, batch),
+                (ps, osd, bspec), (ps, osd, None), (0, 1), meta,
+                outs=train_outs(ap, ao))
+
+
+def make_nequip_cell(cfg: NQ.NequIPConfig, shape: str,
+                     multi_pod: bool = False) -> Cell:
+    """NequIP's dry-run cell at ``shape``: node arrays replicated (every
+    edge chunk gathers ``h[src]`` by arbitrary index), edge arrays over
+    ("pod", "data"); the force loss on `molecule`, the energy MSE
+    through `nequip_edge_chunk` elsewhere."""
+    spec = GNN_SHAPES[shape]
+    bd = _bd(multi_pod)
+    N, E = padded_sizes(shape)
+    cfg = shape_config(cfg, shape)
+    ap = NQ.abstract_params(cfg)
+    ps = NQ.param_shardings(cfg)
+    nspec = P(None, None)
+    ng = n_graphs_of(cfg, shape)
+    batch = {"feat": abstract((N, spec["d_feat"])), "pos": abstract((N, 3)),
+             "edges_src": abstract((E,), torch.int32),
+             "edges_dst": abstract((E,), torch.int32),
+             "graph_id": abstract((N,), torch.int32),
+             "energy": abstract((ng,)), "forces": abstract((N, 3))}
+    bspec = {"feat": nspec, "pos": nspec, "edges_src": P(bd),
+             "edges_dst": P(bd), "graph_id": P(None),
+             "energy": P(None), "forces": nspec}
+    edge_chunk = nequip_edge_chunk(E)
+    ao = O.abstract_opt_state(TRAIN_OPT, ap)
+    osd = O.opt_state_shardings(TRAIN_OPT, ps)
+    meta = {"family": "gnn",
+            "scan_trips": (E // edge_chunk if edge_chunk else 1),
+            "model_flops": nequip_model_flops(cfg, E, N),
+            "n_nodes": N, "n_edges": E, "edge_chunk": edge_chunk,
+            "params": _param_count(NQ, cfg),
+            "note": "synthetic 3D coords for non-molecular graphs "
+                    "(DESIGN.md)"}
+    return Cell(cfg.name, shape, "train", make_train_step_for(cfg, shape),
+                (ap, ao, batch), (ps, osd, bspec), (ps, osd, None), (0, 1),
+                meta, outs=train_outs(ap, ao))
+
+
+def concrete_args(cell: Cell, generator: torch.Generator) -> tuple:
+    """A cell's arguments drawn on the generator's device: edges among
+    the N nodes, labels among the classes, graph ids among the graphs,
+    NequIP's positions spread as `cell_batch` spreads them."""
+    params, _, batch = cell.args
+    N = batch["feat"].shape[0]
+    ng = (batch["energy"] if "energy" in batch else batch["labels"]).shape[0]
+    classes = params["head_w"].shape[1] if "head_w" in params else 1
+
+    def int_range(path, t):
+        key = path.rsplit("/", 1)[-1]
+        if key in ("edges_src", "edges_dst"):
+            return 0, N
+        if key == "graph_id":
+            return 0, ng
+        if key == "labels":
+            return 0, classes
+        return 0, 1                     # the optimizer's step
+
+    args = materialize(cell.args, generator, int_range)
+    if "pos" in batch:
+        args[2]["pos"].normal_(0.0, 2.0, generator=generator)
+    return args

@@ -1,7 +1,7 @@
 """llama3-8b [arXiv:2407.21783]: 32L d=4096 32H (GQA kv=8) d_ff=14336,
 vocab 128256."""
 from ..models.transformer import LMConfig
-from .lm_common import LM_SHAPES
+from .lm_common import LM_SHAPES, make_lm_cell
 
 SHAPES = list(LM_SHAPES)
 
@@ -17,3 +17,7 @@ def smoke_config() -> LMConfig:
     return LMConfig(
         name="llama3-smoke", n_layers=2, d_model=64, n_heads=4, n_kv_heads=2,
         d_ff=128, vocab=128, d_head=16, tp_size=1)
+
+
+def make_cell(shape: str, multi_pod: bool = False):
+    return make_lm_cell(get_config(), shape, multi_pod)

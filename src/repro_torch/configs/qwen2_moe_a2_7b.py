@@ -3,7 +3,7 @@ d_ff_expert=1408 vocab=151936, 60 routed experts top-4 + 4 shared.
 60 experts pad to 64 (the reference's expert-parallel divisibility)."""
 from ..models.moe import MoEConfig
 from ..models.transformer import LMConfig
-from .lm_common import LM_SHAPES
+from .lm_common import LM_SHAPES, make_lm_cell
 
 SHAPES = list(LM_SHAPES)
 
@@ -26,3 +26,7 @@ def smoke_config() -> LMConfig:
         moe=MoEConfig(num_experts=6, top_k=4, d_ff_expert=32, num_shared=2,
                       shared_gate=True, pad_experts_to=8),
         tp_size=1)
+
+
+def make_cell(shape: str, multi_pod: bool = False):
+    return make_lm_cell(get_config(), shape, multi_pod)

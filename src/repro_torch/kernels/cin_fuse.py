@@ -54,6 +54,16 @@ CIN_NARROW_MAX_K = 64
 CIN_GRAD_STAGE_N = 24
 CIN_GRAD_TILE = (128, 200)
 CIN_GRAD_MAX_SPLITS = 64
+# The SM count a plan for a meta-tensor count assumes (`cin_scratch`,
+# `cin_grad_scratch`): an H100 SXM's.
+H100_SMS = 132
+# The kernels' tilings, as csrc/cin_fuse.cu, cin_narrow.cu and
+# cin_grad.cu define them, for the scratch a plan sizes without a card:
+# the wide kernel's 64 rows n and 208 columns k a block, 32 r a stage and
+# at most 8 r-axis splits; the narrow kernel's 40 h a stage and 8,000
+# words a (stage, chunk) image, 25 // ceil(K / 8) values of m a chunk.
+_CIN_BN, _CIN_BK, _CIN_RK, _CIN_MAX_SPLITS = 64, 208, 32, 8
+_CN_SH, _CN_BWORDS = 40, 8000
 
 
 def cin_chunk_rows(H: int, M: int, D: int, itemsize: int = 4) -> int:
@@ -114,6 +124,53 @@ def cin_plan(device: torch.device, B: int, H: int, M: int, D: int, K: int,
     return _PLANS[key]
 
 
+def _cdiv(a: int, b: int) -> int:
+    return -(-a // b)
+
+
+def _cin_splits_h100(B: int, H: int, M: int, D: int, K: int) -> int:
+    """`cin_layer_splits` of csrc/cin_fuse.cu on `H100_SMS` SMs, one
+    block an SM (the wide kernel's W buffers alone take 156 KB of an
+    SM's 228 KB of shared memory)."""
+    tiles = _cdiv(B * D, _CIN_BN) * _cdiv(K, _CIN_BK)
+    stages = _cdiv(H * M, _CIN_RK)
+    if tiles >= H100_SMS or stages < 2:
+        return 1
+    best, best_cost = 1, _cdiv(tiles, H100_SMS) * stages
+    for s in range(2, min(_CIN_MAX_SPLITS, stages) + 1):
+        per = _cdiv(stages, s)
+        cost = _cdiv(tiles * _cdiv(stages, per), H100_SMS) * per
+        if cost < best_cost:
+            best, best_cost = s, cost
+    per = _cdiv(stages, best)
+    return _cdiv(stages, per)
+
+
+def cin_scratch(device: torch.device, B: int, H: int, M: int, D: int,
+                K: int, bf16: bool) -> tuple[tuple, int]:
+    """The scratch a K11 call allocates beside its output: (the shape of
+    its float32 workspace of r-axis splits, (S, B, K, D) where it splits
+    and (0,) where not; the int32 words of its W images). The narrow
+    kernel (`cin_narrow`) never splits. On a CUDA device the library's
+    plan; on any other (a meta-tensor count) the same arithmetic here,
+    for an H100 (`H100_SMS`)."""
+    narrow = cin_narrow(K, torch.bfloat16 if bf16 else torch.float32)
+    if device.type == "cuda":
+        if narrow:
+            return (0,), _cuda.library("cin_narrow").cin_narrow_wimg_words(
+                H, M, K)
+        S, words = cin_plan(device, B, H, M, D, K, bf16)
+    elif narrow:
+        kq = _cdiv(K, 8)
+        S, words = 1, (_cdiv(H, _CN_SH) * _cdiv(M, 25 // kq) * 2
+                       * _CN_BWORDS)
+    else:
+        S = _cin_splits_h100(B, H, M, D, K)
+        words = (_cdiv(K, _CIN_BK) * _cdiv(H * M, _CIN_RK) * 2
+                 * _CIN_RK * _CIN_BK)
+    return ((S, B, K, D) if S > 1 else (0,)), words
+
+
 def cin_narrow(K: int, dtype) -> bool:
     """Whether a K11 call with K output channels and inputs of ``dtype``
     goes to the narrow kernel on the card (float32, K <=
@@ -143,13 +200,13 @@ def cin_layer_cuda(x1, x0, w):
     out = torch.empty((B, K, D), dtype=torch.float32, device=x1.device)
     if out.numel() == 0:                  # nothing to compute: no launch
         return out
-    if cin_narrow(K, x1.dtype):
-        return _cin_narrow_launch(x1, x0, w, out, B, H, M, D, K)
     bf16 = x1.dtype == torch.bfloat16
-    S, words = cin_plan(x1.device, B, H, M, D, K, bf16)
-    work = torch.empty((S, B, K, D) if S > 1 else (0,), dtype=torch.float32,
-                       device=x1.device)
+    work_shape, words = cin_scratch(x1.device, B, H, M, D, K, bf16)
     wimg = torch.empty((words,), dtype=torch.int32, device=x1.device)
+    if cin_narrow(K, x1.dtype):
+        return _cin_narrow_launch(x1, x0, w, out, wimg, B, H, M, D, K)
+    S = work_shape[0] if len(work_shape) > 1 else 1
+    work = torch.empty(work_shape, dtype=torch.float32, device=x1.device)
     err = _cuda.library("cin_fuse").cin_layer_launch(
         x1.data_ptr(), x0.data_ptr(), w.data_ptr(), out.data_ptr(),
         work.data_ptr(), wimg.data_ptr(), B, H, M, D, K, int(bf16), S,
@@ -159,13 +216,10 @@ def cin_layer_cuda(x1, x0, w):
     return out
 
 
-def _cin_narrow_launch(x1, x0, w, out, B, H, M, D, K):
+def _cin_narrow_launch(x1, x0, w, out, wimg, B, H, M, D, K):
     """The narrow kernel's two launches into ``out`` (checked inputs)."""
     what = "cin_layer_narrow"
-    lib = _cuda.library("cin_narrow")
-    wimg = torch.empty((lib.cin_narrow_wimg_words(H, M, K),),
-                       dtype=torch.int32, device=x1.device)
-    err = lib.cin_narrow_launch(
+    err = _cuda.library("cin_narrow").cin_narrow_launch(
         x1.data_ptr(), x0.data_ptr(), w.data_ptr(), out.data_ptr(),
         wimg.data_ptr(), B, H, M, D, K, _cuda.stream_ptr(x1.device))
     _cuda.check_launch(err, what)
@@ -246,6 +300,25 @@ def cin_grad_plan(device: torch.device, B: int, H: int, M: int, D: int,
     return cin_grad_splits(B, H, M, D, K, sms)
 
 
+def cin_grad_scratch(device: torch.device, B: int, H: int, M: int,
+                     D: int, K: int) -> tuple[tuple, int]:
+    """The scratch a K12 call allocates beside its output: (the shape of
+    its float32 workspace of slices, (S, K, H, M) where S > 1 and (0,)
+    where not; the int32 words of its G images). On a CUDA device S comes
+    from its SM count and the words from the library; on any other (a
+    meta-tensor count) S is that of `H100_SMS` and the words are
+    computed here."""
+    if device.type == "cuda":
+        S = cin_grad_plan(device, B, H, M, D, K)
+        words = _cuda.library("cin_grad").cin_weight_grad_gimg_words(B, D, K)
+    else:
+        S = cin_grad_splits(B, H, M, D, K, H100_SMS)
+        words = (max(1, _cdiv(B * D, CIN_GRAD_STAGE_N))
+                 * _cdiv(K, CIN_GRAD_TILE[1]) * 2 * CIN_GRAD_STAGE_N
+                 * CIN_GRAD_TILE[1])
+    return ((S, K, H, M) if S > 1 else (0,)), words
+
+
 def cin_weight_grad_cuda(g, x1, x0):
     """Launch K12 on the current stream: g laid out as per-stage TF32
     hi/lo images, the 3xTF32 wgmma GEMM over the contraction's slices
@@ -262,13 +335,11 @@ def cin_weight_grad_cuda(g, x1, x0):
     out = torch.empty((K, H, M), dtype=torch.float32, device=g.device)
     if out.numel() == 0:                  # nothing to compute: no launch
         return out
-    S = cin_grad_plan(g.device, B, H, M, D, K)
-    lib = _cuda.library("cin_grad")
-    work = torch.empty((S, K, H, M) if S > 1 else (0,), dtype=torch.float32,
-                       device=g.device)
-    gimg = torch.empty((lib.cin_weight_grad_gimg_words(B, D, K),),
-                       dtype=torch.int32, device=g.device)
-    err = lib.cin_weight_grad_launch(
+    work_shape, words = cin_grad_scratch(g.device, B, H, M, D, K)
+    S = work_shape[0] if len(work_shape) > 1 else 1
+    work = torch.empty(work_shape, dtype=torch.float32, device=g.device)
+    gimg = torch.empty((words,), dtype=torch.int32, device=g.device)
+    err = _cuda.library("cin_grad").cin_weight_grad_launch(
         g.data_ptr(), x1.data_ptr(), x0.data_ptr(), out.data_ptr(),
         work.data_ptr(), gimg.data_ptr(), B, H, M, D, K, S,
         _cuda.stream_ptr(g.device))

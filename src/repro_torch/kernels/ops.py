@@ -3,6 +3,12 @@
 Each wrapper chooses by the device of the tensors it is given: a CPU
 tensor gets the kernel's plain PyTorch version, a CUDA tensor the CUDA
 kernel (which raises if it cannot launch — there is no fallback). The
+wrappers the dry-run cells reach (`wcsd_query`, `cin_layer` with
+`CinLayer`, `cin_weight_grad`) also take meta tensors, before they ask
+`_on_card`: a dry-run count (`launch.op_analysis`) gets a result of the
+right shape and dtype, and the kernel's work, a function of the shapes
+alone, goes to every counter in `WORK_SINKS`; the other wrappers raise
+on meta tensors. The
 wrappers also own the post-processing the reference package's
 `kernels/ops.py` does around its kernels: ``>= DEV_INF`` maps to
 INF_DIST, and profile bucket minima become staircases by a suffix min.
@@ -20,12 +26,30 @@ DEV_INF = 1 << 29
 INF_DIST = 1 << 30
 
 
+# the dry-run counters active now (`launch.op_analysis.OpCounter` adds
+# itself on entry and removes itself on exit)
+WORK_SINKS: list = []
+
+
 def _on_card(x: torch.Tensor, what: str) -> bool:
     if x.device.type == "cuda":
         return True
     if x.device.type == "cpu":
         return False
     raise ValueError(f"{what}: unsupported device {x.device}")
+
+
+def _report(kernel: str, *, flops: int = 0, int_ops: int = 0,
+            nbytes: int = 0) -> None:
+    """A meta-route call's kernel work, to every active counter: its
+    FLOPs, its integer operations and the bytes it must move (each input
+    read once, the output written once)."""
+    for sink in WORK_SINKS:
+        sink.add_kernel(kernel, flops=flops, int_ops=int_ops, nbytes=nbytes)
+
+
+def _nbytes(*tensors) -> int:
+    return sum(t.numel() * t.element_size() for t in tensors)
 
 
 def _to_inf_dist(x: torch.Tensor) -> torch.Tensor:
@@ -76,7 +100,14 @@ def wcsd_query(hub, dist, wlev, count, s, t, w_level):
     row's own."""
     hs, ds, ht, dt = gather_padded_rows(hub, dist, wlev, count, s, t,
                                         w_level)
-    if _on_card(hub, "wcsd_query"):
+    if hub.is_meta:
+        # K9's merge join: at most 2L compares and L hub meets (2 ops
+        # each) a query; the meets depend on the rows, so count them all
+        B, L = hs.shape
+        best = hs.new_empty((B,))
+        _report("wcsd_query_gathered", int_ops=4 * B * L,
+                nbytes=_nbytes(hs, ds, ht, dt, best))
+    elif _on_card(hub, "wcsd_query"):
         best = _wq.wcsd_query_gathered_cuda(hs, ds, ht, dt)
     else:
         best = _wq.wcsd_query_gathered_plain(hs, ds, ht, dt)
@@ -257,6 +288,21 @@ def _cin_forward(x1, x0, w):
     """K11 on the card (any B; the reference pads B to its block of 8,
     K11 masks its edge; the narrow kernel where `cin_fuse.cin_narrow`
     says so, else the wide one), the plain version on the CPU."""
+    if x1.is_meta:
+        B, H, D = x1.shape
+        K, M = w.shape[0], x0.shape[1]
+        out = x1.new_empty((B, K, D), dtype=torch.float32)
+        # the card's scratch, allocated (and freed on return) as the CUDA
+        # wrapper does, so that a counter sees it live
+        work_shape, words = _cin.cin_scratch(
+            x1.device, B, H, M, D, K, x1.dtype == torch.bfloat16)
+        scratch = (x1.new_empty(work_shape, dtype=torch.float32),
+                   x1.new_empty((words,), dtype=torch.int32))
+        _report("cin_layer_narrow" if _cin.cin_narrow(K, x1.dtype)
+                else "cin_layer", flops=2 * B * H * M * K * D,
+                nbytes=_nbytes(x1, x0, w, out))
+        del scratch
+        return out
     if _on_card(x1, "cin_layer"):
         return _cin.cin_layer_cuda(x1, x0, w)
     return _cin.cin_layer_plain(x1, x0, w)
@@ -283,6 +329,16 @@ def cin_weight_grad(g, x1, x0):
     """The weight gradient of a CIN layer, ``dw[k, h, m] = sum_{b, d}
     g[b, k, d] x1[b, h, d] x0[b, m, d]`` -> [K, H, M] float32: K12 on the
     card, its plain version on the CPU."""
+    if g.is_meta:
+        (B, K, D), H, M = g.shape, x1.shape[1], x0.shape[1]
+        dw = g.new_empty((K, H, M), dtype=torch.float32)
+        work_shape, words = _cin.cin_grad_scratch(g.device, B, H, M, D, K)
+        scratch = (g.new_empty(work_shape, dtype=torch.float32),
+                   g.new_empty((words,), dtype=torch.int32))
+        _report("cin_weight_grad", flops=2 * B * H * M * K * D,
+                nbytes=_nbytes(g, x1, x0, dw))
+        del scratch
+        return dw
     if _on_card(g, "cin_weight_grad"):
         return _cin.cin_weight_grad_cuda(g, x1, x0)
     return _cin.cin_weight_grad_plain(g, x1, x0)

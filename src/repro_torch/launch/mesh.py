@@ -1,9 +1,18 @@
-"""The serving mesh of the sharded query engine.
+"""The production mesh of the dry run and the serving mesh of the sharded
+query engine, the reference package's `launch/mesh.py`.
 
-Port of `make_serving_mesh` and `batch_axes` from the reference
-package's `launch/mesh.py`. The reference drives every device from one
-Python process through `shard_map` over a `jax.sharding.Mesh`; the port
-keeps that single controller. A mesh here is an ordered tuple of
+The production mesh (`make_production_mesh`) is abstract: the
+reference's axis names and shapes, ("data", "model") 16 x 16 and ("pod",
+"data", "model") 2 x 16 x 16, read as 256 and 512 H100s, with no
+devices behind them. A `Spec` is the reference's `PartitionSpec`, entry
+for entry, and `shard_shape` gives the per-card shard of a global shape
+under it by XLA's rule. The dry run (`launch.dryrun`) sums those shards;
+nothing in the port is partitioned by them.
+
+The serving mesh is the port of `make_serving_mesh` and `batch_axes`.
+The reference drives every device from one Python process through
+`shard_map` over a `jax.sharding.Mesh`; the port keeps that single
+controller. A mesh here is an ordered tuple of
 `torch.device`s with axis names and a shape: the engine issues each
 shard's work itself, and the collectives (`distributed.collectives`) take
 one tensor per shard. A device may appear more than once: eight logical
@@ -13,8 +22,80 @@ as the reference's dry run runs eight virtual devices on one host.
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
+
+
+# ------------------------------------------------------- the production mesh
+@dataclasses.dataclass(frozen=True)
+class ProductionMesh:
+    """An abstract device mesh: named axes and their sizes, no devices."""
+
+    axis_names: tuple
+    shape: tuple
+
+    @property
+    def size(self) -> int:
+        return math.prod(self.shape)
+
+    def axis_size(self, name: str) -> int:
+        return self.shape[self.axis_names.index(name)]
+
+
+def make_production_mesh(*, multi_pod: bool = False) -> ProductionMesh:
+    """The reference's production mesh: ("data", "model") 16 x 16, or with
+    ``multi_pod`` ("pod", "data", "model") 2 x 16 x 16."""
+    if multi_pod:
+        return ProductionMesh(("pod", "data", "model"), (2, 16, 16))
+    return ProductionMesh(("data", "model"), (16, 16))
+
+
+class Spec:
+    """The reference's `PartitionSpec`: one entry per leading dimension,
+    each None (replicated), an axis name, or a tuple of axis names (the
+    dimension split over their product, major to minor); dimensions past
+    the last entry are replicated. A one-name tuple is that name, as in
+    JAX. A leaf of the port's trees (not a tuple)."""
+
+    __slots__ = ("entries",)
+
+    def __init__(self, *entries):
+        self.entries = tuple(e[0] if isinstance(e, tuple) and len(e) == 1
+                             else e for e in entries)
+
+    def __iter__(self):
+        return iter(self.entries)
+
+    def __len__(self) -> int:
+        return len(self.entries)
+
+    def __eq__(self, other) -> bool:
+        return isinstance(other, Spec) and self.entries == other.entries
+
+    def __hash__(self) -> int:
+        return hash(self.entries)
+
+    def __repr__(self) -> str:
+        return f"Spec{self.entries!r}"
+
+
+def shard_shape(shape, spec, mesh: ProductionMesh) -> tuple:
+    """The per-card shard of a global ``shape`` under ``spec`` (None: fully
+    replicated): each dimension divided by the product of its entry's axis
+    sizes, rounded up (XLA's rule: the last shard is padded)."""
+    entries = tuple(spec or ())
+    if len(entries) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than shape {shape}")
+    out = []
+    for i, n in enumerate(shape):
+        e = entries[i] if i < len(entries) else None
+        names = () if e is None else (e,) if isinstance(e, str) else e
+        out.append(-(-n // math.prod(mesh.axis_size(a) for a in names)))
+    return tuple(out)
+
+
+# ---------------------------------------------------------- the serving mesh
 
 
 @dataclasses.dataclass(frozen=True)

@@ -144,7 +144,11 @@ class SegmentPlan:
     reduction level (the last one has S + 1 entries, zeros for empty
     segments). Both are made at a reduction's first use, so a plan that
     only gathers costs no sort. Build one per batch and pass it to every
-    op over the same ids: a plan costs a sort and a few host syncs."""
+    op over the same ids: a plan costs a sort and a few host syncs.
+
+    Meta ids (a dry-run count) have no values: the plan takes them as in
+    range (no trash mask) and its levels as one run a segment, so every
+    op returns a result of the right shape and reads nothing."""
 
     def __init__(self, ids, num_segments: int):
         ids = torch.as_tensor(ids).long()
@@ -152,7 +156,7 @@ class SegmentPlan:
         bad = (ids < 0) | (ids >= S)
         self.num_segments = S
         self.ids = torch.where(bad, S, ids)
-        self.trashed = bad if bool(bad.any()) else None
+        self.trashed = None if ids.is_meta or not bool(bad.any()) else bad
 
     @functools.cached_property
     def order(self) -> torch.Tensor:
@@ -161,6 +165,8 @@ class SegmentPlan:
     @functools.cached_property
     def levels(self) -> list:
         S, dev = self.num_segments, self.ids.device
+        if self.ids.is_meta:
+            return [torch.empty(S + 1, dtype=torch.long, device=dev)]
         counts = torch.bincount(self.ids, minlength=S + 1)
         levels = []
         while int(counts.max()) > SEGMENT_RUN:
@@ -322,6 +328,13 @@ def nest_params(flat: dict) -> dict:
             node = node.setdefault(g, {})
         node[name] = v
     return out
+
+
+def abstract_tree(defs: dict) -> dict:
+    """``defs`` (path -> shape) as the nested tree of float32 meta tensors:
+    the reference's `abstract_params`."""
+    return nest_params({path: torch.empty(shape, device="meta")
+                        for path, shape in defs.items()})
 
 
 class ParamGroup(nn.Module):

@@ -17,8 +17,8 @@ edge_feat [E, Fe] (GatedGCN), labels [N] (-1 unlabeled) or [G], graph_id
 [N] (graph-level tasks; an id outside [0, G) is dropped, as JAX drops
 it). Parameters are the reference's nested dict (``enc_w``, ...,
 ``layers: {w1: [L, d, d], ...}``); `params_from_numpy` carries the
-reference's `init_params` across. Its `PartitionSpec`s belong to the
-dry run and have no counterpart.
+reference's `init_params` across; `param_specs` / `param_shardings`
+and `abstract_params` are the reference's dry-run forms of them.
 """
 from __future__ import annotations
 
@@ -29,9 +29,10 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels._cuda import resolve_device
-from .common import (SegmentPlan, as_plan, cross_entropy_loss,
-                     flatten_params, load_numpy_tree, nest_params,
-                     param_tree, register_params, segment_gather,
+from ..launch.mesh import Spec as P
+from .common import (SegmentPlan, abstract_tree, as_plan,
+                     cross_entropy_loss, flatten_params, load_numpy_tree,
+                     nest_params, param_tree, register_params, segment_gather,
                      segment_max, segment_min, segment_sum, tree_to_numpy,
                      trunc_normal)
 
@@ -153,6 +154,19 @@ def param_defs(cfg: GNNConfig) -> dict:
     else:
         raise ValueError(cfg.kind)
     return defs
+
+
+def param_specs(cfg) -> dict:
+    """{path: Spec}: every leaf replicated, as in the reference."""
+    return {p: P(*([None] * len(s))) for p, s in param_defs(cfg).items()}
+
+
+def abstract_params(cfg) -> dict:
+    return abstract_tree(param_defs(cfg))
+
+
+def param_shardings(cfg) -> dict:
+    return nest_params(param_specs(cfg))
 
 
 def _constant_init(path: str):

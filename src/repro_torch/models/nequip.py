@@ -16,7 +16,8 @@ l_max = 2, the port of the reference's `models/nequip.py`:
 
 The reference's model has no Pallas kernel; the einsums are
 `torch.einsum`. Parameters are the reference's nested dict
-(`params_from_numpy` carries its `init_params` across).
+(`params_from_numpy` carries its `init_params` across; `param_specs` /
+`param_shardings` and `abstract_params` are its dry-run forms).
 """
 from __future__ import annotations
 
@@ -31,8 +32,9 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels._cuda import resolve_device
-from .common import (SegmentPlan, flatten_params, load_numpy_tree,
-                     nest_params, param_tree, register_params,
+from ..launch.mesh import Spec as P
+from .common import (SegmentPlan, abstract_tree, flatten_params,
+                     load_numpy_tree, nest_params, param_tree, register_params,
                      segment_gather, segment_sum, tree_to_numpy,
                      trunc_normal)
 
@@ -155,6 +157,19 @@ def param_defs(cfg: NequIPConfig) -> dict:
         if l > 0:
             defs[f"layers.gate_w{l}"] = (L, C, C)
     return defs
+
+
+def param_specs(cfg) -> dict:
+    """{path: Spec}: every leaf replicated, as in the reference."""
+    return {p: P(*([None] * len(s))) for p, s in param_defs(cfg).items()}
+
+
+def abstract_params(cfg) -> dict:
+    return abstract_tree(param_defs(cfg))
+
+
+def param_shardings(cfg) -> dict:
+    return nest_params(param_specs(cfg))
 
 
 def init_params(cfg: NequIPConfig, generator: torch.Generator) -> dict:

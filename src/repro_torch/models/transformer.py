@@ -12,9 +12,11 @@ reads the layer leaves as they are (its router and shared output gate
 stay float32). A served copy (`init_params(..., dtype=torch.bfloat16)`
 or `LM(cfg, dtype=torch.bfloat16)`) holds every leaf in bfloat16 except
 those two, which stay float32, and so gives the reference's numbers on
-both paths at half the memory. The reference's `PartitionSpec`s,
-`abstract_params` and `param_shardings` belong to its dry run and have
-no counterpart.
+both paths at half the memory. For the dry run (`launch.dryrun`),
+`param_specs` gives each leaf the reference's `PartitionSpec` (as a
+`launch.mesh.Spec`), `param_shardings` nests them, and
+`abstract_params` / `init_cache_abstract` are the reference's abstract
+arguments as meta tensors.
 
 Decode reads and writes the KV cache [L, B, S, Hkv, Dh] in place: a
 step writes its keys and values at ``pos`` (clamped so the write fits,
@@ -35,9 +37,11 @@ from torch import nn
 from torch.utils.checkpoint import checkpoint
 
 from ..kernels._cuda import resolve_device
+from ..launch.mesh import Spec as P
 from .attention import gqa_attention
-from .common import (apply_rope, cross_entropy_loss, flatten_params,
-                     gather_rows, load_numpy_tree, nest_params, param_tree,
+from .common import (abstract_tree, apply_rope, cross_entropy_loss,
+                     flatten_params, gather_rows, load_numpy_tree,
+                     nest_params, param_tree,
                      register_tensors, rms_norm, rope_angles, tree_to_numpy,
                      trunc_normal)
 from .moe import MoEConfig, moe_apply
@@ -145,6 +149,56 @@ def param_defs(cfg: LMConfig) -> dict:
             "layers.w_down": (L, cfg.d_ff, d),
         })
     return defs
+
+
+def param_specs(cfg: LMConfig) -> dict:
+    """{path: Spec}: the reference's partitioning of each leaf. Heads that
+    divide the tensor-parallel axis shard column / row parallel over
+    "model"; otherwise attention weights are split over "data" only (the
+    reference's context-parallel plan)."""
+    col = cfg.heads_shardable
+    specs = {
+        "embed": P("model", "data"),
+        "final_norm": P(None),
+        "lm_head": P("data", "model"),
+        "layers.ln1": P(None, None),
+        "layers.ln2": P(None, None),
+        "layers.wq": (P(None, "data", "model") if col
+                      else P(None, "data", None)),
+        "layers.wk": P(None, "data", None),
+        "layers.wv": P(None, "data", None),
+        "layers.wo": (P(None, "model", "data") if col
+                      else P(None, None, "data")),
+    }
+    if cfg.qkv_bias:
+        specs.update({"layers.bq": P(None, "model") if col else P(None, None),
+                      "layers.bk": P(None, None), "layers.bv": P(None, None)})
+    if cfg.moe:
+        specs.update({"layers.router": P(None, "data", None),
+                      "layers.w_gate": P(None, "model", "data", None),
+                      "layers.w_up": P(None, "model", "data", None),
+                      "layers.w_down": P(None, "model", None, "data")})
+        if cfg.moe.num_shared:
+            specs.update({"layers.shared_gate_w": P(None, "data", "model"),
+                          "layers.shared_up": P(None, "data", "model"),
+                          "layers.shared_down": P(None, "model", "data")})
+            if cfg.moe.shared_gate:
+                specs["layers.shared_out_gate"] = P(None, "data", None)
+    else:
+        specs.update({"layers.w_gate": P(None, "data", "model"),
+                      "layers.w_up": P(None, "data", "model"),
+                      "layers.w_down": P(None, "model", "data")})
+    return specs
+
+
+def abstract_params(cfg: LMConfig) -> dict:
+    """The parameter tree as float32 meta tensors (the reference's
+    `abstract_params`: masters are float32)."""
+    return abstract_tree(param_defs(cfg))
+
+
+def param_shardings(cfg: LMConfig) -> dict:
+    return nest_params(param_specs(cfg))
 
 
 def leaf_dtype(path: str, dtype) -> torch.dtype:
@@ -292,6 +346,14 @@ def prefill_step(params: dict, cfg: LMConfig, tokens,
     return nxt, cache
 
 
+def init_cache_abstract(cfg: LMConfig, batch: int, max_len: int,
+                        dtype=torch.bfloat16) -> dict:
+    """`init_cache`'s tree as meta tensors."""
+    shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
+    return {"k": torch.empty(shape, dtype=dtype, device="meta"),
+            "v": torch.empty(shape, dtype=dtype, device="meta")}
+
+
 def init_cache(cfg: LMConfig, batch: int, max_len: int,
                dtype=torch.bfloat16, device=None) -> dict:
     """A zeroed cache {"k", "v"} [L, batch, max_len, Hkv, Dh]."""
@@ -306,9 +368,11 @@ def decode_step(params: dict, cfg: LMConfig, cache: dict, tokens, pos):
     tensor). Writes the step's keys and values into ``cache`` in place
     and returns (next tokens [B], logits [B, vocab], the cache). The
     layer leaves are read uncast, as the reference's decode scan reads
-    them."""
+    them. A 0-d meta ``pos`` (a dry-run count) has no value to read; the
+    step's shapes and work are the same at every position, so it runs
+    as position 0."""
     dt = DTYPES[cfg.compute_dtype]
-    pos = int(pos)
+    pos = 0 if torch.is_tensor(pos) and pos.is_meta else int(pos)
     x = _embed(params, tokens, dt)[:, None, :]                  # [B, 1, D]
     sin, cos = rope_angles(torch.full((1,), pos, device=x.device),
                            cfg.d_head, cfg.rope_theta, dt)

@@ -17,9 +17,9 @@ batch)` over a nested dict of tensors, the reference's signature
 Serving calls the `XDeepFM` module, which runs that path over its own
 weights; they do not require gradients. Training's gradients come from
 autograd, through `ops.CinLayer` (K11 and K12 on the card) and
-`common.gather_rows` (a deterministic embedding gradient). The
-reference's `PartitionSpec`s belong to its dry run and have no
-counterpart here.
+`common.gather_rows` (a deterministic embedding gradient).
+`param_specs` holds the reference's `PartitionSpec`s (the tables
+row-sharded over "model"), for the dry run.
 """
 from __future__ import annotations
 
@@ -31,8 +31,10 @@ from torch import nn
 
 from ..kernels import ops
 from ..kernels._cuda import resolve_device
-from .common import (gather_rows, load_numpy_tree, param_tree,
-                     register_params, tree_to_numpy, trunc_normal)
+from ..launch.mesh import Spec as P
+from .common import (abstract_tree, gather_rows, load_numpy_tree,
+                     nest_params, param_tree, register_params,
+                     tree_to_numpy, trunc_normal)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -107,6 +109,31 @@ def param_defs(cfg: XDeepFMConfig) -> dict:
         d_in = width
     defs["mlp.out_w"] = (d_in, 1)
     return defs
+
+
+def param_specs(cfg: XDeepFMConfig) -> dict:
+    """{path: Spec}, the reference's: the embedding and linear tables
+    row-sharded over "model", the MLP's hidden widths over "model", the
+    rest replicated."""
+    specs = {}
+    for path, shape in param_defs(cfg).items():
+        if path in ("embed", "linear"):
+            specs[path] = P("model", None)
+        elif path.startswith("mlp.w"):
+            specs[path] = P(None, "model")
+        elif path.startswith("mlp.b"):
+            specs[path] = P("model")
+        else:
+            specs[path] = P(*([None] * len(shape)))
+    return specs
+
+
+def abstract_params(cfg: XDeepFMConfig) -> dict:
+    return abstract_tree(param_defs(cfg))
+
+
+def param_shardings(cfg: XDeepFMConfig) -> dict:
+    return nest_params(param_specs(cfg))
 
 
 def _is_bias(path: str) -> bool:
@@ -224,15 +251,23 @@ class XDeepFM(nn.Module):
         return (logits, cin_feat) if return_cin else logits
 
 
-def retrieval_scores(model: XDeepFM, query_ids, cand_emb):
-    """One query against candidate vectors ``cand_emb`` [C, D]: the query
-    is the mean of its field embeddings. Returns (scores [C], (top values,
-    top indices)), the top 100 in descending order."""
-    qi = torch.as_tensor(query_ids, device=model.device).reshape(-1).long()
-    q = model.embed.index_select(0, qi).reshape(-1, model.cfg.embed_dim)
+def retrieval_scores_of(params: dict, cfg, query_ids, cand_emb):
+    """One query against candidate vectors ``cand_emb`` [C, D] under
+    ``params`` (the reference's `retrieval_scores(params, cfg, ...)`):
+    the query is the mean of its field embeddings. Returns (scores [C],
+    (top values, top indices)), the top 100 in descending order."""
+    table = params["embed"]
+    qi = torch.as_tensor(query_ids, device=table.device).reshape(-1).long()
+    q = table.index_select(0, qi).reshape(-1, cfg.embed_dim)
     scores = cand_emb @ q.mean(0)
     top = torch.topk(scores, 100)
     return scores, (top.values, top.indices)
+
+
+def retrieval_scores(model: XDeepFM, query_ids, cand_emb):
+    """`retrieval_scores_of` under a module's weights."""
+    return retrieval_scores_of(param_tree(model), model.cfg, query_ids,
+                               cand_emb)
 
 
 def params_to_numpy(params) -> dict:

@@ -7,9 +7,9 @@ parameters' device). The arithmetic is the reference's, in float32 and
 in its order: the learning rate from a float32 step, the bias
 corrections ``1 - b1 ** t`` from the float32 count, the gradient norm
 summed over the leaves in tree order. Updates are functional: new
-tensors come back and the inputs are left as they were. The reference's
-`abstract_opt_state` and `opt_state_shardings` belong to its dry-run
-compile matrix and have no counterpart here.
+tensors come back and the inputs are left as they were.
+`abstract_opt_state` and `opt_state_shardings` are the state's meta
+tensors and `launch.mesh.Spec`s for the dry run, as the reference's.
 """
 from __future__ import annotations
 
@@ -19,6 +19,7 @@ from typing import NamedTuple
 
 import torch
 
+from ..launch.mesh import Spec
 from .tree import flatten_with_paths, tree_leaves, tree_map, unflatten_like
 
 
@@ -83,6 +84,29 @@ def init_opt_state(cfg: OptimizerConfig, params):
         return AdamWState(step=step, m=zeros(), v=zeros())
     if cfg.name == "sgd":
         return SGDState(step=step, mom=zeros())
+    raise ValueError(cfg.name)
+
+
+def abstract_opt_state(cfg: OptimizerConfig, abstract_params):
+    """`init_opt_state` over a tree of meta tensors, as meta tensors."""
+    like = lambda: tree_map(  # noqa: E731
+        lambda a: torch.empty(a.shape, dtype=a.dtype, device="meta"),
+        abstract_params)
+    step = torch.empty((), dtype=torch.int32, device="meta")
+    if cfg.name == "adamw":
+        return AdamWState(step=step, m=like(), v=like())
+    if cfg.name == "sgd":
+        return SGDState(step=step, mom=like())
+    raise ValueError(cfg.name)
+
+
+def opt_state_shardings(cfg: OptimizerConfig, param_specs):
+    """The state's `Spec`s: the moments as the parameters, the step
+    replicated."""
+    if cfg.name == "adamw":
+        return AdamWState(step=Spec(), m=param_specs, v=param_specs)
+    if cfg.name == "sgd":
+        return SGDState(step=Spec(), mom=param_specs)
     raise ValueError(cfg.name)
 
 

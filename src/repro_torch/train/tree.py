@@ -19,24 +19,27 @@ def flatten_with_paths(tree, prefix: str = "") -> dict:
     key as it is, a sequence index as a number, a `NamedTuple` field as
     ``.name`` (the reference checkpoint's own spelling)."""
     out = {}
-
-    def walk(node, path):
-        if node is None:
-            return
-        if isinstance(node, dict):
-            items = ((str(k), node[k]) for k in sorted(node))
-        elif _is_namedtuple(node):
-            items = ((f".{f}", getattr(node, f)) for f in node._fields)
-        elif isinstance(node, (list, tuple)):
-            items = ((str(i), v) for i, v in enumerate(node))
-        else:
-            out[path] = node
-            return
-        for key, child in items:
-            walk(child, f"{path}/{key}" if path else key)
-
-    walk(tree, prefix)
+    _walk(tree, prefix, out)
     return out
+
+
+def _walk(node, path: str, out: dict) -> None:
+    # a module-level function, not a closure over ``out``: a recursive
+    # closure is a reference cycle, and its leaves (a step's gradients)
+    # would live on until the garbage collector ran
+    if node is None:
+        return
+    if isinstance(node, dict):
+        items = ((str(k), node[k]) for k in sorted(node))
+    elif _is_namedtuple(node):
+        items = ((f".{f}", getattr(node, f)) for f in node._fields)
+    elif isinstance(node, (list, tuple)):
+        items = ((str(i), v) for i, v in enumerate(node))
+    else:
+        out[path] = node
+        return
+    for key, child in items:
+        _walk(child, f"{path}/{key}" if path else key, out)
 
 
 def tree_leaves(tree) -> list:

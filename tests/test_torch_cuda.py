@@ -927,6 +927,26 @@ def test_cin_kernel_equals_plain(card, B, H, M, D, K):
                                rtol=1e-4, atol=1e-5 * H * M ** 0.5)
 
 
+@pytest.mark.parametrize("B", [4, 96, 512, 65536, 262144, 1_000_000])
+def test_cin_scratch_plan_without_card_equals_card(card, B):
+    """The scratch a meta-tensor count allocates for K11 and K12
+    (`cin_scratch`, `cin_grad_scratch` planned for an H100) equals what
+    the CUDA wrappers allocate on this card, at the xDeepFM cells'
+    batches and widths (M = 39, D = 10; H and K of 39 and 200)."""
+    from repro_torch.kernels import cin_fuse as kcin
+    if torch.cuda.get_device_properties(card).multi_processor_count \
+            != kcin.H100_SMS:
+        pytest.skip("the plan without a card is an H100's")
+    meta = torch.device("meta")
+    for H in (39, 200):
+        for K in (39, 200):
+            args = (B, H, 39, 10, K)
+            assert kcin.cin_scratch(meta, *args, False) == \
+                kcin.cin_scratch(card, *args, False), args
+            assert kcin.cin_grad_scratch(meta, *args) == \
+                kcin.cin_grad_scratch(card, *args), args
+
+
 def test_cin_kernel_bf16_equals_plain(card):
     """bf16 inputs: K11 and the plain version both widen to fp32 before
     any product, so they differ only in summation order (the fp32

@@ -30,7 +30,7 @@ def _port_modules():
 
 def test_import_every_module_without_jax_or_repro():
     mods = _port_modules()
-    assert len(mods) >= 46, mods
+    assert len(mods) >= 49, mods
     for m in ("repro_torch.checkpoint.fault", "repro_torch.models.xdeepfm",
               "repro_torch.models.common", "repro_torch.data.recsys",
               "repro_torch.configs.xdeepfm_arch",
@@ -53,7 +53,9 @@ def test_import_every_module_without_jax_or_repro():
               "repro_torch.configs.qwen2_moe_a2_7b",
               "repro_torch.configs.dbrx_132b",
               "repro_torch.configs.qwen25_14b",
-              "repro_torch.configs.codeqwen15_7b"):
+              "repro_torch.configs.codeqwen15_7b",
+              "repro_torch.configs.cell", "repro_torch.launch.op_analysis",
+              "repro_torch.launch.roofline"):
         assert m in mods, m
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -81,6 +83,7 @@ def test_source_scan_finds_no_jax_or_repro_import():
              os.path.join(REPO, "scripts", "chip_cin_ab.py"),
              os.path.join(REPO, "scripts", "chip_gather_ab.py"),
              os.path.join(REPO, "scripts", "chip_lm.py"),
+             os.path.join(REPO, "scripts", "chip_dryrun.py"),
              os.path.join(REPO, "examples", "quickstart_torch.py"),
              os.path.join(REPO, "examples", "serve_wcsd_torch.py"),
              os.path.join(REPO, "examples", "wcsd_features_gnn_torch.py"),
@@ -261,7 +264,9 @@ def test_cuda_arg_checks_take_a_dtype_per_tensor():
 
 def test_wrappers_choose_by_device():
     """ops wrappers: CPU tensors take the plain version (no launch is
-    counted); a device that is neither CPU nor CUDA is refused."""
+    counted); a device that is neither CPU nor CUDA is refused, but for
+    meta tensors on the dry run's wrappers (`cin_layer` here), which
+    give a meta result of the right shape and launch nothing."""
     from repro_torch.kernels import _cuda, ops
     F = torch.full((2, 5), -1, dtype=torch.int32)
     rank = torch.arange(5, dtype=torch.int32)
@@ -279,8 +284,10 @@ def test_wrappers_choose_by_device():
     out = ops.cin_layer(x1, x0, w)
     assert out.shape == (2, 6, 4) and (out == 15).all()
     assert sum(_cuda.LAUNCHES.values()) == 0
-    with pytest.raises(ValueError, match="unsupported device"):
-        ops.cin_layer(x1.to("meta"), x0.to("meta"), w.to("meta"))
+    out = ops.cin_layer(x1.to("meta"), x0.to("meta"), w.to("meta"))
+    assert out.is_meta and out.shape == (2, 6, 4)
+    assert out.dtype == torch.float32
+    assert sum(_cuda.LAUNCHES.values()) == 0
 
 
 def test_unported_engine_features_raise():

@@ -441,6 +441,25 @@ def test_loss_and_gradients_match_reference(xdf, name):
         rtol=1e-6)
 
 
+def test_flatten_with_paths_frees_leaves_without_the_collector():
+    """A tree's leaves die when the last reference to them goes, not at
+    the garbage collector's next run: flattening makes no reference
+    cycle (a recursive closure over its result did, and held a
+    training step's gradients on the card into the next step)."""
+    import gc
+    import weakref
+    leaf = torch.zeros(3)
+    ref = weakref.ref(leaf)
+    gc.disable()
+    try:
+        flat = flatten_with_paths({"a": [leaf, {"b": None}], "c": (leaf,)})
+        assert list(flat) == ["a/0", "c/0"]
+        del flat, leaf
+        assert ref() is None
+    finally:
+        gc.enable()
+
+
 def test_param_tree_and_params_to_numpy_round_trip():
     cfg = t_arch.smoke_config()
     model = tx.XDeepFM(cfg, device="cpu", seed=4)
