@@ -5,7 +5,7 @@
 
 Builds the twelve CUDA kernels from the four sources in
 `src/repro_torch/csrc/` (one `nvcc` per source, started together), then
-drives fourteen paths of the port on the card, each with the launch counts
+drives fifteen paths of the port on the card, each with the launch counts
 reset just before it and read just after it:
 
 1. the main path: `scale_free(2^17, m=4, num_levels=5, seed=0)` -> the
@@ -116,6 +116,20 @@ reset just before it and read just after it:
    no-cache bf16 forward over the same tokens (greedy share, printed).
    No kernel of the port runs (the reference's attention and experts
    are jnp ops outside any Pallas kernel);
+15. the mesh-only parallel code (run after the LM family), 4 logical
+   shards of the card as a ("data", "model") 1 x 4 mesh: llama3-8b's
+   long_500k at full width cut to 4 layers, one row, its 524,288-long
+   bf16 cache split into 4 sequence blocks filled from a seeded
+   generator, 4 greedy steps at S - 4 .. S - 1 through `decode_step`
+   over the sharded cache against the unsharded `decode_step` on a copy
+   of the same cache (greedy tokens equal; ms a step against the bytes
+   bound, peak, one step's idle share), and again at 2 layers of
+   float32 masters (within 1e-4 of max |ref|); qwen2-moe-a2.7b at full
+   width, 2 float32 layers, 8 rows decoding through
+   `moe_ffn_replicated_ep` (16 experts a shard) against the same steps
+   on the CPU; `gpipe_forward` (4 stages, 8 microbatches of [512,
+   4096], float32) against the stages applied in turn. No kernel of the
+   port runs (the reference's three functions are jnp ops);
 14. the dry-run matrix (run last, `launch.dryrun`): all 84 cells (the
    40 arch x shape cells and wcsd-serve's 2, on the 16 x 16 and 2 x 16 x
    16 production meshes) built with their per-card argument and output
@@ -3477,12 +3491,12 @@ class DropRecorder:
         from repro_torch.models import transformer as T
         self._orig = T.moe_apply
 
-        def recorded(x, wp, cfg):
+        def recorded(x, wp, cfg, mesh=None):
             _, _, idx = moe.route(x, wp["router"], cfg)
             keep = moe.dispatch_plan(idx, cfg)[3]
             self.dropped.append((~keep).sum())
             self.pairs += keep.numel()
-            return self._orig(x, wp, cfg)
+            return self._orig(x, wp, cfg, mesh=mesh)
 
         T.moe_apply = recorded
         return self
@@ -3746,6 +3760,346 @@ def lm_phase(device, configs=None) -> dict:
     if launched:
         fail(f"lm phase launched kernels of the port: {launched}")
     out["wall_s"] = time.perf_counter() - t_phase
+    return out
+
+
+# ------------------------------------------------- the LM family on a mesh
+LM_MESH_SHARDS = 4       # logical shards of card 0: ("data", "model") 1 x 4
+LM_LONG = 524288         # long_500k's cache length (batch 1)
+LM_LONG_LAYERS = 4       # depth of the one-card long_500k cut (of 32)
+LM_MESH_STEPS = 4        # decode steps at S - 4 .. S - 1
+LM_MESH_FP32_LAYERS = 2  # depth of the float32 checks
+LM_MESH_TOL = 1e-4       # float32, sharded vs unsharded, of max |ref|
+LM_EP_ROWS = 8           # qwen2-moe decode rows through expert parallelism
+LM_EP_LEN = 4096         # their cache's length
+LM_EP_STEPS = 2
+GPIPE = dict(stages=4, microbatches=8, rows=512, d=4096)
+GPIPE_TOL = 2e-4
+
+
+def sync_all(devices) -> None:
+    import torch
+    for d in dict.fromkeys(devices):
+        if torch.device(d).type == "cuda":
+            torch.cuda.synchronize(d)
+
+
+def lm_mesh(devices, axes=None):
+    """A ("data", "model") mesh over ``devices`` (1 x n unless ``axes``
+    says otherwise)."""
+    from repro_torch.launch.mesh import make_serving_mesh
+    return make_serving_mesh(devices, axes=axes or {"data": 1,
+                                                    "model": len(devices)})
+
+
+def seeded_cache(cfg, batch: int, max_len: int, mesh, seed: int) -> dict:
+    """`init_cache(..., mesh=)`'s sequence-sharded cache, each block
+    filled with unit normals (bf16) from a generator on its device seeded
+    ``seed`` + its shard index, in place of a prefill of ``max_len``
+    tokens."""
+    import torch
+    from repro_torch.models import transformer as T
+    cache = T.init_cache(cfg, batch, max_len, mesh=mesh)
+    for i, kv in enumerate(("k", "v")):
+        for k, blk in enumerate(cache[kv]):
+            gen = torch.Generator(blk.device).manual_seed(
+                seed + 1000 * i + k)
+            for layer in blk:            # a layer at a time: no fp32 copy
+                layer.normal_(generator=gen)
+    return cache
+
+
+def decode_run(params, cfg, cache, first, positions, mesh=None,
+               devices=None, feed=None) -> dict:
+    """Greedy decode steps at ``positions`` from tokens ``first`` [B]
+    (or, with ``feed`` [steps, B], those tokens each step), each step
+    timed between syncs of ``devices``. Returns logits [steps, B, V]
+    (float32), the tokens fed and produced, and the step seconds."""
+    import torch
+    from repro_torch.models import transformer as T
+    devices = devices or [params["embed"].device]
+    tok, fed, out, logits, step_s = first, [], [], [], []
+    for i, pos in enumerate(positions):
+        if feed is not None:
+            tok = feed[i]
+        fed.append(tok)
+        sync_all(devices)
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            tok, lg, cache = T.decode_step(params, cfg, cache, tok, pos,
+                                           mesh=mesh)
+        sync_all(devices)
+        step_s.append(time.perf_counter() - t0)
+        logits.append(lg.float())
+        out.append(tok)
+    return {"logits": torch.stack(logits), "fed": torch.stack(fed),
+            "tokens": torch.stack(out), "step_s": step_s}
+
+
+def long_decode_bound(cfg, params, max_len: int, n_cards: int) -> dict:
+    """A decode step's bytes bound over a cache split on ``n_cards``:
+    the busiest card (card 0: the weights and its cache block) reads
+    each once, at `launch.roofline.HBM_BW`."""
+    from repro_torch.launch.roofline import HBM_BW
+    from repro_torch.models import common as C
+    w = sum(t.numel() * t.element_size()
+            for t in C.flatten_params(params).values())
+    kv = 2 * cfg.n_layers * max_len * cfg.n_kv_heads * cfg.d_head * 2
+    card0 = w + kv / n_cards
+    return {"weights_gb": w / 1e9, "kv_cache_gb": kv / 1e9,
+            "card0_gb": card0 / 1e9, "bound_ms": card0 / HBM_BW * 1e3,
+            "bound_by": "bytes"}
+
+
+def long_cut_run(cfg, params, mesh, card, trace: bool = False,
+                 max_len: int | None = None) -> dict:
+    """``cfg`` decoding one row of a ``max_len``-long (default `LM_LONG`)
+    seeded cache split over ``mesh`` and, beside it, the unsharded
+    `decode_step` on ``card``'s own copy of the same cache
+    (teacher-forced on the sharded run's tokens), at the last
+    `LM_MESH_STEPS` positions. Returns both runs' step times, the per-step errors
+    (`position_errors`), the sharded run's peak above its start on each
+    card, and with ``trace`` one sharded step's device time
+    (`trace_second_call`)."""
+    import torch
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.models import transformer as T
+    devs = mesh.physical_devices()
+    first = torch.from_numpy(TokenStream(cfg.vocab, 1, 1, seed=0)
+                             .next_batch()["tokens"][:, 0]).to(card)
+    max_len = max_len or LM_LONG
+    positions = list(range(max_len - LM_MESH_STEPS, max_len))
+    cache = seeded_cache(cfg, 1, max_len, mesh, seed=1)
+    whole = {k: torch.cat([b.to(card) for b in v], 2)
+             for k, v in cache.items()}
+    sync_all(devs)
+    base = {d: torch.cuda.memory_allocated(d) for d in devs}
+    for d in devs:
+        torch.cuda.reset_peak_memory_stats(d)
+    sh = decode_run(params, cfg, cache, first, positions, mesh=mesh,
+                    devices=devs)
+    peak = {str(d): (torch.cuda.max_memory_allocated(d) - base[d]) / 1e9
+            for d in devs}
+    prof = None
+    if trace:
+        last = sh["fed"][-1]
+        with torch.no_grad():
+            rows, wall = trace_second_call(
+                lambda: T.decode_step(params, cfg, cache, last,
+                                      positions[-1], mesh=mesh))
+        busy = sum(ms for _, ms, _ in rows)
+        prof = {"device_busy_ms": busy, "wall_ms": wall * 1e3,
+                "idle_share": max(0.0, 1 - busy / (wall * 1e3)),
+                "top": [{"kernel": n[:120], "ms": ms, "count": c}
+                        for n, ms, c in rows[:6]]} if rows else None
+    un = decode_run(params, cfg, whole, None, positions, devices=[card],
+                    feed=sh["fed"])
+    errs = [position_errors(a, b) for a, b in zip(sh["logits"],
+                                                  un["logits"])]
+    same = bool(torch.equal(sh["tokens"].cpu(), un["tokens"].cpu()))
+    del cache, whole
+    return {"layers": cfg.n_layers, "compute_dtype": cfg.compute_dtype,
+            "max_len": max_len, "shards": mesh.size,
+            "cards": len(devs), "positions": positions,
+            "sharded_step_ms": [t * 1e3 for t in sh["step_s"]],
+            "unsharded_step_ms": [t * 1e3 for t in un["step_s"]],
+            "sharded_step_ms_median": float(np.median(sh["step_s"])) * 1e3,
+            "unsharded_step_ms_median": float(np.median(un["step_s"]))
+            * 1e3,
+            "peak_gb_above_start": peak, "errors": errs,
+            "max_rel_err": max(e["max"] for e in errs),
+            "greedy_equal": same, "traced_step": prof,
+            **long_decode_bound(cfg, params, max_len, len(devs))}
+
+
+def lm_long_checks(mesh, card) -> dict:
+    """long_500k on llama3-8b at full width over ``mesh``: `LM_LONG_LAYERS`
+    layers of a bf16 served copy against the unsharded decode (greedy
+    tokens equal), then `LM_MESH_FP32_LAYERS` layers of float32 masters
+    within `LM_MESH_TOL` of max |ref| with greedy tokens equal."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    base = get_arch("llama3-8b").get_config()
+    out = {}
+    for tag, layers, dtype in (("bf16", LM_LONG_LAYERS, torch.bfloat16),
+                               ("fp32", LM_MESH_FP32_LAYERS, torch.float32)):
+        cfg = dataclasses.replace(
+            base, n_layers=layers,
+            compute_dtype="bfloat16" if tag == "bf16" else "float32")
+        model = T.LM(cfg, device=card, seed=0, dtype=dtype)
+        rec = long_cut_run(cfg, C.param_tree(model), mesh, card,
+                           trace=tag == "bf16")
+        del model
+        torch.cuda.empty_cache()
+        if not rec["greedy_equal"]:
+            fail(f"lm_mesh long_500k {tag}: sharded and unsharded greedy "
+                 f"tokens differ ({rec['errors']})")
+        if tag == "fp32" and rec["max_rel_err"] > LM_MESH_TOL:
+            fail(f"lm_mesh long_500k fp32: sharded vs unsharded logits "
+                 f"{rec['max_rel_err']} of max |ref| > {LM_MESH_TOL}")
+        out[tag] = rec
+    return out
+
+
+def moe_ep_check(mesh, card, layers: int = LM_MESH_FP32_LAYERS) -> dict:
+    """qwen2-moe-a2.7b at full width, ``layers`` layers of float32
+    masters (seed 0 on the card's generator, copied to the host),
+    `LM_EP_ROWS` rows decoding `LM_EP_STEPS` steps over a seeded
+    `LM_EP_LEN`-long cache with expert parallelism over ``mesh``'s
+    "model" axis, against the same steps on the CPU over as many CPU
+    shards (fed the CPU's tokens; TF32 off), held per position
+    (`check_positions`). The route must be `moe_ffn_replicated_ep`'s
+    own: its slot planner runs and `moe_ffn` does not."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.launch.mesh import ServingMesh
+    from repro_torch.models import common as C
+    from repro_torch.models import moe
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_arch("qwen2-moe-a2.7b").get_config(),
+                              n_layers=layers, compute_dtype="float32")
+    model = T.LM(cfg, device=card, seed=0)
+    params = C.param_tree(model)
+    host = C.nest_params({k: v.cpu() for k, v in
+                          C.flatten_params(params).items()})
+    cpu_mesh = ServingMesh((torch.device("cpu"),) * mesh.size,
+                           mesh.axis_names, mesh.shape)
+    gen = torch.Generator().manual_seed(3)
+    shape = (layers, LM_EP_ROWS, LM_EP_LEN, cfg.n_kv_heads, cfg.d_head)
+    kv = {k: torch.randn(shape, generator=gen).to(torch.bfloat16)
+          for k in ("k", "v")}
+    first = torch.from_numpy(TokenStream(cfg.vocab, 1, LM_EP_ROWS, seed=0)
+                             .next_batch()["tokens"][:, 0])
+    positions = list(range(LM_EP_LEN - LM_EP_STEPS, LM_EP_LEN))
+    calls = {"ep_slots": 0, "moe_ffn": 0}
+    real = {n: getattr(moe, n) for n in calls}
+
+    def counted(name):
+        def fn(*a, **k):
+            calls[name] += 1
+            return real[name](*a, **k)
+        return fn
+
+    for n in calls:
+        setattr(moe, n, counted(n))
+    try:
+        cpu = decode_run(host, cfg, {k: v.clone() for k, v in kv.items()},
+                         first, positions, mesh=cpu_mesh,
+                         devices=[torch.device("cpu")])
+        on_card = decode_run(params, cfg,
+                             {k: v.to(card) for k, v in kv.items()}, None,
+                             positions, mesh=mesh, devices=[card],
+                             feed=cpu["fed"].to(card))
+    finally:
+        for n in calls:
+            setattr(moe, n, real[n])
+    del model, host
+    torch.cuda.empty_cache()
+    if calls["moe_ffn"] or not calls["ep_slots"]:
+        fail(f"lm_mesh qwen2-moe: the expert-parallel route did not run "
+             f"({calls})")
+    err = position_errors(on_card["logits"], cpu["logits"])
+    check_positions("lm_mesh qwen2-moe expert-parallel card vs CPU", err)
+    return {"layers": layers, "rows": LM_EP_ROWS, "max_len": LM_EP_LEN,
+            "steps": LM_EP_STEPS, "shards": mesh.size,
+            "experts_per_shard": cfg.moe.padded_experts
+            // mesh.axis_size("model"),
+            "capacity_per_shard": moe.ep_capacity(LM_EP_ROWS, cfg.moe),
+            "calls": calls, "card_vs_cpu": err,
+            "card_step_ms": [t * 1e3 for t in on_card["step_s"]]}
+
+
+def gpipe_check(devices, card) -> dict:
+    """`gpipe_forward` over a "pod" mesh of ``devices`` (`GPIPE`: 4
+    stages, 8 microbatches of [512, 4096], float32, tanh(x @ w)) against
+    the stages applied in turn on ``card``, within `GPIPE_TOL` of max
+    |ref|; both timed."""
+    import torch
+    from repro_torch.distributed.pipeline import (gpipe_forward,
+                                                  pipeline_bubble_fraction)
+    from repro_torch.launch.mesh import make_serving_mesh
+    S, M, b, d = (GPIPE[k] for k in ("stages", "microbatches", "rows", "d"))
+    gen = torch.Generator(card).manual_seed(5)
+    w = torch.randn((S, d, d), generator=gen, device=card) * d ** -0.5
+    x = torch.randn((M, b, d), generator=gen, device=card)
+    mesh = make_serving_mesh(devices, axes={"pod": S})
+    devs = mesh.physical_devices()
+
+    def seq():
+        y = x
+        for s in range(S):
+            y = torch.tanh(y @ w[s])
+        return y
+
+    times = {}
+    for name, fn, on in (("pipeline", lambda: gpipe_forward(mesh, w, x),
+                          devs), ("sequential", seq, [card])):
+        fn()
+        sync_all(on)
+        t0 = time.perf_counter()
+        y = fn()
+        sync_all(on)
+        times[name] = (time.perf_counter() - t0) * 1e3
+        if name == "pipeline":
+            got = y
+        else:
+            ref = y
+    err = rel_err(got, ref)
+    if err > GPIPE_TOL:
+        fail(f"lm_mesh gpipe_forward: {err} of max |ref| > {GPIPE_TOL}")
+    return {**GPIPE, "cards": len(devs), "rel_err": err, "tol": GPIPE_TOL,
+            "pipeline_ms": times["pipeline"],
+            "sequential_ms": times["sequential"],
+            "bubble_fraction": pipeline_bubble_fraction(M, S)}
+
+
+def lm_mesh_phase(device) -> dict:
+    """Path 15: the mesh-only parallel code on ``device``, as
+    `LM_MESH_SHARDS` logical shards of one card: llama3-8b long_500k
+    (`lm_long_checks`: 4 layers in bf16 and 2 in float32 at full width,
+    S = 524,288, one row, the cache split over the shards, against the
+    unsharded decode on a copy of the same cache), qwen2-moe-a2.7b's
+    expert-parallel decode against the CPU (`moe_ep_check`), and
+    `gpipe_forward` (`gpipe_check`). No kernel of the port runs: every
+    launch count must stay 0."""
+    import torch
+    from repro_torch.kernels import _cuda
+    card = torch.device(device)
+    if card.type == "cuda" and card.index is None:
+        card = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    torch.cuda.empty_cache()
+    sync_all([card])
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    devices = [card] * LM_MESH_SHARDS
+    out = {"phase": "lm_mesh", "shards": LM_MESH_SHARDS,
+           "long_500k": lm_long_checks(lm_mesh(devices), card)}
+    out["moe_ep"] = moe_ep_check(lm_mesh(devices), card)
+    out["gpipe"] = gpipe_check(devices, card)
+    sync_all([card])
+    launched = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    if launched:
+        fail(f"lm_mesh phase launched kernels of the port: {launched}")
+    out["wall_s"] = time.perf_counter() - t0
+    lb = out["long_500k"]["bf16"]
+    out["decode_ms_per_step"] = lb["sharded_step_ms_median"]
+    out["bound_ms"] = lb["bound_ms"]
+    out["peak_gb"] = lb["peak_gb_above_start"]
+    out["idle_share"] = (lb["traced_step"] or {}).get("idle_share")
+    progress(f"lm_mesh: long_500k x {LM_LONG_LAYERS} layers "
+             f"{out['decode_ms_per_step']:.2f} ms a step (unsharded "
+             f"{lb['unsharded_step_ms_median']:.2f}; bound "
+             f"{out['bound_ms']:.2f}), peak {out['peak_gb']} GB, idle "
+             f"{out['idle_share']}; phase {out['wall_s']:.1f} s")
     return out
 
 
@@ -4105,6 +4459,9 @@ def main() -> int:
     # ------------------- the LM family: prefill and decode at full width
     lm = lm_phase(dev)
 
+    # ---------- the mesh-only parallel code on 4 logical shards of card 0
+    lm_mesh_rec = lm_mesh_phase(dev)
+
     # ----------------------- the dry-run matrix: counts, one-card runs
     dry = dryrun_phase(dev)
     progress(f"dryrun: {dry['cells']} cells, phase {dry['wall_s']:.1f} s")
@@ -4156,6 +4513,7 @@ def main() -> int:
     emit(train)
     emit(examples)
     emit(lm)
+    emit(lm_mesh_rec)
     emit(dry)
     emit({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",

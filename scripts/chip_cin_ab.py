@@ -25,6 +25,15 @@ launch counts of one call by kernel. The same instrumentation for any
 tree, so two trees run in turns on one card (A, B, B, A) compare like
 for like. Prints one JSON line (and appends it to ``--out``);
 ``--only`` times the named calls alone. Needs a CUDA device.
+
+``xla_backward_h200`` times the reference's formulation of the same
+layer's whole backward (what its XLA program computes for
+`cin_fuse.py:39`'s gradient, Queue C3): per d-slice ``dz = g_d W`` as
+one float32 `torch.matmul` ([B, K] x [K, H M]), ``dx1`` and ``dx0`` as
+reductions of ``dz`` (batched matrix-vector products), and ``dW += g_d^T
+z_d`` with ``z_d = x1_d (x) x0_d``; its outputs are held against the
+port's three calls (dx1_h200, dx0_h200, dw_h200), and the sum of those
+three calls' times in the same run stands beside it (``port_ms``).
 """
 from __future__ import annotations
 
@@ -87,6 +96,22 @@ def main() -> int:
         finally:
             kops._on_card = real
 
+    def xla_backward(g, x1, x0, w):
+        Bn, Kn, Dn = g.shape
+        H, Mm = x1.shape[1], x0.shape[1]
+        wf = w.reshape(Kn, H * Mm)
+        dx1, dx0 = torch.empty_like(x1), torch.empty_like(x0)
+        dw = torch.zeros_like(wf)
+        for d in range(Dn):
+            gd = g[:, :, d]
+            dz = torch.matmul(gd, wf).view(Bn, H, Mm)
+            x1d, x0d = x1[:, :, d], x0[:, :, d]
+            dx1[:, :, d] = torch.bmm(dz, x0d[:, :, None])[:, :, 0]
+            dx0[:, :, d] = torch.bmm(x1d[:, None, :], dz)[:, 0, :]
+            dw.addmm_(gd.t(), (x1d[:, :, None] * x0d[:, None, :])
+                      .view(Bn, H * Mm))
+        return dx1, dx0, dw.view(Kn, H, Mm)
+
     emb = randn(B, M, D)
     x200 = randn(B, 200, D)
     g = randn(B, K, D)
@@ -101,6 +126,7 @@ def main() -> int:
                                    .contiguous())),
         "dw_h200": ("cin_weight_grad", (g, x200, emb)),
         "dw_h39": ("cin_weight_grad", (g, emb, emb)),
+        "xla_backward_h200": ("xla_backward", (g, x200, emb, w200)),
     }
     rec = {"label": args.label, "src": args.src, "B": B,
            "device": torch.cuda.get_device_name(0),
@@ -109,8 +135,36 @@ def main() -> int:
                 "--format=csv,noheader"], capture_output=True,
                text=True).stdout.strip(), "calls": {}}
     only = set(filter(None, args.only.split(",")))
+
+    def xla_record(ins):
+        """The reference's backward arm against the port's three calls
+        on the same inputs."""
+        g_, x1, x0, w = ins
+        port = {"dx1": lambda: kops.cin_layer_split(
+                    g_, x0, w.permute(1, 0, 2).contiguous()),
+                "dx0": lambda: kops.cin_layer_split(
+                    g_, x1, w.permute(2, 0, 1).contiguous()),
+                "dw": lambda: kops.cin_weight_grad(g_, x1, x0)}
+        got = xla_backward(*ins)
+        r = {"H": x1.shape[1], "M": x0.shape[1], "K": g_.shape[1]}
+        for (part, fn), a in zip(port.items(), got):
+            r[f"rel_err_{part}_vs_port"] = rel(a, fn())
+        del got
+        torch.cuda.reset_peak_memory_stats()
+        r["ms"] = ms(lambda: xla_backward(*ins), args.iters)
+        r["peak_gb"] = torch.cuda.max_memory_allocated() / 1e9
+        r["port_ms_parts"] = {part: ms(fn, args.iters)
+                              for part, fn in port.items()}
+        r["port_ms"] = sum(r["port_ms_parts"].values())
+        torch.cuda.empty_cache()
+        print(f"chip_cin_ab {args.label}: xla_backward_h200 {r}",
+              file=sys.stderr, flush=True)
+        return r
     for name, (kind, ins) in calls.items():
         if only and name not in only:
+            continue
+        if kind == "xla_backward":
+            rec["calls"][name] = xla_record(ins)
             continue
         if kind == "cin_layer":
             fn = lambda ins=ins: kops.cin_layer_split(*ins)  # noqa: E731

@@ -1,0 +1,324 @@
+#!/usr/bin/env python3
+"""The mesh-only parallel code of the port over four cards.
+
+    python3 scripts/chip_lm_mesh.py [--out FILE] [--steps N]
+
+Needs four CUDA devices (a ("data", "model") 1 x 4 mesh, card k shard
+k). Runs, each with its checks:
+
+- llama3-8b long_500k at full width and depth (32 layers, bf16 served
+  copy from seed 0 on card 0, where the weights stay): one row, its
+  524,288-long cache split into 4 sequence blocks of 17.2 GB, one a
+  card, filled from a seeded generator on each card (in place of a
+  prefill); ``--steps`` greedy steps (default 24) at the last positions,
+  each timed between syncs of every card; the median against the bytes
+  bound of card 0 (its weights and its block, at `launch.roofline`'s
+  HBM rate); the per-card peak above the start; one step traced, busy
+  ms a card and card 0's idle share. The check: the same steps over an
+  8-shard ("data", "model") 2 x 4 mesh on the same cards (two shards a
+  card: each 4-shard block seen as two halves), teacher-forced on the
+  4-shard tokens: greedy tokens equal at `BF16_GREEDY_SHARE` of the
+  steps (`tests/test_torch_lm.py`'s bar for bf16 decode tokens) and
+  every step within `BF16_JUMP` of max |ref| (bf16 at 32 layers of
+  random weights: the two splits sum the softmax in another order, a
+  bf16 rounding of p flips, and 32 layers of the reference's init,
+  fan-in L, amplify it to 3.5-7.4% of max |ref| of the logits); then
+  at 2 layers of float32 masters, 4 against 8 shards within 1e-4 of
+  max |ref| and greedy tokens all equal, the tight check; then a 2^17
+  cut at full depth against the unsharded `decode_step` on card 0
+  (`chip_smoke.long_cut_run`), held as the bf16 check.
+- qwen2-moe-a2.7b decode_32k at full width and depth (bf16 served
+  copy): 8 rows over a seeded 32,768-long cache split over the cards,
+  the experts split by `transformer.shard_params` (16 of 64 a card),
+  `moe_ffn_replicated_ep` in every layer; ``--steps`` steps timed; and
+  at an 8,192-long cache the same steps over the 4 cards against 4
+  logical shards of card 0 (held as the bf16 check).
+- `gpipe_forward` over the 4 cards against the stages in turn on card 0
+  (`chip_smoke.gpipe_check`).
+
+No kernel of the port runs (the counts stay 0). Prints one JSON line
+(appended to ``--out``) with the cards' names and power limits,
+``nvidia-smi topo -m`` and which cards reach each other's memory
+(`torch.cuda.can_device_access_peer`), and every check that missed;
+then exits non-zero if any did.
+"""
+from __future__ import annotations
+
+import argparse
+import dataclasses
+import json
+import os
+import subprocess
+import sys
+import time
+
+import numpy as np
+
+ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
+sys.path.insert(0, ROOT)
+
+import chip_smoke as cs  # noqa: E402  (puts the checkout's src/ on the path)
+
+CARDS = 4
+QWEN_ROWS = 8
+QWEN_LEN = 32768
+QWEN_CHECK_LEN = 8192
+CUT_LEN = 1 << 17
+BF16_GREEDY_SHARE = 0.5
+BF16_JUMP = 0.1
+MISSES: list = []
+
+
+def check_bf16(what: str, errs, equal_share: float) -> None:
+    """A bf16 comparison of two splits of the same math: greedy tokens
+    equal at `BF16_GREEDY_SHARE` of the steps, every step within
+    `BF16_JUMP` of max |ref|."""
+    worst = max(e["max"] for e in errs)
+    if equal_share < BF16_GREEDY_SHARE or worst > BF16_JUMP:
+        MISSES.append(f"{what}: greedy share {equal_share}, max "
+                      f"{worst} of max |ref|")
+
+
+def greedy_share(a, b) -> float:
+    return float((a.cpu() == b.cpu()).double().mean())
+
+
+def trace_by_card(fn, devices) -> dict:
+    """One call of ``fn`` (after a warm-up call) under a `torch.profiler`
+    CUDA trace: kernel ms by card and the call's wall ms."""
+    import torch
+    from torch.profiler import ProfilerActivity, profile
+    fn()
+    cs.sync_all(devices)
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        cs.sync_all(devices)
+        wall = (time.perf_counter() - t0) * 1e3
+    busy: dict = {}
+    for e in prof.events():
+        if e.device_type == torch.autograd.DeviceType.CUDA:
+            busy[e.device_index] = busy.get(e.device_index, 0.0) \
+                + e.time_range.elapsed_us() / 1e3
+    return {"wall_ms": wall,
+            "busy_ms": {str(k): v for k, v in sorted(busy.items())},
+            "idle_share": {str(k): max(0.0, 1 - v / wall)
+                           for k, v in sorted(busy.items())}}
+
+
+def halves(cache: dict) -> dict:
+    """A sequence-sharded cache's blocks each seen as two halves (views):
+    the 8-shard split of the same storage."""
+    out = {}
+    for kv, blocks in cache.items():
+        out[kv] = []
+        for b in blocks:
+            h = b.shape[2] // 2
+            out[kv] += [b.narrow(2, 0, h), b.narrow(2, h, h)]
+    return out
+
+
+def four_vs_eight(cfg, params, cards, steps, seed, time_it: bool) -> dict:
+    """``cfg`` over the 4-card mesh, then over the 8-shard mesh on the
+    same blocks (fed the 4-shard tokens)."""
+    import torch
+    from repro_torch.data.lm import TokenStream
+    mesh4 = cs.lm_mesh(cards)
+    mesh8 = cs.lm_mesh([c for c in cards for _ in (0, 1)],
+                       axes={"data": 2, "model": CARDS})
+    first = torch.from_numpy(TokenStream(cfg.vocab, 1, 1, seed=0)
+                             .next_batch()["tokens"][:, 0]).to(cards[0])
+    positions = list(range(cs.LM_LONG - steps, cs.LM_LONG))
+    cache = cs.seeded_cache(cfg, 1, cs.LM_LONG, mesh4, seed)
+    cs.sync_all(cards)
+    base = {c: torch.cuda.memory_allocated(c) for c in cards}
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    four = cs.decode_run(params, cfg, cache, first, positions, mesh=mesh4,
+                         devices=cards)
+    rec = {"layers": cfg.n_layers, "compute_dtype": cfg.compute_dtype,
+           "positions": [positions[0], positions[-1]], "steps": steps,
+           "peak_gb_above_start": {
+               str(c): (torch.cuda.max_memory_allocated(c) - base[c]) / 1e9
+               for c in cards},
+           "peak_gb": {str(c): torch.cuda.max_memory_allocated(c) / 1e9
+                       for c in cards}}
+    if time_it:
+        from repro_torch.models import transformer as T
+        last = four["fed"][-1]
+        rec["traced_step"] = trace_by_card(
+            lambda: T.decode_step(params, cfg, cache, last, positions[-1],
+                                  mesh=mesh4), cards)
+    eight = cs.decode_run(params, cfg, halves(cache), None, positions,
+                          mesh=mesh8, devices=cards, feed=four["fed"])
+    errs = [cs.position_errors(a, b) for a, b in zip(eight["logits"],
+                                                     four["logits"])]
+    rec.update({
+        "step_ms": [t * 1e3 for t in four["step_s"]],
+        "step_ms_median": float(np.median(four["step_s"])) * 1e3,
+        "eight_shard_step_ms_median": float(np.median(eight["step_s"]))
+        * 1e3,
+        "rel_err_8_vs_4": [e["max"] for e in errs],
+        "max_rel_err_8_vs_4": max(e["max"] for e in errs),
+        "median_rel_err_8_vs_4": float(np.median([e["max"] for e in errs])),
+        "greedy_share": greedy_share(four["tokens"], eight["tokens"]),
+        "errors": errs,
+        **cs.long_decode_bound(cfg, params, cs.LM_LONG, CARDS)})
+    del cache
+    torch.cuda.empty_cache()
+    return rec
+
+
+def llama_long(cards, steps) -> dict:
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    base = get_arch("llama3-8b").get_config()
+    t0 = time.perf_counter()
+    model = T.LM(base, device=cards[0], seed=0, dtype=torch.bfloat16)
+    cs.sync_all(cards)
+    out = {"init_s": time.perf_counter() - t0}
+    params = C.param_tree(model)
+    full = four_vs_eight(base, params, cards, steps, 1, True)
+    out["full_depth_bf16"] = full
+    cs.progress(f"long_500k x {base.n_layers} layers over {CARDS} cards: "
+                f"{full['step_ms_median']:.2f} ms a step (bound "
+                f"{full['bound_ms']:.2f}); 8 shards "
+                f"{full['eight_shard_step_ms_median']:.2f}; greedy share "
+                f"{full['greedy_share']}, max {full['max_rel_err_8_vs_4']}")
+    check_bf16("long_500k 8 vs 4 shards", full["errors"],
+               full["greedy_share"])
+    cut = cs.long_cut_run(base, params, cs.lm_mesh(cards), cards[0],
+                          max_len=CUT_LEN)
+    share = float(np.mean([e["argmax_equal"] for e in cut["errors"]]))
+    check_bf16("long_500k 2^17 cut vs unsharded", cut["errors"], share)
+    out["cut_2e17_vs_unsharded_bf16"] = dict(cut, greedy_share=share)
+    del model, params
+    torch.cuda.empty_cache()
+    cfg2 = dataclasses.replace(base, n_layers=cs.LM_MESH_FP32_LAYERS,
+                               compute_dtype="float32")
+    model = T.LM(cfg2, device=cards[0], seed=0)
+    fp32 = four_vs_eight(cfg2, C.param_tree(model), cards, cs.LM_MESH_STEPS,
+                         2, False)
+    del model
+    torch.cuda.empty_cache()
+    if fp32["greedy_share"] < 1 or fp32["max_rel_err_8_vs_4"] \
+            > cs.LM_MESH_TOL:
+        MISSES.append(f"long_500k fp32: 8 shards vs 4 "
+                      f"{fp32['max_rel_err_8_vs_4']} of max |ref| (tol "
+                      f"{cs.LM_MESH_TOL}), greedy share "
+                      f"{fp32['greedy_share']}")
+    out["fp32_2_layers"] = fp32
+    return out
+
+
+def qwen_ep(cards, steps) -> dict:
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    cfg = get_arch("qwen2-moe-a2.7b").get_config()
+    model = T.LM(cfg, device=cards[0], seed=0, dtype=torch.bfloat16)
+    params = C.param_tree(model)
+    mesh = cs.lm_mesh(cards)
+    logical = cs.lm_mesh([cards[0]] * CARDS)
+    placed = T.shard_params(params, cfg, mesh)
+    first = torch.from_numpy(TokenStream(cfg.vocab, 1, QWEN_ROWS, seed=0)
+                             .next_batch()["tokens"][:, 0]).to(cards[0])
+    out = {"rows": QWEN_ROWS, "experts_per_card":
+           cfg.moe.padded_experts // CARDS}
+    cache = cs.seeded_cache(cfg, QWEN_ROWS, QWEN_LEN, mesh, 3)
+    positions = list(range(QWEN_LEN - steps, QWEN_LEN))
+    run = cs.decode_run(placed, cfg, cache, first, positions, mesh=mesh,
+                        devices=cards)
+    out["decode_32k"] = {
+        "max_len": QWEN_LEN, "steps": steps,
+        "step_ms_median": float(np.median(run["step_s"])) * 1e3,
+        "step_ms": [t * 1e3 for t in run["step_s"]],
+        "peak_gb": {str(c): torch.cuda.max_memory_allocated(c) / 1e9
+                    for c in cards}}
+    del cache, run
+    torch.cuda.empty_cache()
+    positions = list(range(QWEN_CHECK_LEN - cs.LM_MESH_STEPS,
+                           QWEN_CHECK_LEN))
+    runs = {}
+    for name, m, p in (("cards", mesh, placed),
+                       ("card0_logical", logical, params)):
+        cache = cs.seeded_cache(cfg, QWEN_ROWS, QWEN_CHECK_LEN, m, 4)
+        runs[name] = cs.decode_run(p, cfg, cache, first, positions, mesh=m,
+                                   devices=m.physical_devices(),
+                                   feed=runs["cards"]["fed"]
+                                   if runs else None)
+        del cache
+        torch.cuda.empty_cache()
+    errs = [cs.position_errors(a, b) for a, b in
+            zip(runs["cards"]["logits"], runs["card0_logical"]["logits"])]
+    share = greedy_share(runs["cards"]["tokens"],
+                         runs["card0_logical"]["tokens"])
+    check_bf16("qwen2-moe EP 4 cards vs 4 logical shards of card 0", errs,
+               share)
+    out["check_8192"] = {
+        "max_rel_err": max(e["max"] for e in errs), "greedy_share": share,
+        "cards_step_ms_median": float(np.median(runs["cards"]["step_s"]))
+        * 1e3,
+        "card0_step_ms_median": float(np.median(
+            runs["card0_logical"]["step_s"])) * 1e3}
+    del model, params, placed
+    torch.cuda.empty_cache()
+    return out
+
+
+def main() -> int:
+    ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
+    ap.add_argument("--out")
+    ap.add_argument("--steps", type=int, default=24)
+    args = ap.parse_args()
+    import torch
+    n = torch.cuda.device_count() if torch.cuda.is_available() else 0
+    if n < CARDS:
+        print(f"chip_lm_mesh: needs {CARDS} CUDA devices, found {n}",
+              file=sys.stderr)
+        return 2
+    from repro_torch.kernels import _cuda
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.backends.cuda.matmul.allow_bf16_reduced_precision_reduction = \
+        False
+    cards = [torch.device("cuda", i) for i in range(CARDS)]
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    rec = {"llama3_8b_long_500k": llama_long(cards, args.steps)}
+    rec["qwen2_moe_decode_32k_ep"] = qwen_ep(cards, args.steps)
+    rec["gpipe"] = cs.gpipe_check(cards, cards[0])
+    cs.sync_all(cards)
+    launched = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    if launched:
+        cs.fail(f"chip_lm_mesh launched kernels of the port: {launched}")
+    rec["wall_s"] = time.perf_counter() - t0
+    rec["nvidia_smi"] = subprocess.run(
+        ["nvidia-smi", "--query-gpu=name,power.limit",
+         "--format=csv,noheader"], capture_output=True,
+        text=True).stdout.strip().splitlines()
+    topo = subprocess.run(["nvidia-smi", "topo", "-m"], capture_output=True,
+                          text=True)
+    rec["topology"] = (topo.stdout + topo.stderr).strip()
+    rec["peer_access"] = [[i == j or torch.cuda.can_device_access_peer(i, j)
+                           for j in range(CARDS)] for i in range(CARDS)]
+    rec["misses"] = MISSES
+    line = json.dumps(rec)
+    print(line, flush=True)
+    if args.out:
+        os.makedirs(os.path.dirname(os.path.abspath(args.out)),
+                    exist_ok=True)
+        with open(args.out, "a") as f:
+            f.write(line + "\n")
+    if MISSES:
+        print("chip_lm_mesh: FAILED: " + "; ".join(MISSES), file=sys.stderr)
+        return 1
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,2 +1,2 @@
-"""Collectives of the sharded serving engine, over per-shard tensors
-(`collectives`)."""
+"""Collectives over per-shard tensors (`collectives`) and the GPipe
+schedule over a mesh's "pod" axis (`pipeline`)."""

@@ -1,4 +1,4 @@
-"""Collectives of the sharded serving engine, over per-shard tensors.
+"""Collectives of the sharded paths, over per-shard tensors.
 
 Port of the reference package's `distributed/collectives.py`. The
 reference runs these inside `shard_map`, where each device sees its own
@@ -19,6 +19,15 @@ the reference's per-shard addend (`_owned_contribution`) has no
 counterpart here. Row ids are host arrays (a tensor is copied to the
 host), so the owner partition is planned without a device sync; each
 physical device gets the local ids in one copy.
+
+`psum` / `pmax` combine one tensor a shard in linear shard order on
+shard 0's device and hand the result to every shard's device (one copy
+a physical device; a ``.to`` between cards, never a host sync);
+`reduce_sum` leaves the sum on one device.
+`distributed_lse_decode` is decode attention over a KV cache split
+along its sequence axis: each shard reduces its own block to a
+``[B, H, G]`` max, a ``[B, H, G]`` sum and a ``[B, H, G, Dh]`` partial
+output, and those three combine; the cache is never gathered.
 """
 from __future__ import annotations
 
@@ -41,6 +50,70 @@ def hierarchical_psum(xs, shape):
     for x in pods[1:]:
         total = total + x.to(total.device)
     return [total.to(x.device) for x in xs]
+
+
+def replicate(x: torch.Tensor, devices) -> list:
+    """``x`` on each of ``devices`` (one copy a distinct device)."""
+    copies: dict = {}
+    out = []
+    for d in devices:
+        if d not in copies:
+            copies[d] = x.to(d)
+        out.append(copies[d])
+    return out
+
+
+def reduce_sum(xs, device=None) -> torch.Tensor:
+    """The sum of one tensor a shard, added in linear shard order on
+    ``device`` (shard 0's by default)."""
+    acc = xs[0].to(device or xs[0].device)
+    for x in xs[1:]:
+        acc = acc + x.to(acc.device)
+    return acc
+
+
+def psum(xs) -> list:
+    """`reduce_sum` on shard 0's device, handed to every shard's
+    device."""
+    return replicate(reduce_sum(xs), [x.device for x in xs])
+
+
+def pmax(xs) -> list:
+    """The elementwise max over shards, as `psum`."""
+    acc = xs[0]
+    for x in xs[1:]:
+        acc = torch.maximum(acc, x.to(acc.device))
+    return replicate(acc, [x.device for x in xs])
+
+
+def distributed_lse_decode(q, k_shards, v_shards, kv_valid_mask=None
+                           ) -> list:
+    """Decode attention against a KV cache sharded along its sequence
+    axis, without gathering it (the reference's `distributed_lse_decode`,
+    the log-sum-exp trick).
+
+    q: [B, Hkv, G, Dh], replicated to every shard; k_shards / v_shards:
+    each shard's [B, S_local, Hkv, Dh] block; kv_valid_mask: None or
+    each shard's bool [B, S_local]. ``q * scale``
+    is formed in q's dtype and the logits in float32; a masked logit is
+    -1e30. The shards combine a max and a sum of ``[B, Hkv, G]`` and a
+    sum of ``[B, Hkv, G, Dh]`` partial outputs (float32). Returns each
+    shard's [B, Hkv, G, Dh] result in q's dtype, on its device."""
+    qs = replicate(q * q.shape[-1] ** -0.5, [k.device for k in k_shards])
+    masks = (list(kv_valid_mask) if kv_valid_mask is not None
+             else [None] * len(k_shards))
+    logits = []
+    for qk, k, m in zip(qs, k_shards, masks):
+        lg = torch.einsum("bhgd,bshd->bhgs", qk.float(), k.float())
+        if m is not None:
+            lg = lg.masked_fill(~m[:, None, None, :].to(torch.bool), -1e30)
+        logits.append(lg)
+    mx = pmax([lg.amax(-1) for lg in logits])
+    p = [torch.exp(lg - m[..., None]) for lg, m in zip(logits, mx)]
+    denom = psum([pk.sum(-1) for pk in p])
+    out = psum([torch.einsum("bhgs,bshd->bhgd", pk, v.float())
+                for pk, v in zip(p, v_shards)])
+    return [(o / d[..., None]).to(q.dtype) for o, d in zip(out, denom)]
 
 
 def axis_linear_index(coords, shape) -> int:

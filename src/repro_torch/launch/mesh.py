@@ -9,7 +9,9 @@ for entry, and `shard_shape` gives the per-card shard of a global shape
 under it by XLA's rule. The dry run (`launch.dryrun`) sums those shards;
 nothing in the port is partitioned by them.
 
-The serving mesh is the port of `make_serving_mesh` and `batch_axes`.
+The serving mesh is the port of `make_serving_mesh` and `batch_axes`,
+and the mesh of the model path's parallel code too (the sequence-sharded
+decode, expert parallelism, the pipeline), with axes of its own.
 The reference drives every device from one Python process through
 `shard_map` over a `jax.sharding.Mesh`; the port keeps that single
 controller. A mesh here is an ordered tuple of
@@ -101,8 +103,10 @@ def shard_shape(shape, spec, mesh: ProductionMesh) -> tuple:
 @dataclasses.dataclass(frozen=True)
 class ServingMesh:
     """Shards in row-major order over ``axis_names`` / ``shape``:
-    ``("data",)`` with shape ``(n,)``, or ``("pod", "data")`` with shape
-    ``(2, n // 2)``. ``devices[k]`` holds shard k (its linear index)."""
+    ``("data",)`` with shape ``(n,)``, ``("pod", "data")`` with shape
+    ``(2, n // 2)``, or any named axes the caller gives (the model
+    path's ``("data", "model")``). ``devices[k]`` holds shard k (its
+    linear index)."""
 
     devices: tuple
     axis_names: tuple
@@ -115,6 +119,16 @@ class ServingMesh:
     def physical_devices(self) -> tuple:
         """The distinct devices of the mesh, in first-use order."""
         return tuple(dict.fromkeys(self.devices))
+
+    def axis_size(self, name: str) -> int:
+        return self.shape[self.axis_names.index(name)]
+
+    def coords(self, k: int) -> dict:
+        """Shard k's coordinate on each axis, by name (row-major)."""
+        out = {}
+        for name, n in zip(reversed(self.axis_names), reversed(self.shape)):
+            k, out[name] = divmod(k, n)
+        return out
 
 
 def _device(d) -> torch.device:
@@ -129,14 +143,16 @@ def batch_axes(multi_pod: bool):
     return ("pod", "data") if multi_pod else ("data",)
 
 
-def make_serving_mesh(devices=None, *, multi_pod: bool = False
-                      ) -> ServingMesh:
-    """The mesh of the sharded serving path. ``devices=None`` means every
+def make_serving_mesh(devices=None, *, multi_pod: bool = False,
+                      axes: dict | None = None) -> ServingMesh:
+    """The mesh of the sharded paths. ``devices=None`` means every
     visible CUDA device, and raises where there is none (there is no CPU
     fallback: pass the devices, e.g. ``[torch.device("cpu")] * 8``).
     Repeats are allowed: ``[torch.device("cuda:0")] * 8`` is an 8-shard
     mesh on one card. ``multi_pod=True`` splits off a leading "pod" axis
-    of 2 and needs an even count."""
+    of 2 and needs an even count. ``axes`` names the axes and their
+    sizes in row-major order instead (``{"data": 2, "model": 4}``); their
+    product must be the device count."""
     if devices is None:
         if not torch.cuda.is_available():
             raise RuntimeError("no CUDA device is available for the serving "
@@ -148,6 +164,12 @@ def make_serving_mesh(devices=None, *, multi_pod: bool = False
     n = len(devices)
     if n == 0:
         raise ValueError("a serving mesh needs at least one device")
+    if axes is not None:
+        if multi_pod:
+            raise ValueError("pass either multi_pod or axes")
+        if math.prod(axes.values()) != n:
+            raise ValueError(f"mesh axes {axes} do not hold {n} devices")
+        return ServingMesh(devices, tuple(axes), tuple(axes.values()))
     if multi_pod:
         if n % 2:
             raise ValueError(f"multi_pod mesh needs an even device count, "

@@ -18,6 +18,8 @@ from __future__ import annotations
 
 import torch
 
+from ..distributed.collectives import pmax, psum, reduce_sum, replicate
+
 NEG_INF = -1e30   # the reference's mask value
 
 
@@ -103,6 +105,70 @@ def _gqa_attention_dense(q, k, v, *, causal: bool = True, q_offset=0,
         outs.append(bf16_matmul_f32(p, vb[r]))           # [., Hkv, G*T, Dh]
         del p
     out = torch.cat(outs).view(B, Hkv, G, T, Dh).permute(0, 3, 1, 2, 4)
+    return out.reshape(B, T, Hq, Dh).to(q.dtype)
+
+
+def gqa_attention_sharded(q, k_blocks, v_blocks, *, q_offset=0,
+                          kv_valid_len=None, window: int | None = None):
+    """`gqa_attention` (not causal) over a KV cache split along its
+    sequence axis into contiguous blocks, one a shard in order, each on
+    its own device: q [B, T, Hq, Dh] on one device; k_blocks / v_blocks
+    [B, S_local, Hkv, Dh]. Returns [B, T, Hq, Dh] in q's dtype on q's
+    device. No block leaves its device.
+
+    The numbers are the reference's `_gqa_attention_dense` as GSPMD
+    partitions it over a sequence-sharded cache: each shard's logits are
+    its bf16 ``q * scale`` against its bf16 keys summed in float32; the
+    max and the sum of ``exp(l - m)`` are global (float32, combined over
+    the shards); ``p = exp(l - m) / denom`` is rounded to bf16 after
+    that normalisation; each shard sums ``p @ v`` over its block in
+    float32, and one sum over the shards gives the output. This is not
+    `distributed.collectives.distributed_lse_decode`, whose float32
+    probabilities are normalised only after the partial outputs are
+    summed: both share its combines (`pmax`, `psum`), and only the
+    arithmetic between them differs. A decode step (T = 1) goes a batch
+    row at a time over strided views of each block, as the dense
+    version's does."""
+    B, T, Hq, Dh = q.shape
+    Hkv = k_blocks[0].shape[2]
+    G = Hq // Hkv
+    devs = [k.device for k in k_blocks]
+    qs = (q * Dh ** -0.5).to(torch.bfloat16).reshape(B, T, Hkv, G, Dh) \
+        .permute(0, 2, 3, 1, 4).reshape(B, Hkv, G * T, Dh)
+    q_on = replicate(qs, devs)
+    masks, off = [], 0
+    for k in k_blocks:
+        S_l = k.shape[1]
+        qpos = torch.arange(T, device=k.device)[:, None] + q_offset
+        kpos = torch.arange(off, off + S_l, device=k.device)[None, :]
+        mask = torch.ones((T, S_l), dtype=torch.bool, device=k.device)
+        if window is not None:
+            mask &= kpos > qpos - window
+        if kv_valid_len is not None:
+            mask &= kpos < kv_valid_len
+        masks.append(~mask)
+        off += S_l
+    rows = [slice(b, b + 1) for b in range(B)] if T == 1 else [slice(None)]
+
+    def by_row(a, b):
+        """``bf16_matmul_f32(a, b)`` a batch row at a time, joined."""
+        outs = [bf16_matmul_f32(a[r], b[r]) for r in rows]
+        return outs[0] if len(outs) == 1 else torch.cat(outs)
+
+    logits = []
+    for qk, k, nm in zip(q_on, k_blocks, masks):
+        lg = by_row(qk, k.to(torch.bfloat16).permute(0, 2, 3, 1))
+        lg.view(B, Hkv, G, T, lg.shape[-1]).masked_fill_(nm, NEG_INF)
+        logits.append(lg)                               # [B, Hkv, G*T, S_l]
+    m = pmax([lg.amax(-1, keepdim=True) for lg in logits])
+    e = [torch.exp(lg - mk) for lg, mk in zip(logits, m)]
+    del logits
+    denom = psum([ek.sum(-1, keepdim=True) for ek in e])
+    parts = [by_row(ek / dk, v.to(torch.bfloat16).permute(0, 2, 1, 3))
+             for ek, dk, v in zip(e, denom, v_blocks)]
+    del e
+    out = reduce_sum(parts, q.device)                   # [B, Hkv, G*T, Dh]
+    out = out.view(B, Hkv, G, T, Dh).permute(0, 3, 1, 2, 4)
     return out.reshape(B, T, Hq, Dh).to(q.dtype)
 
 

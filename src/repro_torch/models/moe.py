@@ -20,19 +20,29 @@ The expert contractions keep the reference's float32 outputs from
 bfloat16 operands (`attention.bf16_matmul_f32` where the operands are
 bfloat16; a plain float32 matmul where they are float32).
 
-`moe_apply` always takes the `moe_ffn_chunked` route, as the reference
-does without a device mesh. The reference's `moe_ffn_replicated_ep`
-(expert parallelism under a JAX mesh with a "model" axis, with a
-per-shard capacity of its own) has no counterpart here.
+`moe_apply` takes the route the reference's takes: without a mesh, or
+on a mesh with no ``cfg.ep_axis`` ("model") axis, `moe_ffn_chunked`;
+on one with it, `moe_ffn_replicated_ep`, replicated-token expert
+parallelism over a `launch.mesh.ServingMesh`. There the tokens split
+over the mesh's dispatch axes, and each "model" shard routes its tokens
+itself, keeps those that chose one of its ``EL = Ep / MP`` experts in a
+capacity buffer of its own (``capL = min(NL, max(int(NL * K / Ep *
+cf), 8))``, so its answers are not `moe_ffn`'s), runs its experts on
+its device and contributes a partial output; the partials are summed
+over "model" (`distributed.collectives.reduce_sum`). Expert leaves may
+come already split (`shard_experts`: each shard's experts on its
+device), or whole, and then each shard takes its slice.
 """
 from __future__ import annotations
 
 import dataclasses
+import math
 
 import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.collectives import reduce_sum
 from .attention import bf16_matmul_f32
 
 CHUNK_MIN_TOKENS = 8192   # moe_ffn_chunked splits only above this a chunk
@@ -55,8 +65,8 @@ class MoEConfig:
     # per-shard capacity dispatch: slots are counted within each of this
     # many equal token shards (it must divide the token count, else 1)
     dispatch_shards: int = 1
-    # the reference's mesh axes; no meaning in the port, kept so the two
-    # packages' configs compare equal
+    # the mesh axes `moe_ffn_replicated_ep` splits the tokens over (those
+    # the mesh has) and shards the experts over
     dispatch_axes: tuple = ("data",)
     ep_axis: str = "model"
 
@@ -202,7 +212,173 @@ def moe_ffn_chunked(x: torch.Tensor, wp: dict, cfg: MoEConfig):
     return torch.cat(ys), aux / nc
 
 
-def moe_apply(x: torch.Tensor, wp: dict, cfg: MoEConfig):
-    """The MoE FFN of a layer: always `moe_ffn_chunked` (the reference's
-    choice without a mesh; see the module docstring)."""
+EXPERT_LEAVES = ("w_gate", "w_up", "w_down")
+
+
+def _ep_coords(mesh, cfg: MoEConfig):
+    """(MP, DA, per shard k its (token shard d, expert shard m)): the
+    "model" axis's size, the token shards over the dispatch axes the
+    mesh has, row-major in ``cfg.dispatch_axes`` order."""
+    MP = mesh.axis_size(cfg.ep_axis)
+    da = tuple(a for a in cfg.dispatch_axes if a in mesh.axis_names)
+    DA = math.prod(mesh.axis_size(a) for a in da)
+    dm = []
+    for k in range(mesh.size):
+        c = mesh.coords(k)
+        d = 0
+        for a in da:
+            d = d * mesh.axis_size(a) + c[a]
+        dm.append((d, c[cfg.ep_axis]))
+    return MP, DA, dm
+
+
+def shard_experts(w: torch.Tensor, mesh, cfg: MoEConfig, dim: int = 0
+                  ) -> list:
+    """An expert leaf split over the mesh's ``cfg.ep_axis``: for each
+    shard in linear order its ``EL = Ep / MP`` experts (``dim`` is the
+    expert axis: 1 for a stacked layer leaf [L, Ep, ...]) on its device,
+    one copy a (block, device)."""
+    MP, _, dm = _ep_coords(mesh, cfg)
+    EL = w.shape[dim] // MP
+    copies: dict = {}
+    out = []
+    for k, (_, m) in enumerate(dm):
+        key = (m, mesh.devices[k])
+        if key not in copies:
+            copies[key] = w.narrow(dim, m * EL, EL).to(mesh.devices[k])
+        out.append(copies[key])
+    return out
+
+
+def _whole_experts(wp: dict, mesh, cfg: MoEConfig, device) -> dict:
+    """``wp`` with every split expert leaf joined back on ``device``."""
+    if not any(isinstance(wp[k], (list, tuple)) for k in EXPERT_LEAVES):
+        return wp
+    _, _, dm = _ep_coords(mesh, cfg)
+    first = {}
+    for k, (_, m) in enumerate(dm):
+        first.setdefault(m, k)
+    return dict(wp, **{
+        n: torch.cat([wp[n][first[m]].to(device) for m in sorted(first)])
+        for n in EXPERT_LEAVES})
+
+
+def ep_capacity(NL: int, cfg: MoEConfig) -> int:
+    """A replicated-EP shard's slots an expert for NL local tokens: an
+    inference-safe floor of 8, and at most NL."""
+    return min(NL, max(int(NL * cfg.top_k / cfg.padded_experts
+                           * cfg.capacity_factor), 8))
+
+
+def ep_slots(idx: torch.Tensor, cfg: MoEConfig, capL: int, e_lo: int,
+             EL: int) -> list:
+    """One replicated-EP shard's dispatch of its tokens' expert ids
+    ``idx`` [NL, K], owning experts ``e_lo .. e_lo + EL - 1``: per choice
+    j, (local expert el, slot sl, keep) [NL] each. A slot is the token's
+    rank among the shard's tokens that chose that expert, choice by
+    choice (counts carried), whatever shard owns the expert; a choice is
+    kept where its slot is below ``capL`` and its expert is local, and a
+    dropped one points at the trash (EL, capL)."""
+    e = idx.t()                                                 # [K, NL]
+    oh = one_hot(e, cfg.padded_experts)                         # [K, NL, Ep]
+    pos = torch.cumsum(oh, dim=1, dtype=torch.int32)
+    # counts carried from the earlier choices: an exclusive cumsum over K
+    prev = torch.cumsum(oh.sum(1, dtype=torch.int32), dim=0,
+                        dtype=torch.int32) - oh.sum(1, dtype=torch.int32)
+    slot = torch.gather(pos, 2, e[..., None])[..., 0] - 1 \
+        + torch.gather(prev, 1, e)
+    keep = (slot < capL) & (e >= e_lo) & (e < e_lo + EL)
+    el = torch.where(keep, e - e_lo, EL)
+    sl = torch.where(keep, slot, capL)
+    return [(el[j], sl[j], keep[j]) for j in range(e.shape[0])]
+
+
+def moe_ffn_replicated_ep(x: torch.Tensor, wp: dict, cfg: MoEConfig,
+                          mesh=None):
+    """Replicated-token expert parallelism, slot for slot the reference's
+    `moe_ffn_replicated_ep`. x: [N, D] on one device; ``mesh`` a
+    `ServingMesh` with a ``cfg.ep_axis`` axis. The tokens split into DA
+    equal shards over the dispatch axes the mesh has; each (token shard,
+    "model" shard) routes its NL tokens on its device, keeps the choices
+    of its EL local experts that fit ``capL`` slots (overflow and
+    non-local choices are dropped), runs its experts and gives a
+    partial output; the partials are summed over "model", the token
+    shards joined in order on x's device, ``aux`` averaged over the
+    token shards, and the shared experts added after the sum. Shards
+    that differ only on other axes hold the same work, run once. Falls
+    back to `moe_ffn` without a mesh or a "model" axis, where Ep % MP
+    != 0, or where N % DA != 0, as the reference does. Returns (y [N, D]
+    in x's dtype, aux)."""
+    if mesh is None or cfg.ep_axis not in mesh.axis_names:
+        return moe_ffn(x, wp, cfg)
+    E, Ep = cfg.num_experts, cfg.padded_experts
+    MP, DA, dm = _ep_coords(mesh, cfg)
+    N, D = x.shape
+    if Ep % MP != 0 or N % DA != 0:
+        return moe_ffn(x, _whole_experts(wp, mesh, cfg, x.device), cfg)
+    EL = Ep // MP
+    NL = N // DA
+    capL = ep_capacity(NL, cfg)
+    dt = x.dtype
+    first: dict = {}
+    for k, key in enumerate(dm):
+        first.setdefault(key, k)
+    parts: dict = {}
+    for (d, m), k in sorted(first.items()):
+        dev = mesh.devices[k]
+        x_l = x[d * NL:(d + 1) * NL].to(dev)
+        probs, gates, idx = route(x_l, wp["router"].to(dev), cfg)
+        e_lo = m * EL
+        picks = ep_slots(idx, cfg, capL, e_lo, EL)
+        # every kept choice has a slot of its own; dropped ones go to a
+        # trash (expert EL, slot capL), cut off
+        buf = x_l.new_zeros((EL + 1, capL + 1, D)).index_put(
+            (torch.cat([p[0] for p in picks]),
+             torch.cat([p[1] for p in picks])),
+            x_l.repeat(len(picks), 1))
+        w = {}
+        for n in EXPERT_LEAVES:
+            leaf = wp[n]
+            w[n] = (leaf[k] if isinstance(leaf, (list, tuple))
+                    else leaf[e_lo:e_lo + EL]).to(device=dev, dtype=dt)
+        xb = buf[:EL, :capL]
+        g = expert_matmul(xb, w["w_gate"])
+        u = expert_matmul(xb, w["w_up"])
+        hh = (F.silu(g) * u).to(dt)
+        yb = expert_matmul(hh, w["w_down"]).to(dt)
+        y = torch.zeros_like(x_l)
+        for j, (el, sl, keep) in enumerate(picks):
+            ytok = yb[el.clamp(0, EL - 1), sl.clamp(0, capL - 1)]
+            y = y + torch.where(keep[:, None], ytok, 0) \
+                * gates[:, j:j + 1].to(dt)
+        me = probs[:, :E].mean(0)
+        fe = one_hot(idx[:, 0], Ep).to(torch.float32)[:, :E].mean(0)
+        aux = cfg.aux_loss_coef * E * torch.sum(me * fe)
+        parts[(d, m)] = (y, aux)
+    ys, auxes = [], []
+    for d in range(DA):
+        ys.append(reduce_sum([parts[(d, m)][0] for m in range(MP)],
+                             x.device))
+        auxes.append(parts[(d, 0)][1])
+    y = torch.cat(ys) if DA > 1 else ys[0]
+    aux = reduce_sum(auxes, x.device) / DA
+
+    if cfg.num_shared:
+        gs = F.silu(x @ wp["shared_gate_w"].to(dt))
+        us = x @ wp["shared_up"].to(dt)
+        ys_ = (gs * us) @ wp["shared_down"].to(dt)
+        if cfg.shared_gate:
+            sg = torch.sigmoid(x.to(torch.float32)
+                               @ wp["shared_out_gate"].to(torch.float32))
+            ys_ = ys_ * sg.to(dt)
+        y = y + ys_
+    return y, aux
+
+
+def moe_apply(x: torch.Tensor, wp: dict, cfg: MoEConfig, mesh=None):
+    """The MoE FFN of a layer, routed as the reference's `moe_apply`
+    routes it under its ambient mesh: `moe_ffn_replicated_ep` on a mesh
+    with a ``cfg.ep_axis`` axis, else `moe_ffn_chunked`."""
+    if mesh is not None and cfg.ep_axis in mesh.axis_names:
+        return moe_ffn_replicated_ep(x, wp, cfg, mesh)
     return moe_ffn_chunked(x, wp, cfg)

@@ -94,6 +94,22 @@ def _paths():
 
 
 @lru_cache(maxsize=None)
+def _shared_couplings() -> tuple:
+    """Per path, the path whose ``Y x Gaunt`` product it reads: paths
+    whose table, as an [2l2+1, (2l1+1)(2l3+1)] matrix, is the same (the
+    (0, l, l) and (l, l, 0) pairs) share one product, as XLA's
+    common-subexpression pass shares it in the reference."""
+    first: dict = {}
+    out = []
+    for pi, path in enumerate(_paths()):
+        g = _gaunt_tables()[path]
+        key = (path[1], g.transpose(1, 0, 2).reshape(g.shape[1], -1)
+               .tobytes())
+        out.append(first.setdefault(key, pi))
+    return tuple(out)
+
+
+@lru_cache(maxsize=None)
 def _gaunt_on(device: torch.device) -> dict:
     """The Gaunt tables as float32 tensors on ``device``."""
     return {k: torch.from_numpy(v).to(device)
@@ -184,29 +200,45 @@ def init_params(cfg: NequIPConfig, generator: torch.Generator) -> dict:
 
 
 # ------------------------------------------------------------------ forward
-def edge_messages(h: dict, lp: dict, cfg: NequIPConfig, src: SegmentPlan,
-                  dst: SegmentPlan, pos: torch.Tensor) -> dict:
-    """Messages of the edges (src, dst) and their per-l segment sums into
-    the destination nodes: {l: [N, C, 2l+1]}."""
-    C = cfg.channels
-    paths = _paths()
+def edge_geometry(pos: torch.Tensor, src: SegmentPlan, dst: SegmentPlan,
+                  cfg: NequIPConfig) -> dict:
+    """The layer-invariant geometry of the edges (src, dst): the radial
+    basis ``rbf`` [e, n_rbf], the mask of non-degenerate edges (r ~ 0,
+    e.g. self loops: Y_l>=2 of the zero vector does not rotate), and per
+    path (l1, l2, l3) the product ``Y[l2] x Gaunt(l1, l2, l3)`` [e, 2l1+1,
+    2l3+1]. Computed once a forward and read by every layer, as XLA
+    hoists it out of the reference's layer scan; a cotangent to ``pos``
+    flows through it."""
     gaunt = _gaunt_on(pos.device)
     rel = segment_gather(pos, src) - segment_gather(pos, dst)
     r = torch.linalg.norm(rel + 1e-12, dim=-1)
     unit = rel / torch.maximum(r, _const(1e-6, r))[:, None]
     Y = sph_harm(unit)
-    rbf = bessel_basis(r, cfg.n_rbf, cfg.cutoff)
-    rad = F.silu(rbf @ lp["radial_w1"] + lp["radial_b1"])
+    paths = _paths()
+    prods, yg = {}, []
+    for (l1, _, l3), src in zip(paths, _shared_couplings()):
+        if src not in prods:
+            prods[src] = torch.einsum("en,mnp->emp", Y[paths[src][1]],
+                                      gaunt[paths[src]])
+        yg.append(prods[src].reshape(-1, 2 * l1 + 1, 2 * l3 + 1))
+    return {"rbf": bessel_basis(r, cfg.n_rbf, cfg.cutoff),
+            "live": (r > 1e-6).to(r.dtype)[:, None], "yg": yg}
+
+
+def edge_messages(h: dict, lp: dict, cfg: NequIPConfig, src: SegmentPlan,
+                  dst: SegmentPlan, geo: dict) -> dict:
+    """Messages of the edges (src, dst) of geometry ``geo``
+    (`edge_geometry`) and their per-l segment sums into the destination
+    nodes: {l: [N, C, 2l+1]}."""
+    C = cfg.channels
+    paths = _paths()
+    rad = F.silu(geo["rbf"] @ lp["radial_w1"] + lp["radial_b1"])
     rad = rad @ lp["radial_w2"]                                # [e, P*C]
-    # mask degenerate edges (r ~ 0, e.g. self loops): Y_l>=2 of the zero
-    # vector does not rotate
-    rad = rad * (r > 1e-6).to(rad.dtype)[:, None]
-    rad = rad.reshape(-1, len(paths), C)
+    rad = (rad * geo["live"]).reshape(-1, len(paths), C)
     hj = {l: segment_gather(h[l], src) for l in LS}            # [e, C, 2l+1]
     msg = {l: 0.0 for l in LS}
     for pi, (l1, l2, l3) in enumerate(paths):
-        m = torch.einsum("ecm,en,mnp->ecp", hj[l1], Y[l2],
-                         gaunt[(l1, l2, l3)])
+        m = torch.einsum("ecm,emp->ecp", hj[l1], geo["yg"][pi])
         msg[l3] = msg[l3] + m * rad[:, pi, :, None]
     return {l: segment_sum(msg[l], dst) for l in LS}
 
@@ -214,9 +246,10 @@ def edge_messages(h: dict, lp: dict, cfg: NequIPConfig, src: SegmentPlan,
 class _ChunkedMessages(torch.autograd.Function):
     """The aggregation over edge chunks with O(N + chunk) memory: the
     forward saves nothing per chunk, the backward recomputes each chunk
-    and takes its vector-Jacobian product with respect to (h, lp). No
-    cotangent flows to ``pos`` (energy-only training; the force loss
-    never takes this path), as in the reference."""
+    (its geometry once, then its messages) and takes its vector-Jacobian
+    product with respect to (h, lp). No cotangent flows to ``pos``
+    (energy-only training; the force loss never takes this path), as in
+    the reference."""
 
     @staticmethod
     def forward(ctx, cfg, chunks, pos, lp_keys, *tensors):
@@ -227,7 +260,8 @@ class _ChunkedMessages(torch.autograd.Function):
         with torch.no_grad():
             acc = None
             for src, dst in chunks:
-                a = edge_messages(h, lp, cfg, src, dst, pos)
+                a = edge_messages(h, lp, cfg, src, dst,
+                                  edge_geometry(pos, src, dst, cfg))
                 acc = a if acc is None else {l: acc[l] + a[l] for l in LS}
         return tuple(acc[l] for l in LS)
 
@@ -239,8 +273,9 @@ class _ChunkedMessages(torch.autograd.Function):
         lp = dict(zip(ctx.lp_keys, leaves[3:]))
         total = [torch.zeros_like(t) for t in leaves]
         for src, dst in ctx.chunks:
+            geo = edge_geometry(ctx.pos, src, dst, ctx.cfg)
             with torch.enable_grad():
-                out = edge_messages(h, lp, ctx.cfg, src, dst, ctx.pos)
+                out = edge_messages(h, lp, ctx.cfg, src, dst, geo)
                 grads = torch.autograd.grad(
                     [out[l] for l in LS], leaves, grad_outputs=list(dagg),
                     allow_unused=True)
@@ -248,16 +283,18 @@ class _ChunkedMessages(torch.autograd.Function):
         return (None, None, None, None) + tuple(total)
 
 
-def _layer(h: dict, lp: dict, cfg: NequIPConfig, plans, pos) -> dict:
-    """One interaction layer: messages (whole or chunked), the per-l
-    self-interaction with its residual, the gated nonlinearity."""
+def _layer(h: dict, lp: dict, cfg: NequIPConfig, plans, pos, geo) -> dict:
+    """One interaction layer: messages (whole, over the forward's
+    geometry ``geo``, or chunked, each chunk's geometry computed in the
+    chunk), the per-l self-interaction with its residual, the gated
+    nonlinearity."""
     if isinstance(plans, list):
         keys = tuple(sorted(lp))
         agg = dict(zip(LS, _ChunkedMessages.apply(
             cfg, plans, pos.detach(), keys, *(h[l] for l in LS),
             *(lp[k] for k in keys))))
     else:
-        agg = edge_messages(h, lp, cfg, plans[0], plans[1], pos)
+        agg = edge_messages(h, lp, cfg, plans[0], plans[1], geo)
     new_h = {l: h[l] + torch.einsum("ncm,cd->ndm", agg[l], lp[f"self_w{l}"])
              for l in LS}
     s = new_h[0][:, :, 0]
@@ -279,8 +316,11 @@ def energy_fn(params, cfg: NequIPConfig, batch, n_graphs: int | None = None,
 
     edge_chunk: aggregate edges in chunks of this size (where E > chunk
     and E % chunk == 0) through `_ChunkedMessages`, so the [E, C, 2l+1]
-    message tensors never materialize at full E. A graph of more than
-    `BIG_GRAPH` nodes recomputes each layer in the backward."""
+    message tensors never materialize at full E (each chunk's geometry
+    is computed in the chunk); otherwise the edges' geometry
+    (`edge_geometry`) is computed once and read by every layer. A graph
+    of more than `BIG_GRAPH` nodes recomputes each layer in the
+    backward."""
     dev = params["embed_w"].device
     feat = _on(batch["feat"], dev)
     pos = _on(batch["pos"], dev)
@@ -291,15 +331,17 @@ def energy_fn(params, cfg: NequIPConfig, batch, n_graphs: int | None = None,
         plans = [(SegmentPlan(src_ids[i:i + edge_chunk], N),
                   SegmentPlan(dst_ids[i:i + edge_chunk], N))
                  for i in range(0, E, edge_chunk)]
+        geo = None
     else:
         plans = (SegmentPlan(src_ids, N), SegmentPlan(dst_ids, N))
+        geo = edge_geometry(pos, *plans, cfg)
     h = {0: (feat @ params["embed_w"])[:, :, None],
          1: torch.zeros((N, C, 3), device=dev),
          2: torch.zeros((N, C, 5), device=dev)}
 
     def run_layer(i, *hs):
         lp = {k: v[i] for k, v in params["layers"].items()}
-        out = _layer(dict(zip(LS, hs)), lp, cfg, plans, pos)
+        out = _layer(dict(zip(LS, hs)), lp, cfg, plans, pos, geo)
         return tuple(out[l] for l in LS)
 
     big = N > BIG_GRAPH

@@ -25,6 +25,19 @@ preallocated cache, masking positions past ``pos``. Attention
 (`attention.gqa_attention`) and the experts (`moe.moe_apply`) are
 PyTorch tensor ops, as the reference's are jnp ops outside any Pallas
 kernel.
+
+On a mesh (`launch.mesh.ServingMesh`), `init_cache(..., mesh=m)` splits
+the cache's sequence axis into contiguous blocks, one a shard in linear
+order, each on its shard's device: the reference's `long_500k` sharding
+(the sequence over every mesh axis). `decode_step` over such a cache
+writes the step's row only into the block that owns the (clamped)
+position, the clamp taken at the global S, and each shard attends over
+its own block (`attention.gqa_attention_sharded`); the cache is never
+gathered. The weights stay where they are (the mesh's first device);
+``decode_step(..., mesh=m)`` also routes the experts as the reference
+does under its ambient mesh (`moe.moe_apply`: expert parallelism where
+the mesh has a "model" axis), and `shard_params` places each "model"
+shard's experts on its device.
 """
 from __future__ import annotations
 
@@ -38,13 +51,13 @@ from torch.utils.checkpoint import checkpoint
 
 from ..kernels._cuda import resolve_device
 from ..launch.mesh import Spec as P
-from .attention import gqa_attention
+from .attention import gqa_attention, gqa_attention_sharded
 from .common import (abstract_tree, apply_rope, cross_entropy_loss,
                      flatten_params, gather_rows, load_numpy_tree,
                      nest_params, param_tree,
                      register_tensors, rms_norm, rope_angles, tree_to_numpy,
                      trunc_normal)
-from .moe import MoEConfig, moe_apply
+from .moe import EXPERT_LEAVES, MoEConfig, moe_apply, shard_experts
 
 DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
 # leaves a served copy keeps in float32: decode routes with them uncast
@@ -233,10 +246,26 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
 
 
 # -------------------------------------------------------------- forward
+def _write_rows(blocks, rows: torch.Tensor, at: int) -> None:
+    """Write ``rows`` [B, T, ...] at global sequence position ``at`` of a
+    cache split into contiguous ``blocks`` [B, S_local, ...]: each row
+    goes only to the block that owns it."""
+    off, T = 0, rows.shape[1]
+    for blk in blocks:
+        n = blk.shape[1]
+        lo, hi = max(at, off), min(at + T, off + n)
+        if lo < hi:
+            blk[:, lo - off:hi - off] = rows[:, lo - at:hi - at].to(
+                device=blk.device, dtype=blk.dtype)
+        off += n
+
+
 def _layer(cfg: LMConfig, x, lp: dict, sin, cos, cache=None, pos=None,
-           kv_valid_len=None):
+           kv_valid_len=None, mesh=None):
     """One decoder layer. x: [B, T, D]; cache: (k, v) [B, S, Hkv, Dh],
-    written in place at ``pos``. Returns (x, (k, v), aux)."""
+    or (k, v) lists of a sequence-sharded cache's blocks, written in
+    place at ``pos``; ``mesh`` routes the experts (`moe.moe_apply`).
+    Returns (x, (k, v), aux)."""
     B, T, d = x.shape
     dt = x.dtype
     h = rms_norm(x, lp["ln1"].to(dt))
@@ -252,7 +281,17 @@ def _layer(cfg: LMConfig, x, lp: dict, sin, cos, cache=None, pos=None,
     v = v.reshape(B, T, cfg.n_kv_heads, cfg.d_head)
     q = apply_rope(q, sin, cos)
     k = apply_rope(k, sin, cos)
-    if cache is not None:
+    if cache is not None and isinstance(cache[0], (list, tuple)):
+        ck, cv = cache
+        S = sum(b.shape[1] for b in ck)
+        at = min(max(int(pos), 0), S - T)
+        _write_rows(ck, k, at)
+        _write_rows(cv, v, at)
+        new_cache = (ck, cv)
+        attn = gqa_attention_sharded(q, ck, cv, q_offset=pos,
+                                     kv_valid_len=kv_valid_len,
+                                     window=cfg.window)
+    elif cache is not None:
         ck, cv = cache
         at = min(max(int(pos), 0), ck.shape[1] - T)
         ck[:, at:at + T] = k.to(ck.dtype)
@@ -271,7 +310,7 @@ def _layer(cfg: LMConfig, x, lp: dict, sin, cos, cache=None, pos=None,
                                     "shared_gate_w", "shared_up",
                                     "shared_down", "shared_out_gate")
               if k2 in lp}
-        y, aux = moe_apply(h.reshape(B * T, d), wp, cfg.moe)
+        y, aux = moe_apply(h.reshape(B * T, d), wp, cfg.moe, mesh=mesh)
         y = y.reshape(B, T, d)
     else:
         g = F.silu(h @ lp["w_gate"].to(dt))
@@ -355,22 +394,60 @@ def init_cache_abstract(cfg: LMConfig, batch: int, max_len: int,
 
 
 def init_cache(cfg: LMConfig, batch: int, max_len: int,
-               dtype=torch.bfloat16, device=None) -> dict:
-    """A zeroed cache {"k", "v"} [L, batch, max_len, Hkv, Dh]."""
+               dtype=torch.bfloat16, device=None, mesh=None) -> dict:
+    """A zeroed cache {"k", "v"} [L, batch, max_len, Hkv, Dh]. With a
+    ``mesh`` (``device`` then unused), each of "k" and "v" is a list of
+    the mesh's shards' sequence blocks [L, batch, max_len / n, Hkv, Dh],
+    in linear order, each on its shard's device (the reference's
+    `long_500k` cache sharding); ``max_len`` must divide by the shard
+    count."""
+    if mesh is not None:
+        n = mesh.size
+        if max_len % n:
+            raise ValueError(f"a cache of {max_len} positions does not "
+                             f"split over {n} shards")
+        shape = (cfg.n_layers, batch, max_len // n, cfg.n_kv_heads,
+                 cfg.d_head)
+        return {kv: [torch.zeros(shape, dtype=dtype, device=d)
+                     for d in mesh.devices] for kv in ("k", "v")}
     shape = (cfg.n_layers, batch, max_len, cfg.n_kv_heads, cfg.d_head)
     dev = resolve_device(device)
     return {"k": torch.zeros(shape, dtype=dtype, device=dev),
             "v": torch.zeros(shape, dtype=dtype, device=dev)}
 
 
-def decode_step(params: dict, cfg: LMConfig, cache: dict, tokens, pos):
+def shard_params(params: dict, cfg: LMConfig, mesh) -> dict:
+    """``params`` with each MoE expert leaf [L, Ep, ...] split over the
+    mesh's "model" axis (`moe.shard_experts`): a list, one entry a shard,
+    of its [L, EL, ...] experts on its device. Every other leaf stays as
+    it is (the same tensors). A dense config, or a mesh whose "model"
+    axis does not divide the experts, is returned unchanged."""
+    m = cfg.moe
+    if (m is None or m.ep_axis not in mesh.axis_names
+            or m.padded_experts % mesh.axis_size(m.ep_axis)):
+        return params
+    layers = dict(params["layers"])
+    for n in EXPERT_LEAVES:
+        layers[n] = shard_experts(layers[n], mesh, m, dim=1)
+    return dict(params, layers=layers)
+
+
+def _layer_leaves(layers: dict, i: int) -> dict:
+    return {k: ([b[i] for b in v] if isinstance(v, list) else v[i])
+            for k, v in layers.items()}
+
+
+def decode_step(params: dict, cfg: LMConfig, cache: dict, tokens, pos,
+                mesh=None):
     """One serving step: tokens [B] at position ``pos`` (an int or a 0-d
     tensor). Writes the step's keys and values into ``cache`` in place
     and returns (next tokens [B], logits [B, vocab], the cache). The
     layer leaves are read uncast, as the reference's decode scan reads
     them. A 0-d meta ``pos`` (a dry-run count) has no value to read; the
     step's shapes and work are the same at every position, so it runs
-    as position 0."""
+    as position 0. ``cache`` may be `init_cache`'s sequence-sharded
+    cache; ``mesh`` is the reference's ambient mesh, which routes the
+    experts (`moe.moe_apply`)."""
     dt = DTYPES[cfg.compute_dtype]
     pos = 0 if torch.is_tensor(pos) and pos.is_meta else int(pos)
     x = _embed(params, tokens, dt)[:, None, :]                  # [B, 1, D]
@@ -378,11 +455,12 @@ def decode_step(params: dict, cfg: LMConfig, cache: dict, tokens, pos):
                            cfg.d_head, cfg.rope_theta, dt)
     sin, cos = sin[None], cos[None]                             # [1, 1, Dh/2]
     layers = params["layers"]
+    sharded = isinstance(cache["k"], (list, tuple))
     for i in range(cfg.n_layers):
-        lp = {k: v[i] for k, v in layers.items()}
-        x, _, _ = _layer(cfg, x, lp, sin, cos,
-                         cache=(cache["k"][i], cache["v"][i]), pos=pos,
-                         kv_valid_len=pos + 1)
+        kv = tuple([b[i] for b in cache[n]] if sharded else cache[n][i]
+                   for n in ("k", "v"))
+        x, _, _ = _layer(cfg, x, _layer_leaves(layers, i), sin, cos,
+                         cache=kv, pos=pos, kv_valid_len=pos + 1, mesh=mesh)
     x = rms_norm(x, params["final_norm"].to(dt))
     logits = (x @ params["lm_head"].to(dt))[:, 0, :]
     tokens = torch.as_tensor(tokens, device=logits.device)
@@ -421,11 +499,13 @@ class LM(nn.Module):
     def prefill(self, tokens):
         return prefill_step(param_tree(self), self.cfg, tokens)
 
-    def init_cache(self, batch: int, max_len: int) -> dict:
-        return init_cache(self.cfg, batch, max_len, device=self.device)
+    def init_cache(self, batch: int, max_len: int, mesh=None) -> dict:
+        return init_cache(self.cfg, batch, max_len, device=self.device,
+                          mesh=mesh)
 
-    def decode(self, cache: dict, tokens, pos):
-        return decode_step(param_tree(self), self.cfg, cache, tokens, pos)
+    def decode(self, cache: dict, tokens, pos, mesh=None):
+        return decode_step(param_tree(self), self.cfg, cache, tokens, pos,
+                           mesh=mesh)
 
 
 def params_to_numpy(params) -> dict:

@@ -1643,3 +1643,167 @@ def test_bf16_matmul_route_on_card_equals_the_upcast(card):
         got = bf16_matmul_f32(a.to(card), k.to(card).permute(1, 2, 0))
     assert got.dtype == torch.float32
     assert _rel(got.cpu(), ref) <= 1e-6
+
+
+# ------------------------------------------- the mesh-only parallel code
+def _mesh(devices, **axes):
+    from repro_torch.launch.mesh import make_serving_mesh
+    return make_serving_mesh(devices, axes=axes or {"data": 1,
+                                                    "model": len(devices)})
+
+
+def _seeded_cache(cfg, B, S, mesh, seed=0):
+    """A sequence-sharded cache filled with unit normals (bf16) from a
+    CPU generator, and the same values whole on the CPU."""
+    from repro_torch.models import transformer as T
+    g = torch.Generator().manual_seed(seed)
+    whole = {k: torch.randn((cfg.n_layers, B, S, cfg.n_kv_heads,
+                             cfg.d_head), generator=g).to(torch.bfloat16)
+             for k in ("k", "v")}
+    cache = T.init_cache(cfg, B, S, mesh=mesh)
+    n = mesh.size
+    for k in ("k", "v"):
+        for blk, part in zip(cache[k], torch.chunk(whole[k], n, dim=2)):
+            blk.copy_(part)
+    return cache, whole
+
+
+def _decode(params, cfg, cache, toks, positions, mesh=None):
+    from repro_torch.models import transformer as T
+    out = []
+    with torch.no_grad():
+        for pos in positions:
+            nxt, lg, cache = T.decode_step(params, cfg, cache, toks, pos,
+                                           mesh=mesh)
+            out.append(lg.cpu())
+            toks = nxt
+    return torch.stack(out)
+
+
+@pytest.mark.parametrize("arch", ["llama3-8b", "qwen2-moe-a2.7b"])
+def test_sharded_decode_on_card_equals_cpu_and_unsharded(card, arch):
+    """`decode_step` over a cache split into 8 sequence blocks of a (2,
+    4) mesh of logical shards of the card, at a block's last position,
+    the next block's first, the last and past the end: equal to the same
+    steps on 8 CPU shards and within 1e-5 of the card's unsharded decode
+    (float32 compute, TF32 off)."""
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm(arch)
+    model = T.LM(cfg, device="cpu", seed=0)
+    host = C.param_tree(model)
+    params = C.param_tree(model.to(card))
+    B, S = 2, 64
+    positions = (7, 8, S - 1, S + 2)
+    toks = torch.tensor([3, 77])
+    runs = {}
+    for name, devs in (("card", [card] * 8), ("cpu", [torch.device("cpu")]
+                                              * 8)):
+        mesh = _mesh(devs, data=2, model=4)
+        cache, _ = _seeded_cache(cfg, B, S, mesh)
+        p = params if name == "card" else host
+        runs[name] = _decode(p, cfg, cache, toks.to(devs[0]), positions,
+                             mesh)
+    _, whole = _seeded_cache(cfg, B, S, _mesh([card] * 8, data=2, model=4))
+    whole = {k: v.to(card) for k, v in whole.items()}
+    unsharded = _decode(params, cfg, whole, toks.to(card), positions,
+                        _mesh([card] * 8, data=2, model=4))
+    _positions(runs["card"], runs["cpu"])
+    assert _rel(runs["card"], unsharded) <= 1e-5
+
+
+def test_distributed_lse_decode_on_card_equals_cpu(card):
+    from repro_torch.distributed.collectives import distributed_lse_decode
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(3)
+    q = torch.randn(2, 4, 2, 64, generator=g)
+    k = torch.randn(2, 256, 4, 64, generator=g)
+    v = torch.randn(2, 256, 4, 64, generator=g)
+    mask = torch.rand(2, 256, generator=g) < 0.8
+    ref = distributed_lse_decode(q, k.chunk(8, 1), v.chunk(8, 1),
+                                 mask.chunk(8, 1))[0]
+    got = distributed_lse_decode(q.to(card), [b.to(card) for b in
+                                              k.chunk(8, 1)],
+                                 [b.to(card) for b in v.chunk(8, 1)],
+                                 [b.to(card) for b in mask.chunk(8, 1)])
+    assert all(t.device.type == "cuda" for t in got)
+    assert _rel(got[0].cpu(), ref) <= 1e-6
+
+
+def test_moe_replicated_ep_on_card_equals_cpu(card):
+    """`moe_ffn_replicated_ep` over 4 logical shards of the card (whole
+    expert leaves, and leaves split by `shard_experts`) against the
+    CPU's, float32, TF32 off."""
+    from repro_torch.models import moe
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm("qwen2-moe-a2.7b").moe
+    g = torch.Generator().manual_seed(4)
+    E, d, F = cfg.padded_experts, 64, cfg.d_ff_expert
+    w = {"router": torch.randn(d, E, generator=g),
+         "w_gate": torch.randn(E, d, F, generator=g) / 8,
+         "w_up": torch.randn(E, d, F, generator=g) / 8,
+         "w_down": torch.randn(E, F, d, generator=g) / 6,
+         "shared_gate_w": torch.randn(d, 2 * F, generator=g) / 8,
+         "shared_up": torch.randn(d, 2 * F, generator=g) / 8,
+         "shared_down": torch.randn(2 * F, d, generator=g) / 8,
+         "shared_out_gate": torch.randn(d, 1, generator=g)}
+    x = torch.randn(64, d, generator=g)
+    ref = moe.moe_ffn_replicated_ep(x, w, cfg, _mesh([torch.device("cpu")]
+                                                     * 4))
+    mesh = _mesh([card] * 4)
+    wc = {k: v.to(card) for k, v in w.items()}
+    split = dict(wc, **{n: moe.shard_experts(wc[n], mesh, cfg)
+                        for n in moe.EXPERT_LEAVES})
+    for ws in (wc, split):
+        y, aux = moe.moe_ffn_replicated_ep(x.to(card), ws, cfg, mesh)
+        assert _rel(y.cpu(), ref[0]) <= 1e-5
+        assert abs(float(aux) - float(ref[1])) <= 1e-6 * abs(float(ref[1]))
+
+
+def test_gpipe_on_card_equals_sequential(card):
+    from repro_torch.distributed.pipeline import gpipe_forward
+    torch.backends.cuda.matmul.allow_tf32 = False
+    g = torch.Generator().manual_seed(5)
+    w = (torch.randn(4, 256, 256, generator=g) / 16).to(card)
+    x = torch.randn(8, 32, 256, generator=g).to(card)
+    y = gpipe_forward(_mesh([card] * 4, pod=4), w, x)
+    ref = x
+    for s in range(4):
+        ref = torch.tanh(ref @ w[s])
+    assert _rel(y, ref) <= 2e-4
+
+
+def test_lm_mesh_over_several_cards(card):
+    """Over 4 cards (card k shard k): the sharded decode (llama3 and
+    qwen2-moe smoke configs, experts placed by `shard_params`) against 4
+    logical shards of card 0, `gpipe_forward` against the stages in turn
+    on card 0. Skips with fewer than four cards."""
+    from repro_torch.distributed.pipeline import gpipe_forward
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cards = [torch.device("cuda", i) for i in range(4)]
+    for arch in ("llama3-8b", "qwen2-moe-a2.7b"):
+        cfg = _lm(arch)
+        params = C.param_tree(T.LM(cfg, device=cards[0], seed=0))
+        got = {}
+        for name, devs in (("cards", cards), ("card0", [cards[0]] * 4)):
+            mesh = _mesh(devs)
+            cache, _ = _seeded_cache(cfg, 2, 64, mesh)
+            assert [b.device for b in cache["k"]] == list(devs)
+            got[name] = _decode(T.shard_params(params, cfg, mesh), cfg,
+                                cache, torch.tensor([3, 77], device=cards[0]),
+                                (7, 8, 63), mesh)
+        assert _rel(got["cards"], got["card0"]) <= 1e-6
+    g = torch.Generator().manual_seed(6)
+    w = (torch.randn(4, 256, 256, generator=g) / 16).to(cards[0])
+    x = torch.randn(8, 32, 256, generator=g).to(cards[0])
+    y = gpipe_forward(_mesh(cards, pod=4), w, x)
+    assert y.device == cards[3]
+    ref = x
+    for s in range(4):
+        ref = torch.tanh(ref @ w[s])
+    assert _rel(y.to(cards[0]), ref) <= 2e-4

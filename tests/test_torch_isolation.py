@@ -38,6 +38,7 @@ def test_import_every_module_without_jax_or_repro():
               "repro_torch.launch.mesh", "repro_torch.launch.dryrun",
               "repro_torch.distributed",
               "repro_torch.distributed.collectives",
+              "repro_torch.distributed.pipeline",
               "repro_torch.configs.wcsd_serve", "repro_torch.train",
               "repro_torch.train.optim", "repro_torch.train.loop",
               "repro_torch.train.grad_compress", "repro_torch.train.tree",
@@ -84,6 +85,7 @@ def test_source_scan_finds_no_jax_or_repro_import():
              os.path.join(REPO, "scripts", "chip_gather_ab.py"),
              os.path.join(REPO, "scripts", "chip_lm.py"),
              os.path.join(REPO, "scripts", "chip_dryrun.py"),
+             os.path.join(REPO, "scripts", "chip_lm_mesh.py"),
              os.path.join(REPO, "examples", "quickstart_torch.py"),
              os.path.join(REPO, "examples", "serve_wcsd_torch.py"),
              os.path.join(REPO, "examples", "wcsd_features_gnn_torch.py"),
@@ -162,6 +164,9 @@ def test_entry_points_default_to_the_card_and_raise_without_one():
             T.init_cache(cfg, 1, 8)
         with pytest.raises(RuntimeError, match="no CUDA device"):
             T.params_from_numpy(cfg, T.params_to_numpy(T.LM(cfg, "cpu")))
+    from repro_torch.distributed.pipeline import gpipe_forward
+    with pytest.raises(RuntimeError, match="no CUDA device"):
+        gpipe_forward(None, torch.zeros(2, 4, 4), torch.zeros(3, 2, 4))
     import importlib.util
     spec = importlib.util.spec_from_file_location(
         "train_lm_torch", os.path.join(REPO, "examples", "train_lm_torch.py"))
