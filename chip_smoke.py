@@ -5,7 +5,7 @@
 
 Builds the twelve CUDA kernels from the four sources in
 `src/repro_torch/csrc/` (one `nvcc` per source, started together), then
-drives fifteen paths of the port on the card, each with the launch counts
+drives sixteen paths of the port on the card, each with the launch counts
 reset just before it and read just after it:
 
 1. the main path: `scale_free(2^17, m=4, num_levels=5, seed=0)` -> the
@@ -130,6 +130,20 @@ reset just before it and read just after it:
    on the CPU; `gpipe_forward` (4 stages, 8 microbatches of [512,
    4096], float32) against the stages applied in turn. No kernel of the
    port runs (the reference's three functions are jnp ops);
+16. training over a mesh (after path 15), 4 logical shards of the card:
+   llama3-8b at full width cut to 2 layers of float32 masters (1.49 B),
+   every leaf and its AdamW moments stored by their specs over
+   ("data", "model") 4 x 1, drawn shard by shard (equal byte for byte
+   to `shard_params` of the whole draw), three `make_train_step(mesh=)`
+   steps on 4 rows of 1,024 tokens (one a shard), held against the
+   unsharded steps over the same row blocks (losses, the first moment,
+   the parameters; within 1e-5) and beside the unsharded steps over the
+   whole batch, each shard's storage its blocks' bytes; dbrx-132b at
+   full width cut to 2 float32 layers over 1 x 4, the per-shard draw
+   against `shard_params` byte for byte, then 4 greedy decode steps at
+   8 rows over a seeded 32,768-long cache with the leaves stored by
+   their specs against the whole leaves (within 1e-5, greedy equal),
+   the phase's peak recorded. No kernel of the port runs;
 14. the dry-run matrix (run last, `launch.dryrun`): all 84 cells (the
    40 arch x shape cells and wcsd-serve's 2, on the 16 x 16 and 2 x 16 x
    16 production meshes) built with their per-card argument and output
@@ -186,6 +200,7 @@ from __future__ import annotations
 import concurrent.futures
 import contextlib
 import json
+import math
 import multiprocessing
 import os
 import subprocess
@@ -4103,6 +4118,434 @@ def lm_mesh_phase(device) -> dict:
     return out
 
 
+# ------------------------------------- training over a mesh (logical shards)
+LM_TRAIN_SHARDS = 4      # ("data", "model") 4 x 1 logical shards of card 0
+LM_TRAIN_LAYERS = 2      # llama3-8b at full width: 1.49 B float32 masters
+LM_TRAIN_ROWS = 4        # one row a shard
+LM_TRAIN_SEQ = 1024
+LM_TRAIN_STEPS = 3       # warm-up 1: step 0 moves only the moments
+LM_TRAIN_TOL = 1e-5      # sharded vs unsharded, float32, of max |ref|
+LM_DBRX_LAYERS = 2       # dbrx-132b at full width: 31 GB of float32
+LM_DBRX_ROWS = 8
+LM_DBRX_LEN = 32768      # decode_32k's cache
+LM_DBRX_STEPS = 4
+
+
+def device_rel_err(got, exp) -> float:
+    """max |got - exp| / max |exp|, on the device (float32: a leaf of a
+    full-width model is too big to copy to the host in float64)."""
+    return float((got - exp).abs().max() / exp.abs().max())
+
+
+def block_accounting(trees, mesh) -> dict:
+    """Per shard, the bytes of the storages its blocks of ``trees``
+    (parameter, moment trees of `Sharded` leaves) live in against the
+    bytes of its blocks' regions: equal where no shard keeps more than
+    its blocks (a view of a whole leaf would count the whole). Per
+    device, the distinct blocks' bytes."""
+    from repro_torch.launch.mesh import Sharded, leaf_bytes
+    from repro_torch.models import common as C
+    leaves = [v for t in trees for v in C.flatten_params(t).values()]
+    if not all(isinstance(v, Sharded) for v in leaves):
+        fail("a leaf of the sharded state is not stored by its spec")
+    held, blocks = [0] * mesh.size, [0] * mesh.size
+    for v in leaves:
+        for k in range(mesh.size):
+            held[k] += v[k].untyped_storage().nbytes()
+            blocks[k] += math.prod(b - a for a, b in v.region(k)) \
+                * v[k].element_size()
+    per_dev = {str(d): sum(leaf_bytes(v, d) for v in leaves)
+               for d in mesh.physical_devices()}
+    return {"shard_gb": [h / 1e9 for h in held],
+            "blocks_gb": [b / 1e9 for b in blocks],
+            "equal": held == blocks, "device_gb": {
+                k: b / 1e9 for k, b in per_dev.items()}}
+
+
+def rows_loss(cfg, blocks: int):
+    """The loss of whole parameters over a batch taken as ``blocks`` row
+    blocks, each its own forward (the kernels see a data shard's
+    shapes), combined as the sharded step combines its shards: the
+    cross-entropy's global mean (`transformer.cross_entropy_blocks`)
+    plus the blocks' mean balance loss."""
+    from repro_torch.models import transformer as T
+
+    def loss(p, b):
+        outs = [T.forward(p, cfg, t) for t in np.split(b["tokens"], blocks)]
+        return T.cross_entropy_blocks([o[0] for o in outs],
+                                      np.split(b["labels"], blocks)) \
+            + sum(o[1] for o in outs) / blocks
+    return loss
+
+
+def train_steps(cfg, params, batch, steps: int, mesh, devices,
+                keep=None, loss=None) -> dict:
+    """``steps`` of `make_train_step` (AdamW, warm-up 1) from ``params``
+    (stored by their specs over ``mesh``, or whole with ``mesh`` None)
+    with ``loss`` (`transformer.loss_fn` by default), each timed between
+    syncs of ``devices``: the losses, the first moment after the first
+    step and the last parameters (joined, on ``keep``, shard 0's device
+    by default), the state's accounting where sharded."""
+    import torch
+    from repro_torch.launch.mesh import Sharded, join_leaf
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optim as O
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.tree import map_sharded
+
+    def whole(tree):
+        def one(x):
+            x = join_leaf(x) if isinstance(x, Sharded) else x
+            return x if keep is None else x.to(keep)
+        return map_sharded(one, tree)
+
+    ocfg = O.OptimizerConfig(warmup_steps=1)
+    step = make_train_step(loss or (lambda p, b: T.loss_fn(p, cfg, b)), ocfg,
+                           mesh=mesh)
+    p, o = params, O.init_opt_state(ocfg, params)
+    losses, secs, lrs, norms, m0 = [], [], [], [], None
+    for i in range(steps):
+        sync_all(devices)
+        t0 = time.perf_counter()
+        p, o, met = step(p, o, batch)
+        losses.append(float(met["loss"]))
+        sync_all(devices)
+        secs.append(time.perf_counter() - t0)
+        lrs.append(float(met["lr"]))
+        norms.append(float(met["grad_norm"]))
+        if i == 0:
+            m0 = whole(o.m)
+    out = {"losses": losses, "step_s": secs, "lr": lrs, "grad_norm": norms,
+           "m0": m0}
+    if mesh is not None:
+        out["accounting"] = block_accounting([p, o.m, o.v], mesh)
+    out["params"] = whole(p)
+    del p, o
+    return out
+
+
+def compare_runs(got: dict, ref: dict, card) -> dict:
+    """`train_steps` records against each other: the losses' relative
+    error, each first-moment leaf's error of its max |ref|, and the last
+    parameters' entries past `LM_TRAIN_TOL` of their leaf's max |ref|
+    (Adam turns last-bit noise in a near-zero gradient into a whole
+    step: each such entry is held within 2 lr a moving step)."""
+    from repro_torch.models import common as C
+    loss_err = max(abs(a - b) / abs(b) for a, b in
+                   zip(got["losses"], ref["losses"]))
+    gm = C.flatten_params(got["m0"])
+    grad_err = {k: device_rel_err(gm[k].to(card), v.to(card))
+                for k, v in C.flatten_params(ref["m0"]).items()}
+    flips, worst, n = 0, 0.0, 0
+    gp = C.flatten_params(got["params"])
+    for k, v in C.flatten_params(ref["params"]).items():
+        v = v.to(card)
+        d = (gp[k].to(card) - v).abs()
+        flips += int((d > LM_TRAIN_TOL * float(v.abs().max())).sum())
+        worst = max(worst, float(d.max()))
+        n += v.numel()
+    moving = sum(1 for lr in ref["lr"] if lr > 0)
+    return {"loss_rel_err": loss_err, "first_loss_rel_err":
+            abs(got["losses"][0] - ref["losses"][0]) / abs(ref["losses"][0]),
+            "grad_rel_err": max(grad_err.values()), "grad_rel_err_by_leaf":
+            grad_err, "flipped_entries": flips, "entries": n,
+            "max_param_abs_diff": worst,
+            "flip_bound": 2 * max(ref["lr"]) * moving}
+
+
+def lm_train_check(mesh, card, rows=LM_TRAIN_ROWS, seq=LM_TRAIN_SEQ,
+                   steps=LM_TRAIN_STEPS) -> dict:
+    """llama3-8b at full width, `LM_TRAIN_LAYERS` layers of float32
+    masters and compute: the sharded draw (`init_params(mesh=)`) against
+    `shard_params` of the whole draw byte for byte; ``steps`` sharded
+    steps over ``mesh`` (``rows`` x ``seq`` tokens, rows over "data"),
+    then, with their memory freed, the same steps unsharded on ``card``
+    over the same row blocks (`rows_loss`: each data shard's rows their
+    own forward, so every product has the sharded run's shapes): every
+    loss within `LM_TRAIN_TOL` relative, each leaf of the first moment
+    after step 0 (the clipped gradient) within `LM_TRAIN_TOL` of its
+    max |ref|, the parameters after the last step within it but for
+    updates that went the other way (`compare_runs`); each shard's
+    storage its blocks' bytes. Beside them, the unsharded step over the
+    whole batch at once: its first loss within `LM_TRAIN_TOL`, its
+    gradient reported (another batch shape picks other GEMM kernels,
+    and at this init a last-bit change moves the gradient far); the
+    whole batch's gradient is held in float64 (`lm_train_witness`)."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.launch.mesh import data_shards
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_arch("llama3-8b").get_config(),
+                              n_layers=LM_TRAIN_LAYERS,
+                              compute_dtype="float32")
+    devs = mesh.physical_devices()
+    batch = TokenStream(cfg.vocab, seq, rows, seed=0).next_batch()
+    t0 = time.perf_counter()
+    sharded = T.init_params(cfg, torch.Generator(card).manual_seed(0),
+                            mesh=mesh)
+    sync_all(devs)
+    init_s = time.perf_counter() - t0
+    params = T.init_params(cfg, torch.Generator(card).manual_seed(0))
+    ref = C.flatten_params(T.shard_params(params, cfg, mesh))
+    for path, leaf in C.flatten_params(sharded).items():
+        if not all(torch.equal(a, b) for a, b in zip(leaf, ref[path])):
+            fail(f"lm_train_mesh: the sharded draw of {path} differs from "
+                 f"shard_params of the whole draw")
+    del ref
+    # the sharded run's results wait on the host: the unsharded runs
+    # need the card (1.49 B parameters, their moments, two updates)
+    host = torch.device("cpu")
+    got = train_steps(cfg, sharded, batch, steps, mesh, devs, keep=host)
+    del sharded
+    torch.cuda.empty_cache()
+    blocks = len(data_shards(mesh))
+    same = train_steps(cfg, params, batch, steps, None, [card], keep=host,
+                       loss=rows_loss(cfg, blocks))
+    torch.cuda.empty_cache()
+    whole = train_steps(cfg, params, batch, steps, None, [card])
+    del params
+    torch.cuda.empty_cache()
+    rec = {"layers": cfg.n_layers, "rows": rows, "seq": seq,
+           "steps": steps, "shards": mesh.size, "cards": len(devs),
+           "mesh": dict(zip(mesh.axis_names, mesh.shape)),
+           "params": cfg.param_count(), "sharded_init_s": init_s,
+           "init_equal": True, "losses": got["losses"],
+           "grad_norm": got["grad_norm"], "sharded_step_s": got["step_s"],
+           "unsharded_step_s": same["step_s"],
+           "accounting": got["accounting"], "tol": LM_TRAIN_TOL,
+           "vs_unsharded_same_rows": compare_runs(got, same, card),
+           "vs_unsharded_whole_batch": compare_runs(got, whole, card),
+           "whole_batch_grad_norm": whole["grad_norm"]}
+    del got, same, whole
+    torch.cuda.empty_cache()
+    c = rec["vs_unsharded_same_rows"]
+    if c["loss_rel_err"] > LM_TRAIN_TOL or c["grad_rel_err"] > LM_TRAIN_TOL:
+        fail(f"lm_train_mesh: sharded vs unsharded loss {c['loss_rel_err']}"
+             f", gradient {c['grad_rel_err']} of max |ref| > "
+             f"{LM_TRAIN_TOL}")
+    if c["max_param_abs_diff"] > c["flip_bound"] * (1 + 1e-3):
+        fail(f"lm_train_mesh: a parameter moved {c['max_param_abs_diff']} "
+             f"from the unsharded step's, past {c['flip_bound']}")
+    if rec["vs_unsharded_whole_batch"]["first_loss_rel_err"] > LM_TRAIN_TOL:
+        fail(f"lm_train_mesh: the first loss is "
+             f"{rec['vs_unsharded_whole_batch']['first_loss_rel_err']} "
+             f"from the whole batch's")
+    if not rec["accounting"]["equal"]:
+        fail(f"lm_train_mesh: a shard holds more than its blocks "
+             f"({rec['accounting']})")
+    return rec
+
+
+def _joined_grads(grads) -> dict:
+    """A gradient tree's leaves by path, each `Sharded` one joined on its
+    first block's device, one leaf at a time."""
+    from repro_torch.launch.mesh import Sharded, join_leaf
+    from repro_torch.models import common as C
+    flat = C.flatten_params(grads)
+    del grads
+    for path in list(flat):
+        if isinstance(flat[path], Sharded):
+            flat[path] = join_leaf(flat[path])
+    return flat
+
+
+def _grad_errs(got: dict, ref: dict) -> dict:
+    return {k: device_rel_err(got[k].to(v.dtype), v) for k, v in ref.items()}
+
+
+def lm_train_witness(mesh, card, rows=LM_TRAIN_ROWS, seq=LM_TRAIN_SEQ,
+                     cfg=None) -> dict:
+    """Whether the gap between the sharded and the whole-batch gradient
+    (`lm_train_check`'s ``vs_unsharded_whole_batch``) is rounding or a
+    fault of the row split. At ``cfg`` (llama3-8b, `LM_TRAIN_LAYERS`
+    layers of full width by default), the first step's raw gradient of
+    `transformer.loss_fn` over ``rows`` x ``seq`` tokens: whole on
+    ``card`` and stored by spec over ``mesh`` (rows over "data"), in
+    float32 and in float64 (the same parameters, widened), and in
+    float32 whole at parameters nudged one ulp up. Each leaf's error of
+    its max |ref|: the row split against the whole batch in float32 and
+    in float64, the one-ulp nudge against the whole batch, and each
+    float32 run against its float64 run. Where the row split is sound,
+    the float64 pair agrees far closer than the float32 pair, and a
+    last bit alone moves the float32 gradient about as far. Fails
+    where the float64 row split's gradient or loss is past
+    `LM_TRAIN_TOL` of the whole batch's."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.launch.mesh import split_rows
+    from repro_torch.models import transformer as T
+    from repro_torch.train.loop import value_and_grad
+    from repro_torch.train.tree import map_sharded
+    c32 = cfg or dataclasses.replace(get_arch("llama3-8b").get_config(),
+                                     n_layers=LM_TRAIN_LAYERS)
+    c32 = dataclasses.replace(c32, compute_dtype="float32")
+    c64 = dataclasses.replace(c32, compute_dtype="float64")
+    batch = TokenStream(c32.vocab, seq, rows, seed=0).next_batch()
+    split = {k: split_rows(v, mesh) for k, v in batch.items()}
+
+    def grads(c, p, stored):
+        fn = value_and_grad(lambda q, b: T.loss_fn(q, c, b))
+        loss, g = (fn(T.shard_params(p, c, mesh), split) if stored
+                   else fn(p, batch))
+        return float(loss), _joined_grads(g)
+
+    t0 = time.perf_counter()
+    params = T.init_params(c32, torch.Generator(card).manual_seed(0))
+    l_w32, g_w32 = grads(c32, params, False)
+    l_m32, g_m32 = grads(c32, params, True)
+    rec = {"layers": c32.n_layers, "rows": rows, "seq": seq,
+           "shards": mesh.size,
+           "mesh": dict(zip(mesh.axis_names, mesh.shape)),
+           "f32_mesh_vs_whole": _grad_errs(g_m32, g_w32)}
+    nudged = map_sharded(lambda x: torch.nextafter(
+        x, torch.full_like(x, math.inf)), params)
+    l_n32, g_n32 = grads(c32, nudged, False)
+    rec["f32_nudged_vs_whole"] = _grad_errs(g_n32, g_w32)
+    del nudged, g_n32
+    wide = map_sharded(lambda x: x.to(torch.float64), params)
+    del params
+    torch.cuda.empty_cache()
+    l_w64, g_w64 = grads(c64, wide, False)
+    rec["f32_whole_vs_f64_whole"] = _grad_errs(g_w32, g_w64)
+    del g_w32
+    torch.cuda.empty_cache()
+    l_m64, g_m64 = grads(c64, wide, True)
+    rec["f32_mesh_vs_f64_mesh"] = _grad_errs(g_m32, g_m64)
+    rec["f64_mesh_vs_whole"] = _grad_errs(g_m64, g_w64)
+    del wide, g_m32, g_w64, g_m64
+    torch.cuda.empty_cache()
+    rec["losses"] = {"f32_whole": l_w32, "f32_mesh": l_m32,
+                     "f32_nudged": l_n32, "f64_whole": l_w64,
+                     "f64_mesh": l_m64}
+    rec["worst"] = {k: max(rec[k].values()) for k in (
+        "f32_mesh_vs_whole", "f32_nudged_vs_whole", "f32_whole_vs_f64_whole",
+        "f32_mesh_vs_f64_mesh", "f64_mesh_vs_whole")}
+    rec["f64_loss_rel_err"] = abs(l_m64 - l_w64) / abs(l_w64)
+    rec["wall_s"] = time.perf_counter() - t0
+    if rec["worst"]["f64_mesh_vs_whole"] > LM_TRAIN_TOL \
+            or rec["f64_loss_rel_err"] > LM_TRAIN_TOL:
+        fail(f"lm_train_mesh witness: in float64 the row split's gradient "
+             f"is {rec['worst']['f64_mesh_vs_whole']} of max |ref| from "
+             f"the whole batch's, its loss {rec['f64_loss_rel_err']} "
+             f"(tol {LM_TRAIN_TOL})")
+    return rec
+
+
+def dbrx_decode_check(mesh, card, rows=LM_DBRX_ROWS, max_len=LM_DBRX_LEN,
+                      steps=LM_DBRX_STEPS) -> dict:
+    """dbrx-132b at full width, `LM_DBRX_LAYERS` layers of float32: the
+    per-shard draw over ``mesh`` against `shard_params` of the whole
+    draw byte for byte (then freed); ``steps`` greedy decode steps at
+    ``rows`` rows over a seeded ``max_len``-long cache split along its
+    sequence, the leaves stored by their specs as views of the whole
+    copy, against the whole leaves over a copy of the same cache blocks
+    (teacher-forced on the stored run's tokens; the mesh routes the
+    experts in both, so only the storage differs), within
+    `LM_TRAIN_TOL` of max |ref| with greedy tokens equal. Records the
+    phase's peak on each card."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_arch("dbrx-132b").get_config(),
+                              n_layers=LM_DBRX_LAYERS,
+                              compute_dtype="float32")
+    devs = mesh.physical_devices()
+    for d in devs:
+        torch.cuda.reset_peak_memory_stats(d)
+    params = T.init_params(cfg, torch.Generator(card).manual_seed(0))
+    t0 = time.perf_counter()
+    drawn = T.init_params(cfg, torch.Generator(card).manual_seed(0),
+                          mesh=mesh)
+    sync_all(devs)
+    init_s = time.perf_counter() - t0
+    placed = T.shard_params(params, cfg, mesh)
+    ref = C.flatten_params(placed)
+    for path, leaf in C.flatten_params(drawn).items():
+        if not all(torch.equal(a, b) for a, b in zip(leaf, ref[path])):
+            fail(f"lm_train_mesh dbrx: the sharded draw of {path} differs "
+                 f"from shard_params of the whole draw")
+    del drawn, ref
+    torch.cuda.empty_cache()
+    first = torch.from_numpy(TokenStream(cfg.vocab, 1, rows, seed=0)
+                             .next_batch()["tokens"][:, 0]).to(card)
+    positions = list(range(max_len - steps, max_len))
+    cache = seeded_cache(cfg, rows, max_len, mesh, seed=5)
+    twin = {k: [b.clone() for b in v] for k, v in cache.items()}
+    sh = decode_run(placed, cfg, cache, first, positions, devices=devs)
+    un = decode_run(params, cfg, twin, None, positions, mesh=mesh,
+                    devices=[card], feed=sh["fed"])
+    errs = [position_errors(a, b) for a, b in zip(sh["logits"],
+                                                  un["logits"])]
+    same = bool(torch.equal(sh["tokens"].cpu(), un["tokens"].cpu()))
+    peak = {str(d): torch.cuda.max_memory_allocated(d) / 1e9 for d in devs}
+    del cache, twin, placed, params
+    torch.cuda.empty_cache()
+    worst = max(e["max"] for e in errs)
+    if not same or worst > LM_TRAIN_TOL:
+        fail(f"lm_train_mesh dbrx decode: stored by spec vs whole "
+             f"{worst} of max |ref| (tol {LM_TRAIN_TOL}), greedy equal "
+             f"{same}")
+    return {"layers": cfg.n_layers, "rows": rows, "max_len": max_len,
+            "steps": steps, "shards": mesh.size,
+            "mesh": dict(zip(mesh.axis_names, mesh.shape)),
+            "sharded_init_s": init_s, "init_equal": True,
+            "max_rel_err": worst, "greedy_equal": same,
+            "stored_step_ms": [t * 1e3 for t in sh["step_s"]],
+            "whole_step_ms": [t * 1e3 for t in un["step_s"]],
+            "peak_gb": peak}
+
+
+def lm_train_mesh_phase(device) -> dict:
+    """Path 16: training over a mesh on ``device``, as logical shards of
+    one card: llama3-8b's sharded train step against the unsharded one
+    (`lm_train_check`, ("data", "model") 4 x 1), its gradient against
+    the whole batch's in float64 (`lm_train_witness`) and dbrx-132b's decode
+    over leaves stored by their specs (`dbrx_decode_check`, 1 x 4). No
+    kernel of the port runs: every launch count must stay 0."""
+    import torch
+    from repro_torch.kernels import _cuda
+    card = torch.device(device)
+    if card.type == "cuda" and card.index is None:
+        card = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    sync_all([card])
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    devices = [card] * LM_TRAIN_SHARDS
+    train_mesh = lm_mesh(devices, axes={"data": LM_TRAIN_SHARDS, "model": 1})
+    out = {"phase": "lm_train_mesh", "shards": LM_TRAIN_SHARDS,
+           "llama_train": lm_train_check(train_mesh, card)}
+    out["witness"] = lm_train_witness(train_mesh, card)
+    out["dbrx_decode"] = dbrx_decode_check(lm_mesh(devices), card)
+    sync_all([card])
+    launched = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    if launched:
+        fail(f"lm_train_mesh phase launched kernels of the port: "
+             f"{launched}")
+    out["wall_s"] = time.perf_counter() - t0
+    lt, dd, w = out["llama_train"], out["dbrx_decode"], out["witness"]
+    c = lt["vs_unsharded_same_rows"]
+    progress(f"lm_train_mesh: llama3-8b x {lt['layers']} sharded steps "
+             f"{[round(s, 3) for s in lt['sharded_step_s']]} s (unsharded "
+             f"{[round(s, 3) for s in lt['unsharded_step_s']]}), loss "
+             f"{c['loss_rel_err']}, gradient {c['grad_rel_err']}, "
+             f"{c['flipped_entries']} flipped of {c['entries']}; witness "
+             f"{w['worst']}; dbrx "
+             f"decode {dd['max_rel_err']}, peak {dd['peak_gb']} GB; phase "
+             f"{out['wall_s']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------ the examples
 EXAMPLES = {  # example -> the kernels its card run must launch
     "quickstart_torch": ("wcsd_query_ragged",),
@@ -4462,6 +4905,9 @@ def main() -> int:
     # ---------- the mesh-only parallel code on 4 logical shards of card 0
     lm_mesh_rec = lm_mesh_phase(dev)
 
+    # ---------------------- training over a mesh, 4 logical shards of card 0
+    lm_train_rec = lm_train_mesh_phase(dev)
+
     # ----------------------- the dry-run matrix: counts, one-card runs
     dry = dryrun_phase(dev)
     progress(f"dryrun: {dry['cells']} cells, phase {dry['wall_s']:.1f} s")
@@ -4514,6 +4960,7 @@ def main() -> int:
     emit(examples)
     emit(lm)
     emit(lm_mesh_rec)
+    emit(lm_train_rec)
     emit(dry)
     emit({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",

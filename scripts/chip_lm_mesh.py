@@ -2,9 +2,11 @@
 """The mesh-only parallel code of the port over four cards.
 
     python3 scripts/chip_lm_mesh.py [--out FILE] [--steps N]
+        [--cells llama_long,qwen_ep,gpipe,llama_train,dbrx_decode]
 
 Needs four CUDA devices (a ("data", "model") 1 x 4 mesh, card k shard
-k). Runs, each with its checks:
+k, unless a cell says otherwise). Runs the cells ``--cells`` names (all
+by default), each with its checks:
 
 - llama3-8b long_500k at full width and depth (32 layers, bf16 served
   copy from seed 0 on card 0, where the weights stay): one row, its
@@ -29,12 +31,39 @@ k). Runs, each with its checks:
   (`chip_smoke.long_cut_run`), held as the bf16 check.
 - qwen2-moe-a2.7b decode_32k at full width and depth (bf16 served
   copy): 8 rows over a seeded 32,768-long cache split over the cards,
-  the experts split by `transformer.shard_params` (16 of 64 a card),
-  `moe_ffn_replicated_ep` in every layer; ``--steps`` steps timed; and
+  every leaf stored by its spec (`transformer.shard_params`: 16 of 64
+  experts a card, which `moe_ffn_replicated_ep` runs there in every
+  layer; each card's block of every other leaf, gathered onto card 0 a
+  layer at a time); ``--steps`` steps timed; and
   at an 8,192-long cache the same steps over the 4 cards against 4
   logical shards of card 0 (held as the bf16 check).
 - `gpipe_forward` over the 4 cards against the stages in turn on card 0
   (`chip_smoke.gpipe_check`).
+- ``llama_train``: llama3-8b train_4k at full width and depth (32
+  layers, 8.03 B float32 masters, bf16 compute) over ("data", "model")
+  4 x 1: every leaf and its AdamW moments stored by their specs, each
+  card drawing its own blocks (`init_params(mesh=)`); the global batch
+  of 256 rows x 4,096 cut to one row a card, ``--train-steps`` steps
+  (the first a warm-up) timed between syncs of every card, the median
+  against the FLOP bound of one card's row (8 N T with the recompute,
+  plus the causal attention, at `launch.roofline.PEAK_FLOPS`); each
+  card's peak; one step traced (busy ms and idle share a card); each
+  card's parameter and moment bytes against the sum of its blocks; then
+  two rows a card through ``accum_steps=2``. The check:
+  `chip_smoke.lm_train_check` over the 4 cards (three float32 steps at
+  2 layers against the unsharded steps on card 0) and
+  `chip_smoke.lm_train_witness` (the gradient over the 4 cards against
+  the whole batch's on card 0, held in float64).
+- ``dbrx_decode``: dbrx-132b decode_32k at full width and depth (40
+  layers, 131.6 B bf16 parameters) over ("data", "model") 1 x 4, each
+  card drawing its blocks (4 of the 16 experts, its block of every other
+  leaf); `DBRX_ROWS` rows over a seeded 32,768-long cache split along
+  its sequence; ``--steps`` greedy steps timed, the median against the
+  bytes bound of card 0 (its experts, every non-expert leaf it computes
+  with, its cache block, at `launch.roofline.HBM_BW`); each card's peak;
+  one step traced. The check: at `DBRX_CHECK_LAYERS` layers and an
+  8,192-long cache, the same steps over the 4 cards against 4 logical
+  shards of card 0, logits and tokens bit for bit.
 
 No kernel of the port runs (the counts stay 0). Prints one JSON line
 (appended to ``--out``) with the cards' names and power limits,
@@ -56,6 +85,10 @@ import numpy as np
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 sys.path.insert(0, ROOT)
+# train_4k's activations and dbrx's weights and cache come near a card's
+# memory: segments that grow keep the free space in one piece (every
+# cell runs under it)
+os.environ.setdefault("PYTORCH_CUDA_ALLOC_CONF", "expandable_segments:True")
 
 import chip_smoke as cs  # noqa: E402  (puts the checkout's src/ on the path)
 
@@ -64,6 +97,12 @@ QWEN_ROWS = 8
 QWEN_LEN = 32768
 QWEN_CHECK_LEN = 8192
 CUT_LEN = 1 << 17
+TRAIN_SEQ = 4096         # train_4k's sequence; one row a card
+DBRX_ROWS = 8            # decode_32k rows (cut from 128)
+DBRX_LEN = 32768
+DBRX_CHECK_LEN = 8192
+DBRX_CHECK_LAYERS = 2    # four logical shards of card 0 hold 2 layers
+CELLS = ("llama_long", "qwen_ep", "gpipe", "llama_train", "dbrx_decode")
 BF16_GREEDY_SHARE = 0.5
 BF16_JUMP = 0.1
 MISSES: list = []
@@ -96,14 +135,18 @@ def trace_by_card(fn, devices) -> dict:
         cs.sync_all(devices)
         wall = (time.perf_counter() - t0) * 1e3
     busy: dict = {}
+    by_name: dict = {}
     for e in prof.events():
         if e.device_type == torch.autograd.DeviceType.CUDA:
-            busy[e.device_index] = busy.get(e.device_index, 0.0) \
-                + e.time_range.elapsed_us() / 1e3
+            ms = e.time_range.elapsed_us() / 1e3
+            busy[e.device_index] = busy.get(e.device_index, 0.0) + ms
+            by_name[e.name[:100]] = by_name.get(e.name[:100], 0.0) + ms
+    top = sorted(by_name.items(), key=lambda kv: -kv[1])[:8]
     return {"wall_ms": wall,
             "busy_ms": {str(k): v for k, v in sorted(busy.items())},
             "idle_share": {str(k): max(0.0, 1 - v / wall)
-                           for k, v in sorted(busy.items())}}
+                           for k, v in sorted(busy.items())},
+            "top_kernels_ms": dict(top)}
 
 
 def halves(cache: dict) -> dict:
@@ -132,8 +175,7 @@ def four_vs_eight(cfg, params, cards, steps, seed, time_it: bool) -> dict:
     cache = cs.seeded_cache(cfg, 1, cs.LM_LONG, mesh4, seed)
     cs.sync_all(cards)
     base = {c: torch.cuda.memory_allocated(c) for c in cards}
-    for c in cards:
-        torch.cuda.reset_peak_memory_stats(c)
+    reset_peaks(cards)
     four = cs.decode_run(params, cfg, cache, first, positions, mesh=mesh4,
                          devices=cards)
     rec = {"layers": cfg.n_layers, "compute_dtype": cfg.compute_dtype,
@@ -270,11 +312,259 @@ def qwen_ep(cards, steps) -> dict:
     return out
 
 
+def peaks(cards) -> dict:
+    import torch
+    return {str(c): torch.cuda.max_memory_allocated(c) / 1e9 for c in cards}
+
+
+def reset_peaks(cards) -> None:
+    """Reset each card's peak (a card no tensor has touched yet has no
+    allocator to reset: touch it first)."""
+    import torch
+    for c in cards:
+        torch.empty(0, device=c)
+        torch.cuda.reset_peak_memory_stats(c)
+
+
+def train_bound(cfg, rows: int, seq: int) -> dict:
+    """One card's FLOP bound for ``rows`` rows of ``seq`` tokens: 8 N T
+    (forward, the full recompute, backward) plus the causal attention
+    (2 T^2 H Dh a layer forward, four times), at `PEAK_FLOPS`."""
+    from repro_torch.launch.roofline import PEAK_FLOPS
+    dense = 8.0 * cfg.active_param_count() * rows * seq
+    attn = 4 * 2.0 * cfg.n_layers * rows * seq * seq * cfg.n_heads \
+        * cfg.d_head
+    flops = dense + attn
+    return {"flops": flops, "dense_flops": dense, "attention_flops": attn,
+            "bound_ms": flops / PEAK_FLOPS * 1e3, "bound_by": "operations"}
+
+
+def timed_steps(step, p, o, batch, n, cards) -> tuple:
+    secs, losses = [], []
+    for _ in range(n):
+        cs.sync_all(cards)
+        t0 = time.perf_counter()
+        p, o, met = step(p, o, batch)
+        losses.append(float(met["loss"]))
+        cs.sync_all(cards)
+        secs.append(time.perf_counter() - t0)
+    return p, o, secs, losses
+
+
+def step_parts(cfg, params, batch, mesh, cards) -> dict:
+    """A train step's parts, each timed between syncs of every card: the
+    loss alone (no gradient), then the loss and its gradient
+    (`value_and_grad`, with the recompute), on the step's batch."""
+    import torch
+    from repro_torch.launch.mesh import split_rows
+    from repro_torch.models import transformer as T
+    from repro_torch.train.loop import value_and_grad
+    b = {k: split_rows(v, mesh) for k, v in batch.items()}
+    out = {}
+    for name, fn in (("forward_s", lambda: T.loss_fn(params, cfg, b)),
+                     ("forward_backward_s", lambda: value_and_grad(
+                         lambda p, bb: T.loss_fn(p, cfg, bb))(params, b))):
+        cs.sync_all(cards)
+        t0 = time.perf_counter()
+        with torch.set_grad_enabled(name != "forward_s"):
+            res = fn()
+        cs.sync_all(cards)
+        out[name] = time.perf_counter() - t0
+        del res
+    return out
+
+
+def llama_train(cards, steps) -> dict:
+    """llama3-8b train_4k at full width and depth over the 4 cards
+    (see the module's note)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optim as O
+    from repro_torch.train.loop import make_train_step
+    cfg = get_arch("llama3-8b").get_config()
+    mesh = cs.lm_mesh(cards, axes={"data": CARDS, "model": 1})
+    reset_peaks(cards)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(cards[0]).manual_seed(0),
+                           mesh=mesh)
+    cs.sync_all(cards)
+    out = {"layers": cfg.n_layers, "params": cfg.param_count(),
+           "mesh": {"data": CARDS, "model": 1}, "seq": TRAIN_SEQ,
+           "init_s": time.perf_counter() - t0, "init_peak_gb": peaks(cards)}
+    ocfg = O.OptimizerConfig()
+    opt = O.init_opt_state(ocfg, params)
+    stream = TokenStream(cfg.vocab, TRAIN_SEQ, CARDS, seed=0)
+    batch = stream.next_batch()
+    loss = lambda p, b: T.loss_fn(p, cfg, b)  # noqa: E731
+    # the reference's cell donates the parameters and the state: updated
+    # in place, no second copy of the 24.1 GB a card at the update
+    step = make_train_step(loss, ocfg, mesh=mesh, donate=True)
+    reset_peaks(cards)
+    params, opt, secs, losses = timed_steps(step, params, opt, batch, steps,
+                                            cards)
+    out["one_row_a_card"] = {
+        "rows": CARDS, "donate": True, "step_s": secs, "losses": losses,
+        "step_s_median": float(np.median(secs[1:])),
+        "peak_gb": peaks(cards), **train_bound(cfg, 1, TRAIN_SEQ)}
+    rec = out["one_row_a_card"]
+    cs.progress(f"train_4k steps: {json.dumps(rec)}")
+    rec.update(step_parts(cfg, params, batch, mesh, cards))
+    rec["traced_step"] = trace_by_card(lambda: step(params, opt, batch),
+                                       cards)
+    rec["state"] = cs.block_accounting([params, opt.m, opt.v], mesh)
+    rec["allocated_gb"] = {str(c): torch.cuda.memory_allocated(c) / 1e9
+                           for c in cards}
+    if not rec["state"]["equal"]:
+        MISSES.append(f"train_4k: a card holds more than its blocks "
+                      f"({rec['state']})")
+    if not all(np.isfinite(losses)):
+        MISSES.append(f"train_4k: losses {losses}")
+    cs.progress(f"train_4k x {cfg.n_layers} layers, 1 row a card: "
+                f"{rec['step_s_median']:.3f} s a step (bound "
+                f"{rec['bound_ms'] / 1e3:.3f}), peak {rec['peak_gb']} GB, "
+                f"idle {rec['traced_step']['idle_share']}")
+    cs.progress(f"train_4k record: {json.dumps(rec)}")
+    reset_peaks(cards)
+    step2 = make_train_step(loss, ocfg, accum_steps=2, mesh=mesh,
+                            donate=True)
+    two = {k: np.concatenate([batch[k], stream.next_batch()[k]])
+           for k in batch}
+    params, opt, secs, losses = timed_steps(step2, params, opt, two,
+                                            max(2, steps // 2), cards)
+    out["two_rows_a_card_accum_2"] = {
+        "rows": 2 * CARDS, "accum_steps": 2, "donate": True, "step_s": secs,
+        "losses": losses, "step_s_median": float(np.median(secs[1:])),
+        "peak_gb": peaks(cards), **train_bound(cfg, 2, TRAIN_SEQ)}
+    del params, opt
+    torch.cuda.empty_cache()
+    out["check_fp32_2_layers"] = cs.lm_train_check(mesh, cards[0])
+    out["witness_2_layers"] = cs.lm_train_witness(mesh, cards[0])
+    return out
+
+
+def dbrx_bound(cfg, params, rows: int, max_len: int) -> dict:
+    """Card 0's bytes for one decode step over ``params`` (stored by
+    their specs over 4 cards): its expert blocks, every other leaf whole
+    (it computes with them all), its cache block, at `HBM_BW`."""
+    from repro_torch.launch.roofline import HBM_BW
+    from repro_torch.models import common as C
+    from repro_torch.models.moe import EXPERT_LEAVES
+    experts = other = 0
+    for path, leaf in C.flatten_params(params).items():
+        if path.split(".")[-1] in EXPERT_LEAVES:
+            experts += leaf[0].numel() * leaf[0].element_size()
+        else:
+            other += np.prod(leaf.shape) * leaf[0].element_size()
+    kv = 2 * cfg.n_layers * rows * max_len * cfg.n_kv_heads \
+        * cfg.d_head * 2 / CARDS
+    card0 = experts + other + kv
+    return {"card0_expert_gb": experts / 1e9, "other_leaves_gb": other / 1e9,
+            "card0_cache_gb": kv / 1e9, "card0_gb": card0 / 1e9,
+            "bound_ms": card0 / HBM_BW * 1e3, "bound_by": "bytes"}
+
+
+def dbrx_decode(cards, steps) -> dict:
+    """dbrx-132b decode_32k at full width and depth over the 4 cards
+    (see the module's note)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.models import transformer as T
+    cfg = get_arch("dbrx-132b").get_config()
+    mesh = cs.lm_mesh(cards)
+    reset_peaks(cards)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(cards[0]).manual_seed(0),
+                           dtype=torch.bfloat16, mesh=mesh)
+    cs.sync_all(cards)
+    out = {"layers": cfg.n_layers, "params": cfg.param_count(),
+           "rows": DBRX_ROWS, "max_len": DBRX_LEN, "steps": steps,
+           "init_s": time.perf_counter() - t0, "init_peak_gb": peaks(cards),
+           "resident_gb": {str(c): torch.cuda.memory_allocated(c) / 1e9
+                           for c in cards}}
+    first = torch.from_numpy(TokenStream(cfg.vocab, 1, DBRX_ROWS, seed=0)
+                             .next_batch()["tokens"][:, 0]).to(cards[0])
+    cache = cs.seeded_cache(cfg, DBRX_ROWS, DBRX_LEN, mesh, 7)
+    positions = list(range(DBRX_LEN - steps, DBRX_LEN))
+    reset_peaks(cards)
+    run = cs.decode_run(params, cfg, cache, first, positions, devices=cards)
+    last = run["fed"][-1]
+    out.update({
+        "step_ms": [t * 1e3 for t in run["step_s"]],
+        "step_ms_median": float(np.median(run["step_s"][1:])) * 1e3,
+        "peak_gb": peaks(cards),
+        "traced_step": trace_by_card(
+            lambda: T.decode_step(params, cfg, cache, last, positions[-1]),
+            cards),
+        **dbrx_bound(cfg, params, DBRX_ROWS, DBRX_LEN)})
+    if not torch.isfinite(run["logits"]).all():
+        MISSES.append("dbrx decode_32k: logits not finite")
+    cs.progress(f"dbrx decode_32k x {cfg.n_layers} layers, {DBRX_ROWS} rows: "
+                f"{out['step_ms_median']:.2f} ms a step (bound "
+                f"{out['bound_ms']:.2f}), peak {out['peak_gb']} GB")
+    del params, cache, run
+    torch.cuda.empty_cache()
+    out["check_8192"] = dbrx_check(cards)
+    return out
+
+
+def dbrx_check(cards) -> dict:
+    """`DBRX_CHECK_LAYERS` layers of dbrx-132b (bf16 served copy) over the
+    4 cards against 4 logical shards of card 0, an 8,192-long cache:
+    logits and tokens bit for bit."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_arch("dbrx-132b").get_config(),
+                              n_layers=DBRX_CHECK_LAYERS)
+    whole = T.init_params(cfg, torch.Generator(cards[0]).manual_seed(0),
+                          dtype=torch.bfloat16)
+    first = torch.from_numpy(TokenStream(cfg.vocab, 1, DBRX_ROWS, seed=0)
+                             .next_batch()["tokens"][:, 0]).to(cards[0])
+    positions = list(range(DBRX_CHECK_LEN - cs.LM_MESH_STEPS,
+                           DBRX_CHECK_LEN))
+    runs = {}
+    for name, devs in (("cards", cards), ("card0_logical",
+                                          [cards[0]] * CARDS)):
+        m = cs.lm_mesh(devs)
+        placed = T.shard_params(whole, cfg, m)
+        cache = cs.seeded_cache(cfg, DBRX_ROWS, DBRX_CHECK_LEN, m, 8)
+        runs[name] = cs.decode_run(placed, cfg, cache, first, positions,
+                                   devices=m.physical_devices(),
+                                   feed=runs["cards"]["fed"]
+                                   if runs else None)
+        del placed, cache
+        torch.cuda.empty_cache()
+    same = bool(torch.equal(runs["cards"]["logits"].cpu(),
+                            runs["card0_logical"]["logits"].cpu())
+                and torch.equal(runs["cards"]["tokens"].cpu(),
+                                runs["card0_logical"]["tokens"].cpu()))
+    if not same:
+        MISSES.append("dbrx decode: 4 cards and 4 logical shards of card 0 "
+                      "differ")
+    return {"layers": cfg.n_layers, "max_len": DBRX_CHECK_LEN,
+            "steps": len(positions), "bit_equal": same,
+            "max_rel_err": cs.rel_err(runs["cards"]["logits"],
+                                      runs["card0_logical"]["logits"]),
+            "cards_step_ms": [t * 1e3 for t in runs["cards"]["step_s"]],
+            "card0_step_ms": [t * 1e3 for t in
+                              runs["card0_logical"]["step_s"]]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out")
     ap.add_argument("--steps", type=int, default=24)
+    ap.add_argument("--train-steps", type=int, default=5)
+    ap.add_argument("--cells", default=",".join(CELLS))
     args = ap.parse_args()
+    cells = args.cells.split(",")
+    if set(cells) - set(CELLS):
+        ap.error(f"--cells takes {', '.join(CELLS)}")
     import torch
     n = torch.cuda.device_count() if torch.cuda.is_available() else 0
     if n < CARDS:
@@ -289,9 +579,31 @@ def main() -> int:
     cards = [torch.device("cuda", i) for i in range(CARDS)]
     _cuda.reset_launch_counts()
     t0 = time.perf_counter()
-    rec = {"llama3_8b_long_500k": llama_long(cards, args.steps)}
-    rec["qwen2_moe_decode_32k_ep"] = qwen_ep(cards, args.steps)
-    rec["gpipe"] = cs.gpipe_check(cards, cards[0])
+    rec = {}
+
+    def run(name, fn, *a):
+        # a cell that fails is a miss (the script exits non-zero); the
+        # next cell still runs
+        try:
+            return fn(*a)
+        except (Exception, SystemExit) as e:  # noqa: BLE001
+            MISSES.append(f"{name}: {type(e).__name__}: {e}")
+            cs.progress(f"{name} failed: {type(e).__name__}: {e}")
+            torch.cuda.empty_cache()
+            return {"failed": f"{type(e).__name__}: {e}"}
+
+    if "llama_long" in cells:
+        rec["llama3_8b_long_500k"] = llama_long(cards, args.steps)
+    if "qwen_ep" in cells:
+        rec["qwen2_moe_decode_32k_ep"] = qwen_ep(cards, args.steps)
+    if "gpipe" in cells:
+        rec["gpipe"] = cs.gpipe_check(cards, cards[0])
+    if "llama_train" in cells:
+        rec["llama3_8b_train_4k"] = run("train_4k", llama_train, cards,
+                                        args.train_steps)
+    if "dbrx_decode" in cells:
+        rec["dbrx_132b_decode_32k"] = run("dbrx decode_32k", dbrx_decode,
+                                          cards, args.steps)
     cs.sync_all(cards)
     launched = {k: v for k, v in _cuda.LAUNCHES.items() if v}
     if launched:

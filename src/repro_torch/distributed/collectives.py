@@ -28,11 +28,22 @@ a physical device; a ``.to`` between cards, never a host sync);
 along its sequence axis: each shard reduces its own block to a
 ``[B, H, G]`` max, a ``[B, H, G]`` sum and a ``[B, H, G, Dh]`` partial
 output, and those three combine; the cache is never gathered.
+
+`gather_leaf` joins a leaf stored by its `Spec` (`launch.mesh.Sharded`)
+onto the device that uses it, FSDP's all-gather; autograd
+differentiates it, and its backward is the reduce-scatter: each block
+takes its slice of the joined gradient, on its own device, where
+autograd sums the slices of every gather that read it.
+`gather_leaf_rows` takes only the rows a lookup needs from each block.
+`sum_replicas` completes the gradient of a block held by several
+shards: their partial sums added, the total on each of them.
 """
 from __future__ import annotations
 
 import numpy as np
 import torch
+
+from ..launch.mesh import Sharded, region_slices
 
 
 def hierarchical_psum(xs, shape):
@@ -266,3 +277,119 @@ def ragged_tile_gather(arrays, rows, rows_per_shard: int):
     one: a selection moves every dtype exactly, so the reference's
     int16 bit-pattern route for floats is not needed)."""
     return multi_row_gather_psum_scatter(arrays, rows, rows_per_shard)
+
+
+# ------------------------------------------------ leaves stored by Spec
+class _GatherBlocks(torch.autograd.Function):
+    """Blocks at their offsets in a new tensor on ``device``; the
+    backward hands each block its slice of the gradient on the block's
+    device (a copy, never a view that would keep the whole gradient)."""
+
+    @staticmethod
+    def forward(ctx, device, shape, offsets, *blocks):
+        ctx.offsets = offsets
+        ctx.devices = [b.device for b in blocks]
+        out = torch.empty(shape, dtype=blocks[0].dtype, device=device)
+        for sl, b in zip(offsets, blocks):
+            out[sl] = b
+        return out
+
+    @staticmethod
+    def backward(ctx, g):
+        grads = []
+        for sl, dev in zip(ctx.offsets, ctx.devices):
+            piece = g[sl]
+            grads.append(piece.clone() if dev == g.device
+                         else piece.to(dev))
+        return (None, None, None) + tuple(grads)
+
+
+def _sources(leaf: Sharded, device, where) -> list:
+    """(region, shard) for each distinct block among the shards whose
+    coordinates match ``where`` ({axis: coordinate}): the shard on
+    ``device`` where one holds the block, else the first."""
+    mesh = leaf.mesh
+    out = []
+    for region, ks in leaf.groups().items():
+        if where:
+            ks = [k for k in ks if all(mesh.coords(k).get(a, 0) == c
+                                       for a, c in where.items())]
+        if ks:
+            here = [k for k in ks if leaf[k].device == device]
+            out.append((region, (here or ks)[0]))
+    return out
+
+
+def gather_leaf(leaf, device, dtype=None, where=None) -> torch.Tensor:
+    """The whole of a `Sharded` leaf on ``device`` (with ``where``, the
+    box the blocks of the matching shards cover: a "model" shard's
+    experts), each block cast to ``dtype`` on its own device before it
+    moves. A box held by one block already on ``device`` is that block
+    (no copy). Differentiable: see the module's note."""
+    device = torch.device(device)
+    src = _sources(leaf, device, where)
+    if not src:
+        raise ValueError(f"no shard of the mesh matches {where}")
+    lo = [min(r[i][0] for r, _ in src) for i in range(len(leaf.shape))]
+    hi = [max(r[i][1] for r, _ in src) for i in range(len(leaf.shape))]
+    shape = tuple(b - a for a, b in zip(lo, hi))
+    covered = sum(int(np.prod([b - a for a, b in r])) for r, _ in src)
+    if covered != int(np.prod(shape)):
+        raise ValueError(f"the blocks of {leaf.spec} at {where} do not tile "
+                         f"a box of {leaf.shape}")
+    blocks = [leaf[k] if dtype is None else leaf[k].to(dtype)
+              for _, k in src]
+    if len(blocks) == 1 and blocks[0].device == device:
+        return blocks[0]
+    offsets = tuple(region_slices(r, lo) for r, _ in src)
+    return _GatherBlocks.apply(device, shape, offsets, *blocks)
+
+
+def gather_leaf_rows(leaf: Sharded, ids: torch.Tensor, device
+                     ) -> torch.Tensor:
+    """Rows ``ids`` (int [n]) of a `Sharded` table [R, C] on ``device``,
+    without joining it: each block gathers the ids its rows hold (the
+    others clamped into range and masked out after) on its own device,
+    and the column blocks are joined. The gather is `gather_rows`
+    (`models.common`: a deterministic gradient)."""
+    from ..models.common import gather_rows
+    device = torch.device(device)
+    ids = ids.to(device)
+    cols: dict = {}
+    for (r, c), k in _sources(leaf, device, None):
+        if r[1] <= r[0]:
+            continue
+        blk = leaf[k]
+        local = (ids - r[0]).clamp(0, r[1] - r[0] - 1).to(blk.device)
+        rows = gather_rows(blk, local).to(device)
+        if c in cols:
+            inside = (ids >= r[0]) & (ids < r[1])
+            rows = torch.where(inside[:, None], rows, cols[c])
+        cols[c] = rows
+    parts = [cols[c] for c in sorted(cols)]
+    return parts[0] if len(parts) == 1 else torch.cat(parts, 1)
+
+
+def sum_replicas(grad: Sharded) -> Sharded:
+    """A `Sharded` gradient whose replicas (shards holding one block)
+    may each hold a part, or None: each block's parts summed in linear
+    shard order on its first shard's device (zeros where no shard has
+    one), the total handed to every shard that holds it (one copy a
+    device)."""
+    out = list(grad)
+    for region, ks in grad.groups().items():
+        parts = [grad[k] for k in ks if grad[k] is not None]
+        owner = grad.mesh.devices[ks[0]]
+        if not parts:
+            total = None
+        elif len(parts) == 1 and len(ks) == 1:
+            continue
+        else:
+            total = reduce_sum(parts, owner)
+        if total is None:
+            shape = tuple(b - a for a, b in region)
+            total = torch.zeros(shape, device=owner)
+        here = replicate(total, [grad.mesh.devices[k] for k in ks])
+        for k, t in zip(ks, here):
+            out[k] = t
+    return grad.like(out)

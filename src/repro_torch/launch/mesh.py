@@ -6,12 +6,17 @@ reference's axis names and shapes, ("data", "model") 16 x 16 and ("pod",
 "data", "model") 2 x 16 x 16, read as 256 and 512 H100s, with no
 devices behind them. A `Spec` is the reference's `PartitionSpec`, entry
 for entry, and `shard_shape` gives the per-card shard of a global shape
-under it by XLA's rule. The dry run (`launch.dryrun`) sums those shards;
-nothing in the port is partitioned by them.
+under it by XLA's rule. The dry run (`launch.dryrun`) sums those
+shards.
 
 The serving mesh is the port of `make_serving_mesh` and `batch_axes`,
 and the mesh of the model path's parallel code too (the sequence-sharded
-decode, expert parallelism, the pipeline), with axes of its own.
+decode, expert parallelism, the pipeline, training), with axes of its
+own. On it a leaf is stored by its `Spec` as the reference's
+`jax.device_put(leaf, NamedSharding(mesh, spec))` stores it: a `Sharded`
+list holds each shard's block (`block_region`, XLA's rule, the same
+block as the reference's addressable shard), `join_leaf` joins them
+back, and `split_rows` splits a batch's rows over the data axes.
 The reference drives every device from one Python process through
 `shard_map` over a `jax.sharding.Mesh`; the port keeps that single
 controller. A mesh here is an ordered tuple of
@@ -141,6 +146,160 @@ def _device(d) -> torch.device:
 def batch_axes(multi_pod: bool):
     """Mesh axes that shard the query batch."""
     return ("pod", "data") if multi_pod else ("data",)
+
+
+# ------------------------------------------ a leaf stored by its Spec
+def _axis(mesh, name: str, coords: dict) -> tuple:
+    """(size, coordinate) of axis ``name``; an axis the mesh lacks is
+    one shard."""
+    if name not in mesh.axis_names:
+        return 1, 0
+    return mesh.axis_size(name), coords[name]
+
+
+def block_region(shape, spec, mesh: ServingMesh, k: int) -> tuple:
+    """Shard k's block of a global ``shape`` under ``spec``: per
+    dimension its ``(start, stop)``. A dimension split over axes (major
+    to minor) takes blocks of ``ceil(n / p)`` (XLA's rule: the last block
+    is short, or empty, where p does not divide n); an axis the mesh
+    lacks counts as size 1."""
+    coords = mesh.coords(k)
+    entries = tuple(spec or ())
+    if len(entries) > len(shape):
+        raise ValueError(f"spec {spec} has more entries than shape {shape}")
+    out = []
+    for i, n in enumerate(shape):
+        e = entries[i] if i < len(entries) else None
+        names = () if e is None else (e,) if isinstance(e, str) else e
+        p, idx = 1, 0
+        for a in names:
+            size, c = _axis(mesh, a, coords)
+            p, idx = p * size, idx * size + c
+        b = -(-n // p)
+        lo = min(idx * b, n)
+        out.append((lo, min(lo + b, n)))
+    return tuple(out)
+
+
+def region_slices(region, origin=None) -> tuple:
+    """``region`` as slices, relative to ``origin`` (a start a
+    dimension) if given."""
+    origin = origin or (0,) * len(region)
+    return tuple(slice(a - o, b - o) for (a, b), o in zip(region, origin))
+
+
+class Sharded(list):
+    """A leaf stored by its `Spec` over a `ServingMesh`: entry k is shard
+    k's block (`block_region`) on ``mesh.devices[k]``. Shards that differ
+    only on axes the spec does not name hold the same block; those on
+    one device share one tensor. ``shape`` is the global leaf's. A list,
+    so the port's trees (`train.tree`) walk its blocks as structure."""
+
+    def __init__(self, blocks, spec, mesh: ServingMesh, shape):
+        super().__init__(blocks)
+        self.spec, self.mesh, self.shape = spec, mesh, tuple(shape)
+        if len(self) != mesh.size:
+            raise ValueError(f"{len(self)} blocks for {mesh.size} shards")
+
+    def like(self, blocks) -> "Sharded":
+        """The same storage plan over other ``blocks``."""
+        return Sharded(blocks, self.spec, self.mesh, self.shape)
+
+    def region(self, k: int) -> tuple:
+        return block_region(self.shape, self.spec, self.mesh, k)
+
+    def groups(self) -> dict:
+        """{region: the shards holding it, in linear order}."""
+        out: dict = {}
+        for k in range(self.mesh.size):
+            out.setdefault(self.region(k), []).append(k)
+        return out
+
+    def owners(self) -> list:
+        """The first shard of each distinct block, in linear order."""
+        return [ks[0] for ks in self.groups().values()]
+
+    @property
+    def dtype(self) -> torch.dtype:
+        return self[0].dtype
+
+    def unbind(self) -> list:
+        """The leaf's slices along dimension 0 (a stacked layer axis the
+        spec leaves whole), each `Sharded` over views of the blocks:
+        `torch.unbind` of each distinct tensor once, so the gradient of
+        all slices comes back as one stack."""
+        if self.spec and len(self.spec) and tuple(self.spec)[0] is not None:
+            raise ValueError(f"dimension 0 of {self.spec} is split")
+        views: dict = {}
+        for b in self:
+            if id(b) not in views:
+                views[id(b)] = b.unbind(0)
+        spec = Spec(*tuple(self.spec or ())[1:])
+        return [Sharded([views[id(b)][i] for b in self], spec, self.mesh,
+                        self.shape[1:]) for i in range(self.shape[0])]
+
+
+def shard_leaf(x: torch.Tensor, spec, mesh: ServingMesh) -> Sharded:
+    """``x`` stored by ``spec`` over ``mesh``: each shard's block on its
+    device, one tensor a (block, device). A block on the device ``x`` is
+    already on is a view of it (no copy)."""
+    copies: dict = {}
+    out = []
+    for k, dev in enumerate(mesh.devices):
+        region = block_region(x.shape, spec, mesh, k)
+        key = (region, dev)
+        if key not in copies:
+            copies[key] = x[region_slices(region)].to(dev)
+        out.append(copies[key])
+    return Sharded(out, spec, mesh, x.shape)
+
+
+def join_leaf(leaf: Sharded, device=None) -> torch.Tensor:
+    """The whole leaf from its blocks, on ``device`` (shard 0's by
+    default): the inverse of `shard_leaf`."""
+    device = device or leaf[0].device
+    out = torch.empty(leaf.shape, dtype=leaf.dtype, device=device)
+    for region, ks in leaf.groups().items():
+        out[region_slices(region)] = leaf[ks[0]]
+    return out
+
+
+def leaf_bytes(leaf: Sharded, device) -> int:
+    """Bytes of the distinct tensors ``leaf`` keeps on ``device``."""
+    seen = {id(b): b for b in leaf if b.device == torch.device(device)}
+    return sum(b.numel() * b.element_size() for b in seen.values())
+
+
+def data_shards(mesh: ServingMesh) -> list:
+    """For each data shard, in row-major order over the axes that split
+    a batch's rows (those of `batch_axes(True)` the mesh has), the first
+    shard (linear index) that holds it: the one that computes its
+    rows."""
+    axes = tuple(a for a in batch_axes(True) if a in mesh.axis_names)
+    first: dict = {}
+    for k in range(mesh.size):
+        c = mesh.coords(k)
+        d = 0
+        for a in axes:
+            d = d * mesh.axis_size(a) + c[a]
+        first.setdefault(d, k)
+    return [first[d] for d in sorted(first)]
+
+
+def split_rows(x, mesh: ServingMesh) -> list:
+    """A batch array's rows split over the data shards: block d (rows
+    ``d * B / D`` on) on the device of data shard d. An array already
+    split (a list) is returned as it is."""
+    if isinstance(x, (list, tuple)):
+        return list(x)
+    ks = data_shards(mesh)
+    x = torch.as_tensor(x)
+    if x.shape[0] % len(ks):
+        raise ValueError(f"{x.shape[0]} rows do not split over "
+                         f"{len(ks)} data shards")
+    n = x.shape[0] // len(ks)
+    return [x[d * n:(d + 1) * n].to(mesh.devices[k])
+            for d, k in enumerate(ks)]
 
 
 def make_serving_mesh(devices=None, *, multi_pod: bool = False,

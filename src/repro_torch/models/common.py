@@ -50,11 +50,11 @@ def trunc_normal(shape, generator: torch.Generator, scale: float = 1.0,
     lo, hi = math.erf(-2.0 / math.sqrt(2.0)), math.erf(2.0 / math.sqrt(2.0))
     u = torch.empty(shape, dtype=torch.float32, device=generator.device)
     u.uniform_(lo, hi, generator=generator)
-    x = math.sqrt(2.0) * torch.erfinv(u)
+    # in place: a layer slice of a full-width expert leaf is 4.2 GB
+    x = u.erfinv_().mul_(math.sqrt(2.0))
     # keep the open interval (-2, 2) in float32, as the reference clips
     edge = torch.nextafter(torch.tensor(2.0), torch.tensor(0.0)).item()
-    x = x.clamp(-edge, edge)
-    return (std * x).to(dtype)
+    return x.clamp_(-edge, edge).mul_(std).to(dtype)
 
 
 def rms_norm(x: torch.Tensor, scale: torch.Tensor, eps: float = 1e-6
@@ -118,6 +118,14 @@ def cross_entropy_loss(logits: torch.Tensor, labels, z_loss: float = 0.0
     """Mean cross-entropy over the labels >= 0 (the others are masked),
     with the reference's optional ``z_loss * lse**2``; every reduction in
     float32, whatever the logits' dtype."""
+    total, count = cross_entropy_sums(logits, labels, z_loss)
+    return total / count.clamp_min(1.0)
+
+
+def cross_entropy_sums(logits: torch.Tensor, labels, z_loss: float = 0.0):
+    """(the masked sum of the token losses, the count of labels >= 0),
+    both float32 scalars: a batch's row blocks add theirs to a global
+    mean."""
     labels = torch.as_tensor(labels, device=logits.device)
     mask = (labels >= 0).to(torch.float32)
     labels_c = labels.clamp_min(0).long()
@@ -130,7 +138,7 @@ def cross_entropy_loss(logits: torch.Tensor, labels, z_loss: float = 0.0
     loss = (lse - ll) * mask
     if z_loss:
         loss = loss + z_loss * (lse * mask) ** 2
-    return loss.sum() / mask.sum().clamp_min(1.0)
+    return loss.sum(), mask.sum()
 
 
 # ---------------------------------------------------------- segment backend

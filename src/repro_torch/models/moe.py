@@ -30,8 +30,12 @@ capacity buffer of its own (``capL = min(NL, max(int(NL * K / Ep *
 cf), 8))``, so its answers are not `moe_ffn`'s), runs its experts on
 its device and contributes a partial output; the partials are summed
 over "model" (`distributed.collectives.reduce_sum`). Expert leaves may
-come already split (`shard_experts`: each shard's experts on its
-device), or whole, and then each shard takes its slice.
+come whole, and then each shard takes its slice, or stored by their
+`Spec`s (`launch.mesh.Sharded`), and then each shard gathers its
+experts' blocks (`distributed.collectives.gather_leaf`: nothing moves
+where its "model" block is whole on its device). The tokens may come as
+the data shards' row blocks of a sharded train step, each on its own
+device; the route then gives the blocks back the same way.
 """
 from __future__ import annotations
 
@@ -42,7 +46,8 @@ import torch
 import torch.nn.functional as F
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.collectives import reduce_sum
+from ..distributed.collectives import gather_leaf, reduce_sum
+from ..launch.mesh import Sharded
 from .attention import bf16_matmul_f32
 
 CHUNK_MIN_TOKENS = 8192   # moe_ffn_chunked splits only above this a chunk
@@ -232,37 +237,6 @@ def _ep_coords(mesh, cfg: MoEConfig):
     return MP, DA, dm
 
 
-def shard_experts(w: torch.Tensor, mesh, cfg: MoEConfig, dim: int = 0
-                  ) -> list:
-    """An expert leaf split over the mesh's ``cfg.ep_axis``: for each
-    shard in linear order its ``EL = Ep / MP`` experts (``dim`` is the
-    expert axis: 1 for a stacked layer leaf [L, Ep, ...]) on its device,
-    one copy a (block, device)."""
-    MP, _, dm = _ep_coords(mesh, cfg)
-    EL = w.shape[dim] // MP
-    copies: dict = {}
-    out = []
-    for k, (_, m) in enumerate(dm):
-        key = (m, mesh.devices[k])
-        if key not in copies:
-            copies[key] = w.narrow(dim, m * EL, EL).to(mesh.devices[k])
-        out.append(copies[key])
-    return out
-
-
-def _whole_experts(wp: dict, mesh, cfg: MoEConfig, device) -> dict:
-    """``wp`` with every split expert leaf joined back on ``device``."""
-    if not any(isinstance(wp[k], (list, tuple)) for k in EXPERT_LEAVES):
-        return wp
-    _, _, dm = _ep_coords(mesh, cfg)
-    first = {}
-    for k, (_, m) in enumerate(dm):
-        first.setdefault(m, k)
-    return dict(wp, **{
-        n: torch.cat([wp[n][first[m]].to(device) for m in sorted(first)])
-        for n in EXPERT_LEAVES})
-
-
 def ep_capacity(NL: int, cfg: MoEConfig) -> int:
     """A replicated-EP shard's slots an expert for NL local tokens: an
     inference-safe floor of 8, and at most NL."""
@@ -293,41 +267,67 @@ def ep_slots(idx: torch.Tensor, cfg: MoEConfig, capL: int, e_lo: int,
     return [(el[j], sl[j], keep[j]) for j in range(e.shape[0])]
 
 
-def moe_ffn_replicated_ep(x: torch.Tensor, wp: dict, cfg: MoEConfig,
-                          mesh=None):
+def _leaf_on(leaf, device, dtype=None) -> torch.Tensor:
+    """A non-expert leaf on ``device``: a `Sharded` one gathered there
+    in ``dtype`` (None: as stored), a tensor moved as it is."""
+    if isinstance(leaf, Sharded):
+        return gather_leaf(leaf, device, dtype)
+    return leaf.to(device)
+
+
+def moe_ffn_replicated_ep(x, wp: dict, cfg: MoEConfig, mesh=None,
+                          dtype=None):
     """Replicated-token expert parallelism, slot for slot the reference's
-    `moe_ffn_replicated_ep`. x: [N, D] on one device; ``mesh`` a
-    `ServingMesh` with a ``cfg.ep_axis`` axis. The tokens split into DA
-    equal shards over the dispatch axes the mesh has; each (token shard,
-    "model" shard) routes its NL tokens on its device, keeps the choices
-    of its EL local experts that fit ``capL`` slots (overflow and
-    non-local choices are dropped), runs its experts and gives a
-    partial output; the partials are summed over "model", the token
-    shards joined in order on x's device, ``aux`` averaged over the
-    token shards, and the shared experts added after the sum. Shards
-    that differ only on other axes hold the same work, run once. Falls
-    back to `moe_ffn` without a mesh or a "model" axis, where Ep % MP
-    != 0, or where N % DA != 0, as the reference does. Returns (y [N, D]
-    in x's dtype, aux)."""
-    if mesh is None or cfg.ep_axis not in mesh.axis_names:
-        return moe_ffn(x, wp, cfg)
+    `moe_ffn_replicated_ep`. x: [N, D] on one device, or the list of the
+    DA token shards' blocks [N / DA, D], each on its own device (a
+    sharded train step's data shards); ``mesh`` a `ServingMesh` with a
+    ``cfg.ep_axis`` axis. The tokens split into DA equal shards over the
+    dispatch axes the mesh has; each (token shard, "model" shard)
+    routes its NL tokens on its device, keeps the choices of its EL
+    local experts that fit ``capL`` slots (overflow and non-local
+    choices are dropped), runs its experts and gives a partial output;
+    the partials are summed over "model" on the token shard's device
+    (x's, for a whole x: the token shards joined there in order),
+    ``aux`` averaged over the token shards (the reference's ``pmean``),
+    and the shared experts added after the sum. Shards that differ only
+    on other axes hold the same work, run once. `Sharded` leaves are
+    gathered where they are used, cast to ``dtype``. Falls back to
+    `moe_ffn` without a mesh or a "model" axis, where Ep % MP != 0, or
+    where N % DA != 0, as the reference does; split tokens or split
+    experts never fall back (that would join them on one device): they
+    raise. Returns (y, aux), y as x came (a tensor [N, D] in x's dtype,
+    or the list of blocks)."""
+    blocks = isinstance(x, (list, tuple))
     E, Ep = cfg.num_experts, cfg.padded_experts
+    if mesh is None or cfg.ep_axis not in mesh.axis_names:
+        if blocks or any(isinstance(wp[k], Sharded) for k in wp):
+            raise ValueError("split tokens or experts need a mesh with "
+                             f"the {cfg.ep_axis!r} axis")
+        return moe_ffn(x, wp, cfg)
     MP, DA, dm = _ep_coords(mesh, cfg)
-    N, D = x.shape
-    if Ep % MP != 0 or N % DA != 0:
-        return moe_ffn(x, _whole_experts(wp, mesh, cfg, x.device), cfg)
+    xs = list(x) if blocks else None
+    N = sum(b.shape[0] for b in xs) if blocks else x.shape[0]
+    D = (xs[0] if blocks else x).shape[1]
+    if Ep % MP != 0 or N % DA != 0 or (blocks and len(xs) != DA):
+        if blocks or any(isinstance(wp[k], Sharded) for k in wp):
+            raise ValueError(f"{Ep} experts over {MP} shards, {N} tokens "
+                             f"over {DA}: the expert-parallel route does "
+                             "not split them, and split leaves never join")
+        return moe_ffn(x, wp, cfg)
     EL = Ep // MP
     NL = N // DA
     capL = ep_capacity(NL, cfg)
-    dt = x.dtype
+    dt = (xs[0] if blocks else x).dtype
+    home = [xs[d].device if blocks else x.device for d in range(DA)]
     first: dict = {}
     for k, key in enumerate(dm):
         first.setdefault(key, k)
     parts: dict = {}
     for (d, m), k in sorted(first.items()):
         dev = mesh.devices[k]
-        x_l = x[d * NL:(d + 1) * NL].to(dev)
-        probs, gates, idx = route(x_l, wp["router"].to(dev), cfg)
+        x_l = (xs[d] if blocks else x[d * NL:(d + 1) * NL]).to(dev)
+        probs, gates, idx = route(x_l, _leaf_on(wp["router"], dev, dtype),
+                                  cfg)
         e_lo = m * EL
         picks = ep_slots(idx, cfg, capL, e_lo, EL)
         # every kept choice has a slot of its own; dropped ones go to a
@@ -339,8 +339,12 @@ def moe_ffn_replicated_ep(x: torch.Tensor, wp: dict, cfg: MoEConfig,
         w = {}
         for n in EXPERT_LEAVES:
             leaf = wp[n]
-            w[n] = (leaf[k] if isinstance(leaf, (list, tuple))
-                    else leaf[e_lo:e_lo + EL]).to(device=dev, dtype=dt)
+            if isinstance(leaf, Sharded):
+                leaf = gather_leaf(leaf, dev, dtype,
+                                   where={cfg.ep_axis: m})
+            else:
+                leaf = leaf[e_lo:e_lo + EL]
+            w[n] = leaf.to(device=dev, dtype=dt)
         xb = buf[:EL, :capL]
         g = expert_matmul(xb, w["w_gate"])
         u = expert_matmul(xb, w["w_up"])
@@ -355,30 +359,39 @@ def moe_ffn_replicated_ep(x: torch.Tensor, wp: dict, cfg: MoEConfig,
         fe = one_hot(idx[:, 0], Ep).to(torch.float32)[:, :E].mean(0)
         aux = cfg.aux_loss_coef * E * torch.sum(me * fe)
         parts[(d, m)] = (y, aux)
-    ys, auxes = [], []
-    for d in range(DA):
-        ys.append(reduce_sum([parts[(d, m)][0] for m in range(MP)],
-                             x.device))
-        auxes.append(parts[(d, 0)][1])
-    y = torch.cat(ys) if DA > 1 else ys[0]
-    aux = reduce_sum(auxes, x.device) / DA
-
+    ys = [reduce_sum([parts[(d, m)][0] for m in range(MP)], home[d])
+          for d in range(DA)]
+    aux = reduce_sum([parts[(d, 0)][1] for d in range(DA)], home[0]) / DA
+    if not blocks:
+        xs, ys = [x], [torch.cat(ys) if DA > 1 else ys[0]]
     if cfg.num_shared:
-        gs = F.silu(x @ wp["shared_gate_w"].to(dt))
-        us = x @ wp["shared_up"].to(dt)
-        ys_ = (gs * us) @ wp["shared_down"].to(dt)
-        if cfg.shared_gate:
-            sg = torch.sigmoid(x.to(torch.float32)
-                               @ wp["shared_out_gate"].to(torch.float32))
-            ys_ = ys_ * sg.to(dt)
-        y = y + ys_
-    return y, aux
+        ys = [y + _shared_ffn(xd, wp, cfg, dtype) for y, xd in zip(ys, xs)]
+    return (ys if blocks else ys[0]), aux
 
 
-def moe_apply(x: torch.Tensor, wp: dict, cfg: MoEConfig, mesh=None):
+def _shared_ffn(x: torch.Tensor, wp: dict, cfg: MoEConfig, dtype=None
+                ) -> torch.Tensor:
+    """The shared experts (and their sigmoid output gate) on x's
+    device."""
+    dt = x.dtype
+    sw = {n: _leaf_on(wp[n], x.device, dtype) for n in
+          ("shared_gate_w", "shared_up", "shared_down", "shared_out_gate")
+          if n in wp}
+    gs = F.silu(x @ sw["shared_gate_w"].to(dt))
+    us = x @ sw["shared_up"].to(dt)
+    ys = (gs * us) @ sw["shared_down"].to(dt)
+    if cfg.shared_gate:
+        sg = torch.sigmoid(x.to(torch.float32)
+                           @ sw["shared_out_gate"].to(torch.float32))
+        ys = ys * sg.to(dt)
+    return ys
+
+
+def moe_apply(x, wp: dict, cfg: MoEConfig, mesh=None, dtype=None):
     """The MoE FFN of a layer, routed as the reference's `moe_apply`
     routes it under its ambient mesh: `moe_ffn_replicated_ep` on a mesh
-    with a ``cfg.ep_axis`` axis, else `moe_ffn_chunked`."""
+    with a ``cfg.ep_axis`` axis (``dtype``: the one its `Sharded` leaves
+    are gathered in), else `moe_ffn_chunked`."""
     if mesh is not None and cfg.ep_axis in mesh.axis_names:
-        return moe_ffn_replicated_ep(x, wp, cfg, mesh)
+        return moe_ffn_replicated_ep(x, wp, cfg, mesh, dtype)
     return moe_ffn_chunked(x, wp, cfg)

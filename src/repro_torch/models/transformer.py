@@ -33,11 +33,21 @@ order, each on its shard's device: the reference's `long_500k` sharding
 writes the step's row only into the block that owns the (clamped)
 position, the clamp taken at the global S, and each shard attends over
 its own block (`attention.gqa_attention_sharded`); the cache is never
-gathered. The weights stay where they are (the mesh's first device);
-``decode_step(..., mesh=m)`` also routes the experts as the reference
-does under its ambient mesh (`moe.moe_apply`: expert parallelism where
-the mesh has a "model" axis), and `shard_params` places each "model"
-shard's experts on its device.
+gathered. ``decode_step(..., mesh=m)`` also routes the experts as the
+reference does under its ambient mesh (`moe.moe_apply`: expert
+parallelism where the mesh has a "model" axis).
+
+Over a mesh the parameters may be stored by their `param_specs`
+(`shard_params`, or `init_params(..., mesh=)`, which draws each
+device's blocks on it): every leaf a `launch.mesh.Sharded` list of
+blocks, the reference's storage under its train and serve cells.
+`loss_fn` / `forward` then split the batch's rows over the mesh's data
+axes, each data shard computing its rows on its device and gathering
+each layer's leaves there inside the layer's `checkpoint`
+(`distributed.collectives.gather_leaf`, whose backward sums each
+block's gradient on its device): FSDP. `decode_step` runs on the mesh's
+first device, gathering a layer's non-expert leaves as it comes, while
+the experts stay on their shards.
 """
 from __future__ import annotations
 
@@ -49,20 +59,30 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.collectives import (gather_leaf, gather_leaf_rows,
+                                      reduce_sum)
 from ..kernels._cuda import resolve_device
+from ..launch.mesh import (Sharded, block_region, data_shards, region_slices,
+                           shard_leaf, split_rows)
 from ..launch.mesh import Spec as P
 from .attention import gqa_attention, gqa_attention_sharded
 from .common import (abstract_tree, apply_rope, cross_entropy_loss,
-                     flatten_params, gather_rows, load_numpy_tree,
-                     nest_params, param_tree,
+                     cross_entropy_sums, flatten_params, gather_rows,
+                     load_numpy_tree, nest_params, param_tree,
                      register_tensors, rms_norm, rope_angles, tree_to_numpy,
                      trunc_normal)
-from .moe import EXPERT_LEAVES, MoEConfig, moe_apply, shard_experts
+from .moe import EXPERT_LEAVES, MoEConfig, moe_apply
 
-DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16}
+# float64 is the port's own: a better-conditioned witness of a float32
+# comparison (the attention still rounds q, k, p, v to bfloat16)
+DTYPES = {"float32": torch.float32, "bfloat16": torch.bfloat16,
+          "float64": torch.float64}
 # leaves a served copy keeps in float32: decode routes with them uncast
 FP32_LEAVES = ("router", "shared_out_gate")
 NORM_LEAVES = ("ln1", "ln2", "final_norm")
+# a layer's leaves the MoE FFN reads
+MOE_LEAVES = ("router", "w_gate", "w_up", "w_down", "shared_gate_w",
+              "shared_up", "shared_down", "shared_out_gate")
 
 
 @dataclasses.dataclass(frozen=True)
@@ -221,14 +241,18 @@ def leaf_dtype(path: str, dtype) -> torch.dtype:
 
 
 def init_params(cfg: LMConfig, generator: torch.Generator,
-                dtype=torch.float32) -> dict:
+                dtype=torch.float32, mesh=None) -> dict:
     """The reference's `init_params` with a `torch.Generator` (on the
     device the weights go to): norms one, every other leaf
     `trunc_normal` with ``fan_in = shape[0]`` of the whole leaf (for a
     stacked layer leaf [L, ...] that is L, as in the reference). A
     stacked leaf is drawn a layer at a time and each slice cast to its
     dtype as it comes (`leaf_dtype`), so a bfloat16 copy of a
-    full-width model never holds a whole leaf in float32."""
+    full-width model never holds a whole leaf in float32. With a
+    ``mesh``, each leaf is stored by its `Spec` (`shard_params`), each
+    device drawing its own shards' blocks (`_init_sharded`)."""
+    if mesh is not None:
+        return _init_sharded(cfg, generator, dtype, mesh)
     dev = generator.device
     flat = {}
     for path, shape in sorted(param_defs(cfg).items()):
@@ -243,6 +267,58 @@ def init_params(cfg: LMConfig, generator: torch.Generator,
         else:
             flat[path] = trunc_normal(shape, generator).to(dt)
     return nest_params(flat)
+
+
+def _init_sharded(cfg: LMConfig, generator: torch.Generator, dtype,
+                  mesh) -> dict:
+    """`shard_params(init_params(cfg, generator, dtype), cfg, mesh)`,
+    drawn shard by shard: each device of the mesh replays the whole draw
+    with a generator of its own in ``generator``'s state (the same
+    numbers: one device type), leaf by leaf and a layer slice at a time,
+    and keeps only its shards' blocks. The largest transient is one
+    layer slice of one leaf in float32. ``generator`` ends in the state
+    the whole draw leaves it in."""
+    defs, specs = param_defs(cfg), param_specs(cfg)
+    start = generator.get_state()
+    blocks = {path: [None] * mesh.size for path in defs}
+    end = start
+    for dev in mesh.physical_devices():
+        if dev.type != generator.device.type:
+            raise ValueError(f"a {generator.device.type} generator cannot "
+                             f"replay its draw on {dev}")
+        gen = torch.Generator(dev)
+        gen.set_state(start)
+        mine = [k for k in range(mesh.size) if mesh.devices[k] == dev]
+        for path, shape in sorted(defs.items()):
+            dt = leaf_dtype(path, dtype)
+            regions: dict = {}
+            for k in mine:
+                regions.setdefault(block_region(shape, specs[path], mesh, k),
+                                   []).append(k)
+            made = {r: torch.empty(tuple(b - a for a, b in r), dtype=dt,
+                                   device=dev) for r in regions}
+            if path.endswith(NORM_LEAVES):
+                for blk in made.values():
+                    blk.fill_(1)
+            elif path.startswith("layers."):
+                for i in range(shape[0]):
+                    sl = trunc_normal(shape[1:], gen, fan_in=shape[0])
+                    for r, blk in made.items():
+                        if r[0][0] <= i < r[0][1]:
+                            blk[i - r[0][0]] = sl[region_slices(r[1:])]
+                    del sl
+            else:
+                whole = trunc_normal(shape, gen).to(dt)
+                for r, blk in made.items():
+                    blk.copy_(whole[region_slices(r)])
+                del whole
+            for r, ks in regions.items():
+                for k in ks:
+                    blocks[path][k] = made[r]
+        end = gen.get_state()
+    generator.set_state(end)
+    return nest_params({p: Sharded(b, specs[p], mesh, defs[p])
+                        for p, b in blocks.items()})
 
 
 # -------------------------------------------------------------- forward
@@ -260,12 +336,12 @@ def _write_rows(blocks, rows: torch.Tensor, at: int) -> None:
         off += n
 
 
-def _layer(cfg: LMConfig, x, lp: dict, sin, cos, cache=None, pos=None,
-           kv_valid_len=None, mesh=None):
-    """One decoder layer. x: [B, T, D]; cache: (k, v) [B, S, Hkv, Dh],
-    or (k, v) lists of a sequence-sharded cache's blocks, written in
-    place at ``pos``; ``mesh`` routes the experts (`moe.moe_apply`).
-    Returns (x, (k, v), aux)."""
+def _attend(cfg: LMConfig, x, lp: dict, sin, cos, cache=None, pos=None,
+            kv_valid_len=None):
+    """A decoder layer's attention half. x: [B, T, D]; cache: (k, v)
+    [B, S, Hkv, Dh], or (k, v) lists of a sequence-sharded cache's
+    blocks, written in place at ``pos``. Returns (x after the attention
+    residual, its ``ln2`` norm, (k, v))."""
     B, T, d = x.shape
     dt = x.dtype
     h = rms_norm(x, lp["ln1"].to(dt))
@@ -303,13 +379,20 @@ def _layer(cfg: LMConfig, x, lp: dict, sin, cos, cache=None, pos=None,
         new_cache = (k, v)  # exposed for prefill cache collection
         attn = gqa_attention(q, k, v, causal=True, window=cfg.window)
     x = x + attn.reshape(B, T, -1) @ lp["wo"].to(dt)
+    return x, rms_norm(x, lp["ln2"].to(dt)), new_cache
 
-    h = rms_norm(x, lp["ln2"].to(dt))
+
+def _layer(cfg: LMConfig, x, lp: dict, sin, cos, cache=None, pos=None,
+           kv_valid_len=None, mesh=None):
+    """One decoder layer (`_attend`, then the FFN); ``mesh`` routes the
+    experts (`moe.moe_apply`), whose leaves may be `Sharded` layer
+    slices. Returns (x, (k, v), aux)."""
+    x, h, new_cache = _attend(cfg, x, lp, sin, cos, cache, pos,
+                              kv_valid_len)
+    B, T, d = x.shape
+    dt = x.dtype
     if cfg.moe:
-        wp = {k2: lp[k2] for k2 in ("router", "w_gate", "w_up", "w_down",
-                                    "shared_gate_w", "shared_up",
-                                    "shared_down", "shared_out_gate")
-              if k2 in lp}
+        wp = {k2: lp[k2] for k2 in MOE_LEAVES if k2 in lp}
         y, aux = moe_apply(h.reshape(B * T, d), wp, cfg.moe, mesh=mesh)
         y = y.reshape(B, T, d)
     else:
@@ -319,10 +402,16 @@ def _layer(cfg: LMConfig, x, lp: dict, sin, cos, cache=None, pos=None,
     return x + y, new_cache, aux
 
 
-def _embed(params: dict, tokens, dt) -> torch.Tensor:
+def _embed(params: dict, tokens, dt, device=None) -> torch.Tensor:
+    """The token embeddings [..., D] in ``dt``; from a `Sharded` table,
+    the rows gathered onto ``device`` block by block."""
     emb = params["embed"]
-    tokens = torch.as_tensor(tokens, device=emb.device)
-    rows = gather_rows(emb, tokens.reshape(-1).long())
+    if isinstance(emb, Sharded):
+        tokens = torch.as_tensor(tokens, device=device)
+        rows = gather_leaf_rows(emb, tokens.reshape(-1).long(), device)
+    else:
+        tokens = torch.as_tensor(tokens, device=emb.device)
+        rows = gather_rows(emb, tokens.reshape(-1).long())
     return rows.reshape(tuple(tokens.shape) + (emb.shape[1],)).to(dt)
 
 
@@ -331,7 +420,13 @@ def forward(params: dict, cfg: LMConfig, tokens, collect_kv: bool = False):
     and, with ``collect_kv``, the per-layer (k, v) lists. Each float32
     layer leaf is cast to the compute dtype first (the reference casts
     before its scan); with ``cfg.remat == "full"`` and a gradient
-    wanted, each layer is recomputed in the backward."""
+    wanted, each layer is recomputed in the backward. Over parameters
+    stored by their `Spec`s (`Sharded` leaves), see `_forward_mesh`."""
+    if isinstance(params["embed"], Sharded):
+        if collect_kv:
+            raise NotImplementedError("prefill over parameters stored by "
+                                      "their Specs is not ported")
+        return _forward_mesh(params, cfg, tokens)
     dt = DTYPES[cfg.compute_dtype]
     x = _embed(params, tokens, dt)
     T = x.shape[1]
@@ -362,8 +457,108 @@ def forward(params: dict, cfg: LMConfig, tokens, collect_kv: bool = False):
     return logits, aux / cfg.n_layers
 
 
+def _mesh_layer(cfg: LMConfig, xs: list, leaves: dict, rope: list,
+                mesh, remat: bool):
+    """Layer i over the data shards' activations ``xs`` (each on its
+    device), its leaves ``leaves`` `Sharded` layer slices. Each shard
+    gathers the leaves it reads onto its device in the compute dtype
+    inside the `checkpoint` boundary, so the backward gathers them
+    again and no device keeps every layer's. A dense layer runs each
+    shard apart; an MoE layer runs the shards' attention, then one
+    `moe.moe_apply` over all their tokens (its experts gathered only
+    over the axes other than "model"). Returns (xs, aux)."""
+    dt = xs[0].dtype
+
+    def gathered(dev, skip=()):
+        return {k: gather_leaf(v, dev, dt) for k, v in leaves.items()
+                if k not in skip}
+
+    def run(fn, *args):
+        if not remat:
+            return fn(*args)
+        return checkpoint(fn, *args, use_reentrant=False,
+                          preserve_rng_state=False)
+
+    if not cfg.moe:
+        def one(x, sin, cos):
+            return _layer(cfg, x, gathered(x.device), sin, cos)[0]
+
+        out = [run(one, x, sin, cos) for x, (sin, cos) in zip(xs, rope)]
+        return out, torch.zeros((), dtype=torch.float32, device=xs[0].device)
+
+    def joint(*xs_):
+        mids, hs = [], []
+        for x, (sin, cos) in zip(xs_, rope):
+            mid, h, _ = _attend(cfg, x, gathered(x.device, MOE_LEAVES),
+                                sin, cos)
+            mids.append(mid)
+            hs.append(h.reshape(-1, h.shape[-1]))
+        ys, aux = moe_apply(hs, {k: leaves[k] for k in MOE_LEAVES
+                                 if k in leaves}, cfg.moe, mesh=mesh,
+                            dtype=dt)
+        return tuple(m + y.reshape(m.shape) for m, y in zip(mids, ys)) \
+            + (aux,)
+
+    *out, aux = run(joint, *xs)
+    return out, aux
+
+
+def _forward_mesh(params: dict, cfg: LMConfig, tokens):
+    """`forward` over parameters stored by their `Spec`s over a mesh: the
+    batch's rows split over the mesh's data axes (``tokens`` a list of
+    row blocks, or an array split here), each data shard computing its
+    rows on its own device (`launch.mesh.data_shards`), every leaf
+    gathered where it is read (`_mesh_layer`; the embedding's rows from
+    each block). Returns (the shards' logits, a list, aux on the first
+    shard's device)."""
+    mesh = params["embed"].mesh
+    if cfg.moe and cfg.moe.ep_axis not in mesh.axis_names:
+        raise NotImplementedError(
+            f"an MoE step over a mesh without the {cfg.moe.ep_axis!r} axis "
+            "(the reference's moe_ffn_chunked over the global batch) is "
+            "not ported")
+    dt = DTYPES[cfg.compute_dtype]
+    devs = [mesh.devices[k] for k in data_shards(mesh)]
+    xs = [_embed(params, t, dt, dev)
+          for t, dev in zip(split_rows(tokens, mesh), devs)]
+    T = xs[0].shape[1]
+    rope = [rope_angles(torch.arange(T, device=dev), cfg.d_head,
+                        cfg.rope_theta, dt) for dev in devs]
+    layers = {k: v.unbind() for k, v in params["layers"].items()}
+    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    aux = torch.zeros((), dtype=torch.float32, device=devs[0])
+    for i in range(cfg.n_layers):
+        xs, a = _mesh_layer(cfg, xs, {k: v[i] for k, v in layers.items()},
+                            rope, mesh, remat)
+        aux = aux + a
+    logits = [rms_norm(x, gather_leaf(params["final_norm"], dev, dt))
+              @ gather_leaf(params["lm_head"], dev, dt)
+              for x, dev in zip(xs, devs)]
+    return logits, aux / cfg.n_layers
+
+
+def cross_entropy_blocks(logits: list, labels: list) -> torch.Tensor:
+    """The token-mean cross-entropy of a batch given as row blocks (the
+    data shards', each on its device): the sum of the blocks' masked
+    sums over the global count of labels >= 0, on the first block's
+    device. Equal rows a block do not make the blocks' means safe to
+    average: masked labels need not fall evenly."""
+    sums = [cross_entropy_sums(lg, lb) for lg, lb in zip(logits, labels)]
+    dev = logits[0].device
+    return reduce_sum([s for s, _ in sums], dev) / reduce_sum(
+        [n for _, n in sums], dev).clamp_min(1.0)
+
+
 def loss_fn(params: dict, cfg: LMConfig, batch: dict) -> torch.Tensor:
+    """The reference's loss: the token-mean cross-entropy plus the MoE
+    balance loss. Over `Sharded` parameters the batch's leaves may be
+    the data shards' row blocks (`train.loop.make_train_step(...,
+    mesh=)` splits them), and the mean is the global one
+    (`cross_entropy_blocks`)."""
     logits, aux = forward(params, cfg, batch["tokens"])
+    if isinstance(logits, list):
+        labels = split_rows(batch["labels"], params["embed"].mesh)
+        return cross_entropy_blocks(logits, labels) + aux
     labels = torch.as_tensor(batch["labels"], device=logits.device)
     return cross_entropy_loss(logits, labels) + aux
 
@@ -417,24 +612,30 @@ def init_cache(cfg: LMConfig, batch: int, max_len: int,
 
 
 def shard_params(params: dict, cfg: LMConfig, mesh) -> dict:
-    """``params`` with each MoE expert leaf [L, Ep, ...] split over the
-    mesh's "model" axis (`moe.shard_experts`): a list, one entry a shard,
-    of its [L, EL, ...] experts on its device. Every other leaf stays as
-    it is (the same tensors). A dense config, or a mesh whose "model"
-    axis does not divide the experts, is returned unchanged."""
-    m = cfg.moe
-    if (m is None or m.ep_axis not in mesh.axis_names
-            or m.padded_experts % mesh.axis_size(m.ep_axis)):
-        return params
-    layers = dict(params["layers"])
-    for n in EXPERT_LEAVES:
-        layers[n] = shard_experts(layers[n], mesh, m, dim=1)
-    return dict(params, layers=layers)
+    """``params`` with every leaf stored by its `param_specs` `Spec` over
+    ``mesh`` (`launch.mesh.shard_leaf`: a `Sharded` list, one block a
+    shard on its device). An expert leaf [L, Ep, ...] splits its experts
+    over "model" (the blocks `moe.moe_ffn_replicated_ep` reads) and its
+    model dimension over "data". A block on the device its leaf is on is
+    a view of it."""
+    specs = param_specs(cfg)
+    return nest_params({p: shard_leaf(v, specs[p], mesh)
+                        for p, v in flatten_params(params).items()})
 
 
-def _layer_leaves(layers: dict, i: int) -> dict:
-    return {k: ([b[i] for b in v] if isinstance(v, list) else v[i])
-            for k, v in layers.items()}
+def _decode_leaves(cfg: LMConfig, layers: dict, i: int, device) -> dict:
+    """Layer i's leaves for a decode step on ``device``: a stacked
+    tensor's slice; a `Sharded` slice gathered onto ``device`` as
+    stored, except the expert leaves, which stay on their shards
+    (`moe.moe_ffn_replicated_ep` runs them there)."""
+    out = {}
+    for k, v in layers.items():
+        if isinstance(v, list):
+            out[k] = v[i] if (cfg.moe and k in EXPERT_LEAVES) \
+                else gather_leaf(v[i], device)
+        else:
+            out[k] = v[i]
+    return out
 
 
 def decode_step(params: dict, cfg: LMConfig, cache: dict, tokens, pos,
@@ -447,22 +648,41 @@ def decode_step(params: dict, cfg: LMConfig, cache: dict, tokens, pos,
     step's shapes and work are the same at every position, so it runs
     as position 0. ``cache`` may be `init_cache`'s sequence-sharded
     cache; ``mesh`` is the reference's ambient mesh, which routes the
-    experts (`moe.moe_apply`)."""
+    experts (`moe.moe_apply`). Over parameters stored by their `Spec`s
+    (`shard_params`, `init_params(..., mesh=)`), the step runs on the
+    mesh's first device: each layer's non-expert leaves are gathered
+    there as it comes, the embedding's rows from their blocks, and the
+    experts run on their shards; ``mesh`` is then the parameters'
+    mesh."""
     dt = DTYPES[cfg.compute_dtype]
     pos = 0 if torch.is_tensor(pos) and pos.is_meta else int(pos)
-    x = _embed(params, tokens, dt)[:, None, :]                  # [B, 1, D]
+    layers = params["layers"]
+    stored = isinstance(params["embed"], Sharded)
+    if stored:
+        if mesh not in (None, params["embed"].mesh):
+            raise ValueError("decode routes over the mesh its parameters "
+                             "are stored on")
+        mesh = params["embed"].mesh
+        home = mesh.devices[0]
+        layers = {k: v.unbind() for k, v in layers.items()}
+        x = _embed(params, tokens, dt, home)[:, None, :]
+    else:
+        x = _embed(params, tokens, dt)[:, None, :]              # [B, 1, D]
     sin, cos = rope_angles(torch.full((1,), pos, device=x.device),
                            cfg.d_head, cfg.rope_theta, dt)
     sin, cos = sin[None], cos[None]                             # [1, 1, Dh/2]
-    layers = params["layers"]
     sharded = isinstance(cache["k"], (list, tuple))
     for i in range(cfg.n_layers):
         kv = tuple([b[i] for b in cache[n]] if sharded else cache[n][i]
                    for n in ("k", "v"))
-        x, _, _ = _layer(cfg, x, _layer_leaves(layers, i), sin, cos,
-                         cache=kv, pos=pos, kv_valid_len=pos + 1, mesh=mesh)
-    x = rms_norm(x, params["final_norm"].to(dt))
-    logits = (x @ params["lm_head"].to(dt))[:, 0, :]
+        x, _, _ = _layer(cfg, x, _decode_leaves(cfg, layers, i, x.device),
+                         sin, cos, cache=kv, pos=pos, kv_valid_len=pos + 1,
+                         mesh=mesh)
+    norm, head = params["final_norm"], params["lm_head"]
+    if stored:
+        norm, head = gather_leaf(norm, home), gather_leaf(head, home)
+    x = rms_norm(x, norm.to(dt))
+    logits = (x @ head.to(dt))[:, 0, :]
     tokens = torch.as_tensor(tokens, device=logits.device)
     nxt = torch.argmax(logits, dim=-1).to(tokens.dtype)
     return nxt, logits, cache

@@ -8,10 +8,16 @@ simulation the train step runs (quantize, then dequantize); the residual
 `compressed_psum` is the int8 all-reduce in the port's collective form
 (`distributed/collectives.py`): a function over the list of every shard's
 tensor, returning every shard's result on its own device.
+`compress_decompress_sharded` is the simulation over a leaf stored by
+its `Spec` (`launch.mesh.Sharded`): the whole leaf's absmax, the max of
+its blocks', sets one grid for every block, as the reference quantizes
+its global array.
 """
 from __future__ import annotations
 
 import torch
+
+from ..launch.mesh import Sharded
 
 
 def quantize_int8(g: torch.Tensor):
@@ -32,6 +38,25 @@ def compress_decompress(g: torch.Tensor, residual=None):
     q, s = quantize_int8(g)
     g_hat = dequantize_int8(q, s)
     return g_hat, g - g_hat
+
+
+def compress_decompress_sharded(g: Sharded) -> Sharded:
+    """`compress_decompress(g)[0]` of the whole leaf, block by block on
+    each block's device: the blocks' absmax maxed on shard 0's device,
+    then each block quantized onto that one grid and dequantized."""
+    dev = g[0].device
+    a = torch.stack([torch.max(torch.abs(g[k].to(torch.float32))).to(dev)
+                     for k in g.owners()]).max()
+    scale = torch.clamp(a, min=1e-12) / 127.0
+    done: dict = {}
+    out = []
+    for b in g:
+        if id(b) not in done:
+            s = scale.to(b.device)
+            q = torch.clamp(torch.round(b / s), -127, 127).to(torch.int8)
+            done[id(b)] = dequantize_int8(q, s)
+        out.append(done[id(b)])
+    return g.like(out)
 
 
 def compressed_psum(xs: list) -> list:

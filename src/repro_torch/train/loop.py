@@ -8,6 +8,16 @@ over a nested dict of tensors: the gradient comes from
 the update returns new tensors. `Trainer` drives steps, waits for each
 loss on the host, watches the step time (`StepTimeMonitor`) and saves
 checkpoints.
+
+Over a mesh (``make_train_step(..., mesh=m)``), the parameters and the
+optimizer state are stored by their `Spec`s (`launch.mesh.Sharded`
+leaves: `models.transformer.shard_params`, or `init_params(...,
+mesh=m)`), and the batch's rows split over the mesh's data axes, each
+data shard's block on the device that computes it: the reference's
+train step under its cell's ``(param, opt_state, batch)`` shardings.
+The loss function reads the split batch (a list of row blocks a leaf)
+and returns the global loss; every block's gradient is summed on its
+own device by the gathers' backward (`distributed.collectives`).
 """
 from __future__ import annotations
 
@@ -18,24 +28,42 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from ..distributed.collectives import sum_replicas
+from ..launch.mesh import Sharded, split_rows
 from . import optim as O
-from .grad_compress import compress_decompress
-from .tree import flatten_with_paths, tree_map, unflatten_like
+from .optim import once_per_tensor
+from .grad_compress import compress_decompress, compress_decompress_sharded
+from .tree import flatten_with_paths, map_sharded, tree_map, unflatten_like
 
 
 def value_and_grad(loss_fn: Callable):
     """``(params, batch) -> (loss, grads)``: the loss (detached) and its
-    gradient with respect to every leaf of ``params``, in its structure."""
+    gradient with respect to every leaf of ``params``, in its structure
+    (zeros where the loss does not reach a leaf, as in JAX). The blocks
+    of a `Sharded` leaf that several shards hold get the sum of their
+    parts, on each of them (`sum_replicas`)."""
 
     def fn(params, batch):
         flat = {k: v.detach().requires_grad_(True)
                 for k, v in flatten_with_paths(params).items()}
         with torch.enable_grad():
             loss = loss_fn(unflatten_like(params, flat), batch)
-            grads = torch.autograd.grad(loss, list(flat.values()))
-        return loss.detach(), unflatten_like(params, dict(zip(flat, grads)))
+            grads = torch.autograd.grad(loss, list(flat.values()),
+                                        allow_unused=True)
+        tree = map_sharded(
+            lambda g: sum_replicas(g) if isinstance(g, Sharded) else g,
+            unflatten_like(params, dict(zip(flat, grads))))
+        return loss.detach(), tree_map(
+            lambda g, p: torch.zeros_like(p) if g is None else g, tree,
+            params)
 
     return fn
+
+
+def _compress(g):
+    if isinstance(g, Sharded):
+        return compress_decompress_sharded(g)
+    return compress_decompress(g)[0]
 
 
 def _microbatches(batch: dict, accum_steps: int) -> list:
@@ -47,35 +75,45 @@ def _microbatches(batch: dict, accum_steps: int) -> list:
 
 
 def make_train_step(loss_fn: Callable, opt_cfg: O.OptimizerConfig,
-                    accum_steps: int = 1, compress_grads: bool = False):
+                    accum_steps: int = 1, compress_grads: bool = False,
+                    mesh=None, donate: bool = False):
     """loss_fn(params, batch) -> scalar. Returns
     train_step(params, opt_state, batch) -> (params, opt_state, metrics).
 
     accum_steps > 1: the batch's leading axis is split into microbatches;
     their losses and gradients are summed in order from zero, then
-    divided by ``accum_steps``. compress_grads: each gradient tensor is
+    divided by ``accum_steps``. compress_grads: each gradient leaf is
     int8-quantized and dequantized before the optimizer (no residual is
-    carried, as in the reference's step)."""
+    carried, as in the reference's step). mesh: a
+    `launch.mesh.ServingMesh` over which the parameters and the state
+    are stored (see the module's note); each microbatch's rows are split
+    over its data axes (`launch.mesh.split_rows`) before ``loss_fn``.
+    donate: the step updates ``params`` and ``opt_state`` in place and
+    returns them (`optim.apply_updates`): the reference's train cell
+    donates both; the caller must not read the old values."""
     grad_fn = value_and_grad(loss_fn)
+
+    def place(b):
+        return b if mesh is None else {k: split_rows(v, mesh)
+                                       for k, v in b.items()}
 
     def train_step(params, opt_state, batch):
         if accum_steps == 1:
-            loss, grads = grad_fn(params, batch)
+            loss, grads = grad_fn(params, place(batch))
         else:
             loss = 0.0
-            grads = tree_map(lambda p: torch.zeros(p.shape,
-                                                   dtype=torch.float32,
-                                                   device=p.device), params)
+            grads = tree_map(once_per_tensor(lambda p: torch.zeros(
+                p.shape, dtype=torch.float32, device=p.device)), params)
             for mb in _microbatches(batch, accum_steps):
-                l, g = grad_fn(params, mb)
+                l, g = grad_fn(params, place(mb))
                 loss = loss + l
                 grads = tree_map(torch.add, grads, g)
             loss = loss / accum_steps
             grads = tree_map(lambda g: g / accum_steps, grads)
         if compress_grads:
-            grads = tree_map(lambda g: compress_decompress(g)[0], grads)
+            grads = map_sharded(_compress, grads)
         params, opt_state, m = O.apply_updates(opt_cfg, params, grads,
-                                               opt_state)
+                                               opt_state, donate=donate)
         m["loss"] = loss
         return params, opt_state, m
 

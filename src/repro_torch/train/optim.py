@@ -10,6 +10,16 @@ summed over the leaves in tree order. Updates are functional: new
 tensors come back and the inputs are left as they were.
 `abstract_opt_state` and `opt_state_shardings` are the state's meta
 tensors and `launch.mesh.Spec`s for the dry run, as the reference's.
+
+Over parameters stored by their `Spec`s (`launch.mesh.Sharded`, the
+reference's ZeRO-1 under FSDP specs), the moments are stored as the
+parameters are: each shard's zeros on its device, each update computed
+where its block lives. The global norm sums each distinct block once, a
+partial sum a block on its device, added on the first leaf's device;
+the step counter lives there, and the learning rate, the count and the
+clip scale go to each device that needs them (one copy a device). A
+tensor several shards of one device share is updated once and stays
+shared.
 """
 from __future__ import annotations
 
@@ -19,8 +29,10 @@ from typing import NamedTuple
 
 import torch
 
+from ..distributed.collectives import reduce_sum
 from ..launch.mesh import Spec
-from .tree import flatten_with_paths, tree_leaves, tree_map, unflatten_like
+from .tree import (distinct_leaves, flatten_with_paths, tree_leaves,
+                   tree_map, unflatten_like)
 
 
 class AdamWState(NamedTuple):
@@ -61,23 +73,54 @@ def warmup_cosine(cfg: OptimizerConfig, step: torch.Tensor) -> torch.Tensor:
 
 
 def global_norm(grads) -> torch.Tensor:
-    """sqrt of the sum of squares of every leaf, summed in tree order."""
-    total = 0
-    for g in tree_leaves(grads):
-        total = total + torch.sum(g.to(torch.float32) ** 2)
-    return torch.sqrt(total)
+    """sqrt of the sum of squares of every leaf (each block of a
+    `Sharded` leaf once, its partial sum on its device), summed in tree
+    order on the first leaf's device."""
+    leaves = distinct_leaves(grads)
+    return torch.sqrt(reduce_sum([torch.sum(g.to(torch.float32) ** 2)
+                                  for g in leaves], leaves[0].device))
+
+
+class _OnDevices:
+    """A tensor and its copies on the devices asked for (one each)."""
+
+    def __init__(self, x: torch.Tensor):
+        self.copies = {x.device: x}
+
+    def on(self, device) -> torch.Tensor:
+        if device not in self.copies:
+            self.copies[device] = next(iter(self.copies.values())).to(device)
+        return self.copies[device]
+
+
+def _clip_scale(gn: torch.Tensor, max_norm: float) -> torch.Tensor:
+    return torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
 
 
 def clip_by_global_norm(grads, max_norm: float):
     """(grads scaled to a global norm of at most ``max_norm``, the norm
     before scaling)."""
     gn = global_norm(grads)
-    scale = torch.clamp(max_norm / torch.clamp(gn, min=1e-9), max=1.0)
-    return tree_map(lambda g: g * scale, grads), gn
+    scale = _OnDevices(_clip_scale(gn, max_norm))
+    return tree_map(lambda g: g * scale.on(g.device), grads), gn
+
+
+def once_per_tensor(fn):
+    """``fn`` over leaves, computed once a distinct first argument (the
+    tensor several shards of one device share) and the result shared."""
+    memo: dict = {}
+
+    def call(x, *rest):
+        if id(x) not in memo:
+            memo[id(x)] = (x, fn(x, *rest))
+        return memo[id(x)][1]
+
+    return call
 
 
 def init_opt_state(cfg: OptimizerConfig, params):
-    zeros = lambda: tree_map(torch.zeros_like, params)  # noqa: E731
+    def zeros():
+        return tree_map(once_per_tensor(torch.zeros_like), params)
     device = tree_leaves(params)[0].device
     step = torch.zeros((), dtype=torch.int32, device=device)
     if cfg.name == "adamw":
@@ -110,27 +153,42 @@ def opt_state_shardings(cfg: OptimizerConfig, param_specs):
     raise ValueError(cfg.name)
 
 
-def apply_updates(cfg: OptimizerConfig, params, grads, state):
+def apply_updates(cfg: OptimizerConfig, params, grads, state,
+                  donate: bool = False):
     """One optimizer step. Returns (new_params, new_state, metrics) with
-    metrics ``grad_norm`` (before clipping) and ``lr`` (this step's)."""
-    grads, gnorm = clip_by_global_norm(grads, cfg.clip_norm)
+    metrics ``grad_norm`` (before clipping) and ``lr`` (this step's).
+    Each gradient leaf is clipped as its update reads it (no clipped
+    copy of the whole tree). With ``donate`` the parameters and moments
+    are updated in place (the same numbers; the reference's train cell
+    donates them, `donate_argnums=(0, 1)`): the old values are gone, and
+    no second copy of the state is held."""
+    gnorm = global_norm(grads)
+    scale = _OnDevices(_clip_scale(gnorm, cfg.clip_norm))
     lr = warmup_cosine(cfg, state.step)
     step = state.step + 1
     flat_p = flatten_with_paths(params)
     flat_g = flatten_with_paths(grads)
+    lrs = _OnDevices(lr)
     if cfg.name == "adamw":
         b1, b2 = cfg.betas
-        t = step.to(torch.float32)
+        ts = _OnDevices(step.to(torch.float32))
 
+        @once_per_tensor
         def upd(p, g, m, v):
-            g = g.to(torch.float32)
-            m2 = b1 * m + (1 - b1) * g
-            v2 = b2 * v + (1 - b2) * g * g
-            mhat = m2 / (1 - b1 ** t)
-            vhat = v2 / (1 - b2 ** t)
-            step_p = mhat / (torch.sqrt(vhat) + cfg.eps) \
-                + cfg.weight_decay * p
-            return p - lr * step_p, m2, v2
+            # the reference's expression, each product rounded where it
+            # rounds, in place where a temporary allows: at most three
+            # leaf-sized temporaries beside the new p, m, v
+            g = (g * scale.on(g.device)).to(torch.float32)
+            t = ts.on(p.device)
+            m2 = (m.mul_(b1) if donate else m * b1).add_(g * (1 - b1))
+            v2 = (v.mul_(b2) if donate else v * b2).add_(
+                (g * (1 - b2)).mul_(g))
+            del g
+            step_p = m2 / (1 - b1 ** t)
+            step_p.div_((v2 / (1 - b2 ** t)).sqrt_().add_(cfg.eps))
+            step_p.add_(p * cfg.weight_decay)
+            step_p.mul_(lrs.on(p.device))
+            return (p.sub_(step_p) if donate else p - step_p), m2, v2
 
         flat_m = flatten_with_paths(state.m)
         flat_v = flatten_with_paths(state.v)
@@ -141,9 +199,12 @@ def apply_updates(cfg: OptimizerConfig, params, grads, state):
         return new[0], AdamWState(step, new[1], new[2]), {
             "grad_norm": gnorm, "lr": lr}
     if cfg.name == "sgd":
+        @once_per_tensor
         def upd(p, g, mom):
-            mom2 = 0.9 * mom + g.to(torch.float32)
-            return p - lr * (mom2 + cfg.weight_decay * p), mom2
+            mom2 = (mom.mul_(0.9) if donate else mom * 0.9).add_(
+                (g * scale.on(g.device)).to(torch.float32))
+            step_p = (p * cfg.weight_decay).add_(mom2).mul_(lrs.on(p.device))
+            return (p.sub_(step_p) if donate else p - step_p), mom2
 
         flat_mom = flatten_with_paths(state.mom)
         out = {k: upd(p, flat_g[k], flat_mom[k]) for k, p in flat_p.items()}

@@ -6,8 +6,15 @@ pytrees are. A dict's keys are walked in sorted order and a tuple's
 items (a `NamedTuple`'s fields) in their own order, as
 `jax.tree_util` walks them; that order fixes the global gradient norm's
 sum and a checkpoint's keys. ``None`` is an empty subtree.
+
+A leaf stored by its `Spec` over a mesh (`launch.mesh.Sharded`) is a
+list of its shards' blocks: the walks below treat it as structure (a
+block a leaf) and keep its storage plan; `map_sharded` treats it as
+one leaf, and `distinct_leaves` counts each of its blocks once.
 """
 from __future__ import annotations
+
+from ..launch.mesh import Sharded
 
 
 def _is_namedtuple(x) -> bool:
@@ -56,6 +63,8 @@ def tree_map(fn, tree, *rest):
                 for k in sorted(tree)}
     if _is_namedtuple(tree):
         return type(tree)(*(tree_map(fn, *xs) for xs in zip(tree, *rest)))
+    if isinstance(tree, Sharded):
+        return tree.like([tree_map(fn, *xs) for xs in zip(tree, *rest)])
     if isinstance(tree, (list, tuple)):
         return type(tree)(tree_map(fn, *xs) for xs in zip(tree, *rest))
     return fn(tree, *rest)
@@ -66,3 +75,29 @@ def unflatten_like(like, values: dict):
     (paths as `flatten_with_paths` spells them)."""
     paths = iter(flatten_with_paths(like))
     return tree_map(lambda _: values[next(paths)], like)
+
+
+def map_sharded(fn, tree):
+    """``fn`` over the leaves of ``tree``, a `Sharded` leaf passed whole."""
+    if tree is None:
+        return None
+    if isinstance(tree, Sharded):
+        return fn(tree)
+    if isinstance(tree, dict):
+        return {k: map_sharded(fn, tree[k]) for k in sorted(tree)}
+    if _is_namedtuple(tree):
+        return type(tree)(*(map_sharded(fn, x) for x in tree))
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(map_sharded(fn, x) for x in tree)
+    return fn(tree)
+
+
+def distinct_leaves(tree) -> list:
+    """The leaves in tree order, a `Sharded` leaf giving one block per
+    distinct region (`Sharded.owners`): each element of the global tree
+    once."""
+    out: list = []
+    map_sharded(lambda x: out.extend([x[k] for k in x.owners()]
+                                     if isinstance(x, Sharded) else [x]),
+                tree)
+    return out

@@ -1733,8 +1733,9 @@ def test_distributed_lse_decode_on_card_equals_cpu(card):
 
 def test_moe_replicated_ep_on_card_equals_cpu(card):
     """`moe_ffn_replicated_ep` over 4 logical shards of the card (whole
-    expert leaves, and leaves split by `shard_experts`) against the
-    CPU's, float32, TF32 off."""
+    expert leaves, and leaves stored by their `Spec`, experts over
+    "model") against the CPU's, float32, TF32 off."""
+    from repro_torch.launch.mesh import Spec, shard_leaf
     from repro_torch.models import moe
     torch.backends.cuda.matmul.allow_tf32 = False
     cfg = _lm("qwen2-moe-a2.7b").moe
@@ -1753,7 +1754,7 @@ def test_moe_replicated_ep_on_card_equals_cpu(card):
                                                      * 4))
     mesh = _mesh([card] * 4)
     wc = {k: v.to(card) for k, v in w.items()}
-    split = dict(wc, **{n: moe.shard_experts(wc[n], mesh, cfg)
+    split = dict(wc, **{n: shard_leaf(wc[n], Spec("model"), mesh)
                         for n in moe.EXPERT_LEAVES})
     for ws in (wc, split):
         y, aux = moe.moe_ffn_replicated_ep(x.to(card), ws, cfg, mesh)
@@ -1776,7 +1777,7 @@ def test_gpipe_on_card_equals_sequential(card):
 
 def test_lm_mesh_over_several_cards(card):
     """Over 4 cards (card k shard k): the sharded decode (llama3 and
-    qwen2-moe smoke configs, experts placed by `shard_params`) against 4
+    qwen2-moe smoke configs, every leaf stored by `shard_params`) against 4
     logical shards of card 0, `gpipe_forward` against the stages in turn
     on card 0. Skips with fewer than four cards."""
     from repro_torch.distributed.pipeline import gpipe_forward
@@ -1807,3 +1808,134 @@ def test_lm_mesh_over_several_cards(card):
     for s in range(4):
         ref = torch.tanh(ref @ w[s])
     assert _rel(y.to(cards[0]), ref) <= 2e-4
+
+
+# ------------------------------------------------ training over a mesh
+def _train_run(cfg, params, mesh, steps=2, blocks=None):
+    """``steps`` AdamW steps (warm-up 0) from ``params`` (stored by their
+    specs over ``mesh``, or whole; with ``blocks``, whole parameters
+    over the batch's ``blocks`` row blocks, each its own forward, as the
+    data shards run them): the losses and the last parameters,
+    joined."""
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.launch.mesh import Sharded, join_leaf
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optim as O
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.tree import map_sharded
+    ocfg = O.OptimizerConfig(lr=1e-3, warmup_steps=0)
+    batch = TokenStream(cfg.vocab, 32, 8, seed=0).next_batch()
+    def rows(p, b):
+        outs = [T.forward(p, cfg, t) for t in np.split(b["tokens"], blocks)]
+        return T.cross_entropy_blocks([o[0] for o in outs],
+                                      np.split(b["labels"], blocks))
+
+    step = make_train_step(rows if blocks else
+                           (lambda p, b: T.loss_fn(p, cfg, b)), ocfg,
+                           mesh=mesh)
+    p, o, losses = params, O.init_opt_state(ocfg, params), []
+    for _ in range(steps):
+        p, o, m = step(p, o, batch)
+        losses.append(float(m["loss"]))
+    return losses, map_sharded(
+        lambda x: join_leaf(x).cpu() if isinstance(x, Sharded) else x.cpu(),
+        p)
+
+
+def test_gather_backward_across_two_logical_shards(card):
+    """`gather_leaf` / `gather_leaf_rows` of a leaf split over two
+    logical shards of the card, onto each data shard: every block's
+    gradient is its slice of the whole leaf's (the reduce-scatter)."""
+    from repro_torch.distributed.collectives import (gather_leaf,
+                                                     gather_leaf_rows)
+    from repro_torch.launch.mesh import Spec, data_shards, shard_leaf
+    from repro_torch.train.loop import value_and_grad
+    torch.backends.cuda.matmul.allow_tf32 = False
+    mesh = _mesh([card] * 2, data=2, model=1)
+    g = torch.Generator().manual_seed(3)
+    w = torch.randn(8, 6, generator=g).to(card)
+    xs = [torch.randn(4, 8, generator=g).to(card) for _ in range(2)]
+    ids = [torch.tensor([0, 7, 3, 3], device=card),
+           torch.tensor([5, 1], device=card)]
+
+    def loss(p, _):
+        total = 0
+        for d, k in enumerate(data_shards(mesh)):
+            dev = mesh.devices[k]
+            total = total + ((xs[d] @ gather_leaf(p["w"], dev)) ** 2).sum() \
+                + (gather_leaf_rows(p["w"], ids[d], dev) ** 3).sum()
+        return total
+
+    wl = w.clone().requires_grad_(True)
+    ref = sum(((x @ wl) ** 2).sum() + (wl[i] ** 3).sum()
+              for x, i in zip(xs, ids))
+    ref.backward()
+    _, grads = value_and_grad(loss)({"w": shard_leaf(w, Spec("data"),
+                                                     mesh)}, None)
+    for k, blk in enumerate(grads["w"]):
+        assert blk.device.type == "cuda"
+        exp = wl.grad[4 * k:4 * k + 4]
+        assert _rel(blk, exp) <= 1e-6
+
+
+@pytest.mark.parametrize("axes", [{"data": 4, "model": 1},
+                                  {"data": 1, "model": 4}])
+def test_sharded_train_step_on_card_equals_unsharded(card, axes):
+    """llama3-8b's smoke config, float32: two steps of
+    `make_train_step(mesh=)` on 4 logical shards of the card (every leaf
+    and moment stored by its spec) against the unsharded steps on the
+    card over the same row blocks (4 x 1: a data shard's rows their own
+    forward; 1 x 4: the whole batch), within 1e-6. (Against the whole
+    batch at once, 4 x 1 moves by more: other GEMM shapes round
+    otherwise, and the smoke config's init amplifies it.)"""
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm("llama3-8b")
+    mesh = _mesh([card] * 4, **axes)
+    params = T.init_params(cfg, torch.Generator(card).manual_seed(0))
+    sharded = T.init_params(cfg, torch.Generator(card).manual_seed(0),
+                            mesh=mesh)
+    a_loss, a = _train_run(cfg, sharded, mesh)
+    b_loss, b = _train_run(cfg, params, None, blocks=axes["data"])
+    assert np.allclose(a_loss, b_loss, rtol=1e-6, atol=0), (a_loss, b_loss)
+    fb = C.flatten_params(b)
+    errs = {p: _rel(leaf, fb[p]) for p, leaf in
+            C.flatten_params(a).items()}
+    assert max(errs.values()) <= 1e-6, errs
+
+
+def test_sharded_train_step_over_several_cards(card):
+    """Over 4 cards ("data", "model") 4 x 1, each card drawing its own
+    blocks (equal to card 0's draw): two steps against the same on 4
+    logical shards of card 0, the losses within 1e-6 and the parameters
+    within 1e-5 of each leaf's max |ref| (a block's gradient parts
+    arrive from the cards in the order the backward's device threads
+    finish, so the sums may round otherwise, and Adam's normalised
+    update carries that into the parameters). Skips with fewer than
+    four cards."""
+    from repro_torch.launch.mesh import join_leaf
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    from repro_torch.train.tree import map_sharded
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm("llama3-8b")
+    cards = [torch.device("cuda", i) for i in range(4)]
+    runs = {}
+    for name, devs in (("cards", cards), ("card0", [cards[0]] * 4)):
+        mesh = _mesh(devs, data=4, model=1)
+        params = T.init_params(cfg, torch.Generator(cards[0]).manual_seed(0),
+                               mesh=mesh)
+        assert [b.device for b in params["embed"]] == list(devs)
+        runs[name] = (C.flatten_params(map_sharded(
+            lambda x: join_leaf(x).cpu(), params)),
+            _train_run(cfg, params, mesh))
+    for path, leaf in runs["cards"][0].items():
+        assert torch.equal(leaf, runs["card0"][0][path]), path
+    (a_loss, a), (b_loss, b) = runs["cards"][1], runs["card0"][1]
+    assert np.allclose(a_loss, b_loss, rtol=1e-6, atol=0)
+    ref = C.flatten_params(b)
+    for path, leaf in C.flatten_params(a).items():
+        assert _rel(leaf, ref[path]) <= 1e-5, path

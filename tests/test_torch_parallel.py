@@ -46,7 +46,7 @@ from repro_torch.configs import get_arch
 from repro_torch.distributed.collectives import distributed_lse_decode
 from repro_torch.distributed.pipeline import (gpipe_forward,
                                               pipeline_bubble_fraction)
-from repro_torch.launch.mesh import make_serving_mesh
+from repro_torch.launch.mesh import Spec, make_serving_mesh, shard_leaf
 from repro_torch.models import common as C
 from repro_torch.models import moe
 from repro_torch.models import transformer as TT
@@ -331,24 +331,31 @@ def test_moe_replicated_ep_fallbacks(reference, arch, case):
 
 
 def test_shard_experts_places_each_shards_block():
-    """`shard_experts` / `shard_params`: shard k holds its "model"
-    coordinate's experts; the EP route gives the same answer from split
-    and whole leaves, and a fallback joins the split leaves back."""
+    """Expert leaves stored by their `Spec` (`shard_leaf`, experts over
+    "model"): shard k holds its "model" coordinate's experts; the EP
+    route gives the same answer from stored and whole leaves; where the
+    tokens do not split (N % DA != 0), whole leaves fall back to
+    `moe_ffn` and stored ones raise (a fallback would join them on one
+    device)."""
     cfg = get_arch("qwen2-moe-a2.7b").smoke_config().moe
     w = {k: torch.from_numpy(v) for k, v in _moe_weights(
         np.random.default_rng(1), cfg, MOE_D).items()}
     m = mesh((2, 4))
-    split = dict(w, **{n: moe.shard_experts(w[n], m, cfg)
+    split = dict(w, **{n: shard_leaf(w[n], Spec("model"), m)
                        for n in moe.EXPERT_LEAVES})
     for k in range(8):
         mm = m.coords(k)["model"]
         assert torch.equal(split["w_up"][k], w["w_up"][2 * mm:2 * mm + 2])
     x = torch.from_numpy(np.random.default_rng(2).standard_normal(
         (32, MOE_D)).astype(np.float32))
-    for xx in (x, x[:-1]):               # EP route, then the N % DA fallback
-        a = moe.moe_ffn_replicated_ep(xx, w, cfg, m)
-        b = moe.moe_ffn_replicated_ep(xx, split, cfg, m)
-        assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    a = moe.moe_ffn_replicated_ep(x, w, cfg, m)
+    b = moe.moe_ffn_replicated_ep(x, split, cfg, m)
+    assert torch.equal(a[0], b[0]) and torch.equal(a[1], b[1])
+    fy, faux = moe.moe_ffn(x[:-1], w, cfg)
+    y, aux = moe.moe_ffn_replicated_ep(x[:-1], w, cfg, m)
+    assert torch.equal(y, fy) and torch.equal(aux, faux)
+    with pytest.raises(ValueError, match="never join"):
+        moe.moe_ffn_replicated_ep(x[:-1], split, cfg, m)
 
 
 # -------------------------------------------------------------- the pipeline
