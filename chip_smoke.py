@@ -5,7 +5,7 @@
 
 Builds the twelve CUDA kernels from the four sources in
 `src/repro_torch/csrc/` (one `nvcc` per source, started together), then
-drives sixteen paths of the port on the card, each with the launch counts
+drives seventeen paths of the port on the card, each with the launch counts
 reset just before it and read just after it:
 
 1. the main path: `scale_free(2^17, m=4, num_levels=5, seed=0)` -> the
@@ -144,6 +144,20 @@ reset just before it and read just after it:
    8 rows over a seeded 32,768-long cache with the leaves stored by
    their specs against the whole leaves (within 1e-5, greedy equal),
    the phase's peak recorded. No kernel of the port runs;
+17. the graph family over a mesh (after path 16), 4 logical shards of
+   the card as ("data",) 4: GIN, PNA and GatedGCN at full width and
+   depth, sized by `shape_config(cfg, "ogb_products")`, the edges and
+   the node rows and labels split over "data" by the cell's specs, the
+   parameters replicated: on a uniform random graph of 2^17 nodes and
+   2^21 edges (`BIG_GRAPH` lowered to 2^16: blocks of 4 layers
+   recompute, each shard's edges run in 4 chunks), one float32 step
+   (PNA: float64, its float32 gradient is noise at this width) sharded
+   (twice, bit for bit) against the unsharded step (the loss within
+   1e-5 relative, every leaf of the clipped gradient within 1e-4 of its
+   max |ref|); on 2^19 nodes and 2^23 edges (past `BIG_GRAPH`, 4 chunks
+   of 2^19 a shard), one bf16 step each, timed, the loss gap reported;
+   NequIP on molecule with forces at the same bars. No kernel of the
+   port runs;
 14. the dry-run matrix (run last, `launch.dryrun`): all 84 cells (the
    40 arch x shape cells and wcsd-serve's 2, on the 16 x 16 and 2 x 16 x
    16 production meshes) built with their per-card argument and output
@@ -4166,13 +4180,14 @@ def rows_loss(cfg, blocks: int):
     """The loss of whole parameters over a batch taken as ``blocks`` row
     blocks, each its own forward (the kernels see a data shard's
     shapes), combined as the sharded step combines its shards: the
-    cross-entropy's global mean (`transformer.cross_entropy_blocks`)
+    cross-entropy's global mean (`collectives.cross_entropy_blocks`)
     plus the blocks' mean balance loss."""
+    from repro_torch.distributed.collectives import cross_entropy_blocks
     from repro_torch.models import transformer as T
 
     def loss(p, b):
         outs = [T.forward(p, cfg, t) for t in np.split(b["tokens"], blocks)]
-        return T.cross_entropy_blocks([o[0] for o in outs],
+        return cross_entropy_blocks([o[0] for o in outs],
                                       np.split(b["labels"], blocks)) \
             + sum(o[1] for o in outs) / blocks
     return loss
@@ -4546,6 +4561,284 @@ def lm_train_mesh_phase(device) -> dict:
     return out
 
 
+# ------------------------------------------- the graph family over a mesh
+GNN_MESH_SHARDS = 4      # ("data",) 4 logical shards of card 0
+GNN_MESH_NODES = 1 << 19          # past BIG_GRAPH: the block recompute runs
+GNN_MESH_RAW_EDGES = 1 << 22      # E = 2^23 once symmetrised
+GNN_MESH_CHUNK = 1 << 19          # EDGE_CHUNK: 4 chunks a shard
+# check A's graph: the unsharded float32 step at 2^19 x 2^23 does not fit
+# the card (GatedGCN's recomputed block of 4 layers keeps ~94 GB of edge
+# tensors), so it runs 2^17 x 2^21 with BIG_GRAPH and EDGE_CHUNK lowered
+# to keep the same path (blocks of 4 layers recomputed, 4 chunks a shard)
+GNN_MESH_EXACT = dict(nodes=1 << 17, raw_edges=1 << 20, big_graph=1 << 16,
+                      chunk=1 << 17)
+GNN_MESH_SHAPE = "ogb_products"   # the cell whose widths and specs it takes
+GNN_MESH_LOSS_TOL = 1e-5          # float32, sharded vs unsharded, relative
+GNN_MESH_GRAD_TOL = 1e-4          # each leaf, of its max |ref| (GRAD_TOL)
+# archs whose check A runs in float64: PNA's std aggregate cancels, and at
+# full width its own float32 gradient misses its float64 one by more than
+# the whole leaf (3.1 x max |ref| of enc_w on a 2,048-node CPU rehearsal)
+GNN_MESH_FLOAT64 = ("pna",)
+
+
+@contextlib.contextmanager
+def gnn_mesh_sizes(big_graph: int, chunk: int):
+    """`models.gnn.BIG_GRAPH` and `EDGE_CHUNK` set for a block of runs."""
+    from repro_torch.models import gnn as G
+    old = G.BIG_GRAPH, G.EDGE_CHUNK
+    G.BIG_GRAPH, G.EDGE_CHUNK = big_graph, chunk
+    try:
+        yield
+    finally:
+        G.BIG_GRAPH, G.EDGE_CHUNK = old
+
+
+def gnn_mesh_graph(d_feat: int, n_classes: int, seed: int = 0,
+                   nodes: int = GNN_MESH_NODES,
+                   raw_edges: int = GNN_MESH_RAW_EDGES) -> dict:
+    """The mesh phase's graph, numpy from ``seed``: ``raw_edges`` uniform
+    random edges among ``nodes`` nodes, symmetrised; normal features,
+    labels among the classes, NequIP's positions, one energy."""
+    rng = np.random.default_rng(seed)
+    u = rng.integers(0, nodes, raw_edges).astype(np.int32)
+    v = rng.integers(0, nodes, raw_edges).astype(np.int32)
+    return {"feat": rng.standard_normal((nodes, d_feat)).astype(np.float32),
+            "edges_src": np.concatenate([u, v]),
+            "edges_dst": np.concatenate([v, u]),
+            "labels": rng.integers(0, n_classes, nodes).astype(np.int32),
+            "pos": (rng.standard_normal((nodes, 3)) * 2).astype(np.float32),
+            "energy": rng.standard_normal(1).astype(np.float32)}
+
+
+def gnn_mesh_loss(cfg, n_edges: int, shape: str = GNN_MESH_SHAPE):
+    """The loss ``cfg`` trains at ``shape``, over a graph of ``n_edges``
+    edges: a GNN's cross-entropy; NequIP's force loss on molecule, else
+    its energy MSE in the reference's edge chunks of ``n_edges``."""
+    import torch
+    from repro_torch.configs import gnn_common as GC
+    from repro_torch.launch.mesh import Sharded
+    from repro_torch.models import gnn as G
+    from repro_torch.models import nequip as NQ
+    ng = GC.n_graphs_of(cfg, shape)
+    if not isinstance(cfg, NQ.NequIPConfig):
+        return lambda p, b: G.loss_fn(p, cfg, b, n_graphs=ng)
+    if GC.nequip_force_weight(shape):
+        return lambda p, b: NQ.loss_fn(p, cfg, b, n_graphs=ng,
+                                       force_weight=GC.nequip_force_weight(
+                                           shape))
+    chunk = GC.nequip_edge_chunk(n_edges)
+
+    def loss(p, b):
+        e = NQ.energy_fn(p, cfg, b, n_graphs=ng, edge_chunk=chunk)
+        t = b["energy"]
+        t = t[0] if isinstance(t, Sharded) else torch.as_tensor(t)
+        return torch.mean((e - t.to(e.device)) ** 2)
+    return loss
+
+
+def gnn_mesh_step(cfg, batch, mesh, card, reps: int = 1,
+                  shape: str = GNN_MESH_SHAPE) -> dict:
+    """``reps`` runs of one AdamW step (`TRAIN_OPT`) of ``cfg`` from the
+    same seeded init drawn on ``card``: over ``mesh`` (parameters and
+    moments stored by `gnn_common.shard_params`, ``batch`` placed by the
+    cell's `batch_specs` once, before the clock) or whole on ``card``
+    with ``mesh`` None. Each run timed between syncs of the mesh's
+    cards; the loss, the first moment after the step (a tenth of the
+    clipped gradient) joined on ``card``, and each card's peak above the
+    run's start."""
+    import torch
+    from repro_torch.configs import gnn_common as GC
+    from repro_torch.launch.mesh import Sharded, join_leaf, place_batch
+    from repro_torch.models import common as C
+    from repro_torch.models import gnn as G
+    from repro_torch.models import nequip as NQ
+    from repro_torch.train import optim as O
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.tree import map_sharded
+    mod = NQ if isinstance(cfg, NQ.NequIPConfig) else G
+    cards = [card] if mesh is None else list(mesh.physical_devices())
+    params = mod.init_params(cfg, torch.Generator(card).manual_seed(0))
+    if mesh is None:
+        placed = {k: torch.from_numpy(np.ascontiguousarray(v)).to(card)
+                  for k, v in batch.items()}
+        step = make_train_step(gnn_mesh_loss(cfg, len(batch["edges_src"]),
+                                             shape), GC.TRAIN_OPT)
+    else:
+        params = GC.shard_params(params, cfg, mesh)
+        specs = GC.batch_specs(cfg, shape, "pod" in mesh.axis_names)
+        placed = place_batch(batch, mesh, specs)
+        step = make_train_step(gnn_mesh_loss(cfg, len(batch["edges_src"]),
+                                             shape), GC.TRAIN_OPT, mesh=mesh,
+                               batch_specs=specs, one_thread=True)
+    sync_all(cards)
+    base = {c: torch.cuda.memory_allocated(c) for c in cards}
+    for c in cards:
+        torch.cuda.reset_peak_memory_stats(c)
+    runs = []
+    for _ in range(reps):
+        opt = O.init_opt_state(GC.TRAIN_OPT, params)
+        sync_all(cards)
+        t0 = time.perf_counter()
+        _, o, met = step(params, opt, placed)
+        loss = float(met["loss"])
+        sync_all(cards)
+        secs = time.perf_counter() - t0
+        m = C.flatten_params(map_sharded(
+            lambda x: (join_leaf(x) if isinstance(x, Sharded) else x).to(
+                card), o.m))
+        runs.append({"loss": loss, "step_s": secs, "m": m})
+        del o, met
+    peak = {str(c): (torch.cuda.max_memory_allocated(c) - base[c]) / 1e9
+            for c in cards}
+    del params, placed, step
+    torch.cuda.empty_cache()
+    return {"runs": runs, "peak_gb": peak}
+
+
+def gnn_mesh_compare(got: dict, ref: dict) -> dict:
+    """A run's loss and first moments against another's: the loss's
+    relative error, each leaf's error of its max |ref|."""
+    errs = {k: device_rel_err(got["m"][k].float(), v.float())
+            for k, v in ref["m"].items()}
+    return {"loss_rel_err": abs(got["loss"] - ref["loss"]) / abs(
+        ref["loss"]), "grad_rel_err": max(errs.values()),
+        "grad_rel_err_by_leaf": errs}
+
+
+def gnn_mesh_bit_equal(a: dict, b: dict) -> bool:
+    import torch
+    return a["loss"] == b["loss"] and all(
+        torch.equal(a["m"][k], b["m"][k]) for k in a["m"])
+
+
+def gnn_mesh_arch(arch: str, cfg, exact, batch, mesh, card) -> dict:
+    """One arch: check A on ``exact`` (`GNN_MESH_EXACT`'s graph) in
+    float32 (float64 for the archs of `GNN_MESH_FLOAT64`), the sharded
+    step run twice (bit for bit) against the unsharded step (the loss
+    within `GNN_MESH_LOSS_TOL`, every leaf of the clipped gradient within
+    `GNN_MESH_GRAD_TOL` of its max |ref|); check B on ``batch`` (the
+    2^19-node graph) in the cell's own dtype (bf16), one step sharded and
+    one unsharded, timed, each card's peak, their loss gap reported (no
+    bound)."""
+    import dataclasses
+    dt = "float64" if arch in GNN_MESH_FLOAT64 else "float32"
+    f32 = dataclasses.replace(cfg, compute_dtype=dt)
+    with gnn_mesh_sizes(GNN_MESH_EXACT["big_graph"], GNN_MESH_EXACT["chunk"]):
+        sh = gnn_mesh_step(f32, exact, mesh, card, reps=2)
+        un = gnn_mesh_step(f32, exact, None, card)
+    a, b = sh["runs"]
+    cmp = gnn_mesh_compare(a, un["runs"][0])
+    rec = {"check_a": {"dtype": dt, "nodes": len(exact["feat"]),
+                       "edges": len(exact["edges_src"]),
+                       "sharded_step_ms": [r["step_s"] * 1e3 for r in
+                                           sh["runs"]],
+                       "unsharded_step_ms": un["runs"][0]["step_s"] * 1e3,
+                       "loss": a["loss"], "unsharded_loss": un["runs"][0][
+                           "loss"], "rerun_bit_equal": gnn_mesh_bit_equal(
+                               a, b), **cmp}}
+    del sh, un, a, b
+    if not rec["check_a"]["rerun_bit_equal"]:
+        fail(f"gnn_mesh {arch}: the sharded step's re-run differs")
+    if cmp["loss_rel_err"] > GNN_MESH_LOSS_TOL or \
+            cmp["grad_rel_err"] > GNN_MESH_GRAD_TOL:
+        fail(f"gnn_mesh {arch}: sharded vs unsharded ({dt}) loss "
+             f"{cmp['loss_rel_err']}, gradient {cmp['grad_rel_err']} of "
+             f"max |ref| (tols {GNN_MESH_LOSS_TOL}, {GNN_MESH_GRAD_TOL})")
+    from repro_torch.models import gnn as G
+    with gnn_mesh_sizes(G.BIG_GRAPH, GNN_MESH_CHUNK):
+        sh = gnn_mesh_step(cfg, batch, mesh, card)
+        un = gnn_mesh_step(cfg, batch, None, card)
+    s0, u0 = sh["runs"][0], un["runs"][0]
+    rec["check_b"] = {"dtype": cfg.compute_dtype,
+                      "nodes": len(batch["feat"]),
+                      "edges": len(batch["edges_src"]),
+                      "sharded_step_ms": s0["step_s"] * 1e3,
+                      "unsharded_step_ms": u0["step_s"] * 1e3,
+                      "sharded_peak_gb": sh["peak_gb"],
+                      "unsharded_peak_gb": un["peak_gb"],
+                      "loss": s0["loss"], "unsharded_loss": u0["loss"],
+                      "loss_rel_gap": abs(s0["loss"] - u0["loss"])
+                      / abs(u0["loss"])}
+    return rec
+
+
+def gnn_mesh_phase(device, nodes: int = GNN_MESH_NODES,
+                   raw_edges: int = GNN_MESH_RAW_EDGES) -> dict:
+    """Path 17: the graph family over a mesh of `GNN_MESH_SHARDS` logical
+    shards of the card, ("data",): GIN, PNA and GatedGCN at
+    `get_config()` width and depth, sized by `shape_config(cfg,
+    "ogb_products")`, each by `gnn_mesh_arch`: check A on
+    `GNN_MESH_EXACT`'s graph, check B on the ``nodes`` x 2 ``raw_edges``
+    one (both past `BIG_GRAPH`, as each sets it, so the layers recompute
+    in blocks of 4 and each shard's edges run in 4 chunks); NequIP at
+    `get_config()` on the molecule shape with forces, sharded (twice, bit
+    for bit) against unsharded at the same bars. No kernel of the port
+    runs: every launch count must stay 0."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import gnn_common as GC
+    from repro_torch.kernels import _cuda
+    from repro_torch.launch.mesh import make_serving_mesh
+    card = torch.device(device)
+    if card.type == "cuda" and card.index is None:
+        card = torch.device("cuda", torch.cuda.current_device())
+    torch.backends.cuda.matmul.allow_tf32 = False
+    torch.backends.cudnn.allow_tf32 = False
+    torch.cuda.empty_cache()
+    sync_all([card])
+    _cuda.reset_launch_counts()
+    t0 = time.perf_counter()
+    mesh = make_serving_mesh([card] * GNN_MESH_SHARDS)
+    base = GC.shape_config(get_arch("gin-tu").get_config(), GNN_MESH_SHAPE)
+    exact = gnn_mesh_graph(base.d_feat, base.n_classes, seed=1,
+                           nodes=GNN_MESH_EXACT["nodes"],
+                           raw_edges=GNN_MESH_EXACT["raw_edges"])
+    batch = gnn_mesh_graph(base.d_feat, base.n_classes, nodes=nodes,
+                           raw_edges=raw_edges)
+    out = {"phase": "gnn_mesh", "shards": GNN_MESH_SHARDS,
+           "nodes": nodes, "edges": 2 * raw_edges,
+           "edge_chunk": GNN_MESH_CHUNK, "check_a_sizes": GNN_MESH_EXACT,
+           "archs": {}}
+    for arch in GNN_ARCHS:
+        cfg = GC.shape_config(get_arch(arch).get_config(), GNN_MESH_SHAPE)
+        out["archs"][arch] = r = gnn_mesh_arch(arch, cfg, exact, batch,
+                                               mesh, card)
+        a, b = r["check_a"], r["check_b"]
+        progress(f"gnn_mesh {arch}: check A ({a['dtype']}) loss "
+                 f"{a['loss_rel_err']:.2e}, gradient {a['grad_rel_err']:.2e};"
+                 f" bf16 sharded {b['sharded_step_ms']:.1f} ms (unsharded "
+                 f"{b['unsharded_step_ms']:.1f}), peak {b['sharded_peak_gb']}"
+                 f" GB (unsharded {b['unsharded_peak_gb']})")
+    del batch, exact
+    nq = GC.shape_config(get_arch("nequip").get_config(), "molecule")
+    mol = GC.cell_batch("molecule", seed=1)
+    sh = gnn_mesh_step(nq, mol, mesh, card, reps=2, shape="molecule")
+    un = gnn_mesh_step(nq, mol, None, card, shape="molecule")
+    a, b = sh["runs"]
+    cmp = gnn_mesh_compare(a, un["runs"][0])
+    out["archs"]["nequip"] = {
+        "shape": "molecule", "force_weight": GC.nequip_force_weight(
+            "molecule"), "sharded_step_ms": [r["step_s"] * 1e3
+                                             for r in sh["runs"]],
+        "unsharded_step_ms": un["runs"][0]["step_s"] * 1e3,
+        "rerun_bit_equal": gnn_mesh_bit_equal(a, b),
+        "sharded_peak_gb": sh["peak_gb"], **cmp}
+    if not out["archs"]["nequip"]["rerun_bit_equal"]:
+        fail("gnn_mesh nequip: the sharded step's re-run differs")
+    if cmp["loss_rel_err"] > GNN_MESH_LOSS_TOL or \
+            cmp["grad_rel_err"] > GNN_MESH_GRAD_TOL:
+        fail(f"gnn_mesh nequip: sharded vs unsharded loss "
+             f"{cmp['loss_rel_err']}, gradient {cmp['grad_rel_err']}")
+    sync_all([card])
+    launched = {k: v for k, v in _cuda.LAUNCHES.items() if v}
+    if launched:
+        fail(f"gnn_mesh phase launched kernels of the port: {launched}")
+    out["launches"] = {}
+    out["wall_s"] = time.perf_counter() - t0
+    progress(f"gnn_mesh: phase {out['wall_s']:.1f} s")
+    return out
+
+
 # ------------------------------------------------------------ the examples
 EXAMPLES = {  # example -> the kernels its card run must launch
     "quickstart_torch": ("wcsd_query_ragged",),
@@ -4908,6 +5201,9 @@ def main() -> int:
     # ---------------------- training over a mesh, 4 logical shards of card 0
     lm_train_rec = lm_train_mesh_phase(dev)
 
+    # ------------------ the graph family over 4 logical shards of card 0
+    gnn_mesh_rec = gnn_mesh_phase(dev)
+
     # ----------------------- the dry-run matrix: counts, one-card runs
     dry = dryrun_phase(dev)
     progress(f"dryrun: {dry['cells']} cells, phase {dry['wall_s']:.1f} s")
@@ -4961,6 +5257,7 @@ def main() -> int:
     emit(lm)
     emit(lm_mesh_rec)
     emit(lm_train_rec)
+    emit(gnn_mesh_rec)
     emit(dry)
     emit({"kernels": [{key: k[key] for key in (
         "name", "route", "source", "replaces", "launches", "max_abs_err",

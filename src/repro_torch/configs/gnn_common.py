@@ -15,9 +15,11 @@ Shapes (assigned):
 N padded to 512 where the shape shards its nodes), `shape_config` the
 configuration a shape runs (its d_feat, classes, task, bf16 where the
 nodes shard), `cell_batch` a synthetic batch at those sizes, and
-`make_train_step_for` the train step, and `make_gnn_cell` /
-`make_nequip_cell` a shape's dry-run `Cell` (edge arrays over ("pod",
-"data"), node arrays too where the shape shards its nodes).
+`make_train_step_for` the train step (over a mesh too: `shard_params`
+stores the replicated parameters, the batch is placed by
+`batch_specs`), and `make_gnn_cell` / `make_nequip_cell` a shape's
+dry-run `Cell` (edge arrays over ("pod", "data"), node arrays too where
+the shape shards its nodes).
 """
 from __future__ import annotations
 
@@ -29,6 +31,7 @@ import torch
 from ..data.graphs import NeighborSampler, pad_block, synthetic_molecules
 from ..models import gnn as G
 from ..models import nequip as NQ
+from ..launch.mesh import Sharded, shard_leaf
 from ..launch.mesh import Spec as P
 from ..train import optim as O
 from ..train.loop import make_train_step
@@ -153,14 +156,55 @@ def nequip_force_weight(shape: str) -> float:
     return 0.1 if shape == "molecule" else 0.0
 
 
+def batch_specs(cfg, shape: str, multi_pod: bool = False) -> dict:
+    """The cell's batch specs at ``shape`` (the reference's ``bspec``):
+    the edge arrays over ("pod", "data"), the node arrays and node labels
+    too where a GNN's shape shards its nodes; NequIP's node arrays
+    replicated (every edge chunk gathers ``h[src]`` by arbitrary index),
+    every other key replicated."""
+    spec = GNN_SHAPES[shape]
+    bd = _bd(multi_pod)
+    if isinstance(cfg, NQ.NequIPConfig):
+        nspec = P(None, None)
+        return {"feat": nspec, "pos": nspec, "edges_src": P(bd),
+                "edges_dst": P(bd), "graph_id": P(None),
+                "energy": P(None), "forces": nspec}
+    out = {"feat": P(bd, None) if spec["shard_nodes"] else P(None, None),
+           "edges_src": P(bd), "edges_dst": P(bd)}
+    if spec["graph_level"]:
+        out.update(graph_id=P(None), labels=P(None))
+    else:
+        out["labels"] = P(bd) if spec["shard_nodes"] else P(None)
+    return out
+
+
+def shard_params(params, cfg, mesh) -> dict:
+    """``params`` stored by their `param_specs` over ``mesh``: every leaf
+    replicated, a `launch.mesh.Sharded` list of one block a shard (one
+    tensor a device). `optim.init_opt_state` over them stores the
+    moments the same way."""
+    mod = NQ if isinstance(cfg, NQ.NequIPConfig) else G
+    specs = mod.param_specs(cfg)
+    return G.nest_params({p: shard_leaf(v, specs[p], mesh)
+                          for p, v in G.flatten_params(params).items()})
+
+
 def make_train_step_for(cfg, shape: str,
-                        opt_cfg: OptimizerConfig = TRAIN_OPT, **kw):
+                        opt_cfg: OptimizerConfig = TRAIN_OPT, mesh=None,
+                        **kw):
     """`make_train_step` over the loss ``cfg`` trains at ``shape`` (``cfg``
     as `shape_config` sizes it; ``kw``: ``accum_steps``,
     ``compress_grads``): a GNN's cross-entropy; NequIP's energy + force
     loss on `molecule`, its energy MSE through `nequip_edge_chunk`
-    elsewhere."""
+    elsewhere. Over a ``mesh`` (parameters and state stored by
+    `shard_params`), each batch is placed by the cell's `batch_specs`
+    (multi-pod where the mesh has a "pod" axis), the losses run their
+    mesh paths and the backward runs on one thread (`make_train_step`'s
+    ``one_thread``)."""
     ng = n_graphs_of(cfg, shape)
+    if mesh is not None:
+        kw.update(mesh=mesh, one_thread=True, batch_specs=batch_specs(
+            cfg, shape, multi_pod="pod" in mesh.axis_names))
     if not isinstance(cfg, NQ.NequIPConfig):
         return make_train_step(
             lambda p, b: G.loss_fn(p, cfg, b, n_graphs=ng), opt_cfg, **kw)
@@ -171,8 +215,10 @@ def make_train_step_for(cfg, shape: str,
         if fw:
             return NQ.loss_fn(p, cfg, b, n_graphs=ng, force_weight=fw)
         e = NQ.energy_fn(p, cfg, b, n_graphs=ng, edge_chunk=chunk)
-        return torch.mean((e - torch.as_tensor(b["energy"],
-                                               device=e.device)) ** 2)
+        target = b["energy"]
+        if isinstance(target, Sharded):
+            target = target[0]
+        return torch.mean((e - torch.as_tensor(target, device=e.device)) ** 2)
 
     return make_train_step(loss, opt_cfg, **kw)
 
@@ -250,25 +296,19 @@ def make_gnn_cell(cfg: G.GNNConfig, shape: str, multi_pod: bool = False,
     a train step over the padded batch (`padded_sizes`), ``cfg`` sized
     by `shape_config`."""
     spec = GNN_SHAPES[shape]
-    bd = _bd(multi_pod)
     N, E = padded_sizes(shape)
     cfg = shape_config(cfg, shape)
     ap = G.abstract_params(cfg)
     ps = G.param_shardings(cfg)
-    nspec = P(bd, None) if spec["shard_nodes"] else P(None, None)
-    lspec = P(bd) if spec["shard_nodes"] else P(None)
     batch = {"feat": abstract((N, spec["d_feat"])),
              "edges_src": abstract((E,), torch.int32),
              "edges_dst": abstract((E,), torch.int32)}
-    bspec = {"feat": nspec, "edges_src": P(bd), "edges_dst": P(bd)}
     if spec["graph_level"]:
         batch["graph_id"] = abstract((N,), torch.int32)
         batch["labels"] = abstract((spec["n_graphs"],), torch.int32)
-        bspec["graph_id"] = P(None)
-        bspec["labels"] = P(None)
     else:
         batch["labels"] = abstract((N,), torch.int32)
-        bspec["labels"] = lspec
+    bspec = batch_specs(cfg, shape, multi_pod)
     ao = O.abstract_opt_state(TRAIN_OPT, ap)
     osd = O.opt_state_shardings(TRAIN_OPT, ps)
     meta = {"family": "gnn", "scan_trips": 1,   # python-loop layers
@@ -289,21 +329,17 @@ def make_nequip_cell(cfg: NQ.NequIPConfig, shape: str,
     ("pod", "data"); the force loss on `molecule`, the energy MSE
     through `nequip_edge_chunk` elsewhere."""
     spec = GNN_SHAPES[shape]
-    bd = _bd(multi_pod)
     N, E = padded_sizes(shape)
     cfg = shape_config(cfg, shape)
     ap = NQ.abstract_params(cfg)
     ps = NQ.param_shardings(cfg)
-    nspec = P(None, None)
     ng = n_graphs_of(cfg, shape)
     batch = {"feat": abstract((N, spec["d_feat"])), "pos": abstract((N, 3)),
              "edges_src": abstract((E,), torch.int32),
              "edges_dst": abstract((E,), torch.int32),
              "graph_id": abstract((N,), torch.int32),
              "energy": abstract((ng,)), "forces": abstract((N, 3))}
-    bspec = {"feat": nspec, "pos": nspec, "edges_src": P(bd),
-             "edges_dst": P(bd), "graph_id": P(None),
-             "energy": P(None), "forces": nspec}
+    bspec = batch_specs(cfg, shape, multi_pod)
     edge_chunk = nequip_edge_chunk(E)
     ao = O.abstract_opt_state(TRAIN_OPT, ap)
     osd = O.opt_state_shardings(TRAIN_OPT, ps)

@@ -20,10 +20,13 @@ counterpart here. Row ids are host arrays (a tensor is copied to the
 host), so the owner partition is planned without a device sync; each
 physical device gets the local ids in one copy.
 
-`psum` / `pmax` combine one tensor a shard in linear shard order on
-shard 0's device and hand the result to every shard's device (one copy
-a physical device; a ``.to`` between cards, never a host sync);
-`reduce_sum` leaves the sum on one device.
+`psum` / `pmax` / `pmin` combine one tensor a shard in linear shard
+order on shard 0's device (a sum in float32 at least, cast once) and
+hand every shard a tensor of its own on its device (a ``.to`` between
+cards, never a host sync); `reduce_sum` leaves the sum on one device,
+and `cross_entropy_blocks` forms a global mean from row blocks with it.
+`all_reduce` is `psum` over several tensors a shard as one autograd
+node, differentiable any number of times (the graph family's layers).
 `distributed_lse_decode` is decode attention over a KV cache split
 along its sequence axis: each shard reduces its own block to a
 ``[B, H, G]`` max, a ``[B, H, G]`` sum and a ``[B, H, G, Dh]`` partial
@@ -43,7 +46,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
-from ..launch.mesh import Sharded, region_slices
+from ..launch.mesh import Sharded, join_leaf, region_slices
 
 
 def hierarchical_psum(xs, shape):
@@ -63,14 +66,18 @@ def hierarchical_psum(xs, shape):
     return [total.to(x.device) for x in xs]
 
 
-def replicate(x: torch.Tensor, devices) -> list:
-    """``x`` on each of ``devices`` (one copy a distinct device)."""
+def replicate(x: torch.Tensor, devices, distinct: bool = False) -> list:
+    """``x`` on each of ``devices``: one copy a distinct device, or with
+    ``distinct`` a tensor of its own for each entry (devices that repeat
+    get clones, so each entry has its own autograd history)."""
     copies: dict = {}
     out = []
     for d in devices:
         if d not in copies:
             copies[d] = x.to(d)
-        out.append(copies[d])
+            out.append(copies[d])
+        else:
+            out.append(copies[d].clone() if distinct else copies[d])
     return out
 
 
@@ -83,18 +90,110 @@ def reduce_sum(xs, device=None) -> torch.Tensor:
     return acc
 
 
-def psum(xs) -> list:
-    """`reduce_sum` on shard 0's device, handed to every shard's
-    device."""
-    return replicate(reduce_sum(xs), [x.device for x in xs])
+def psum(xs, dtype=None) -> list:
+    """The sum of one tensor a shard, added in linear shard order on
+    shard 0's device in float32 at least and cast once to ``dtype`` (the
+    first tensor's by default), handed to every shard's device as a
+    tensor of its own (`replicate` with ``distinct``)."""
+    wide = torch.promote_types(xs[0].dtype, torch.float32)
+    acc = xs[0].to(wide, copy=True)
+    for x in xs[1:]:
+        acc = acc + x.to(acc.device).to(wide)
+    return replicate(acc.to(dtype or xs[0].dtype), [x.device for x in xs],
+                     distinct=True)
+
+
+def _extreme(xs, pick) -> list:
+    acc = xs[0].clone()
+    for x in xs[1:]:
+        acc = pick(acc, x.to(acc.device))
+    return replicate(acc, [x.device for x in xs], distinct=True)
 
 
 def pmax(xs) -> list:
-    """The elementwise max over shards, as `psum`."""
-    acc = xs[0]
-    for x in xs[1:]:
-        acc = torch.maximum(acc, x.to(acc.device))
-    return replicate(acc, [x.device for x in xs])
+    """The elementwise max over shards in linear shard order, handed out
+    as `psum` hands out its sum."""
+    return _extreme(xs, torch.maximum)
+
+
+def pmin(xs) -> list:
+    """The elementwise min over shards, as `pmax`."""
+    return _extreme(xs, torch.minimum)
+
+
+def cross_entropy_blocks(logits: list, labels: list) -> torch.Tensor:
+    """The mean cross-entropy of a batch given as row blocks (the data
+    shards', each on its device): the sum of the blocks' masked sums over
+    the global count of labels >= 0, on the first block's device. Equal
+    rows a block do not make the blocks' means safe to average: masked
+    labels need not fall evenly."""
+    from ..models.common import cross_entropy_sums
+    sums = [cross_entropy_sums(lg, lb) for lg, lb in zip(logits, labels)]
+    dev = logits[0].device
+    return reduce_sum([s for s, _ in sums], dev) / reduce_sum(
+        [n for _, n in sums], dev).clamp_min(1.0)
+
+
+class _AllReduce(torch.autograd.Function):
+    """`psum` over several tensors a shard, each cast to its ``dtypes``
+    entry. Its backward is the same all-reduce of the
+    replicas' gradients (in linear shard order, cast once to each
+    input's dtype), itself through this Function, so it differentiates
+    any number of times."""
+
+    @staticmethod
+    def forward(ctx, n_shards, dtypes, *flat):
+        per = len(flat) // n_shards
+        ctx.n_shards, ctx.per = n_shards, per
+        ctx.in_dtypes = tuple(x.dtype for x in flat[:per])
+        ctx.meta = [(x.shape, x.device) for x in flat]
+        ctx.out_dtypes = dtypes
+        outs = [psum(flat[j::per], dtypes[j]) for j in range(per)]
+        return tuple(outs[j][k] for k in range(n_shards)
+                     for j in range(per))
+
+    @staticmethod
+    def backward(ctx, *gs):
+        gs = [torch.zeros(shape, dtype=ctx.out_dtypes[i % ctx.per],
+                          device=dev) if g is None else g
+              for i, (g, (shape, dev)) in enumerate(zip(gs, ctx.meta))]
+        back = _AllReduce.apply(ctx.n_shards, ctx.in_dtypes, *gs)
+        return (None, None) + tuple(back)
+
+
+def all_reduce(parts) -> list:
+    """The layers' all-reduce of partial aggregates: ``parts`` holds each
+    shard's list of tensors (in linear shard order, each on its shard's
+    device); returns each shard's list of the totals, each summed in
+    linear shard order in float32 at least and cast once to the
+    partial's dtype, a distinct tensor a shard. One autograd node for
+    all of them: its backward (the same all-reduce) runs once every
+    shard's gradient is in, and differentiates again."""
+    n, per = len(parts), len(parts[0])
+    flat = [x for shard in parts for x in shard]
+    out = _AllReduce.apply(n, tuple(x.dtype for x in parts[0]), *flat)
+    return [list(out[k * per:(k + 1) * per]) for k in range(n)]
+
+
+def all_gather(leaf: Sharded, devices) -> list:
+    """The whole of ``leaf`` on each of ``devices``, without gradient:
+    one copy a distinct device (a block that is already the whole leaf
+    on that device is used as it is; row blocks are joined in order)."""
+    copies: dict = {}
+    rows = all(tuple(b.shape[1:]) == tuple(leaf.shape[1:]) for b in leaf)
+    with torch.no_grad():
+        for d in devices:
+            if d in copies:
+                continue
+            whole = [b for b in leaf if b.device == d
+                     and tuple(b.shape) == tuple(leaf.shape)]
+            if whole:
+                copies[d] = whole[0]
+            elif rows:
+                copies[d] = torch.cat([leaf[k].to(d) for k in leaf.owners()])
+            else:
+                copies[d] = join_leaf(leaf, d)
+    return [copies[d] for d in devices]
 
 
 def distributed_lse_decode(q, k_shards, v_shards, kv_valid_mask=None

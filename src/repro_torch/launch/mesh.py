@@ -16,7 +16,8 @@ own. On it a leaf is stored by its `Spec` as the reference's
 `jax.device_put(leaf, NamedSharding(mesh, spec))` stores it: a `Sharded`
 list holds each shard's block (`block_region`, XLA's rule, the same
 block as the reference's addressable shard), `join_leaf` joins them
-back, and `split_rows` splits a batch's rows over the data axes.
+back, and `split_rows` splits a batch's rows over the data axes
+(`place_batch` stores a batch by a cell's batch specs instead).
 The reference drives every device from one Python process through
 `shard_map` over a `jax.sharding.Mesh`; the port keeps that single
 controller. A mesh here is an ordered tuple of
@@ -300,6 +301,47 @@ def split_rows(x, mesh: ServingMesh) -> list:
     n = x.shape[0] // len(ks)
     return [x[d * n:(d + 1) * n].to(mesh.devices[k])
             for d, k in enumerate(ks)]
+
+
+def _splits_rows(spec, mesh: ServingMesh) -> bool:
+    """Whether ``spec``'s first entry names the axes of the mesh that
+    split a batch's rows; naming only some of them raises (a data shard
+    would hold another's rows too)."""
+    entries = tuple(spec or ())
+    if not entries or entries[0] is None:
+        return False
+    names = (entries[0],) if isinstance(entries[0], str) else entries[0]
+    data = [a for a in batch_axes(True) if a in mesh.axis_names]
+    named = [a for a in names if a in mesh.axis_names]
+    if named and named != data:
+        raise ValueError(f"{spec} splits rows over {named}, the mesh's data "
+                         f"axes are {data}")
+    return bool(named)
+
+
+def place_batch(batch: dict, mesh: ServingMesh, specs: dict) -> dict:
+    """A batch stored by the cell's batch specs: each key a `Sharded`
+    leaf (`shard_leaf`). A key whose spec names the data axes becomes
+    row blocks on the data shards; every other key is replicated, one
+    copy a device. A key already `Sharded` is kept; a key without a spec
+    is replicated. Rows that do not split evenly over the data shards
+    raise (XLA would pad the last block)."""
+    n = len(data_shards(mesh))
+    out = {}
+    for key, x in batch.items():
+        if isinstance(x, Sharded):
+            out[key] = x
+            continue
+        spec = specs.get(key)
+        x = torch.as_tensor(x)
+        if _splits_rows(spec, mesh):
+            if x.shape[0] % n:
+                raise ValueError(f"{key}: {x.shape[0]} rows do not split "
+                                 f"over {n} data shards")
+        else:
+            spec = Spec()
+        out[key] = shard_leaf(x, spec, mesh)
+    return out
 
 
 def make_serving_mesh(devices=None, *, multi_pod: bool = False,

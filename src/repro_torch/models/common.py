@@ -205,9 +205,11 @@ def as_plan(ids, num_segments: int | None = None) -> SegmentPlan:
     return SegmentPlan(ids, num_segments)
 
 
-def _reduce(x: torch.Tensor, plan: SegmentPlan, op: str) -> torch.Tensor:
+def _reduce(x: torch.Tensor, plan: SegmentPlan, op: str,
+            wide: bool = False) -> torch.Tensor:
     """The plain reduction: ``op`` over each segment of rows of ``x``
-    ([n, ...] -> [S, ...]); sums accumulate in float32 at least."""
+    ([n, ...] -> [S, ...]); sums accumulate in float32 at least, and with
+    ``wide`` stay in it (a partial that a cross-shard sum adds to)."""
     if x.shape[0] != len(plan):
         raise ValueError(f"{x.shape[0]} rows for a plan of {len(plan)} ids")
     tail = tuple(x.shape[1:])
@@ -216,7 +218,7 @@ def _reduce(x: torch.Tensor, plan: SegmentPlan, op: str) -> torch.Tensor:
         y = y.to(torch.float32)
     for lengths in plan.levels:
         y = torch.segment_reduce(y, op, lengths=lengths, unsafe=True)
-    return y[:plan.num_segments].to(x.dtype).reshape(
+    return y[:plan.num_segments].to(y.dtype if wide else x.dtype).reshape(
         (plan.num_segments,) + tail)
 
 

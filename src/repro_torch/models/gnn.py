@@ -28,13 +28,18 @@ import torch
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.collectives import all_gather, cross_entropy_blocks
 from ..kernels._cuda import resolve_device
+from ..launch.mesh import data_shards, place_batch
 from ..launch.mesh import Spec as P
 from .common import (SegmentPlan, abstract_tree, as_plan,
                      cross_entropy_loss, flatten_params, load_numpy_tree,
                      nest_params, param_tree, register_params, segment_gather,
                      segment_max, segment_min, segment_sum, tree_to_numpy,
                      trunc_normal)
+from .segment_mesh import (edge_chunks, edge_pass, edge_specs, fork,
+                           mesh_degree, recompute, shard_trees,
+                           stored_mesh)
 
 BIG_GRAPH = 500_000   # above this many nodes, blocks of layers recompute
 
@@ -80,23 +85,31 @@ def degree(edges_dst, num_nodes=None):
 
 
 # ------------------------------------------------------------------- layers
-def gin_layer(h, lp, src, dst, N):
-    agg = segment_sum(segment_gather(h, as_plan(src, N)), as_plan(dst, N))
-    z = (1.0 + lp["eps"]) * h + agg
+# Each layer is its edge work, per-edge values that a reduction by
+# destination ("sum" / "max" / "min") or the edge state ("edge") takes,
+# and its node update over those reductions: one device runs the first
+# through `_aggregate`, a mesh through `segment_mesh.edge_pass`.
+def _gin_messages(h, e, lp, src, dst):
+    return [segment_gather(h, src)]
+
+
+def _gin_update(h, aggs, lp, d, deg_log_mean):
+    z = (1.0 + lp["eps"]) * h + aggs[0]
     z = torch.relu(mm(z, lp["w1"]) + lp["b1"])
     return mm(z, lp["w2"]) + lp["b2"]
 
 
-def pna_layer(h, lp, src, dst, N, deg_log_mean):
-    dst = as_plan(dst, N)
-    msg = mm(segment_gather(h, as_plan(src, N)), lp["w_msg"])
-    d = degree(dst)
+def _pna_messages(h, e, lp, src, dst):
+    msg = mm(segment_gather(h, src), lp["w_msg"])
+    return [msg, msg * msg, msg, msg]
+
+
+def _pna_update(h, aggs, lp, d, deg_log_mean):
+    s, sq, mx, mn = aggs
     has = d[:, None] > 0
-    s = segment_sum(msg, dst)
     mean = s / torch.clamp_min(d, 1.0)[:, None]
-    mx = torch.where(has, segment_max(msg, dst), 0.0)
-    mn = torch.where(has, segment_min(msg, dst), 0.0)
-    sq = segment_sum(msg * msg, dst)
+    mx = torch.where(has, mx, 0.0)
+    mn = torch.where(has, mn, 0.0)
     var = torch.maximum(sq / torch.clamp_min(d, 1.0)[:, None] - mean * mean,
                         torch.zeros((), device=h.device))
     std = torch.sqrt(var + 1e-5)
@@ -115,18 +128,65 @@ def _layer_norm(x, g, b):
     return (x - mu) * torch.rsqrt(v + 1e-5) * g + b
 
 
-def gatedgcn_layer(h, e, lp, src, dst, N):
-    src, dst = as_plan(src, N), as_plan(dst, N)
+def _gatedgcn_messages(h, e, lp, src, dst):
     hi, hj = segment_gather(h, dst), segment_gather(h, src)
     e_new = mm(hi, lp["A"]) + mm(hj, lp["B"]) + mm(e, lp["C"])
     eta = torch.sigmoid(e_new)
-    denom = segment_sum(eta, dst) + 1e-6
     msg = eta * mm(hj, lp["V"])
-    agg = segment_sum(msg, dst) / denom
-    h_new = mm(h, lp["U"]) + agg
-    h_out = h + torch.relu(_layer_norm(h_new, lp["ln_h_g"], lp["ln_h_b"]))
     e_out = e + torch.relu(_layer_norm(e_new, lp["ln_e_g"], lp["ln_e_b"]))
-    return h_out, e_out
+    return [eta, msg, e_out]
+
+
+def _gatedgcn_update(h, aggs, lp, d, deg_log_mean):
+    agg = aggs[1] / (aggs[0] + 1e-6)
+    h_new = mm(h, lp["U"]) + agg
+    return h + torch.relu(_layer_norm(h_new, lp["ln_h_g"], lp["ln_h_b"]))
+
+
+@dataclasses.dataclass(frozen=True)
+class _Layer:
+    messages: object          # (h, e, lp, src, dst) -> [per-edge values]
+    kinds: tuple              # what becomes of each value
+    edge_keys: tuple          # the layer parameters `messages` reads
+    update: object            # (h, aggs, lp, degree, deg_log_mean) -> h
+
+
+LAYERS = {
+    "gin": _Layer(_gin_messages, ("sum",), (), _gin_update),
+    "pna": _Layer(_pna_messages, ("sum", "sum", "max", "min"), ("w_msg",),
+                  _pna_update),
+    "gatedgcn": _Layer(_gatedgcn_messages, ("sum", "sum", "edge"),
+                       ("A", "B", "C", "V", "ln_e_g", "ln_e_b"),
+                       _gatedgcn_update),
+}
+_REDUCE = {"sum": segment_sum, "max": segment_max, "min": segment_min}
+
+
+def _aggregate(kind: str, h, e, lp, src, dst) -> list:
+    """A layer's edge work on one device: its per-edge values, each
+    reduced by destination or kept per edge."""
+    layer = LAYERS[kind]
+    vals = layer.messages(h, e, lp, src, dst)
+    return [v if k == "edge" else _REDUCE[k](v, dst)
+            for v, k in zip(vals, layer.kinds)]
+
+
+def gin_layer(h, lp, src, dst, N):
+    src, dst = as_plan(src, N), as_plan(dst, N)
+    return _gin_update(h, _aggregate("gin", h, None, lp, src, dst), lp,
+                       None, None)
+
+
+def pna_layer(h, lp, src, dst, N, deg_log_mean):
+    src, dst = as_plan(src, N), as_plan(dst, N)
+    return _pna_update(h, _aggregate("pna", h, None, lp, src, dst), lp,
+                       degree(dst), deg_log_mean)
+
+
+def gatedgcn_layer(h, e, lp, src, dst, N):
+    src, dst = as_plan(src, N), as_plan(dst, N)
+    aggs = _aggregate("gatedgcn", h, e, lp, src, dst)
+    return _gatedgcn_update(h, aggs, lp, None, None), aggs[2]
 
 
 # --------------------------------------------------------------- param defs
@@ -199,7 +259,14 @@ def forward(params, cfg: GNNConfig, batch, n_graphs: int | None = None):
     tasks) in the compute dtype. A graph of more than `BIG_GRAPH` nodes
     whose depth is a multiple of 4 recomputes each block of 4 layers in
     the backward (`torch.utils.checkpoint`), as the reference's
-    ``jax.checkpoint`` over layer blocks."""
+    ``jax.checkpoint`` over layer blocks.
+
+    Over `Sharded` parameters (`configs.gnn_common.shard_params`), on
+    their mesh, see `_forward_mesh`: it returns the list of the data
+    shards' logits blocks."""
+    mesh = stored_mesh(params["enc_w"])
+    if mesh is not None:
+        return _forward_mesh(params, cfg, batch, n_graphs, mesh)[0]
     dt = DTYPES[cfg.compute_dtype]
     dev = params["enc_w"].device
     feat = _on(batch["feat"], dev)
@@ -247,8 +314,118 @@ def forward(params, cfg: GNNConfig, batch, n_graphs: int | None = None):
 
 
 def loss_fn(params, cfg: GNNConfig, batch, n_graphs: int | None = None):
-    logits = forward(params, cfg, batch, n_graphs=n_graphs)
-    return cross_entropy_loss(logits, batch["labels"])
+    """The mean cross-entropy over the labels >= 0; over `Sharded`
+    parameters the global one (`collectives.cross_entropy_blocks`: the
+    data shards' masked sums over the global count, on the first shard's
+    device)."""
+    mesh = stored_mesh(params["enc_w"])
+    if mesh is None:
+        logits = forward(params, cfg, batch, n_graphs=n_graphs)
+        return cross_entropy_loss(logits, batch["labels"])
+    logits, labels = _forward_mesh(params, cfg, batch, n_graphs, mesh)
+    return cross_entropy_blocks(logits, labels)
+
+
+# -------------------------------------------------------- over a mesh
+EDGE_CHUNK = 1 << 22   # edges a chunk of a shard's edge work, past BIG_GRAPH
+
+
+def _block_fn(apply_layer, n: int, keys: list, has_e: bool):
+    """A block of 4 layers over flat tensors (each shard's node state,
+    its edge state where ``has_e``, then each layer's each shard's
+    parameters by ``keys``), for `segment_mesh.recompute`."""
+
+    def run(*xs):
+        hs, es = list(xs[:n]), list(xs[n:2 * n]) if has_e else [None] * n
+        rest = iter(xs[n * (1 + has_e):])
+        for _ in range(4):
+            lps = [{k: next(rest) for k in keys} for _ in range(n)]
+            hs, es = apply_layer(hs, es, lps)
+        return tuple(hs) + (tuple(es) if has_e else ())
+    return run
+
+
+def _forward_mesh(params, cfg: GNNConfig, batch, n_graphs, mesh):
+    """The forward with the edges split over the mesh's data shards and
+    the node state replicated, the reference's sharded step.
+
+    ``batch`` is placed by `launch.mesh.place_batch` (its `Sharded`
+    keys kept; raw keys by `edge_specs`). Each data shard gathers the
+    whole ``feat`` onto its device (no gradient crosses the cards there)
+    and runs the encoder on it; each layer's edge work runs each shard's
+    edges (`segment_mesh.edge_pass`, in chunks of `EDGE_CHUNK` edges
+    above `BIG_GRAPH` nodes) and all-reduces the partial aggregates once;
+    each shard then updates its own copy of the node state. The layers
+    recompute in blocks of 4 above `BIG_GRAPH`, as on one device.
+    Returns (the logits blocks, the labels blocks): with ``labels`` split
+    over the data shards each shard takes its row block, else (graph
+    tasks, replicated labels) data shard 0 takes every row."""
+    dt = DTYPES[cfg.compute_dtype]
+    ks = data_shards(mesh)
+    devs = [mesh.devices[k] for k in ks]
+    b = place_batch(batch, mesh, edge_specs(mesh))
+    ps = shard_trees(params, mesh)
+    N = b["feat"].shape[0]
+    chunk = EDGE_CHUNK if N > BIG_GRAPH else None
+    chunks = [edge_chunks(b["edges_src"][k].long(), b["edges_dst"][k].long(),
+                          N, chunk) for k in ks]
+    deg = mesh_degree(chunks)
+    dlm = [torch.clamp_min(torch.log1p(d).mean(), 1e-2) for d in deg]
+    hs = [mm(f.to(dt), p["enc_w"].to(dt)) + p["enc_b"].to(dt)
+          for f, p in zip(all_gather(b["feat"], devs), ps)]
+    es = [None] * len(ks)
+    if cfg.kind == "gatedgcn":
+        ef = b.get("edge_feat")
+        es = [mm((torch.ones((c[-1].hi, 1), dtype=dt, device=dev)
+                  if ef is None else ef[k]).to(dt), p["edge_enc_w"].to(dt))
+              + p["edge_enc_b"].to(dt)
+              for k, c, dev, p in zip(ks, chunks, devs, ps)]
+    layer = LAYERS[cfg.kind]
+    keys = sorted(ps[0]["layers"])
+
+    def layer_params(i) -> list:
+        return [{k: p["layers"][k][i].to(dt) for k in keys} for p in ps]
+
+    def apply_layer(hs, es, lps):
+        forks = [fork(h) for h in hs]
+        outs = edge_pass(layer.messages, layer.kinds, [f[0] for f in forks],
+                         es, [{k: lp[k] for k in layer.edge_keys}
+                              for lp in lps], chunks)
+        hs = [layer.update(f[1], o, lp, d, m).to(dt)
+              for f, o, lp, d, m in zip(forks, outs, lps, deg, dlm)]
+        if cfg.kind == "gatedgcn":
+            es = [o[2].to(dt) for o in outs]
+        return hs, es
+
+    n = len(ks)
+    if N > BIG_GRAPH and cfg.n_layers % 4 == 0:
+        # recompute over blocks of 4 layers, as on one device: only block
+        # boundaries are saved (`segment_mesh.recompute`, since a block
+        # spans every card)
+        for b_ in range(cfg.n_layers // 4):
+            lps = [layer_params(i) for i in range(4 * b_, 4 * b_ + 4)]
+            xs = recompute(_block_fn(apply_layer, n, keys, es[0] is not None),
+                           *hs, *(e for e in es if e is not None),
+                           *(lp[k] for lpl in lps for lp in lpl for k in keys))
+            hs, es = list(xs[:n]), list(xs[n:]) or [None] * n
+    else:
+        for i in range(cfg.n_layers):
+            hs, es = apply_layer(hs, es, layer_params(i))
+    labels = b.get("labels")
+    split = labels is not None and any(x.shape[0] != labels.shape[0]
+                                       for x in labels)
+    if cfg.graph_level:
+        gid = SegmentPlan(b["graph_id"][ks[0]].long(), n_graphs)
+        rows = [segment_sum(hs[0], gid)]
+    elif split:
+        rows = [h[slice(*labels.region(k)[0])] for h, k in zip(hs, ks)]
+    else:
+        rows = [hs[0]]
+    logits = [mm(r, p["head_w"].to(dt)) + p["head_b"].to(dt)
+              for r, p in zip(rows, ps)]
+    if labels is None:
+        return logits, None
+    return logits, [labels[k] for k in ks[:len(logits)]]
 
 
 # -------------------------------------------------------------- the module

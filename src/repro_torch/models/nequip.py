@@ -31,12 +31,16 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
+from ..distributed.collectives import all_gather, all_reduce, reduce_sum
 from ..kernels._cuda import resolve_device
+from ..launch.mesh import data_shards, place_batch
 from ..launch.mesh import Spec as P
 from .common import (SegmentPlan, abstract_tree, flatten_params,
                      load_numpy_tree, nest_params, param_tree, register_params,
                      segment_gather, segment_sum, tree_to_numpy,
                      trunc_normal)
+from .segment_mesh import (edge_specs, recompute, shard_trees,
+                           stored_mesh)
 
 LS = (0, 1, 2)
 BIG_GRAPH = 500_000   # above this many nodes, each layer recomputes
@@ -110,9 +114,9 @@ def _shared_couplings() -> tuple:
 
 
 @lru_cache(maxsize=None)
-def _gaunt_on(device: torch.device) -> dict:
-    """The Gaunt tables as float32 tensors on ``device``."""
-    return {k: torch.from_numpy(v).to(device)
+def _gaunt_on(device: torch.device, dtype=torch.float32) -> dict:
+    """The Gaunt tables (float32) as ``dtype`` tensors on ``device``."""
+    return {k: torch.from_numpy(v).to(device, dtype)
             for k, v in _gaunt_tables().items()}
 
 
@@ -134,7 +138,7 @@ def sph_harm(vec: torch.Tensor) -> dict:
 
 def bessel_basis(r: torch.Tensor, n_rbf: int, cutoff: float):
     """Bessel radial basis with smooth polynomial cutoff envelope."""
-    n = torch.arange(1, n_rbf + 1, dtype=torch.float32, device=r.device)
+    n = torch.arange(1, n_rbf + 1, dtype=r.dtype, device=r.device)
     rs = torch.maximum(r, _const(1e-6, r))[:, None]
     b = math.sqrt(2.0 / cutoff) * torch.sin(n * math.pi * rs / cutoff) / rs
     u = r / cutoff
@@ -209,7 +213,7 @@ def edge_geometry(pos: torch.Tensor, src: SegmentPlan, dst: SegmentPlan,
     2l3+1]. Computed once a forward and read by every layer, as XLA
     hoists it out of the reference's layer scan; a cotangent to ``pos``
     flows through it."""
-    gaunt = _gaunt_on(pos.device)
+    gaunt = _gaunt_on(pos.device, pos.dtype)
     rel = segment_gather(pos, src) - segment_gather(pos, dst)
     r = torch.linalg.norm(rel + 1e-12, dim=-1)
     unit = rel / torch.maximum(r, _const(1e-6, r))[:, None]
@@ -283,18 +287,21 @@ class _ChunkedMessages(torch.autograd.Function):
         return (None, None, None, None) + tuple(total)
 
 
-def _layer(h: dict, lp: dict, cfg: NequIPConfig, plans, pos, geo) -> dict:
-    """One interaction layer: messages (whole, over the forward's
-    geometry ``geo``, or chunked, each chunk's geometry computed in the
-    chunk), the per-l self-interaction with its residual, the gated
-    nonlinearity."""
+def _messages(h: dict, lp: dict, cfg: NequIPConfig, plans, pos, geo) -> dict:
+    """A layer's per-l aggregates over the edges of ``plans``: whole
+    (a (src, dst) pair, over the forward's geometry ``geo``) or chunked
+    (a list of pairs, each chunk's geometry computed in the chunk)."""
     if isinstance(plans, list):
         keys = tuple(sorted(lp))
-        agg = dict(zip(LS, _ChunkedMessages.apply(
+        return dict(zip(LS, _ChunkedMessages.apply(
             cfg, plans, pos.detach(), keys, *(h[l] for l in LS),
             *(lp[k] for k in keys))))
-    else:
-        agg = edge_messages(h, lp, cfg, plans[0], plans[1], geo)
+    return edge_messages(h, lp, cfg, plans[0], plans[1], geo)
+
+
+def _update(h: dict, agg: dict, lp: dict) -> dict:
+    """The per-l self-interaction with its residual, then the gated
+    nonlinearity."""
     new_h = {l: h[l] + torch.einsum("ncm,cd->ndm", agg[l], lp[f"self_w{l}"])
              for l in LS}
     s = new_h[0][:, :, 0]
@@ -305,8 +312,25 @@ def _layer(h: dict, lp: dict, cfg: NequIPConfig, plans, pos, geo) -> dict:
     return out
 
 
+def _layer(h: dict, lp: dict, cfg: NequIPConfig, plans, pos, geo) -> dict:
+    """One interaction layer: `_messages`, then `_update`."""
+    return _update(h, _messages(h, lp, cfg, plans, pos, geo), lp)
+
+
 def _on(x, device):
     return torch.as_tensor(x, device=device)
+
+
+def _plans(src_ids, dst_ids, N: int, edge_chunk):
+    """The edges' plans: chunks of ``edge_chunk`` (a list of (src, dst)
+    pairs) where the edges are more than one chunk and a whole number of
+    them, else one (src, dst) pair."""
+    E = src_ids.shape[0]
+    if edge_chunk and E > edge_chunk and E % edge_chunk == 0:
+        return [(SegmentPlan(src_ids[i:i + edge_chunk], N),
+                 SegmentPlan(dst_ids[i:i + edge_chunk], N))
+                for i in range(0, E, edge_chunk)]
+    return (SegmentPlan(src_ids, N), SegmentPlan(dst_ids, N))
 
 
 def energy_fn(params, cfg: NequIPConfig, batch, n_graphs: int | None = None,
@@ -320,24 +344,24 @@ def energy_fn(params, cfg: NequIPConfig, batch, n_graphs: int | None = None,
     is computed in the chunk); otherwise the edges' geometry
     (`edge_geometry`) is computed once and read by every layer. A graph
     of more than `BIG_GRAPH` nodes recomputes each layer in the
-    backward."""
+    backward.
+
+    Over `Sharded` parameters (`configs.gnn_common.shard_params`), on
+    their mesh, see `_energy_mesh`; the energies are on data shard 0's
+    device."""
+    mesh = stored_mesh(params["embed_w"])
+    if mesh is not None:
+        return _energy_mesh(params, cfg, batch, n_graphs, edge_chunk, mesh)
     dev = params["embed_w"].device
     feat = _on(batch["feat"], dev)
     pos = _on(batch["pos"], dev)
-    src_ids = _on(batch["edges_src"], dev)
-    dst_ids = _on(batch["edges_dst"], dev)
-    N, C, E = feat.shape[0], cfg.channels, src_ids.shape[0]
-    if edge_chunk and E > edge_chunk and E % edge_chunk == 0:
-        plans = [(SegmentPlan(src_ids[i:i + edge_chunk], N),
-                  SegmentPlan(dst_ids[i:i + edge_chunk], N))
-                 for i in range(0, E, edge_chunk)]
-        geo = None
-    else:
-        plans = (SegmentPlan(src_ids, N), SegmentPlan(dst_ids, N))
-        geo = edge_geometry(pos, *plans, cfg)
-    h = {0: (feat @ params["embed_w"])[:, :, None],
-         1: torch.zeros((N, C, 3), device=dev),
-         2: torch.zeros((N, C, 5), device=dev)}
+    N, C = feat.shape[0], cfg.channels
+    plans = _plans(_on(batch["edges_src"], dev), _on(batch["edges_dst"], dev),
+                   N, edge_chunk)
+    geo = None if isinstance(plans, list) else \
+        edge_geometry(pos, *plans, cfg)
+    h0 = (feat @ params["embed_w"])[:, :, None]
+    h = {0: h0, 1: h0.new_zeros((N, C, 3)), 2: h0.new_zeros((N, C, 5))}
 
     def run_layer(i, *hs):
         lp = {k: v[i] for k, v in params["layers"].items()}
@@ -359,11 +383,74 @@ def energy_fn(params, cfg: NequIPConfig, batch, n_graphs: int | None = None,
     return segment_sum(e_atom[:, 0], SegmentPlan(gid, ng))
 
 
+def _energy_mesh(params, cfg: NequIPConfig, batch, n_graphs, edge_chunk,
+                 mesh, pos=None) -> torch.Tensor:
+    """`energy_fn` with the edges split over the mesh's data shards and
+    every node array replicated (the reference's NequIP cells): each
+    shard runs its edges (in chunks of ``edge_chunk`` where its block is
+    a whole number of them above one) into partial aggregates, the three
+    per-l aggregates of a layer meet in one all-reduce
+    (`collectives.all_reduce`, differentiable twice), and each shard
+    updates its own copy of the node irreps. ``pos`` is each shard's
+    positions (the force loss's leaves), else the batch's. Data shard 0
+    reads the energies out."""
+    ks = data_shards(mesh)
+    devs = [mesh.devices[k] for k in ks]
+    b = place_batch(batch, mesh, edge_specs(mesh))
+    ps = shard_trees(params, mesh)
+    feats = all_gather(b["feat"], devs)
+    pos = pos or all_gather(b["pos"], devs)
+    N, C = feats[0].shape[0], cfg.channels
+    plans = [_plans(b["edges_src"][k].long(), b["edges_dst"][k].long(), N,
+                    edge_chunk) for k in ks]
+    geos = [None if isinstance(pl, list) else edge_geometry(x, *pl, cfg)
+            for pl, x in zip(plans, pos)]
+    hs = [(f @ p["embed_w"])[:, :, None] for f, p in zip(feats, ps)]
+    hs = [{0: h, 1: h.new_zeros((N, C, 3)), 2: h.new_zeros((N, C, 5))}
+          for h in hs]
+    n = len(ks)
+    keys = sorted(ps[0]["layers"])
+
+    def run_layer(*flat):
+        hs = [dict(zip(LS, flat[3 * k:3 * k + 3])) for k in range(n)]
+        rest = iter(flat[3 * n:])
+        lps = [{k: next(rest) for k in keys} for _ in range(n)]
+        parts = [[a[l] for l in LS] for a in (
+            _messages(h, lp, cfg, pl, x, g)
+            for h, lp, pl, x, g in zip(hs, lps, plans, pos, geos))]
+        aggs = all_reduce(parts)
+        out = [_update(h, dict(zip(LS, a)), lp)
+               for h, a, lp in zip(hs, aggs, lps)]
+        return tuple(o[l] for o in out for l in LS)
+
+    flat = tuple(h[l] for h in hs for l in LS)
+    for i in range(cfg.n_layers):
+        lps = [p["layers"][k][i] for p in ps for k in keys]
+        # past BIG_GRAPH each layer recomputes in the backward (over every
+        # card: `segment_mesh.recompute`)
+        flat = (recompute(run_layer, *flat, *lps) if N > BIG_GRAPH
+                else run_layer(*flat, *lps))
+    p0 = ps[0]
+    e_atom = F.silu(flat[0][:, :, 0] @ p0["readout_w1"]
+                    + p0["readout_b1"]) @ p0["readout_w2"]
+    gid = b.get("graph_id")
+    gid = (torch.zeros(N, dtype=torch.long, device=devs[0]) if gid is None
+           else gid[ks[0]].long())
+    ng = n_graphs if n_graphs is not None else 1
+    return segment_sum(e_atom[:, 0], SegmentPlan(gid, ng))
+
+
 def loss_fn(params, cfg: NequIPConfig, batch, n_graphs: int | None = None,
             force_weight: float = 0.1) -> torch.Tensor:
     """Energy MSE + force MSE, forces = -dE/dpos taken with
     ``create_graph=True`` (the NequIP objective): its gradient with
-    respect to the parameters is a second derivative."""
+    respect to the parameters is a second derivative. Over `Sharded`
+    parameters each data shard's positions are a leaf of their own and the forces are
+    their gradients summed in linear shard order (through the twice
+    differentiable all-reduce of `_energy_mesh`)."""
+    mesh = stored_mesh(params["embed_w"])
+    if mesh is not None:
+        return _loss_mesh(params, cfg, batch, n_graphs, force_weight, mesh)
     dev = params["embed_w"].device
     pos = _on(batch["pos"], dev).detach().requires_grad_(True)
     with torch.enable_grad():
@@ -371,6 +458,21 @@ def loss_fn(params, cfg: NequIPConfig, batch, n_graphs: int | None = None,
         f = -torch.autograd.grad(e.sum(), pos, create_graph=True)[0]
     le = torch.mean((e - _on(batch["energy"], dev)) ** 2)
     lf = torch.mean((f - _on(batch["forces"], dev)) ** 2)
+    return le + force_weight * lf
+
+
+def _loss_mesh(params, cfg, batch, n_graphs, force_weight, mesh):
+    ks = data_shards(mesh)
+    b = place_batch(batch, mesh, edge_specs(mesh))
+    pos = [x.detach().requires_grad_(True)
+           for x in all_gather(b["pos"], [mesh.devices[k] for k in ks])]
+    with torch.enable_grad():
+        e = _energy_mesh(params, cfg, b, n_graphs, None, mesh, pos=pos)
+        grads = torch.autograd.grad(e.sum(), pos, create_graph=True)
+    f = -reduce_sum(list(grads), e.device)
+    k0 = ks[0]
+    le = torch.mean((e - b["energy"][k0].to(e.device)) ** 2)
+    lf = torch.mean((f - b["forces"][k0].to(e.device)) ** 2)
     return le + force_weight * lf
 
 

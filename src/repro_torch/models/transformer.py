@@ -59,15 +59,15 @@ import torch.nn.functional as F
 from torch import nn
 from torch.utils.checkpoint import checkpoint
 
-from ..distributed.collectives import (gather_leaf, gather_leaf_rows,
-                                      reduce_sum)
+from ..distributed.collectives import (cross_entropy_blocks, gather_leaf,
+                                      gather_leaf_rows)
 from ..kernels._cuda import resolve_device
 from ..launch.mesh import (Sharded, block_region, data_shards, region_slices,
                            shard_leaf, split_rows)
 from ..launch.mesh import Spec as P
 from .attention import gqa_attention, gqa_attention_sharded
 from .common import (abstract_tree, apply_rope, cross_entropy_loss,
-                     cross_entropy_sums, flatten_params, gather_rows,
+                     flatten_params, gather_rows,
                      load_numpy_tree, nest_params, param_tree,
                      register_tensors, rms_norm, rope_angles, tree_to_numpy,
                      trunc_normal)
@@ -537,24 +537,12 @@ def _forward_mesh(params: dict, cfg: LMConfig, tokens):
     return logits, aux / cfg.n_layers
 
 
-def cross_entropy_blocks(logits: list, labels: list) -> torch.Tensor:
-    """The token-mean cross-entropy of a batch given as row blocks (the
-    data shards', each on its device): the sum of the blocks' masked
-    sums over the global count of labels >= 0, on the first block's
-    device. Equal rows a block do not make the blocks' means safe to
-    average: masked labels need not fall evenly."""
-    sums = [cross_entropy_sums(lg, lb) for lg, lb in zip(logits, labels)]
-    dev = logits[0].device
-    return reduce_sum([s for s, _ in sums], dev) / reduce_sum(
-        [n for _, n in sums], dev).clamp_min(1.0)
-
-
 def loss_fn(params: dict, cfg: LMConfig, batch: dict) -> torch.Tensor:
     """The reference's loss: the token-mean cross-entropy plus the MoE
     balance loss. Over `Sharded` parameters the batch's leaves may be
     the data shards' row blocks (`train.loop.make_train_step(...,
     mesh=)` splits them), and the mean is the global one
-    (`cross_entropy_blocks`)."""
+    (`collectives.cross_entropy_blocks`)."""
     logits, aux = forward(params, cfg, batch["tokens"])
     if isinstance(logits, list):
         labels = split_rows(batch["labels"], params["embed"].mesh)

@@ -13,11 +13,13 @@ Over a mesh (``make_train_step(..., mesh=m)``), the parameters and the
 optimizer state are stored by their `Spec`s (`launch.mesh.Sharded`
 leaves: `models.transformer.shard_params`, or `init_params(...,
 mesh=m)`), and the batch's rows split over the mesh's data axes, each
-data shard's block on the device that computes it: the reference's
-train step under its cell's ``(param, opt_state, batch)`` shardings.
-The loss function reads the split batch (a list of row blocks a leaf)
-and returns the global loss; every block's gradient is summed on its
-own device by the gathers' backward (`distributed.collectives`).
+data shard's block on the device that computes it (or each key stored
+by the cell's batch spec, ``batch_specs=``: the graph family's), the
+reference's train step under its cell's ``(param, opt_state, batch)``
+shardings. The loss function reads the split batch (a list of row
+blocks a leaf) and returns the global loss; every block's gradient is
+summed on its own device by the gathers' backward, and a replicated
+block's replicas' parts in linear shard order (`sum_replicas`).
 """
 from __future__ import annotations
 
@@ -29,24 +31,32 @@ import numpy as np
 import torch
 
 from ..distributed.collectives import sum_replicas
-from ..launch.mesh import Sharded, split_rows
+from ..launch.mesh import Sharded, place_batch, split_rows
 from . import optim as O
 from .optim import once_per_tensor
 from .grad_compress import compress_decompress, compress_decompress_sharded
 from .tree import flatten_with_paths, map_sharded, tree_map, unflatten_like
 
 
-def value_and_grad(loss_fn: Callable):
+def value_and_grad(loss_fn: Callable, one_thread: bool = False):
     """``(params, batch) -> (loss, grads)``: the loss (detached) and its
     gradient with respect to every leaf of ``params``, in its structure
     (zeros where the loss does not reach a leaf, as in JAX). The blocks
     of a `Sharded` leaf that several shards hold get the sum of their
-    parts, on each of them (`sum_replicas`)."""
+    parts, on each of them (`sum_replicas`).
+
+    one_thread: every backward, the loss's own ones too (NequIP's
+    forces), runs on the calling thread. The autograd engine otherwise
+    runs a thread a card, adds a tensor's gradients in the order they
+    arrive and sends a node whose gradients are all absent to the CPU's
+    thread, so a double backward across cards could add in another order
+    on other cards, or again (the graph family's mesh steps take it)."""
 
     def fn(params, batch):
         flat = {k: v.detach().requires_grad_(True)
                 for k, v in flatten_with_paths(params).items()}
-        with torch.enable_grad():
+        with torch.enable_grad(), \
+                torch.autograd.set_multithreading_enabled(not one_thread):
             loss = loss_fn(unflatten_like(params, flat), batch)
             grads = torch.autograd.grad(loss, list(flat.values()),
                                         allow_unused=True)
@@ -76,7 +86,9 @@ def _microbatches(batch: dict, accum_steps: int) -> list:
 
 def make_train_step(loss_fn: Callable, opt_cfg: O.OptimizerConfig,
                     accum_steps: int = 1, compress_grads: bool = False,
-                    mesh=None, donate: bool = False):
+                    mesh=None, donate: bool = False,
+                    batch_specs: dict | None = None,
+                    one_thread: bool = False):
     """loss_fn(params, batch) -> scalar. Returns
     train_step(params, opt_state, batch) -> (params, opt_state, metrics).
 
@@ -87,15 +99,22 @@ def make_train_step(loss_fn: Callable, opt_cfg: O.OptimizerConfig,
     carried, as in the reference's step). mesh: a
     `launch.mesh.ServingMesh` over which the parameters and the state
     are stored (see the module's note); each microbatch's rows are split
-    over its data axes (`launch.mesh.split_rows`) before ``loss_fn``.
+    over its data axes (`launch.mesh.split_rows`) before ``loss_fn``,
+    or, given ``batch_specs`` ({key: Spec}, a cell's batch specs), each
+    key stored by its spec (`launch.mesh.place_batch`: rows over the data
+    shards where the spec names the data axes, else replicated).
     donate: the step updates ``params`` and ``opt_state`` in place and
     returns them (`optim.apply_updates`): the reference's train cell
-    donates both; the caller must not read the old values."""
-    grad_fn = value_and_grad(loss_fn)
+    donates both; the caller must not read the old values. one_thread:
+    see `value_and_grad`."""
+    grad_fn = value_and_grad(loss_fn, one_thread)
 
     def place(b):
-        return b if mesh is None else {k: split_rows(v, mesh)
-                                       for k, v in b.items()}
+        if mesh is None:
+            return b
+        if batch_specs is not None:
+            return place_batch(b, mesh, batch_specs)
+        return {k: split_rows(v, mesh) for k, v in b.items()}
 
     def train_step(params, opt_state, batch):
         if accum_steps == 1:

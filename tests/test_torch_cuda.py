@@ -1818,6 +1818,7 @@ def _train_run(cfg, params, mesh, steps=2, blocks=None):
     data shards run them): the losses and the last parameters,
     joined."""
     from repro_torch.data.lm import TokenStream
+    from repro_torch.distributed.collectives import cross_entropy_blocks
     from repro_torch.launch.mesh import Sharded, join_leaf
     from repro_torch.models import transformer as T
     from repro_torch.train import optim as O
@@ -1827,8 +1828,8 @@ def _train_run(cfg, params, mesh, steps=2, blocks=None):
     batch = TokenStream(cfg.vocab, 32, 8, seed=0).next_batch()
     def rows(p, b):
         outs = [T.forward(p, cfg, t) for t in np.split(b["tokens"], blocks)]
-        return T.cross_entropy_blocks([o[0] for o in outs],
-                                      np.split(b["labels"], blocks))
+        return cross_entropy_blocks([o[0] for o in outs],
+                                    np.split(b["labels"], blocks))
 
     step = make_train_step(rows if blocks else
                            (lambda p, b: T.loss_fn(p, cfg, b)), ocfg,
@@ -1939,3 +1940,111 @@ def test_sharded_train_step_over_several_cards(card):
     ref = C.flatten_params(b)
     for path, leaf in C.flatten_params(a).items():
         assert _rel(leaf, ref[path]) <= 1e-5, path
+
+
+# ------------------------------------------ the graph family over a mesh
+def _gnn_mesh_case(arch):
+    """(cfg, module, loss, batch, batch specs) at the CPU tests' sizes:
+    a depth-4 smoke GNN (PNA computing in float64) on a node task (N = 64, E = 256; nodes, labels
+    and edges split over "data"), NequIP's smoke config on 4 molecules
+    with forces (E = 80, node arrays replicated)."""
+    import dataclasses
+    from repro_torch.configs import get_arch
+    from repro_torch.configs import gnn_common as GC
+    from repro_torch.data.graphs import synthetic_molecules
+    from repro_torch.models import gnn as G
+    from repro_torch.models import nequip as NQ
+    cfg = get_arch(arch).smoke_config()
+    rng = np.random.default_rng(0)
+    if arch == "nequip":
+        m = synthetic_molecules(4, 6, 10, cfg.d_feat, seed=2)
+        batch = dict(m, edges_src=np.concatenate([m["edges_src"],
+                                                  m["edges_dst"]]),
+                     edges_dst=np.concatenate([m["edges_dst"],
+                                               m["edges_src"]]))
+        return (cfg, NQ, lambda p, b: NQ.loss_fn(p, cfg, b, n_graphs=4),
+                batch, GC.batch_specs(cfg, "molecule"))
+    # PNA in float64: at depth 4 its float32 gradient is noise (its std
+    # aggregate cancels), 4.9% of a leaf apart between the card and CPU
+    cfg = dataclasses.replace(cfg, n_layers=4, compute_dtype=(
+        "float64" if arch == "pna" else cfg.compute_dtype))
+    N, E = 64, 256
+    batch = {"feat": rng.standard_normal((N, cfg.d_feat)).astype(np.float32),
+             "edges_src": rng.integers(0, N, E).astype(np.int32),
+             "edges_dst": rng.integers(0, N, E).astype(np.int32),
+             "labels": rng.integers(0, cfg.n_classes, N).astype(np.int32)}
+    return (cfg, G, lambda p, b: G.loss_fn(p, cfg, b), batch,
+            GC.batch_specs(cfg, "ogb_products"))
+
+
+def _gnn_mesh_steps(arch, devices, steps=2):
+    """``steps`` AdamW steps of `_gnn_mesh_case` over a ("data",) mesh of
+    ``devices`` from a seeded CPU draw: the losses and the parameters
+    and moments, joined on the CPU."""
+    from repro_torch.configs import gnn_common as GC
+    from repro_torch.launch.mesh import (Sharded, join_leaf,
+                                         make_serving_mesh, place_batch)
+    from repro_torch.models import common as C
+    from repro_torch.train import optim as O
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.tree import map_sharded
+    cfg, mod, loss, batch, specs = _gnn_mesh_case(arch)
+    mesh = make_serving_mesh(devices)
+    p = GC.shard_params(_tree_on(mod.init_params(
+        cfg, torch.Generator().manual_seed(0)), devices[0]), cfg, mesh)
+    o = O.init_opt_state(GC.TRAIN_OPT, p)
+    step = make_train_step(loss, GC.TRAIN_OPT, mesh=mesh, batch_specs=specs,
+                           one_thread=True)
+    placed = place_batch(batch, mesh, specs)
+    losses = []
+    for _ in range(steps):       # the first step's warm-up rate is 0
+        p, o, m = step(p, o, placed)
+        losses.append(float(m["loss"]))
+    return losses, C.flatten_params(map_sharded(
+        lambda x: (join_leaf(x) if isinstance(x, Sharded) else x).cpu(),
+        {"p": p, "m": o.m, "v": o.v}))
+
+
+@pytest.mark.parametrize("arch", ["gin-tu", "pna", "gatedgcn", "nequip"])
+def test_gnn_mesh_step_on_card_equals_cpu(card, arch, monkeypatch):
+    """Two sharded AdamW steps over 4 logical shards of the card (the
+    GNNs past a lowered `BIG_GRAPH`: each shard's edges in 5 chunks
+    inside a recomputed block of 4 layers; NequIP with forces) against
+    the same steps over 4 CPU shards: the losses within 1e-5, every
+    parameter and moment within 1e-4 of its max |ref| (TF32 off), and
+    bit-identical across two runs on the card."""
+    from repro_torch.models import gnn as G
+    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(G, "BIG_GRAPH", 10)
+    monkeypatch.setattr(G, "EDGE_CHUNK", 13)
+    dev = torch.device("cuda", torch.cuda.current_device())
+    la, a = _gnn_mesh_steps(arch, [dev] * 4)
+    lb, b = _gnn_mesh_steps(arch, [dev] * 4)
+    lc, c = _gnn_mesh_steps(arch, [torch.device("cpu")] * 4)
+    assert la == lb and np.allclose(la, lc, rtol=1e-5, atol=0), (la, lc)
+    for k in c:
+        assert torch.equal(a[k], b[k]), k
+        if c[k].abs().max() > 0:
+            assert _rel(a[k], c[k]) <= 1e-4, k
+
+
+def test_gnn_mesh_over_several_cards(card, monkeypatch):
+    """Every arch's two sharded steps over 4 cards ("data",) against the
+    same steps over 4 logical shards of card 0 (the GNNs' edge chunks
+    inside a recomputed block, NequIP's force loss): the losses,
+    parameters and moments bit for bit (every cross-card sum runs in
+    linear shard order, and the backward on one thread). Skips with
+    fewer than four cards."""
+    from repro_torch.models import gnn as G
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    monkeypatch.setattr(G, "BIG_GRAPH", 10)
+    monkeypatch.setattr(G, "EDGE_CHUNK", 13)
+    cards = [torch.device("cuda", i) for i in range(4)]
+    for arch in ("gin-tu", "pna", "gatedgcn", "nequip"):
+        la, a = _gnn_mesh_steps(arch, cards)
+        lb, b = _gnn_mesh_steps(arch, [cards[0]] * 4)
+        assert la == lb, (arch, la, lb)
+        for k in b:
+            assert torch.equal(a[k], b[k]), (arch, k)

@@ -43,6 +43,7 @@ def test_import_every_module_without_jax_or_repro():
               "repro_torch.train.optim", "repro_torch.train.loop",
               "repro_torch.train.grad_compress", "repro_torch.train.tree",
               "repro_torch.models.gnn", "repro_torch.models.nequip",
+              "repro_torch.models.segment_mesh",
               "repro_torch.data.graphs", "repro_torch.configs.gnn_common",
               "repro_torch.configs.gin_tu", "repro_torch.configs.pna",
               "repro_torch.configs.gatedgcn",
@@ -86,6 +87,7 @@ def test_source_scan_finds_no_jax_or_repro_import():
              os.path.join(REPO, "scripts", "chip_lm.py"),
              os.path.join(REPO, "scripts", "chip_dryrun.py"),
              os.path.join(REPO, "scripts", "chip_lm_mesh.py"),
+             os.path.join(REPO, "scripts", "chip_gnn_mesh.py"),
              os.path.join(REPO, "examples", "quickstart_torch.py"),
              os.path.join(REPO, "examples", "serve_wcsd_torch.py"),
              os.path.join(REPO, "examples", "wcsd_features_gnn_torch.py"),
