@@ -128,8 +128,16 @@ reset just before it and read just after it:
    width, 2 float32 layers, 8 rows decoding through
    `moe_ffn_replicated_ep` (16 experts a shard) against the same steps
    on the CPU; `gpipe_forward` (4 stages, 8 microbatches of [512,
-   4096], float32) against the stages applied in turn. No kernel of the
-   port runs (the reference's three functions are jnp ops);
+   4096], float32) against the stages applied in turn; the served path
+   over parameters stored by their specs: llama3-8b, 2 float32 layers,
+   a 2,048-token prompt through `prefill_step` into a 2,112-long
+   sequence-sharded cache, then 16 greedy `decode_step`s, against the
+   unsharded prefill and decode on the same weights (tokens equal,
+   logits within 1e-4 of max |ref|), and dbrx-132b, 2 bf16 layers, the
+   same prompt (its next token the argmax of the forward's last
+   position, the peak within the cache and the reckoned transients).
+   No kernel of the port runs (the reference's three functions are jnp
+   ops);
 16. training over a mesh (after path 15), 4 logical shards of the card:
    llama3-8b at full width cut to 2 layers of float32 masters (1.49 B),
    every leaf and its AdamW moments stored by their specs over
@@ -143,7 +151,10 @@ reset just before it and read just after it:
    against `shard_params` byte for byte, then 4 greedy decode steps at
    8 rows over a seeded 32,768-long cache with the leaves stored by
    their specs against the whole leaves (within 1e-5, greedy equal),
-   the phase's peak recorded. No kernel of the port runs;
+   the phase's peak recorded; a sharded train state's checkpoint
+   (llama3-8b's smoke config over 2 x 2, one AdamW step) restored onto
+   2 x 1, the restarted step equal bit for bit to the same step from
+   the state stored there in memory. No kernel of the port runs;
 17. the graph family over a mesh (after path 16), 4 logical shards of
    the card as ("data",) 4: GIN, PNA and GatedGCN at full width and
    depth, sized by `shape_config(cfg, "ogb_products")`, the edges and
@@ -3601,14 +3612,10 @@ def lm_greedy_decode(params, cfg, toks, device, steps=LM_DECODE_STEPS,
     [B, steps], the cache, prefill s, step s)."""
     import torch
     from repro_torch.models import transformer as T
-    B, P = toks.shape
+    P = toks.shape[1]
     t0 = time.perf_counter()
     with torch.no_grad():
-        nxt, pc = T.prefill_step(params, cfg, toks)
-        cache = T.init_cache(cfg, B, max_len, device=device)
-        for k in ("k", "v"):
-            cache[k][:, :, :P] = pc[k]
-        del pc
+        nxt, cache = T.prefill_step(params, cfg, toks, max_len=max_len)
     _sync(device)
     prefill_s = time.perf_counter() - t0
     fed, logits, step_s = [], [], []
@@ -4087,6 +4094,179 @@ def gpipe_check(devices, card) -> dict:
             "bubble_fraction": pipeline_bubble_fraction(M, S)}
 
 
+LM_SERVE_PROMPT = 2048   # the served path over the mesh: prompt tokens
+LM_SERVE_STEPS = 16      # greedy decode steps after it (llama3-8b)
+LM_SERVE_ROOM = 64       # cache positions past the prompt
+
+
+def prefill_transients(cfg, rows: int, seq: int, model_shards: int,
+                       q_chunk: int = 512) -> dict:
+    """Bytes a prefill over parameters stored by their specs holds
+    beside its blocks and its cache on the card of a data shard of
+    ``rows`` rows (and, with logical shards, of every "model" shard),
+    reckoned from the code: the largest of the embedding's gather, a
+    layer's attention (its gathered leaves, the residual, q / k / v
+    with their rope copies, one query chunk's float32 scores, softmax
+    and bf16 probabilities, the chunks' outputs joined), a layer's
+    experts (the tokens repeated into their slots, the slot buffer,
+    gate / up / silu products in float32, the expert outputs, every
+    "model" shard's partial) and the head (its leaf gathered, the last
+    position's logits), plus the residual carried between them. The
+    float32 norms, the rope halves and the bf16 copies of q are counted
+    as if all alive at once: an upper reckoning, not a measurement."""
+    b = 2 if cfg.compute_dtype == "bfloat16" else 4
+    N, D = rows * seq, cfg.d_model
+    hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+    qc = min(q_chunk, seq)
+    embed = 3 * N * D * b
+    attn = ((2 * D * hq + 2 * D * hkv + 2 * D) * b + 3 * N * D * b
+            + 3 * N * D * 4 + N * hq * (6 * b + 4) + 6 * N * hkv * b
+            + rows * cfg.n_heads * qc * seq * (4 + 4 + 2)
+            + 2 * N * hq * b)
+    if cfg.moe:
+        m = cfg.moe
+        EL = m.padded_experts // model_shards
+        cap = min(N, max(int(N * m.top_k / m.padded_experts
+                             * m.capacity_factor), 8))
+        Fe = m.d_ff_expert
+        ffn = (2 * N * D * b + m.top_k * N * D * b
+               + (EL + 1) * (cap + 1) * D * b + 4 * EL * cap * Fe * 4
+               + EL * cap * Fe * b + EL * cap * D * (4 + b)
+               + 4 * N * D * b + model_shards * N * D * b)
+    else:
+        ffn = 3 * D * cfg.d_ff * b + N * cfg.d_ff * (2 * b + 4) \
+            + 2 * N * D * b
+    head = D * cfg.vocab * b + rows * cfg.vocab * (b + 4) + 2 * rows * D * b
+    carry = 2 * N * D * b
+    parts = {"embed": embed, "attention": attn, "ffn": ffn, "head": head}
+    return {**{k + "_gb": v / 1e9 for k, v in parts.items()},
+            "carry_gb": carry / 1e9,
+            "total_gb": (max(parts.values()) + carry) / 1e9}
+
+
+def cache_bytes(cache) -> dict:
+    """Bytes of a (sequence-sharded) cache on each device."""
+    out: dict = {}
+    for blocks in cache.values():
+        for b in (blocks if isinstance(blocks, (list, tuple)) else [blocks]):
+            out[str(b.device)] = out.get(str(b.device), 0) \
+                + b.numel() * b.element_size()
+    return out
+
+
+def lm_serve_checks(mesh, card) -> dict:
+    """The served path over parameters stored by their specs on
+    ``mesh`` (`transformer.prefill_step` into `init_cache(..., mesh=)`'s
+    sequence blocks, then `decode_step` from them), at full width:
+    llama3-8b, `LM_MESH_FP32_LAYERS` layers of float32 masters, a
+    `LM_SERVE_PROMPT`-token prompt into a cache `LM_SERVE_ROOM` longer,
+    then `LM_SERVE_STEPS` greedy steps, against the unsharded
+    `prefill_step` + `decode_step` on the same weights (teacher-forced
+    on the mesh's tokens): next token and greedy tokens equal, logits
+    within `LM_MESH_TOL` of max |ref|; then dbrx-132b, 2 bf16 layers,
+    the same prompt and `LM_MESH_STEPS` steps: the next token is the
+    argmax of `_forward_mesh`'s last position, and the card's peak above
+    its blocks stays within the cache and `prefill_transients`."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    P, L = LM_SERVE_PROMPT, LM_SERVE_PROMPT + LM_SERVE_ROOM
+    out = {}
+    cfg = dataclasses.replace(get_arch("llama3-8b").get_config(),
+                              n_layers=LM_MESH_FP32_LAYERS,
+                              compute_dtype="float32")
+    model = T.LM(cfg, device=card, seed=0)
+    params = C.param_tree(model)
+    placed = T.shard_params(params, cfg, mesh)
+    toks = lm_stream_tokens(cfg.vocab, 1, P, card)
+    positions = list(range(P, P + LM_SERVE_STEPS))
+    runs = {}
+    for name, p in (("mesh", placed), ("unsharded", params)):
+        sync_all([card])
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            nxt, cache = T.prefill_step(p, cfg, toks, max_len=L)
+        sync_all([card])
+        prefill_s = time.perf_counter() - t0
+        run = decode_run(p, cfg, cache, nxt, positions, devices=[card],
+                         feed=runs["mesh"]["fed"] if runs else None)
+        run.update(next=nxt, prefill_s=prefill_s, cache={
+            k: torch.cat(v, 2) if isinstance(v, list) else v
+            for k, v in cache.items()})
+        runs[name] = run
+        del cache
+    sh, un = runs["mesh"], runs["unsharded"]
+    errs = [position_errors(a, b) for a, b in zip(sh["logits"],
+                                                  un["logits"])]
+    worst = max(e["max"] for e in errs)
+    rec = {"layers": cfg.n_layers, "compute_dtype": "float32",
+           "prompt": P, "max_len": L, "steps": LM_SERVE_STEPS,
+           "next_equal": bool(torch.equal(sh["next"], un["next"])),
+           "greedy_equal": bool(torch.equal(sh["tokens"].cpu(),
+                                            un["tokens"].cpu())),
+           "prompt_cache_bit_equal": all(
+               torch.equal(sh["cache"][k][:, :, :P], un["cache"][k][:, :, :P])
+               for k in ("k", "v")),
+           "max_rel_err": worst, "errors": errs,
+           "mesh_prefill_s": sh["prefill_s"],
+           "unsharded_prefill_s": un["prefill_s"],
+           "mesh_step_ms_median": float(np.median(sh["step_s"])) * 1e3,
+           "unsharded_step_ms_median": float(np.median(un["step_s"])) * 1e3}
+    del runs, sh, un, model, params, placed
+    torch.cuda.empty_cache()
+    if not (rec["next_equal"] and rec["greedy_equal"]) \
+            or worst > LM_MESH_TOL:
+        fail(f"lm_mesh serve llama3-8b: mesh vs unsharded {worst} of max "
+             f"|ref| (tol {LM_MESH_TOL}), next token equal "
+             f"{rec['next_equal']}, greedy equal {rec['greedy_equal']}")
+    out["llama3_8b_fp32"] = rec
+    cfg = dataclasses.replace(get_arch("dbrx-132b").get_config(),
+                              n_layers=LM_MESH_FP32_LAYERS)
+    params = T.init_params(cfg, torch.Generator(card).manual_seed(0),
+                           dtype=torch.bfloat16, mesh=mesh)
+    toks = lm_stream_tokens(cfg.vocab, 1, P, card)
+    sync_all([card])
+    base = torch.cuda.memory_allocated(card)
+    torch.cuda.reset_peak_memory_stats(card)
+    t0 = time.perf_counter()
+    with torch.no_grad():
+        nxt, cache = T.prefill_step(params, cfg, toks, max_len=L)
+    sync_all([card])
+    prefill_s = time.perf_counter() - t0
+    peak = (torch.cuda.max_memory_allocated(card) - base) / 1e9
+    held = sum(cache_bytes(cache).values()) / 1e9
+    reckon = prefill_transients(cfg, 1, P, mesh.axis_size("model"))
+    with torch.no_grad():
+        logits, _ = T._forward_mesh(params, cfg, toks)
+    last = torch.argmax(logits[0][:, -1, :], dim=-1).to(nxt.dtype)
+    del logits
+    run = decode_run(params, cfg, cache, nxt, list(range(P, P
+                                                         + LM_MESH_STEPS)),
+                     devices=[card])
+    rec = {"layers": cfg.n_layers, "compute_dtype": cfg.compute_dtype,
+           "prompt": P, "max_len": L, "prefill_s": prefill_s,
+           "next_equals_forward_argmax": bool(torch.equal(nxt, last)),
+           "peak_gb_above_blocks": peak, "cache_gb": held,
+           "reckoned_transients": reckon,
+           "step_ms": [t * 1e3 for t in run["step_s"]],
+           "logits_finite": bool(torch.isfinite(run["logits"]).all())}
+    del params, cache, run
+    torch.cuda.empty_cache()
+    if not rec["next_equals_forward_argmax"]:
+        fail("lm_mesh serve dbrx-132b: the prefill's next token is not the "
+             "argmax of the forward's last position")
+    if peak > held + reckon["total_gb"]:
+        fail(f"lm_mesh serve dbrx-132b: peak {peak} GB above the blocks, "
+             f"past the cache {held} GB and the reckoned transients "
+             f"{reckon['total_gb']} GB")
+    if not rec["logits_finite"]:
+        fail("lm_mesh serve dbrx-132b: a decode logit is not finite")
+    out["dbrx_132b_bf16"] = rec
+    return out
+
+
 def lm_mesh_phase(device) -> dict:
     """Path 15: the mesh-only parallel code on ``device``, as
     `LM_MESH_SHARDS` logical shards of one card: llama3-8b long_500k
@@ -4094,8 +4274,9 @@ def lm_mesh_phase(device) -> dict:
     S = 524,288, one row, the cache split over the shards, against the
     unsharded decode on a copy of the same cache), qwen2-moe-a2.7b's
     expert-parallel decode against the CPU (`moe_ep_check`), and
-    `gpipe_forward` (`gpipe_check`). No kernel of the port runs: every
-    launch count must stay 0."""
+    `gpipe_forward` (`gpipe_check`), and the served path over parameters
+    stored by their specs, prefill then decode (`lm_serve_checks`). No
+    kernel of the port runs: every launch count must stay 0."""
     import torch
     from repro_torch.kernels import _cuda
     card = torch.device(device)
@@ -4114,6 +4295,9 @@ def lm_mesh_phase(device) -> dict:
            "long_500k": lm_long_checks(lm_mesh(devices), card)}
     out["moe_ep"] = moe_ep_check(lm_mesh(devices), card)
     out["gpipe"] = gpipe_check(devices, card)
+    t1 = time.perf_counter()
+    out["serve"] = lm_serve_checks(lm_mesh(devices), card)
+    out["serve"]["wall_s"] = time.perf_counter() - t1
     sync_all([card])
     launched = {k: v for k, v in _cuda.LAUNCHES.items() if v}
     if launched:
@@ -4128,7 +4312,9 @@ def lm_mesh_phase(device) -> dict:
              f"{out['decode_ms_per_step']:.2f} ms a step (unsharded "
              f"{lb['unsharded_step_ms_median']:.2f}; bound "
              f"{out['bound_ms']:.2f}), peak {out['peak_gb']} GB, idle "
-             f"{out['idle_share']}; phase {out['wall_s']:.1f} s")
+             f"{out['idle_share']}; serve "
+             f"{out['serve']['llama3_8b_fp32']['max_rel_err']} of max |ref|, "
+             f"{out['serve']['wall_s']:.1f} s; phase {out['wall_s']:.1f} s")
     return out
 
 
@@ -4518,6 +4704,87 @@ def dbrx_decode_check(mesh, card, rows=LM_DBRX_ROWS, max_len=LM_DBRX_LEN,
             "peak_gb": peak}
 
 
+LM_CKPT_DIR = os.path.join(ROOT, "build", "lm_mesh_ckpt")
+LM_CKPT_ROWS, LM_CKPT_SEQ = 4, 64
+
+
+def ckpt_remesh_check(card) -> dict:
+    """A sharded train state's checkpoint on the card, in the
+    reference's file: llama3-8b's smoke config (float32; the full-width
+    state of `lm_train_check` is 17.9 GB, past what the phase can write
+    and read back in its time) over ("data", "model") 2 x 2 logical
+    shards, one AdamW step, saved by `CheckpointManager` (each leaf one
+    global array) and restored onto 2 x 1: every global leaf equal to
+    the saved one, and the restarted step on 2 shards equal, bit for
+    bit, to the uninterrupted step there (the same state stored onto
+    the 2 shards in memory, `shard_leaf` of each joined leaf)."""
+    import dataclasses
+    import shutil
+    import torch
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.launch.mesh import Sharded, join_leaf, shard_leaf
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optim as O
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.tree import flatten_global, map_sharded
+    cfg = dataclasses.replace(get_arch("llama3-8b").smoke_config(),
+                              compute_dtype="float32")
+    ocfg = O.OptimizerConfig(lr=1e-3, warmup_steps=0)
+    meshes = {n: lm_mesh([card] * n, axes={"data": 2, "model": n // 2})
+              for n in (4, 2)}
+    steps = {n: make_train_step(lambda p, b: T.loss_fn(p, cfg, b), ocfg,
+                                mesh=m) for n, m in meshes.items()}
+    stream = TokenStream(cfg.vocab, LM_CKPT_SEQ, LM_CKPT_ROWS, seed=0)
+    batches = [stream.next_batch() for _ in range(2)]
+    params = T.init_params(cfg, torch.Generator(card).manual_seed(0),
+                           mesh=meshes[4])
+    params, opt, _ = steps[4](params, O.init_opt_state(ocfg, params),
+                              batches[0])
+    state = {"params": params, "opt_state": opt}
+    shutil.rmtree(LM_CKPT_DIR, ignore_errors=True)
+    cm = CheckpointManager(LM_CKPT_DIR)
+    sync_all([card])
+    t0 = time.perf_counter()
+    cm.save(1, state)
+    save_s = time.perf_counter() - t0
+    like = T.init_params(cfg, torch.Generator(card).manual_seed(1),
+                         mesh=meshes[2])
+    t0 = time.perf_counter()
+    got, _ = cm.restore({"params": like,
+                         "opt_state": O.init_opt_state(ocfg, like)})
+    sync_all([card])
+    restore_s = time.perf_counter() - t0
+    shutil.rmtree(LM_CKPT_DIR, ignore_errors=True)
+
+    def whole(tree):
+        return {k: join_leaf(v) if isinstance(v, Sharded) else v
+                for k, v in flatten_global(tree).items()}
+
+    saved = whole(state)
+    same = all(torch.equal(v, saved[k]) for k, v in whole(got).items())
+    on2 = map_sharded(lambda x: shard_leaf(join_leaf(x), x.spec,
+                                           meshes[2])
+                      if isinstance(x, Sharded) else x.clone(), state)
+    ran = [steps[2](t["params"], t["opt_state"], batches[1])
+           for t in (got, on2)]
+    (pa, oa, ma), (pb, ob, mb) = ran
+    a, b = whole({"p": pa, "o": oa}), whole({"p": pb, "o": ob})
+    restart_equal = all(torch.equal(v, b[k]) for k, v in a.items()) \
+        and float(ma["loss"]) == float(mb["loss"])
+    mesh_of = flatten_global(got["params"])["layers/wq"].mesh
+    rec = {"config": cfg.name, "saved_shards": meshes[4].size,
+           "restored_shards": mesh_of.size, "leaves": len(saved),
+           "state_mb": sum(v.numel() * v.element_size()
+                           for v in saved.values()) / 1e6,
+           "save_s": save_s, "restore_s": restore_s,
+           "restored_equal": same, "restart_step_bit_equal": restart_equal}
+    if not (same and restart_equal):
+        fail(f"lm_train_mesh checkpoint: restored onto 2 shards {rec}")
+    return rec
+
+
 def lm_train_mesh_phase(device) -> dict:
     """Path 16: training over a mesh on ``device``, as logical shards of
     one card: llama3-8b's sharded train step against the unsharded one
@@ -4542,6 +4809,9 @@ def lm_train_mesh_phase(device) -> dict:
            "llama_train": lm_train_check(train_mesh, card)}
     out["witness"] = lm_train_witness(train_mesh, card)
     out["dbrx_decode"] = dbrx_decode_check(lm_mesh(devices), card)
+    t1 = time.perf_counter()
+    out["checkpoint"] = ckpt_remesh_check(card)
+    out["checkpoint"]["wall_s"] = time.perf_counter() - t1
     sync_all([card])
     launched = {k: v for k, v in _cuda.LAUNCHES.items() if v}
     if launched:
@@ -4556,7 +4826,8 @@ def lm_train_mesh_phase(device) -> dict:
              f"{c['loss_rel_err']}, gradient {c['grad_rel_err']}, "
              f"{c['flipped_entries']} flipped of {c['entries']}; witness "
              f"{w['worst']}; dbrx "
-             f"decode {dd['max_rel_err']}, peak {dd['peak_gb']} GB; phase "
+             f"decode {dd['max_rel_err']}, peak {dd['peak_gb']} GB; "
+             f"checkpoint 4 -> 2 shards {out['checkpoint']}; phase "
              f"{out['wall_s']:.1f} s")
     return out
 

@@ -2,7 +2,8 @@
 """The mesh-only parallel code of the port over four cards.
 
     python3 scripts/chip_lm_mesh.py [--out FILE] [--steps N]
-        [--cells llama_long,qwen_ep,gpipe,llama_train,dbrx_decode]
+        [--cells llama_long,qwen_ep,gpipe,llama_train,dbrx_decode,
+                 dbrx_prefill]
 
 Needs four CUDA devices (a ("data", "model") 1 x 4 mesh, card k shard
 k, unless a cell says otherwise). Runs the cells ``--cells`` names (all
@@ -64,6 +65,21 @@ by default), each with its checks:
   one step traced. The check: at `DBRX_CHECK_LAYERS` layers and an
   8,192-long cache, the same steps over the 4 cards against 4 logical
   shards of card 0, logits and tokens bit for bit.
+- ``dbrx_prefill``: dbrx-132b prefill_32k at full width and depth over
+  the same 1 x 4 mesh, each card drawing its blocks: one row (the
+  reference's batch of 32 cut to 1) of `DBRX_PROMPT` tokens from
+  `TokenStream` through `transformer.prefill_step` over the stored
+  leaves into a `DBRX_PREFILL_LEN`-long sequence-sharded cache (the
+  head at the last position only), timed between syncs of every card,
+  against card 0's FLOP bound (`prefill_bound`) and
+  `lm_flops_prefill`; each card's peak against its blocks, its cache
+  block and `chip_smoke.prefill_transients`; ``--steps`` greedy decode
+  steps from the prefilled cache, timed; a second prefill traced (busy
+  ms and idle share a card). The check: at `DBRX_CHECK_LAYERS` layers and a
+  `DBRX_CHECK_PROMPT`-token prompt, the same prefill and
+  `chip_smoke.LM_MESH_STEPS` decode steps over the 4 cards against 4
+  logical shards of card 0: the next token, every cache block and the
+  decode logits bit for bit.
 
 No kernel of the port runs (the counts stay 0). Prints one JSON line
 (appended to ``--out``) with the cards' names and power limits,
@@ -102,7 +118,11 @@ DBRX_ROWS = 8            # decode_32k rows (cut from 128)
 DBRX_LEN = 32768
 DBRX_CHECK_LEN = 8192
 DBRX_CHECK_LAYERS = 2    # four logical shards of card 0 hold 2 layers
-CELLS = ("llama_long", "qwen_ep", "gpipe", "llama_train", "dbrx_decode")
+DBRX_PROMPT = 32768      # prefill_32k's sequence, one row (cut from 32)
+DBRX_PREFILL_LEN = DBRX_PROMPT + 1024   # the cache: room to decode
+DBRX_CHECK_PROMPT = 8192
+CELLS = ("llama_long", "qwen_ep", "gpipe", "llama_train", "dbrx_decode",
+         "dbrx_prefill")
 BF16_GREEDY_SHARE = 0.5
 BF16_JUMP = 0.1
 MISSES: list = []
@@ -122,12 +142,14 @@ def greedy_share(a, b) -> float:
     return float((a.cpu() == b.cpu()).double().mean())
 
 
-def trace_by_card(fn, devices) -> dict:
-    """One call of ``fn`` (after a warm-up call) under a `torch.profiler`
-    CUDA trace: kernel ms by card and the call's wall ms."""
+def trace_by_card(fn, devices, warm: bool = True) -> dict:
+    """One call of ``fn`` (after a warm-up call, unless ``warm`` is
+    False) under a `torch.profiler` CUDA trace: kernel ms by card and
+    the call's wall ms."""
     import torch
     from torch.profiler import ProfilerActivity, profile
-    fn()
+    if warm:
+        fn()
     cs.sync_all(devices)
     with profile(activities=[ProfilerActivity.CUDA]) as prof:
         t0 = time.perf_counter()
@@ -555,6 +577,170 @@ def dbrx_check(cards) -> dict:
                               runs["card0_logical"]["step_s"]]}
 
 
+def prefill_bound(cfg, rows: int, seq: int) -> dict:
+    """Card 0's FLOP bound for a prefill of ``rows`` x ``seq`` over
+    leaves stored by their specs on `CARDS` cards (one data shard, as
+    `dbrx_bound` counts decode's card 0): its causal attention (2 T^2
+    H Dh a layer), its non-expert GEMMs (q, k, v, o, the router, the
+    head at the last position) and a quarter of the experts' (top_k
+    choices a token, 3 GEMMs), at `launch.roofline.PEAK_FLOPS`; beside
+    it, the bytes of card 0's blocks at `HBM_BW`."""
+    from repro_torch.launch.roofline import HBM_BW, PEAK_FLOPS
+    m, d, N = cfg.moe, cfg.d_model, rows * seq
+    hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+    attn = 2.0 * cfg.n_layers * rows * seq * seq * hq
+    dense = 2.0 * N * cfg.n_layers * (2 * d * hq + 2 * d * hkv
+                                      + d * m.padded_experts) \
+        + 2.0 * rows * d * cfg.vocab
+    experts = 2.0 * 3 * N * m.top_k * d * m.d_ff_expert * cfg.n_layers \
+        / CARDS
+    flops = attn + dense + experts
+    return {"card0_flops": flops, "attention_flops": attn,
+            "dense_flops": dense, "expert_flops_quarter": experts,
+            "bound_ms": flops / PEAK_FLOPS * 1e3, "bound_by": "operations"}
+
+
+def blocks_gb(params, cards) -> dict:
+    """Each card's bytes of the stored leaves' blocks."""
+    from repro_torch.launch.mesh import leaf_bytes
+    from repro_torch.models import common as C
+    leaves = list(C.flatten_params(params).values())
+    return {str(c): sum(leaf_bytes(v, c) for v in leaves) / 1e9
+            for c in cards}
+
+
+def dbrx_prefill(cards, steps) -> dict:
+    """dbrx-132b prefill_32k at full width and depth over the 4 cards,
+    then decode from its cache (see the module's note)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.configs.lm_common import lm_flops_prefill
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.models import transformer as T
+    cfg = get_arch("dbrx-132b").get_config()
+    mesh = cs.lm_mesh(cards)
+    reset_peaks(cards)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(cards[0]).manual_seed(0),
+                           dtype=torch.bfloat16, mesh=mesh)
+    cs.sync_all(cards)
+    held = blocks_gb(params, cards)
+    out = {"layers": cfg.n_layers, "params": cfg.param_count(), "rows": 1,
+           "prompt": DBRX_PROMPT, "max_len": DBRX_PREFILL_LEN,
+           "init_s": time.perf_counter() - t0, "blocks_gb": held,
+           "reckoned_transients_card0": cs.prefill_transients(
+               cfg, 1, DBRX_PROMPT, CARDS)}
+    toks = TokenStream(cfg.vocab, DBRX_PROMPT, 1, seed=0).next_batch()[
+        "tokens"]
+
+    def prefill():
+        with torch.no_grad():
+            return T.prefill_step(params, cfg, toks,
+                                  max_len=DBRX_PREFILL_LEN)
+
+    reset_peaks(cards)
+    cs.sync_all(cards)
+    t0 = time.perf_counter()
+    nxt, cache = prefill()
+    cs.sync_all(cards)
+    wall = time.perf_counter() - t0
+    flops = lm_flops_prefill(cfg, 1, DBRX_PROMPT)
+    out.update({"prefill_s": wall, "model_flop": flops,
+                "model_tflops": flops / wall / 1e12,
+                "peak_gb": peaks(cards),
+                "cache_gb": {k: v / 1e9 for k, v in
+                             cs.cache_bytes(cache).items()},
+                **prefill_bound(cfg, 1, DBRX_PROMPT)})
+    c0 = str(cards[0])
+    out["card0_within_reckoning"] = out["peak_gb"][c0] <= (
+        held[c0] + out["cache_gb"][c0]
+        + out["reckoned_transients_card0"]["total_gb"])
+    cs.progress(f"dbrx prefill_32k x {cfg.n_layers} layers: {wall:.2f} s "
+                f"({out['model_tflops']:.1f} TFLOP/s; bound "
+                f"{out['bound_ms'] / 1e3:.3f} s), peak {out['peak_gb']} GB")
+    positions = list(range(DBRX_PROMPT, DBRX_PROMPT + steps))
+    run = cs.decode_run(params, cfg, cache, nxt, positions, devices=cards)
+    out.update({
+        "decode_steps": steps,
+        "decode_step_ms": [t * 1e3 for t in run["step_s"]],
+        "decode_step_ms_median": float(np.median(run["step_s"][1:]))
+        * 1e3,
+        "decode_peak_gb": peaks(cards)})
+    if not torch.isfinite(run["logits"]).all():
+        MISSES.append("dbrx prefill_32k: decode logits not finite")
+    cs.progress(f"dbrx decode after prefill_32k: "
+                f"{out['decode_step_ms_median']:.2f} ms a step")
+    # the traced prefill makes a cache of its own: free this one first
+    del cache, run
+    torch.cuda.empty_cache()
+    out["traced_prefill"] = trace_by_card(prefill, cards, warm=False)
+    cs.progress(f"dbrx prefill_32k traced: {out['traced_prefill']}")
+    del params
+    torch.cuda.empty_cache()
+    out["check_8192"] = dbrx_prefill_check(cards)
+    return out
+
+
+def dbrx_prefill_check(cards) -> dict:
+    """`DBRX_CHECK_LAYERS` layers of dbrx-132b (bf16) over the 4 cards
+    against 4 logical shards of card 0: a `DBRX_CHECK_PROMPT`-token
+    prompt through `prefill_step` over the stored leaves, then
+    `chip_smoke.LM_MESH_STEPS` greedy steps (the logical run fed the
+    cards' tokens): the next token, every cache block and the decode
+    logits bit for bit."""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_arch("dbrx-132b").get_config(),
+                              n_layers=DBRX_CHECK_LAYERS)
+    whole = T.init_params(cfg, torch.Generator(cards[0]).manual_seed(0),
+                          dtype=torch.bfloat16)
+    toks = TokenStream(cfg.vocab, DBRX_CHECK_PROMPT, 1, seed=0).next_batch()[
+        "tokens"]
+    L = DBRX_CHECK_PROMPT + 1024
+    positions = list(range(DBRX_CHECK_PROMPT,
+                           DBRX_CHECK_PROMPT + cs.LM_MESH_STEPS))
+    runs = {}
+    for name, devs in (("cards", cards), ("card0_logical",
+                                          [cards[0]] * CARDS)):
+        m = cs.lm_mesh(devs)
+        placed = T.shard_params(whole, cfg, m)
+        cs.sync_all(m.physical_devices())
+        t0 = time.perf_counter()
+        with torch.no_grad():
+            nxt, cache = T.prefill_step(placed, cfg, toks, max_len=L)
+        cs.sync_all(m.physical_devices())
+        prefill_s = time.perf_counter() - t0
+        blocks = {k: [b.cpu() for b in v] for k, v in cache.items()}
+        run = cs.decode_run(placed, cfg, cache, nxt, positions,
+                            devices=m.physical_devices(),
+                            feed=runs["cards"]["fed"] if runs else None)
+        run.update(next=nxt.cpu(), blocks=blocks, prefill_s=prefill_s)
+        runs[name] = run
+        del placed, cache
+        torch.cuda.empty_cache()
+    a, b = runs["cards"], runs["card0_logical"]
+    same = {"next": bool(torch.equal(a["next"], b["next"])),
+            "cache": all(torch.equal(x, y) for k in ("k", "v")
+                         for x, y in zip(a["blocks"][k], b["blocks"][k])),
+            "logits": bool(torch.equal(a["logits"].cpu(),
+                                       b["logits"].cpu())),
+            "tokens": bool(torch.equal(a["tokens"].cpu(),
+                                       b["tokens"].cpu()))}
+    if not all(same.values()):
+        MISSES.append(f"dbrx prefill: 4 cards and 4 logical shards of card "
+                      f"0 differ ({same})")
+    return {"layers": cfg.n_layers, "prompt": DBRX_CHECK_PROMPT,
+            "max_len": L, "steps": len(positions), "bit_equal": same,
+            "max_rel_err": cs.rel_err(a["logits"], b["logits"]),
+            "cards_prefill_s": a["prefill_s"],
+            "card0_prefill_s": b["prefill_s"],
+            "cards_step_ms": [t * 1e3 for t in a["step_s"]],
+            "card0_step_ms": [t * 1e3 for t in b["step_s"]]}
+
+
 def main() -> int:
     ap = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     ap.add_argument("--out")
@@ -604,6 +790,9 @@ def main() -> int:
     if "dbrx_decode" in cells:
         rec["dbrx_132b_decode_32k"] = run("dbrx decode_32k", dbrx_decode,
                                           cards, args.steps)
+    if "dbrx_prefill" in cells:
+        rec["dbrx_132b_prefill_32k"] = run("dbrx prefill_32k", dbrx_prefill,
+                                           cards, args.steps)
     cs.sync_all(cards)
     launched = {k: v for k, v in _cuda.LAUNCHES.items() if v}
     if launched:

@@ -9,7 +9,11 @@ index.
     directory and moved into place with `os.replace`, the oldest removed
     beyond ``keep``. The npz keys are the reference's (``params/cin/w0``,
     ``opt_state/.m/embed``, ``opt_state/.step``), so a checkpoint of
-    either package restores in the other.
+    either package restores in the other. A leaf stored by its `Spec`
+    over a mesh (`launch.mesh.Sharded`) is written as the global array
+    under its own key, as the reference writes a sharded `jax.Array`,
+    and restored onto the like-state leaf's mesh by that leaf's spec:
+    a restart may land on a mesh of another size.
   * `save_packed_index` / `load_packed_index`: the WCX v2 file (magic,
     JSON header, 64-byte aligned blobs with a CRC32 each, mmap loads,
     read-only arrays) and the typed `IndexPersistenceError` family.
@@ -21,19 +25,55 @@ from __future__ import annotations
 import json
 import os
 import shutil
+import zipfile
 import zlib
 
 import numpy as np
 import torch
 
 from ..core.resilience import IndexIntegrityError, WALError, WALReplayError
-from ..train.tree import flatten_with_paths, unflatten_like
+from ..launch.mesh import Sharded, join_leaf, shard_leaf
+from ..train.tree import flatten_global, map_sharded
+
+CPU = torch.device("cpu")
 
 
 def _host(leaf) -> np.ndarray:
+    """A leaf as a host array; a `Sharded` leaf joined there (the global
+    array)."""
+    if isinstance(leaf, Sharded):
+        leaf = join_leaf(leaf, CPU)
     if torch.is_tensor(leaf):
         return leaf.detach().cpu().numpy()
     return np.asarray(leaf)
+
+
+def _write_npz(path: str, leaves: dict) -> dict:
+    """`np.savez(path, **arrays)`, entry for entry the same bytes, with
+    each array made (`_host`) only as it is written: the host holds one
+    gathered leaf at a time. Returns {key: (shape, dtype)}."""
+    meta = {}
+    with zipfile.ZipFile(path, mode="w", compression=zipfile.ZIP_STORED,
+                         allowZip64=True) as zf:
+        for key, leaf in leaves.items():
+            a = np.asanyarray(_host(leaf))
+            # np.savez forces zip64 on every entry (numpy gh-10776)
+            with zf.open(key + ".npy", "w", force_zip64=True) as f:
+                np.lib.format.write_array(f, a, allow_pickle=True)
+            meta[key] = (list(a.shape), str(a.dtype))
+            del a
+    return meta
+
+
+def _restore_leaf(a: np.ndarray, like):
+    """A loaded array in the place of ``like``: a `Sharded` leaf stored
+    by its spec over its mesh (each block on its device), a tensor on
+    its device, anything else the array."""
+    if isinstance(like, Sharded):
+        return shard_leaf(torch.from_numpy(a), like.spec, like.mesh)
+    if torch.is_tensor(like):
+        return torch.from_numpy(a).to(like.device)
+    return a
 
 
 class CheckpointManager:
@@ -47,12 +87,12 @@ class CheckpointManager:
         path = os.path.join(self.dir, f"step_{step:08d}")
         tmp = path + ".tmp"
         os.makedirs(tmp, exist_ok=True)
-        arrays = {k: _host(v) for k, v in flatten_with_paths(state).items()}
-        np.savez(os.path.join(tmp, "state.npz"), **arrays)
+        meta = _write_npz(os.path.join(tmp, "state.npz"),
+                          flatten_global(state))
         manifest = {
             "step": step,
-            "leaves": {k: {"shape": list(a.shape), "dtype": str(a.dtype)}
-                       for k, a in arrays.items()},
+            "leaves": {k: {"shape": shape, "dtype": dtype}
+                       for k, (shape, dtype) in meta.items()},
             "extra": extra or {},
         }
         with open(os.path.join(tmp, "manifest.json"), "w") as f:
@@ -74,9 +114,11 @@ class CheckpointManager:
 
     def restore(self, like_state, step: int | None = None):
         """(state, step): the checkpoint at ``step`` (the latest by
-        default) in the structure of ``like_state``, whose leaves' shapes
-        must match. A tensor leaf comes back as a tensor of the saved
-        dtype on that leaf's device, any other leaf as a numpy array."""
+        default) in the structure of ``like_state``, whose leaves' (global)
+        shapes must match. A tensor leaf comes back as a tensor of the
+        saved dtype on that leaf's device, a `Sharded` leaf as the saved
+        array stored by that leaf's spec over its mesh (each block on its
+        device), any other leaf as a numpy array."""
         if step is None:
             step = self.latest_step()
         if step is None:
@@ -84,15 +126,15 @@ class CheckpointManager:
         path = os.path.join(self.dir, f"step_{step:08d}")
         restored = {}
         with np.load(os.path.join(path, "state.npz")) as data:
-            for k, leaf in flatten_with_paths(like_state).items():
+            for k, leaf in flatten_global(like_state).items():
                 a = data[k]
                 want = tuple(getattr(leaf, "shape", np.shape(leaf)))
                 if tuple(a.shape) != want:
                     raise ValueError(f"shape mismatch for {k}: {a.shape} vs "
                                      f"{want}")
-                restored[k] = (torch.from_numpy(a).to(leaf.device)
-                               if torch.is_tensor(leaf) else a)
-        return unflatten_like(like_state, restored), step
+                restored[k] = _restore_leaf(a, leaf)
+        keys = iter(restored)
+        return map_sharded(lambda _: restored[next(keys)], like_state), step
 
     def manifest(self, step: int) -> dict:
         path = os.path.join(self.dir, f"step_{step:08d}", "manifest.json")

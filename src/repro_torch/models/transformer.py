@@ -45,9 +45,12 @@ blocks, the reference's storage under its train and serve cells.
 axes, each data shard computing its rows on its device and gathering
 each layer's leaves there inside the layer's `checkpoint`
 (`distributed.collectives.gather_leaf`, whose backward sums each
-block's gradient on its device): FSDP. `decode_step` runs on the mesh's
-first device, gathering a layer's non-expert leaves as it comes, while
-the experts stay on their shards.
+block's gradient on its device): FSDP. `prefill_step` runs the same
+layers with each layer's keys and values written, as they come, into
+`init_cache(..., mesh=)`'s sequence blocks, and computes the head at
+the last position only. `decode_step` runs on the mesh's first device,
+gathering a layer's non-expert leaves as it comes, while the experts
+stay on their shards.
 """
 from __future__ import annotations
 
@@ -421,12 +424,20 @@ def forward(params: dict, cfg: LMConfig, tokens, collect_kv: bool = False):
     layer leaf is cast to the compute dtype first (the reference casts
     before its scan); with ``cfg.remat == "full"`` and a gradient
     wanted, each layer is recomputed in the backward. Over parameters
-    stored by their `Spec`s (`Sharded` leaves), see `_forward_mesh`."""
+    stored by their `Spec`s (`Sharded` leaves), see `_forward_mesh`; the
+    per-layer (k, v) are then each layer's list of the data shards'
+    blocks."""
     if isinstance(params["embed"], Sharded):
-        if collect_kv:
-            raise NotImplementedError("prefill over parameters stored by "
-                                      "their Specs is not ported")
-        return _forward_mesh(params, cfg, tokens)
+        if not collect_kv:
+            return _forward_mesh(params, cfg, tokens)
+        ks, vs = [], []
+
+        def keep(i, kvs):
+            ks.append([k for k, _ in kvs])
+            vs.append([v for _, v in kvs])
+
+        logits, aux = _forward_mesh(params, cfg, tokens, kv_sink=keep)
+        return logits, aux, (ks, vs)
     dt = DTYPES[cfg.compute_dtype]
     x = _embed(params, tokens, dt)
     T = x.shape[1]
@@ -466,7 +477,8 @@ def _mesh_layer(cfg: LMConfig, xs: list, leaves: dict, rope: list,
     again and no device keeps every layer's. A dense layer runs each
     shard apart; an MoE layer runs the shards' attention, then one
     `moe.moe_apply` over all their tokens (its experts gathered only
-    over the axes other than "model"). Returns (xs, aux)."""
+    over the axes other than "model"). Returns (xs, aux, each shard's
+    (k, v))."""
     dt = xs[0].dtype
 
     def gathered(dev, skip=()):
@@ -481,36 +493,41 @@ def _mesh_layer(cfg: LMConfig, xs: list, leaves: dict, rope: list,
 
     if not cfg.moe:
         def one(x, sin, cos):
-            return _layer(cfg, x, gathered(x.device), sin, cos)[0]
+            return _layer(cfg, x, gathered(x.device), sin, cos)[:2]
 
         out = [run(one, x, sin, cos) for x, (sin, cos) in zip(xs, rope)]
-        return out, torch.zeros((), dtype=torch.float32, device=xs[0].device)
+        return [y for y, _ in out], torch.zeros(
+            (), dtype=torch.float32, device=xs[0].device), \
+            [kv for _, kv in out]
 
     def joint(*xs_):
-        mids, hs = [], []
+        mids, hs, kvs = [], [], []
         for x, (sin, cos) in zip(xs_, rope):
-            mid, h, _ = _attend(cfg, x, gathered(x.device, MOE_LEAVES),
-                                sin, cos)
+            mid, h, kv = _attend(cfg, x, gathered(x.device, MOE_LEAVES),
+                                 sin, cos)
             mids.append(mid)
             hs.append(h.reshape(-1, h.shape[-1]))
+            kvs.append(kv)
         ys, aux = moe_apply(hs, {k: leaves[k] for k in MOE_LEAVES
                                  if k in leaves}, cfg.moe, mesh=mesh,
                             dtype=dt)
-        return tuple(m + y.reshape(m.shape) for m, y in zip(mids, ys)) \
-            + (aux,)
+        return [m + y.reshape(m.shape) for m, y in zip(mids, ys)], aux, kvs
 
-    *out, aux = run(joint, *xs)
-    return out, aux
+    return run(joint, *xs)
 
 
-def _forward_mesh(params: dict, cfg: LMConfig, tokens):
+def _forward_mesh(params: dict, cfg: LMConfig, tokens, kv_sink=None,
+                  last_only: bool = False):
     """`forward` over parameters stored by their `Spec`s over a mesh: the
     batch's rows split over the mesh's data axes (``tokens`` a list of
     row blocks, or an array split here), each data shard computing its
     rows on its own device (`launch.mesh.data_shards`), every leaf
     gathered where it is read (`_mesh_layer`; the embedding's rows from
-    each block). Returns (the shards' logits, a list, aux on the first
-    shard's device)."""
+    each block). ``kv_sink(i, kvs)`` is handed layer i's keys and values
+    (each data shard's (k, v)) as the layer produces them, and turns the
+    recompute off, as ``collect_kv`` does in `forward`; ``last_only``
+    computes the head at the last position alone. Returns (the shards'
+    logits, a list, aux on the first shard's device)."""
     mesh = params["embed"].mesh
     if cfg.moe and cfg.moe.ep_axis not in mesh.axis_names:
         raise NotImplementedError(
@@ -525,12 +542,19 @@ def _forward_mesh(params: dict, cfg: LMConfig, tokens):
     rope = [rope_angles(torch.arange(T, device=dev), cfg.d_head,
                         cfg.rope_theta, dt) for dev in devs]
     layers = {k: v.unbind() for k, v in params["layers"].items()}
-    remat = cfg.remat == "full" and torch.is_grad_enabled()
+    remat = (cfg.remat == "full" and kv_sink is None
+             and torch.is_grad_enabled())
     aux = torch.zeros((), dtype=torch.float32, device=devs[0])
     for i in range(cfg.n_layers):
-        xs, a = _mesh_layer(cfg, xs, {k: v[i] for k, v in layers.items()},
-                            rope, mesh, remat)
+        xs, a, kvs = _mesh_layer(cfg, xs, {k: v[i] for k, v in
+                                           layers.items()},
+                                 rope, mesh, remat)
+        if kv_sink is not None:
+            kv_sink(i, kvs)
+        del kvs
         aux = aux + a
+    if last_only:
+        xs = [x[:, -1:] for x in xs]
     logits = [rms_norm(x, gather_leaf(params["final_norm"], dev, dt))
               @ gather_leaf(params["lm_head"], dev, dt)
               for x, dev in zip(xs, devs)]
@@ -552,19 +576,74 @@ def loss_fn(params: dict, cfg: LMConfig, batch: dict) -> torch.Tensor:
 
 
 def prefill_step(params: dict, cfg: LMConfig, tokens,
-                 return_logits: bool = False):
+                 return_logits: bool = False, max_len: int | None = None):
     """Inference prefill: run the prompt [B, T]; returns (next tokens
-    [B], the KV cache {"k", "v"} [L, B, T, Hkv, Dh] in bfloat16), the
-    layout `decode_step` takes, and with ``return_logits`` the prompt's
-    logits [B, T, vocab] after them."""
+    [B], the KV cache {"k", "v"} [L, B, max_len, Hkv, Dh] in bfloat16,
+    positions from T on zero), the layout `decode_step` takes, and with
+    ``return_logits`` the prompt's logits [B, T, vocab] after them.
+    ``max_len`` defaults to T (the reference's cache); a caller that
+    decodes after the prompt passes a longer one. Over parameters stored
+    by their `Spec`s, see `_prefill_mesh`."""
+    if isinstance(params["embed"], Sharded):
+        return _prefill_mesh(params, cfg, tokens, return_logits, max_len)
     tokens = torch.as_tensor(tokens, device=params["embed"].device)
+    T = tokens.shape[1]
+    max_len = _cache_len(T, max_len)
     logits, _, (ks, vs) = forward(params, cfg, tokens, collect_kv=True)
     nxt = torch.argmax(logits[:, -1, :], dim=-1).to(tokens.dtype)
-    cache = {"k": torch.stack([k.to(torch.bfloat16) for k in ks]),
-             "v": torch.stack([v.to(torch.bfloat16) for v in vs])}
+    cache = {}
+    for name, kv in (("k", ks), ("v", vs)):
+        cache[name] = torch.zeros((cfg.n_layers, tokens.shape[0], max_len)
+                                  + tuple(kv[0].shape[2:]),
+                                  dtype=torch.bfloat16, device=tokens.device)
+        for i, t in enumerate(kv):
+            cache[name][i, :, :T] = t
     del ks, vs
     if return_logits:
         return nxt, cache, logits
+    return nxt, cache
+
+
+def _cache_len(T: int, max_len) -> int:
+    if max_len is None:
+        return T
+    if max_len < T:
+        raise ValueError(f"a cache of {max_len} positions does not hold a "
+                         f"prompt of {T}")
+    return int(max_len)
+
+
+def _prefill_mesh(params: dict, cfg: LMConfig, tokens, return_logits,
+                  max_len):
+    """`prefill_step` over parameters stored by their `Spec`s: the
+    prompt's rows split over the mesh's data axes, each data shard
+    running its rows through every layer on its own device
+    (`_forward_mesh`). The cache is `init_cache(..., mesh=)`'s: the
+    sequence in blocks, one a shard on its device, each holding every
+    row; each layer's keys and values are written into the blocks as the
+    layer produces them (`_write_rows`), so no device holds every
+    layer's. The head runs at the last position only (with
+    ``return_logits``, at every position, joined on the mesh's first
+    device). The next tokens are joined there too."""
+    mesh = params["embed"].mesh
+    rows = split_rows(tokens, mesh)
+    B, T = sum(r.shape[0] for r in rows), rows[0].shape[1]
+    cache = init_cache(cfg, B, _cache_len(T, max_len), mesh=mesh)
+    starts = [sum(r.shape[0] for r in rows[:d]) for d in range(len(rows))]
+
+    def write(i, kvs):
+        for r0, kv in zip(starts, kvs):
+            for name, t in zip(("k", "v"), kv):
+                _write_rows([b[i, r0:r0 + t.shape[0]] for b in cache[name]],
+                            t, 0)
+
+    logits, _ = _forward_mesh(params, cfg, rows, kv_sink=write,
+                              last_only=not return_logits)
+    home = mesh.devices[0]
+    nxt = torch.cat([torch.argmax(lg[:, -1, :], dim=-1).to(home)
+                     for lg in logits]).to(rows[0].dtype)
+    if return_logits:
+        return nxt, cache, torch.cat([lg.to(home) for lg in logits])
     return nxt, cache
 
 

@@ -9,8 +9,9 @@ sum and a checkpoint's keys. ``None`` is an empty subtree.
 
 A leaf stored by its `Spec` over a mesh (`launch.mesh.Sharded`) is a
 list of its shards' blocks: the walks below treat it as structure (a
-block a leaf) and keep its storage plan; `map_sharded` treats it as
-one leaf, and `distinct_leaves` counts each of its blocks once.
+block a leaf) and keep its storage plan; `map_sharded` and
+`flatten_global` treat it as one leaf, and `distinct_leaves` counts
+each of its blocks once.
 """
 from __future__ import annotations
 
@@ -30,11 +31,23 @@ def flatten_with_paths(tree, prefix: str = "") -> dict:
     return out
 
 
-def _walk(node, path: str, out: dict) -> None:
+def flatten_global(tree) -> dict:
+    """`flatten_with_paths` with a `Sharded` leaf as one leaf under its
+    own path: the paths of the global tree it stores (a checkpoint's
+    keys)."""
+    out = {}
+    _walk(tree, "", out, whole=True)
+    return out
+
+
+def _walk(node, path: str, out: dict, whole: bool = False) -> None:
     # a module-level function, not a closure over ``out``: a recursive
     # closure is a reference cycle, and its leaves (a step's gradients)
     # would live on until the garbage collector ran
     if node is None:
+        return
+    if whole and isinstance(node, Sharded):
+        out[path] = node
         return
     if isinstance(node, dict):
         items = ((str(k), node[k]) for k in sorted(node))
@@ -46,7 +59,7 @@ def _walk(node, path: str, out: dict) -> None:
         out[path] = node
         return
     for key, child in items:
-        _walk(child, f"{path}/{key}" if path else key, out)
+        _walk(child, f"{path}/{key}" if path else key, out, whole)
 
 
 def tree_leaves(tree) -> list:
