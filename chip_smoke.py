@@ -151,7 +151,11 @@ reset just before it and read just after it:
    against `shard_params` byte for byte, then 4 greedy decode steps at
    8 rows over a seeded 32,768-long cache with the leaves stored by
    their specs against the whole leaves (within 1e-5, greedy equal),
-   the phase's peak recorded; a sharded train state's checkpoint
+   the phase's peak recorded; qwen2-moe-a2.7b's smoke config over 2 x 2
+   (float32, the MoE layer one recompute over the shards, counted), three
+   steps against the unsharded steps over the same row blocks with the
+   experts routed as a data shard routes them (within 1e-5); a sharded
+   train state's checkpoint
    (llama3-8b's smoke config over 2 x 2, one AdamW step) restored onto
    2 x 1, the restarted step equal bit for bit to the same step from
    the state stored there in memory. No kernel of the port runs;
@@ -4362,17 +4366,19 @@ def block_accounting(trees, mesh) -> dict:
                 k: b / 1e9 for k, b in per_dev.items()}}
 
 
-def rows_loss(cfg, blocks: int):
+def rows_loss(cfg, blocks: int, mesh=None):
     """The loss of whole parameters over a batch taken as ``blocks`` row
     blocks, each its own forward (the kernels see a data shard's
-    shapes), combined as the sharded step combines its shards: the
+    shapes; ``mesh`` routes the experts, `transformer.forward`),
+    combined as the sharded step combines its shards: the
     cross-entropy's global mean (`collectives.cross_entropy_blocks`)
     plus the blocks' mean balance loss."""
     from repro_torch.distributed.collectives import cross_entropy_blocks
     from repro_torch.models import transformer as T
 
     def loss(p, b):
-        outs = [T.forward(p, cfg, t) for t in np.split(b["tokens"], blocks)]
+        outs = [T.forward(p, cfg, t, mesh=mesh)
+                for t in np.split(b["tokens"], blocks)]
         return cross_entropy_blocks([o[0] for o in outs],
                                       np.split(b["labels"], blocks)) \
             + sum(o[1] for o in outs) / blocks
@@ -4537,6 +4543,63 @@ def lm_train_check(mesh, card, rows=LM_TRAIN_ROWS, seq=LM_TRAIN_SEQ,
     if not rec["accounting"]["equal"]:
         fail(f"lm_train_mesh: a shard holds more than its blocks "
              f"({rec['accounting']})")
+    return rec
+
+
+LM_MOE_TRAIN_ROWS, LM_MOE_TRAIN_SEQ = 8, 64   # 2 data shards of 4 rows
+
+
+def moe_train_check(card) -> dict:
+    """qwen2-moe-a2.7b's smoke config (float32, ``remat="full"``) over
+    ("data", "model") 2 x 2 logical shards of the card: each MoE layer
+    one `remat.recompute` region over the shards (counted: one a layer a
+    step); `LM_TRAIN_STEPS` sharded steps against the unsharded steps
+    over the same row blocks, each block's experts routed over a 1 x 2
+    mesh of the card as a data shard's are (`rows_loss`), at
+    `lm_train_check`'s bars (`compare_runs`). (`moe_ffn` over a block
+    routes, drops and balances the same, but adds the router's float32
+    gradient in another order, which the attention's bf16 operands
+    amplify to ~3e-4 of a leaf.)"""
+    import dataclasses
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.models import transformer as T
+    cfg = dataclasses.replace(get_arch("qwen2-moe-a2.7b").smoke_config(),
+                              compute_dtype="float32", remat="full")
+    mesh = lm_mesh([card] * 4, axes={"data": 2, "model": 2})
+    batch = TokenStream(cfg.vocab, LM_MOE_TRAIN_SEQ, LM_MOE_TRAIN_ROWS,
+                        seed=0).next_batch()
+    params = T.init_params(cfg, torch.Generator(card).manual_seed(0))
+    regions = []
+    recompute = T.recompute
+    T.recompute = lambda *a: regions.append(1) or recompute(*a)
+    try:
+        got = train_steps(cfg, T.shard_params(params, cfg, mesh), batch,
+                          LM_TRAIN_STEPS, mesh, [card])
+    finally:
+        T.recompute = recompute
+    same = train_steps(cfg, params, batch, LM_TRAIN_STEPS, None, [card],
+                       loss=rows_loss(cfg, 2, lm_mesh([card] * 2)))
+    c = compare_runs(got, same, card)
+    rec = {"config": cfg.name, "mesh": {"data": 2, "model": 2},
+           "rows": LM_MOE_TRAIN_ROWS, "seq": LM_MOE_TRAIN_SEQ,
+           "steps": LM_TRAIN_STEPS, "recomputed_regions": len(regions),
+           "losses": got["losses"], "sharded_step_s": got["step_s"],
+           "unsharded_step_s": same["step_s"], "tol": LM_TRAIN_TOL,
+           "vs_unsharded_same_rows": {k: v for k, v in c.items()
+                                      if k != "grad_rel_err_by_leaf"}}
+    if len(regions) != cfg.n_layers * LM_TRAIN_STEPS:
+        fail(f"lm_train_mesh: {len(regions)} MoE regions recomputed, not "
+             f"{cfg.n_layers} a step")
+    if c["loss_rel_err"] > LM_TRAIN_TOL or c["grad_rel_err"] > LM_TRAIN_TOL:
+        fail(f"lm_train_mesh: qwen2-moe sharded vs unsharded loss "
+             f"{c['loss_rel_err']}, gradient {c['grad_rel_err']} of max "
+             f"|ref| > {LM_TRAIN_TOL}")
+    if c["max_param_abs_diff"] > c["flip_bound"] * (1 + 1e-3):
+        fail(f"lm_train_mesh: a qwen2-moe parameter moved "
+             f"{c['max_param_abs_diff']} from the unsharded step's, past "
+             f"{c['flip_bound']}")
     return rec
 
 
@@ -4789,9 +4852,12 @@ def lm_train_mesh_phase(device) -> dict:
     """Path 16: training over a mesh on ``device``, as logical shards of
     one card: llama3-8b's sharded train step against the unsharded one
     (`lm_train_check`, ("data", "model") 4 x 1), its gradient against
-    the whole batch's in float64 (`lm_train_witness`) and dbrx-132b's decode
-    over leaves stored by their specs (`dbrx_decode_check`, 1 x 4). No
-    kernel of the port runs: every launch count must stay 0."""
+    the whole batch's in float64 (`lm_train_witness`), dbrx-132b's decode
+    over leaves stored by their specs (`dbrx_decode_check`, 1 x 4),
+    qwen2-moe's sharded train step through the MoE layer's recompute
+    over the shards (`moe_train_check`, 2 x 2) and the sharded
+    checkpoint (`ckpt_remesh_check`). No kernel of the port runs: every
+    launch count must stay 0."""
     import torch
     from repro_torch.kernels import _cuda
     card = torch.device(device)
@@ -4810,6 +4876,9 @@ def lm_train_mesh_phase(device) -> dict:
     out["witness"] = lm_train_witness(train_mesh, card)
     out["dbrx_decode"] = dbrx_decode_check(lm_mesh(devices), card)
     t1 = time.perf_counter()
+    out["moe_train"] = moe_train_check(card)
+    out["moe_train"]["wall_s"] = time.perf_counter() - t1
+    t1 = time.perf_counter()
     out["checkpoint"] = ckpt_remesh_check(card)
     out["checkpoint"]["wall_s"] = time.perf_counter() - t1
     sync_all([card])
@@ -4827,6 +4896,7 @@ def lm_train_mesh_phase(device) -> dict:
              f"{c['flipped_entries']} flipped of {c['entries']}; witness "
              f"{w['worst']}; dbrx "
              f"decode {dd['max_rel_err']}, peak {dd['peak_gb']} GB; "
+             f"qwen2-moe {out['moe_train']}; "
              f"checkpoint 4 -> 2 shards {out['checkpoint']}; phase "
              f"{out['wall_s']:.1f} s")
     return out

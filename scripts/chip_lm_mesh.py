@@ -2,8 +2,8 @@
 """The mesh-only parallel code of the port over four cards.
 
     python3 scripts/chip_lm_mesh.py [--out FILE] [--steps N]
-        [--cells llama_long,qwen_ep,gpipe,llama_train,dbrx_decode,
-                 dbrx_prefill]
+        [--cells llama_long,qwen_ep,gpipe,llama_train,qwen_train,
+                 dbrx_decode,dbrx_prefill]
 
 Needs four CUDA devices (a ("data", "model") 1 x 4 mesh, card k shard
 k, unless a cell says otherwise). Runs the cells ``--cells`` names (all
@@ -55,6 +55,16 @@ by default), each with its checks:
   2 layers against the unsharded steps on card 0) and
   `chip_smoke.lm_train_witness` (the gradient over the 4 cards against
   the whole batch's on card 0, held in float64).
+- ``qwen_train``: qwen2-moe-a2.7b train_4k over ("data", "model")
+  1 x 4 (16 of 64 padded experts a card), one row of 4,096 tokens (the
+  global batch of 256 rows cut to 1), float32 masters and AdamW state
+  stored by their specs, ``--train-steps`` donated steps; card 0's peak
+  reckoned on the blocks' shapes first (`train_reckoning`; the depth is
+  cut only past `CARD_SHARE` of the card); the median of steps 2 on
+  against card 0's FLOP bound (`moe_train_bound`), each card's peak and
+  idle share, the dropped share; then 2 float32 layers over the 4
+  cards against 4 logical shards of card 0 (`qwen_train_check`). Its
+  summary lines go to stdout before the record.
 - ``dbrx_decode``: dbrx-132b decode_32k at full width and depth (40
   layers, 131.6 B bf16 parameters) over ("data", "model") 1 x 4, each
   card drawing its blocks (4 of the 16 experts, its block of every other
@@ -121,8 +131,10 @@ DBRX_CHECK_LAYERS = 2    # four logical shards of card 0 hold 2 layers
 DBRX_PROMPT = 32768      # prefill_32k's sequence, one row (cut from 32)
 DBRX_PREFILL_LEN = DBRX_PROMPT + 1024   # the cache: room to decode
 DBRX_CHECK_PROMPT = 8192
-CELLS = ("llama_long", "qwen_ep", "gpipe", "llama_train", "dbrx_decode",
-         "dbrx_prefill")
+QWEN_TRAIN_CHECK_LAYERS = 2
+CARD_SHARE = 0.9         # of a card's memory a reckoned peak may take
+CELLS = ("llama_long", "qwen_ep", "gpipe", "llama_train", "qwen_train",
+         "dbrx_decode", "dbrx_prefill")
 BF16_GREEDY_SHARE = 0.5
 BF16_JUMP = 0.1
 MISSES: list = []
@@ -466,6 +478,231 @@ def llama_train(cards, steps) -> dict:
     return out
 
 
+def train_reckoning(cfg, mesh, seq: int) -> dict:
+    """Each card's peak of a donated AdamW step over parameters stored
+    by their specs over ``mesh`` (one device a shard), reckoned from the
+    blocks' shapes alone (no tensor is made): float32 masters, m and v;
+    the float32 gradients; at the update, two temporaries the size of
+    the largest block (`optim.apply_updates`). On card 0, beside the
+    state, the head's transients at the backward's start: the logits of
+    one row of ``seq`` tokens in the compute dtype, their float32 copy,
+    its exponent and gradient, and the gradient cast back."""
+    import math
+    from repro_torch.launch.mesh import block_region
+    from repro_torch.models import transformer as T
+    defs, specs = T.param_defs(cfg), T.param_specs(cfg)
+    out = {}
+    for k, dev in enumerate(mesh.devices):
+        sizes = [math.prod(b - a for a, b in block_region(
+            shape, specs[path], mesh, k)) * 4 for path, shape in defs.items()]
+        held = sum(sizes)
+        update = 3 * held + held + 2 * max(sizes)
+        out[str(dev)] = {"blocks_gb": held / 1e9,
+                         "state_gb": 3 * held / 1e9,
+                         "grads_gb": held / 1e9,
+                         "largest_block_gb": max(sizes) / 1e9,
+                         "at_update_gb": update / 1e9}
+    c0 = out[str(mesh.devices[0])]
+    logits = seq * cfg.vocab * (2 * T.DTYPES[cfg.compute_dtype].itemsize
+                                + 3 * 4)
+    c0["head_transients_gb"] = logits / 1e9
+    c0["at_head_gb"] = c0["state_gb"] + logits / 1e9
+    for rec in out.values():
+        rec["peak_gb"] = max(rec["at_update_gb"], rec.get("at_head_gb", 0))
+    return out
+
+
+def moe_train_bound(cfg, rows: int, seq: int) -> dict:
+    """Card 0's FLOP bound for a train step of ``rows`` x ``seq`` over a
+    1 x `CARDS` mesh (one data shard, on card 0), counted as
+    `prefill_bound` counts a prefill: its causal attention, its
+    non-expert GEMMs (q, k, v, o, the router, the shared experts, the
+    head at every position) and a quarter of the routed experts' (top_k
+    choices a token), the forward's count times 4 (the backward's two
+    and the recompute's one), at `launch.roofline.PEAK_FLOPS`."""
+    from repro_torch.launch.roofline import PEAK_FLOPS
+    m, d, N, L = cfg.moe, cfg.d_model, rows * seq, cfg.n_layers
+    hq, hkv = cfg.n_heads * cfg.d_head, cfg.n_kv_heads * cfg.d_head
+    attn = 2.0 * L * rows * seq * seq * hq
+    dense = 2.0 * N * L * (2 * d * hq + 2 * d * hkv + d * m.padded_experts
+                           + 3 * d * m.d_ff_expert * m.num_shared) \
+        + 2.0 * N * d * cfg.vocab
+    experts = 2.0 * 3 * N * m.top_k * d * m.d_ff_expert * L / CARDS
+    flops = 4 * (attn + dense + experts)
+    return {"card0_flops": flops, "attention_flops": 4 * attn,
+            "dense_flops": 4 * dense, "expert_flops_quarter": 4 * experts,
+            "bound_ms": flops / PEAK_FLOPS * 1e3, "bound_by": "operations"}
+
+
+class EpDrops:
+    """Wraps `moe.ep_slots` while a run lasts: each expert shard's
+    (token, choice) pairs whose expert is local, and those it keeps
+    (tensors; no sync in the run)."""
+
+    def __enter__(self):
+        from repro_torch.models import moe
+        self._orig, self.local, self.kept = moe.ep_slots, [], []
+
+        def recorded(idx, cfg, capL, e_lo, EL):
+            picks = self._orig(idx, cfg, capL, e_lo, EL)
+            self.local.append(((idx >= e_lo) & (idx < e_lo + EL)).sum())
+            self.kept.append(sum(p[2].sum() for p in picks))
+            return picks
+
+        moe.ep_slots = recorded
+        return self
+
+    def __exit__(self, *exc):
+        from repro_torch.models import moe
+        moe.ep_slots = self._orig
+
+    def share(self) -> float:
+        local = sum(int(n) for n in self.local)
+        return 1 - sum(int(n) for n in self.kept) / max(local, 1)
+
+
+def qwen_train(cards, steps) -> dict:
+    """qwen2-moe-a2.7b train_4k over the 4 cards: one row of `TRAIN_SEQ`
+    tokens (`TokenStream` seed 0; the global batch of 256 rows cut to
+    1), ("data", "model") 1 x 4 (64 padded experts, 16 a card), every
+    leaf and its AdamW moments stored by their specs, each card drawing
+    its own blocks; the depth `train_reckoning` lets fit `CARD_SHARE` of
+    a card (full depth if it fits); ``steps`` donated steps timed
+    between syncs of every card, the median of all but the first
+    against card 0's FLOP bound (`moe_train_bound`); each card's peak;
+    the forward and the forward with its gradient timed; one step
+    traced (busy ms and idle share a card); the dropped share of the
+    (token, choice) pairs over one forward (`EpDrops`). The check
+    (`qwen_train_check`): `QWEN_TRAIN_CHECK_LAYERS` float32 layers over
+    the 4 cards against 4 logical shards of card 0."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.launch.mesh import split_rows
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optim as O
+    from repro_torch.train.loop import make_train_step
+    full = get_arch("qwen2-moe-a2.7b").get_config()
+    mesh = cs.lm_mesh(cards)
+    card_gb = torch.cuda.get_device_properties(cards[0]).total_memory / 1e9
+    cfg = full
+    reckoned = train_reckoning(cfg, mesh, TRAIN_SEQ)
+    while max(r["peak_gb"] for r in reckoned.values()) > CARD_SHARE \
+            * card_gb and cfg.n_layers > 1:
+        cfg = dataclasses.replace(cfg, n_layers=cfg.n_layers - 1)
+        reckoned = train_reckoning(cfg, mesh, TRAIN_SEQ)
+    out = {"layers": cfg.n_layers, "full_layers": full.n_layers,
+           "depth_cut": cfg.n_layers < full.n_layers,
+           "full_depth_reckoned": train_reckoning(full, mesh, TRAIN_SEQ),
+           "reckoned": reckoned, "card_gb": card_gb,
+           "params": cfg.param_count(), "mesh": {"data": 1, "model": CARDS},
+           "rows": 1, "seq": TRAIN_SEQ, "donate": True}
+    print(f"qwen_train reckoned peak a card (GB): "
+          f"{ {k: round(v['peak_gb'], 2) for k, v in reckoned.items()} } "
+          f"at {cfg.n_layers} of {full.n_layers} layers, limit "
+          f"{CARD_SHARE * card_gb:.2f}", flush=True)
+    reset_peaks(cards)
+    t0 = time.perf_counter()
+    params = T.init_params(cfg, torch.Generator(cards[0]).manual_seed(0),
+                           mesh=mesh)
+    cs.sync_all(cards)
+    out.update(init_s=time.perf_counter() - t0, init_peak_gb=peaks(cards))
+    ocfg = O.OptimizerConfig()
+    opt = O.init_opt_state(ocfg, params)
+    batch = TokenStream(cfg.vocab, TRAIN_SEQ, 1, seed=0).next_batch()
+    loss = lambda p, b: T.loss_fn(p, cfg, b)  # noqa: E731
+    step = make_train_step(loss, ocfg, mesh=mesh, donate=True)
+    reset_peaks(cards)
+    params, opt, secs, losses = timed_steps(step, params, opt, batch, steps,
+                                            cards)
+    out.update(step_s=secs, losses=losses,
+               step_s_median=float(np.median(secs[1:])),
+               peak_gb=peaks(cards), **moe_train_bound(cfg, 1, TRAIN_SEQ))
+    cs.progress(f"qwen train_4k steps: {json.dumps(out)}")
+    out.update(step_parts(cfg, params, batch, mesh, cards))
+    out["traced_step"] = trace_by_card(lambda: step(params, opt, batch),
+                                       cards)
+    with EpDrops() as drops, torch.no_grad():
+        T.loss_fn(params, cfg, {k: split_rows(v, mesh)
+                                for k, v in batch.items()})
+        cs.sync_all(cards)
+    out["dropped_share"] = drops.share()
+    out["state"] = cs.block_accounting([params, opt.m, opt.v], mesh)
+    if not out["state"]["equal"]:
+        MISSES.append(f"qwen train_4k: a card holds more than its blocks "
+                      f"({out['state']})")
+    if not all(np.isfinite(losses)):
+        MISSES.append(f"qwen train_4k: losses {losses}")
+    del params, opt
+    torch.cuda.empty_cache()
+    print(f"qwen_train: {cfg.n_layers} layers, step "
+          f"{out['step_s_median']:.4f} s (median of steps 2-{steps}; "
+          f"{[round(t, 4) for t in secs]}), card 0 bound "
+          f"{out['bound_ms'] / 1e3:.4f} s, peak GB {out['peak_gb']}, idle "
+          f"{out['traced_step']['idle_share']}, dropped share "
+          f"{out['dropped_share']:.4f}", flush=True)
+    out["check"] = qwen_train_check(cards)
+    print(f"qwen_train check: {json.dumps(out['check'])}", flush=True)
+    return out
+
+
+def qwen_train_check(cards, steps: int = 3) -> dict:
+    """`QWEN_TRAIN_CHECK_LAYERS` layers of qwen2-moe-a2.7b at full width
+    in float32 (TF32 off), one row of `TRAIN_SEQ` tokens: ``steps`` AdamW
+    steps (warm-up 0) over the 4 cards (1 x 4) against the same over 4
+    logical shards of card 0, at `tests/test_torch_cuda.py`'s several-
+    cards bars: the losses within 1e-6, the parameters within 1e-5 of
+    each leaf's max |ref| (whether they are equal bit for bit is
+    recorded)."""
+    import torch
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.launch.mesh import join_leaf
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optim as O
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.tree import map_sharded
+    cfg = dataclasses.replace(get_arch("qwen2-moe-a2.7b").get_config(),
+                              n_layers=QWEN_TRAIN_CHECK_LAYERS,
+                              compute_dtype="float32")
+    batch = TokenStream(cfg.vocab, TRAIN_SEQ, 1, seed=0).next_batch()
+    ocfg = O.OptimizerConfig(lr=1e-3, warmup_steps=0)
+    runs = {}
+    for name, devs in (("cards", cards), ("card0_logical",
+                                          [cards[0]] * CARDS)):
+        mesh = cs.lm_mesh(devs)
+        p = T.init_params(cfg, torch.Generator(cards[0]).manual_seed(0),
+                          mesh=mesh)
+        o = O.init_opt_state(ocfg, p)
+        step = make_train_step(lambda pp, b: T.loss_fn(pp, cfg, b), ocfg,
+                               mesh=mesh, donate=True)
+        p, o, secs, losses = timed_steps(step, p, o, batch, steps,
+                                         mesh.physical_devices())
+        runs[name] = {"losses": losses, "step_s": secs,
+                      "params": C.flatten_params(map_sharded(
+                          lambda x: join_leaf(x, cards[0]), p))}
+        del p, o, step
+        torch.cuda.empty_cache()
+    a, b = runs["cards"], runs["card0_logical"]
+    loss_err = max(abs(x - y) / abs(y) for x, y in zip(a["losses"],
+                                                       b["losses"]))
+    errs = {k: cs.device_rel_err(v, b["params"][k])
+            for k, v in a["params"].items()}
+    ok = loss_err <= 1e-6 and max(errs.values()) <= 1e-5
+    same = a["losses"] == b["losses"] and all(
+        torch.equal(v, b["params"][k]) for k, v in a["params"].items())
+    if not ok:
+        MISSES.append(f"qwen train check: loss {loss_err}, parameters "
+                      f"{max(errs.values())} of max |ref|")
+    return {"layers": cfg.n_layers, "seq": TRAIN_SEQ, "steps": steps,
+            "losses": a["losses"], "card0_losses": b["losses"],
+            "loss_rel_err": loss_err, "param_rel_err": max(errs.values()),
+            "param_rel_err_by_leaf": errs, "within_bars": ok,
+            "bit_equal": same,
+            "cards_step_s": a["step_s"], "card0_step_s": b["step_s"]}
+
+
 def dbrx_bound(cfg, params, rows: int, max_len: int) -> dict:
     """Card 0's bytes for one decode step over ``params`` (stored by
     their specs over 4 cards): its expert blocks, every other leaf whole
@@ -786,6 +1023,9 @@ def main() -> int:
         rec["gpipe"] = cs.gpipe_check(cards, cards[0])
     if "llama_train" in cells:
         rec["llama3_8b_train_4k"] = run("train_4k", llama_train, cards,
+                                        args.train_steps)
+    if "qwen_train" in cells:
+        rec["qwen2_moe_train_4k"] = run("qwen train_4k", qwen_train, cards,
                                         args.train_steps)
     if "dbrx_decode" in cells:
         rec["dbrx_132b_decode_32k"] = run("dbrx decode_32k", dbrx_decode,

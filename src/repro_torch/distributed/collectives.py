@@ -403,10 +403,11 @@ class _GatherBlocks(torch.autograd.Function):
         return (None, None, None) + tuple(grads)
 
 
-def _sources(leaf: Sharded, device, where) -> list:
+def _sources(leaf: Sharded, device, where, shard=None) -> list:
     """(region, shard) for each distinct block among the shards whose
-    coordinates match ``where`` ({axis: coordinate}): the shard on
-    ``device`` where one holds the block, else the first."""
+    coordinates match ``where`` ({axis: coordinate}): the reading
+    ``shard``'s own where it holds the block on ``device``, else the
+    shard on ``device`` where one holds the block, else the first."""
     mesh = leaf.mesh
     out = []
     for region, ks in leaf.groups().items():
@@ -415,18 +416,24 @@ def _sources(leaf: Sharded, device, where) -> list:
                                        for a, c in where.items())]
         if ks:
             here = [k for k in ks if leaf[k].device == device]
-            out.append((region, (here or ks)[0]))
+            own = [shard] if shard in here else []
+            out.append((region, (own or here or ks)[0]))
     return out
 
 
-def gather_leaf(leaf, device, dtype=None, where=None) -> torch.Tensor:
+def gather_leaf(leaf, device, dtype=None, where=None,
+                shard=None) -> torch.Tensor:
     """The whole of a `Sharded` leaf on ``device`` (with ``where``, the
     box the blocks of the matching shards cover: a "model" shard's
     experts), each block cast to ``dtype`` on its own device before it
     moves. A box held by one block already on ``device`` is that block
-    (no copy). Differentiable: see the module's note."""
+    (no copy). ``shard``, the shard that reads, takes its own replica of
+    a block where it holds one on ``device``: each replica's gradient
+    then stays its own until `sum_replicas` adds them in order, the same
+    on four logical shards of a card as on four cards. Differentiable:
+    see the module's note."""
     device = torch.device(device)
-    src = _sources(leaf, device, where)
+    src = _sources(leaf, device, where, shard)
     if not src:
         raise ValueError(f"no shard of the mesh matches {where}")
     lo = [min(r[i][0] for r, _ in src) for i in range(len(leaf.shape))]
@@ -444,18 +451,19 @@ def gather_leaf(leaf, device, dtype=None, where=None) -> torch.Tensor:
     return _GatherBlocks.apply(device, shape, offsets, *blocks)
 
 
-def gather_leaf_rows(leaf: Sharded, ids: torch.Tensor, device
-                     ) -> torch.Tensor:
+def gather_leaf_rows(leaf: Sharded, ids: torch.Tensor, device,
+                     shard=None) -> torch.Tensor:
     """Rows ``ids`` (int [n]) of a `Sharded` table [R, C] on ``device``,
     without joining it: each block gathers the ids its rows hold (the
     others clamped into range and masked out after) on its own device,
-    and the column blocks are joined. The gather is `gather_rows`
-    (`models.common`: a deterministic gradient)."""
+    and the column blocks are joined (``shard`` as in `gather_leaf`).
+    The gather is `gather_rows` (`models.common`: a deterministic
+    gradient)."""
     from ..models.common import gather_rows
     device = torch.device(device)
     ids = ids.to(device)
     cols: dict = {}
-    for (r, c), k in _sources(leaf, device, None):
+    for (r, c), k in _sources(leaf, device, None, shard):
         if r[1] <= r[0]:
             continue
         blk = leaf[k]

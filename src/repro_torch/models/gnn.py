@@ -37,9 +37,9 @@ from .common import (SegmentPlan, abstract_tree, as_plan,
                      nest_params, param_tree, register_params, segment_gather,
                      segment_max, segment_min, segment_sum, tree_to_numpy,
                      trunc_normal)
+from .remat import recompute
 from .segment_mesh import (edge_chunks, edge_pass, edge_specs, fork,
-                           mesh_degree, recompute, shard_trees,
-                           stored_mesh)
+                           mesh_degree, shard_trees, stored_mesh)
 
 BIG_GRAPH = 500_000   # above this many nodes, blocks of layers recompute
 
@@ -333,7 +333,7 @@ EDGE_CHUNK = 1 << 22   # edges a chunk of a shard's edge work, past BIG_GRAPH
 def _block_fn(apply_layer, n: int, keys: list, has_e: bool):
     """A block of 4 layers over flat tensors (each shard's node state,
     its edge state where ``has_e``, then each layer's each shard's
-    parameters by ``keys``), for `segment_mesh.recompute`."""
+    parameters by ``keys``), for `remat.recompute`."""
 
     def run(*xs):
         hs, es = list(xs[:n]), list(xs[n:2 * n]) if has_e else [None] * n
@@ -400,7 +400,7 @@ def _forward_mesh(params, cfg: GNNConfig, batch, n_graphs, mesh):
     n = len(ks)
     if N > BIG_GRAPH and cfg.n_layers % 4 == 0:
         # recompute over blocks of 4 layers, as on one device: only block
-        # boundaries are saved (`segment_mesh.recompute`, since a block
+        # boundaries are saved (`remat.recompute`, since a block
         # spans every card)
         for b_ in range(cfg.n_layers // 4):
             lps = [layer_params(i) for i in range(4 * b_, 4 * b_ + 4)]

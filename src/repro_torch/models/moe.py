@@ -267,11 +267,12 @@ def ep_slots(idx: torch.Tensor, cfg: MoEConfig, capL: int, e_lo: int,
     return [(el[j], sl[j], keep[j]) for j in range(e.shape[0])]
 
 
-def _leaf_on(leaf, device, dtype=None) -> torch.Tensor:
+def _leaf_on(leaf, device, dtype=None, shard=None) -> torch.Tensor:
     """A non-expert leaf on ``device``: a `Sharded` one gathered there
-    in ``dtype`` (None: as stored), a tensor moved as it is."""
+    in ``dtype`` (None: as stored) for ``shard`` (`gather_leaf`), a
+    tensor moved as it is."""
     if isinstance(leaf, Sharded):
-        return gather_leaf(leaf, device, dtype)
+        return gather_leaf(leaf, device, dtype, shard=shard)
     return leaf.to(device)
 
 
@@ -325,9 +326,12 @@ def moe_ffn_replicated_ep(x, wp: dict, cfg: MoEConfig, mesh=None,
     parts: dict = {}
     for (d, m), k in sorted(first.items()):
         dev = mesh.devices[k]
-        x_l = (xs[d] if blocks else x[d * NL:(d + 1) * NL]).to(dev)
-        probs, gates, idx = route(x_l, _leaf_on(wp["router"], dev, dtype),
-                                  cfg)
+        # a copy of its own on every shard, on one card as on several:
+        # the tokens' gradient is then the same sum of the shards' parts
+        x_l = (xs[d] if blocks else x[d * NL:(d + 1) * NL]).to(dev,
+                                                               copy=True)
+        probs, gates, idx = route(
+            x_l, _leaf_on(wp["router"], dev, dtype, shard=k), cfg)
         e_lo = m * EL
         picks = ep_slots(idx, cfg, capL, e_lo, EL)
         # every kept choice has a slot of its own; dropped ones go to a
@@ -341,7 +345,7 @@ def moe_ffn_replicated_ep(x, wp: dict, cfg: MoEConfig, mesh=None,
             leaf = wp[n]
             if isinstance(leaf, Sharded):
                 leaf = gather_leaf(leaf, dev, dtype,
-                                   where={cfg.ep_axis: m})
+                                   where={cfg.ep_axis: m}, shard=k)
             else:
                 leaf = leaf[e_lo:e_lo + EL]
             w[n] = leaf.to(device=dev, dtype=dt)
@@ -365,16 +369,17 @@ def moe_ffn_replicated_ep(x, wp: dict, cfg: MoEConfig, mesh=None,
     if not blocks:
         xs, ys = [x], [torch.cat(ys) if DA > 1 else ys[0]]
     if cfg.num_shared:
-        ys = [y + _shared_ffn(xd, wp, cfg, dtype) for y, xd in zip(ys, xs)]
+        ys = [y + _shared_ffn(xd, wp, cfg, dtype, first[(d, 0)])
+              for d, (y, xd) in enumerate(zip(ys, xs))]
     return (ys if blocks else ys[0]), aux
 
 
-def _shared_ffn(x: torch.Tensor, wp: dict, cfg: MoEConfig, dtype=None
-                ) -> torch.Tensor:
+def _shared_ffn(x: torch.Tensor, wp: dict, cfg: MoEConfig, dtype=None,
+                shard=None) -> torch.Tensor:
     """The shared experts (and their sigmoid output gate) on x's
-    device."""
+    device, their leaves gathered for ``shard``."""
     dt = x.dtype
-    sw = {n: _leaf_on(wp[n], x.device, dtype) for n in
+    sw = {n: _leaf_on(wp[n], x.device, dtype, shard) for n in
           ("shared_gate_w", "shared_up", "shared_down", "shared_out_gate")
           if n in wp}
     gs = F.silu(x @ sw["shared_gate_w"].to(dt))

@@ -39,8 +39,8 @@ from .common import (SegmentPlan, abstract_tree, flatten_params,
                      load_numpy_tree, nest_params, param_tree, register_params,
                      segment_gather, segment_sum, tree_to_numpy,
                      trunc_normal)
-from .segment_mesh import (edge_specs, recompute, shard_trees,
-                           stored_mesh)
+from .remat import recompute
+from .segment_mesh import edge_specs, shard_trees, stored_mesh
 
 LS = (0, 1, 2)
 BIG_GRAPH = 500_000   # above this many nodes, each layer recomputes
@@ -427,7 +427,7 @@ def _energy_mesh(params, cfg: NequIPConfig, batch, n_graphs, edge_chunk,
     for i in range(cfg.n_layers):
         lps = [p["layers"][k][i] for p in ps for k in keys]
         # past BIG_GRAPH each layer recomputes in the backward (over every
-        # card: `segment_mesh.recompute`)
+        # card: `remat.recompute`)
         flat = (recompute(run_layer, *flat, *lps) if N > BIG_GRAPH
                 else run_layer(*flat, *lps))
     p0 = ps[0]

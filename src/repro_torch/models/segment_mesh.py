@@ -129,42 +129,6 @@ def fork(x: torch.Tensor) -> tuple:
     return _Fork.apply(x)
 
 
-class _Recompute(torch.autograd.Function):
-    """See `recompute`."""
-
-    @staticmethod
-    def forward(ctx, fn, *xs):
-        ctx.fn = fn
-        ctx.set_materialize_grads(False)
-        ctx.save_for_backward(*xs)
-        with torch.no_grad():
-            return tuple(fn(*xs))
-
-    @staticmethod
-    @torch.autograd.function.once_differentiable
-    def backward(ctx, *gs):
-        xs = [x.detach().requires_grad_(True) for x in ctx.saved_tensors]
-        with torch.enable_grad():
-            outs = ctx.fn(*xs)
-        pairs = [(o, g) for o, g in zip(outs, gs) if g is not None]
-        if not pairs:
-            return (None,) * (1 + len(xs))
-        got = torch.autograd.grad([o for o, _ in pairs], xs,
-                                  [g for _, g in pairs], allow_unused=True)
-        return (None,) + tuple(got)
-
-
-def recompute(fn, *xs) -> tuple:
-    """``fn(*xs)`` (float tensors in, a tuple of tensors out) with only
-    its inputs kept for the backward, which recomputes it once and takes
-    its vector-Jacobian product: `torch.utils.checkpoint` for a region
-    that spans cards. (The non-reentrant checkpoint recomputes where a
-    saved tensor is first unpacked; with a region on several cards, two
-    cards' autograd threads can unpack at once and both recompute.)
-    Whatever ``fn`` reads must come in through ``xs`` to get a gradient."""
-    return _Recompute.apply(fn, *xs)
-
-
 class _EdgePass(torch.autograd.Function):
     """See `edge_pass`. The flat inputs are each shard's (h, e?, edge
     parameters...) in linear shard order."""

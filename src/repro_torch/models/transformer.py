@@ -43,12 +43,14 @@ device's blocks on it): every leaf a `launch.mesh.Sharded` list of
 blocks, the reference's storage under its train and serve cells.
 `loss_fn` / `forward` then split the batch's rows over the mesh's data
 axes, each data shard computing its rows on its device and gathering
-each layer's leaves there inside the layer's `checkpoint`
+each layer's leaves there inside the layer's recomputed region
 (`distributed.collectives.gather_leaf`, whose backward sums each
-block's gradient on its device): FSDP. `prefill_step` runs the same
-layers with each layer's keys and values written, as they come, into
-`init_cache(..., mesh=)`'s sequence blocks, and computes the head at
-the last position only. `decode_step` runs on the mesh's first device,
+block's gradient on its device): FSDP. A dense layer recomputes each
+shard under its own `checkpoint`; an MoE layer, whose experts sit on
+their own cards, is one region over every card (`remat.recompute`).
+`prefill_step` runs the same layers with each layer's keys and values
+written, as they come, into `init_cache(..., mesh=)`'s sequence
+blocks, and computes the head at the last position only. `decode_step` runs on the mesh's first device,
 gathering a layer's non-expert leaves as it comes, while the experts
 stay on their shards.
 """
@@ -75,6 +77,7 @@ from .common import (abstract_tree, apply_rope, cross_entropy_loss,
                      register_tensors, rms_norm, rope_angles, tree_to_numpy,
                      trunc_normal)
 from .moe import EXPERT_LEAVES, MoEConfig, moe_apply
+from .remat import leaf_blocks, recompute
 
 # float64 is the port's own: a better-conditioned witness of a float32
 # comparison (the attention still rounds q, k, p, v to bfloat16)
@@ -405,29 +408,38 @@ def _layer(cfg: LMConfig, x, lp: dict, sin, cos, cache=None, pos=None,
     return x + y, new_cache, aux
 
 
-def _embed(params: dict, tokens, dt, device=None) -> torch.Tensor:
+def _embed(params: dict, tokens, dt, device=None, shard=None
+           ) -> torch.Tensor:
     """The token embeddings [..., D] in ``dt``; from a `Sharded` table,
-    the rows gathered onto ``device`` block by block."""
+    the rows gathered onto ``device`` block by block (for ``shard``,
+    `gather_leaf_rows`)."""
     emb = params["embed"]
     if isinstance(emb, Sharded):
         tokens = torch.as_tensor(tokens, device=device)
-        rows = gather_leaf_rows(emb, tokens.reshape(-1).long(), device)
+        rows = gather_leaf_rows(emb, tokens.reshape(-1).long(), device,
+                                shard)
     else:
         tokens = torch.as_tensor(tokens, device=emb.device)
         rows = gather_rows(emb, tokens.reshape(-1).long())
     return rows.reshape(tuple(tokens.shape) + (emb.shape[1],)).to(dt)
 
 
-def forward(params: dict, cfg: LMConfig, tokens, collect_kv: bool = False):
+def forward(params: dict, cfg: LMConfig, tokens, collect_kv: bool = False,
+            mesh=None):
     """tokens: [B, T] -> (logits [B, T, vocab] in the compute dtype, aux)
     and, with ``collect_kv``, the per-layer (k, v) lists. Each float32
     layer leaf is cast to the compute dtype first (the reference casts
     before its scan); with ``cfg.remat == "full"`` and a gradient
-    wanted, each layer is recomputed in the backward. Over parameters
-    stored by their `Spec`s (`Sharded` leaves), see `_forward_mesh`; the
-    per-layer (k, v) are then each layer's list of the data shards'
-    blocks."""
+    wanted, each layer is recomputed in the backward. ``mesh`` is the
+    reference's ambient mesh, which routes the experts
+    (`moe.moe_apply`), as in `decode_step`. Over parameters stored by
+    their `Spec`s (`Sharded` leaves), see `_forward_mesh`; ``mesh`` is
+    then theirs, and the per-layer (k, v) are each layer's list of the
+    data shards' blocks."""
     if isinstance(params["embed"], Sharded):
+        if mesh not in (None, params["embed"].mesh):
+            raise ValueError("a forward routes over the mesh its "
+                             "parameters are stored on")
         if not collect_kv:
             return _forward_mesh(params, cfg, tokens)
         ks, vs = [], []
@@ -453,10 +465,10 @@ def forward(params: dict, cfg: LMConfig, tokens, collect_kv: bool = False):
               for k, v in layers.items()}
         if remat:
             x, _, a = checkpoint(lambda x_, lp_: _layer(cfg, x_, lp_, sin,
-                                                        cos),
+                                                        cos, mesh=mesh),
                                  x, lp, use_reentrant=False)
         else:
-            x, (k, v), a = _layer(cfg, x, lp, sin, cos)
+            x, (k, v), a = _layer(cfg, x, lp, sin, cos, mesh=mesh)
             if collect_kv:
                 ks.append(k)
                 vs.append(v)
@@ -473,47 +485,57 @@ def _mesh_layer(cfg: LMConfig, xs: list, leaves: dict, rope: list,
     """Layer i over the data shards' activations ``xs`` (each on its
     device), its leaves ``leaves`` `Sharded` layer slices. Each shard
     gathers the leaves it reads onto its device in the compute dtype
-    inside the `checkpoint` boundary, so the backward gathers them
-    again and no device keeps every layer's. A dense layer runs each
-    shard apart; an MoE layer runs the shards' attention, then one
-    `moe.moe_apply` over all their tokens (its experts gathered only
-    over the axes other than "model"). Returns (xs, aux, each shard's
+    inside the recomputed region (its own replica of a block where it
+    holds one: `gather_leaf`'s ``shard``), so the backward gathers them
+    again and no device keeps every layer's. A dense layer runs each shard
+    apart, each under its own `checkpoint`; an MoE layer runs the
+    shards' attention, then one `moe.moe_apply` over all their tokens
+    (its experts gathered only over the axes other than "model"), as
+    one region over every card: `remat.recompute`, with every block of
+    every leaf it reads among its inputs. Returns (xs, aux, each shard's
     (k, v))."""
     dt = xs[0].dtype
-
-    def gathered(dev, skip=()):
-        return {k: gather_leaf(v, dev, dt) for k, v in leaves.items()
-                if k not in skip}
-
-    def run(fn, *args):
-        if not remat:
-            return fn(*args)
-        return checkpoint(fn, *args, use_reentrant=False,
-                          preserve_rng_state=False)
+    ks = data_shards(mesh)
 
     if not cfg.moe:
-        def one(x, sin, cos):
-            return _layer(cfg, x, gathered(x.device), sin, cos)[:2]
+        def one(x, sin, cos, k):
+            lp = {n: gather_leaf(v, x.device, dt, shard=k)
+                  for n, v in leaves.items()}
+            return _layer(cfg, x, lp, sin, cos)[:2]
 
-        out = [run(one, x, sin, cos) for x, (sin, cos) in zip(xs, rope)]
+        out = [checkpoint(one, x, sin, cos, k, use_reentrant=False,
+                          preserve_rng_state=False) if remat
+               else one(x, sin, cos, k)
+               for x, (sin, cos), k in zip(xs, rope, ks)]
         return [y for y, _ in out], torch.zeros(
             (), dtype=torch.float32, device=xs[0].device), \
             [kv for _, kv in out]
 
-    def joint(*xs_):
+    def joint(xs_, ls):
         mids, hs, kvs = [], [], []
-        for x, (sin, cos) in zip(xs_, rope):
-            mid, h, kv = _attend(cfg, x, gathered(x.device, MOE_LEAVES),
-                                 sin, cos)
+        for x, (sin, cos), k in zip(xs_, rope, ks):
+            lp = {n: gather_leaf(v, x.device, dt, shard=k)
+                  for n, v in ls.items() if n not in MOE_LEAVES}
+            mid, h, kv = _attend(cfg, x, lp, sin, cos)
             mids.append(mid)
             hs.append(h.reshape(-1, h.shape[-1]))
             kvs.append(kv)
-        ys, aux = moe_apply(hs, {k: leaves[k] for k in MOE_LEAVES
-                                 if k in leaves}, cfg.moe, mesh=mesh,
-                            dtype=dt)
+        ys, aux = moe_apply(hs, {k: ls[k] for k in MOE_LEAVES if k in ls},
+                            cfg.moe, mesh=mesh, dtype=dt)
         return [m + y.reshape(m.shape) for m, y in zip(mids, ys)], aux, kvs
 
-    return run(joint, *xs)
+    if not remat:
+        return joint(xs, leaves)
+    n = len(xs)
+    blocks, rebuild = leaf_blocks(leaves)
+
+    def flat(*ts):
+        ys, aux, kvs = joint(ts[:n], rebuild(ts[n:]))
+        return (*ys, aux, *(t for kv in kvs for t in kv))
+
+    out = recompute(flat, *xs, *blocks)
+    return list(out[:n]), out[n], [tuple(out[n + 1 + 2 * d:n + 3 + 2 * d])
+                                   for d in range(n)]
 
 
 def _forward_mesh(params: dict, cfg: LMConfig, tokens, kv_sink=None,
@@ -535,9 +557,10 @@ def _forward_mesh(params: dict, cfg: LMConfig, tokens, kv_sink=None,
             "(the reference's moe_ffn_chunked over the global batch) is "
             "not ported")
     dt = DTYPES[cfg.compute_dtype]
-    devs = [mesh.devices[k] for k in data_shards(mesh)]
-    xs = [_embed(params, t, dt, dev)
-          for t, dev in zip(split_rows(tokens, mesh), devs)]
+    ks = data_shards(mesh)
+    devs = [mesh.devices[k] for k in ks]
+    xs = [_embed(params, t, dt, dev, k)
+          for t, dev, k in zip(split_rows(tokens, mesh), devs, ks)]
     T = xs[0].shape[1]
     rope = [rope_angles(torch.arange(T, device=dev), cfg.d_head,
                         cfg.rope_theta, dt) for dev in devs]
@@ -555,9 +578,10 @@ def _forward_mesh(params: dict, cfg: LMConfig, tokens, kv_sink=None,
         aux = aux + a
     if last_only:
         xs = [x[:, -1:] for x in xs]
-    logits = [rms_norm(x, gather_leaf(params["final_norm"], dev, dt))
-              @ gather_leaf(params["lm_head"], dev, dt)
-              for x, dev in zip(xs, devs)]
+    logits = [rms_norm(x, gather_leaf(params["final_norm"], dev, dt,
+                                      shard=k))
+              @ gather_leaf(params["lm_head"], dev, dt, shard=k)
+              for x, dev, k in zip(xs, devs, ks)]
     return logits, aux / cfg.n_layers
 
 

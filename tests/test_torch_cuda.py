@@ -1942,6 +1942,158 @@ def test_sharded_train_step_over_several_cards(card):
         assert _rel(leaf, ref[path]) <= 1e-5, path
 
 
+def test_moe_train_step_over_several_cards(card):
+    """qwen2-moe-a2.7b's smoke config (``remat="full"``, float32, TF32
+    off) over 4 cards as ("data", "model") 2 x 2 and 1 x 4, so "model" >
+    1 and the experts sit on several cards: each MoE layer is one region
+    over the cards (every data shard's attention, then the experts on
+    their own cards), recomputed in the backward. Three AdamW steps
+    against the same on 4 logical shards of card 0, at
+    `test_sharded_train_step_over_several_cards`'s bars: the losses
+    within 1e-6, the parameters within 1e-5 of each leaf's max |ref|.
+    Skips with fewer than four cards."""
+    import dataclasses
+    from repro_torch.models import common as C
+    from repro_torch.models import transformer as T
+    if torch.cuda.device_count() < 4:
+        pytest.skip("needs four CUDA devices")
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = dataclasses.replace(_lm("qwen2-moe-a2.7b"), remat="full")
+    cards = [torch.device("cuda", i) for i in range(4)]
+    for axes in ({"data": 2, "model": 2}, {"data": 1, "model": 4}):
+        runs = {}
+        for name, devs in (("cards", cards), ("card0", [cards[0]] * 4)):
+            mesh = _mesh(devs, **axes)
+            params = T.init_params(
+                cfg, torch.Generator(cards[0]).manual_seed(0), mesh=mesh)
+            assert [b.device for b in params["layers"]["w_gate"]] == \
+                list(devs)
+            runs[name] = _train_run(cfg, params, mesh, steps=3)
+        (a_loss, a), (b_loss, b) = runs["cards"], runs["card0"]
+        assert np.allclose(a_loss, b_loss, rtol=1e-6, atol=0), \
+            (axes, a_loss, b_loss)
+        ref = C.flatten_params(b)
+        for path, leaf in C.flatten_params(a).items():
+            assert _rel(leaf, ref[path]) <= 1e-5, (axes, path)
+
+
+def test_mesh_prefill_on_card_equals_cpu(card):
+    """`prefill_step` over parameters stored by their specs on 4 logical
+    shards of the card (("data", "model") 2 x 2; llama3-8b's smoke
+    config, float32, TF32 off) into `init_cache(mesh=)`'s sequence
+    blocks, against the one-device prefill on the CPU: next tokens
+    equal; the prompt's logits per position as `_positions` holds the
+    forward (the median within 1e-5 of max |ref|, every position within
+    3e-2, greedy tokens equal: the attention rounds its operands to
+    bf16, so a last-bit difference can move a position); the cache at
+    [0, T) the same way, its median position within one bf16 step of
+    max |ref|, and zero after T."""
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.models import transformer as T
+    torch.backends.cuda.matmul.allow_tf32 = False
+    cfg = _lm("llama3-8b")
+    params = T.init_params(cfg, torch.Generator().manual_seed(0))
+    prompt = TokenStream(cfg.vocab, 32, 4, seed=0).next_batch()["tokens"]
+    mesh = _mesh([card] * 4, data=2, model=2)
+    sp = T.shard_params(_tree_on(params, card), cfg, mesh)
+    with torch.no_grad():
+        got_n, got_c, got_l = T.prefill_step(sp, cfg, prompt,
+                                             return_logits=True, max_len=64)
+        ref_n, ref_c, ref_l = T.prefill_step(params, cfg, prompt,
+                                             return_logits=True, max_len=64)
+    assert all(b.device.type == "cuda" for b in got_c["k"])
+    assert torch.equal(got_n.cpu(), ref_n)
+    _positions(got_l, ref_l)
+    for k in ("k", "v"):
+        whole = torch.cat([b.cpu() for b in got_c[k]], dim=2).double()
+        ref = ref_c[k].double()
+        assert torch.equal(whole[:, :, 32:], torch.zeros_like(ref[:, :, 32:]))
+        per = (whole[:, :, :32] - ref[:, :, :32]).abs().flatten(3).amax(
+            -1).flatten() / ref.abs().max()
+        assert float(per.median()) <= 2.0 ** -7 and float(per.max()) <= 3e-2, k
+
+
+def _remesh_run(device, path) -> tuple:
+    """`FaultTolerantRunner` over ("data", "model") 2 x 2 logical shards
+    of ``device`` (llama3-8b's smoke config, float32): a checkpoint every
+    2 steps, two of the four workers lost during step 2, so `remesh_fn`
+    rebuilds the step and state over 2 x 1 and the step-2 checkpoint is
+    restored onto it (step 2 runs again there); 5 steps. Returns (the runner's losses, the losses
+    and state of an uninterrupted run on 2 x 1 from that checkpoint, the
+    runner's final state), the states joined on the CPU."""
+    import dataclasses
+    from repro_torch.checkpoint.ckpt import CheckpointManager
+    from repro_torch.checkpoint.fault import FaultTolerantRunner, Heartbeat
+    from repro_torch.configs import get_arch
+    from repro_torch.data.lm import TokenStream
+    from repro_torch.launch.mesh import Sharded, join_leaf
+    from repro_torch.models import transformer as T
+    from repro_torch.train import optim as O
+    from repro_torch.train.loop import make_train_step
+    from repro_torch.train.tree import flatten_global
+    cfg = dataclasses.replace(get_arch("llama3-8b").smoke_config(),
+                              compute_dtype="float32")
+    ocfg = O.OptimizerConfig(lr=1e-3, warmup_steps=0)
+    stream = TokenStream(cfg.vocab, 32, 4, seed=0)
+    batches = [stream.next_batch() for _ in range(5)]
+
+    def setup(n):
+        m = _mesh([device] * n, data=2, model=n // 2)
+        params = T.init_params(cfg, torch.Generator().manual_seed(0))
+        params = T.shard_params(_tree_on(params, device), cfg, m)
+        return (make_train_step(lambda p, b: T.loss_fn(p, cfg, b), ocfg,
+                                mesh=m), params, O.init_opt_state(ocfg, params))
+
+    def joined(tree):
+        return {k: (join_leaf(v) if isinstance(v, Sharded) else v).cpu()
+                for k, v in flatten_global(tree).items()}
+
+    hb = Heartbeat(n_workers=4, timeout_s=1e19)
+
+    def batch_for_step(s):
+        if s == 2 and runner.heartbeat is hb:
+            hb.last[2] = hb.last[3] = -1e20
+        return batches[s]
+
+    cm = CheckpointManager(str(path))
+    runner = FaultTolerantRunner(*setup(4), cm, ckpt_every=2, heartbeat=hb,
+                                 remesh_fn=lambda n: setup(n))
+    log = runner.run(None, max_steps=5, batch_for_step=batch_for_step)
+    assert runner.restarts == 1
+    assert [r["step"] for r in log] == [0, 1, 2, 2, 3, 4]
+    step2, p2, o2 = setup(2)
+    state, at = cm.restore({"params": p2, "opt_state": o2}, step=2)
+    assert at == 2
+    p2, o2, losses = state["params"], state["opt_state"], []
+    for s in (2, 3, 4):
+        p2, o2, m = step2(p2, o2, batches[s])
+        losses.append(float(m["loss"]))
+    return ([r["loss"] for r in log], losses,
+            joined({"params": p2, "opt_state": o2}),
+            joined({"params": runner.params, "opt_state": runner.opt_state}))
+
+
+def test_remesh_restart_on_card_equals_cpu(card, tmp_path):
+    """The `FaultTolerantRunner`'s re-meshing restart on the card (4
+    logical shards to 2, `_remesh_run`) resumes with the losses and
+    state of an uninterrupted run on 2 shards from the same checkpoint,
+    bit for bit, as it does on CPU shards; the card's first loss (the
+    same weights, no update yet) within 1e-4 of the CPU's (TF32 off;
+    the attention's bf16 operands move it by ~1e-5, and Adam then
+    carries last-bit differences into whole steps, so the later losses
+    part further)."""
+    torch.backends.cuda.matmul.allow_tf32 = False
+    runs = {}
+    for name, dev in (("card", card), ("cpu", torch.device("cpu"))):
+        log, resumed, state, got = _remesh_run(dev, tmp_path / name)
+        assert log[3:] == resumed, (name, log, resumed)
+        for k, v in state.items():
+            assert torch.equal(got[k], v), (name, k)
+        runs[name] = log
+    assert abs(runs["card"][0] - runs["cpu"][0]) <= 1e-4 * abs(
+        runs["cpu"][0]), runs
+
+
 # ------------------------------------------ the graph family over a mesh
 def _gnn_mesh_case(arch):
     """(cfg, module, loss, batch, batch specs) at the CPU tests' sizes:

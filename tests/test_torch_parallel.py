@@ -439,7 +439,12 @@ def test_sharded_decode_matches_reference(reference, arch, compute_dtype):
 def test_sharded_decode_equals_unsharded(reference, arch):
     """The port's sharded decode against its own unsharded decode on the
     same cache and tokens (float32 compute): logits within 1e-5 of max
-    |ref|, tokens and the written cache equal."""
+    |ref|, tokens equal. Layer 0's written entries and every unwritten
+    position equal; the written entries of later layers within one bf16
+    ulp, on at most 1% of them: a later layer's input comes from the
+    attention before it, an LSE combine over the blocks on one side and
+    one softmax on the other, whose float32 last bits can round a cache
+    entry to the next bf16 value."""
     inp, out = reference
     tp = _port_params(arch, out)
     tc = dataclasses.replace(get_arch(arch).smoke_config(),
@@ -458,8 +463,18 @@ def test_sharded_decode_equals_unsharded(reference, arch):
         assert torch.equal(sn, wn)
         assert rel_err(sl, wl) <= 1e-5
         feed = wn
+    written = sorted({min(p, DECODE_S - 1) for p in DECODE_POS})
     for k in ("k", "v"):
-        assert torch.equal(torch.cat(sharded[k], 2), whole[k])
+        got = torch.cat(sharded[k], 2)
+        rest = [p for p in range(DECODE_S) if p not in written]
+        assert torch.equal(got[:, :, rest], whole[k][:, :, rest]), k
+        assert torch.equal(got[0, :, written], whole[k][0, :, written]), k
+        a = got[1:, :, written].float()
+        b = whole[k][1:, :, written].float()
+        ulp = torch.ldexp(torch.ones_like(a), torch.frexp(
+            torch.maximum(a.abs(), b.abs())).exponent - 8)
+        assert ((a - b).abs() <= ulp).all(), k
+        assert (a != b).float().mean() <= 0.01, k
 
 
 def test_sharded_cache_layout_and_clamp():

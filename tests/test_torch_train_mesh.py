@@ -580,6 +580,76 @@ def test_three_sharded_steps_with_accumulation_and_compression(reference):
     assert flips <= max(1e-3 * sum(v.size for v in exp.values()), ref_own)
 
 
+def test_moe_mesh_layer_recomputes_once_over_every_shard(monkeypatch):
+    """qwen2-moe's smoke config in float64 over ("data", "model") 2 x 2
+    CPU shards: with ``remat="full"`` each MoE layer is one
+    `remat.recompute` region over every shard, never a
+    `torch.utils.checkpoint`, and the loss and every gradient leaf (the
+    experts', the router's and the attention's included) equal the
+    step's without remat within 1e-12 of each leaf's max |ref|, so every
+    leaf the region reads comes in as an input. `moe_apply` runs twice a
+    layer with the recompute (the forward, then the backward's rerun),
+    once without."""
+    base = dataclasses.replace(get_arch("qwen2-moe-a2.7b").smoke_config(),
+                               compute_dtype="float64")
+    params = map_sharded(lambda x: x.to(torch.float64), TT.init_params(
+        base, torch.Generator().manual_seed(0)))
+    inp = _inputs()
+    m = mesh((2, 2))
+    batch = {k: split_rows(inp[k], m) for k in ("tokens", "labels")}
+    calls = []
+    moe_apply = TT.moe_apply
+    monkeypatch.setattr(TT, "moe_apply", lambda *a, **kw: calls.append(1)
+                        or moe_apply(*a, **kw))
+
+    def no_checkpoint(*a, **kw):
+        raise AssertionError("an MoE layer over a mesh under checkpoint")
+
+    monkeypatch.setattr(TT, "checkpoint", no_checkpoint)
+    runs = {}
+    for remat in ("full", "none"):
+        cfg = dataclasses.replace(base, remat=remat)
+        calls.clear()
+        loss, g = value_and_grad(lambda p, b: TT.loss_fn(p, cfg, b))(
+            TT.shard_params(params, cfg, m), batch)
+        runs[remat] = (float(loss), joined(g), len(calls))
+    (loss, got, n), (ref_loss, ref, n_ref) = runs["full"], runs["none"]
+    assert (n, n_ref) == (2 * base.n_layers, base.n_layers)
+    assert abs(loss - ref_loss) <= 1e-12 * abs(ref_loss)
+    assert set(got) == set(ref)
+    for path, r in ref.items():
+        assert got[path].dtype == torch.float64
+        assert float(r.abs().max()) > 0, path
+        assert rel_err(got[path], r) <= 1e-12, path
+
+
+def test_leaf_blocks_hand_each_tensor_in_once():
+    """`remat.leaf_blocks` over 2 x 2 CPU shards: a tensor several shards
+    share goes in once (a replicated leaf is one tensor; a leaf split
+    over "model" two), in sorted key order, and ``rebuild`` gives the
+    same storage plan over the tensors it is handed, shared as before."""
+    from repro_torch.models.remat import leaf_blocks
+    m = mesh((2, 2))
+    g = torch.Generator().manual_seed(0)
+    leaves = {"w": shard_leaf(torch.randn(6, 4, generator=g),
+                              Spec(None, "model"), m),
+              "norm": shard_leaf(torch.randn(4, generator=g), Spec(None), m)}
+    flat, rebuild = leaf_blocks(leaves)
+    assert len(flat) == 3
+    assert flat[0] is leaves["norm"][0]
+    assert [id(t) for t in flat[1:]] == [id(leaves["w"][k]) for k in (0, 1)]
+    new = [t.clone() for t in flat]
+    got = rebuild(new)
+    assert set(got) == {"w", "norm"}
+    assert all(b is new[0] for b in got["norm"])
+    assert [b is new[1 + k % 2] for k, b in enumerate(got["w"])] == \
+        [True] * 4
+    for k, leaf in got.items():
+        assert isinstance(leaf, Sharded)
+        assert (leaf.spec, leaf.mesh, leaf.shape) == (
+            leaves[k].spec, leaves[k].mesh, leaves[k].shape)
+
+
 def test_moe_balance_loss_is_the_data_shards_mean(reference):
     """qwen2-moe: the sharded loss minus its cross-entropy is the mean,
     over the 4 data shards, of each shard's balance loss (its rows
@@ -604,19 +674,9 @@ def test_moe_balance_loss_is_the_data_shards_mean(reference):
 
 def _ep_aux(params, cfg, rows):
     """The balance loss of ``rows`` alone: the unsharded forward with the
-    expert-parallel route over one data shard and 2 "model" shards."""
+    experts routed over one data shard and 2 "model" shards."""
     m = make_serving_mesh([CPU] * 2, axes={"data": 1, "model": 2})
-    dt = torch.float32
-    x = TT._embed(params, rows, dt)
-    T_ = x.shape[1]
-    sin, cos = C.rope_angles(torch.arange(T_), cfg.d_head, cfg.rope_theta,
-                             dt)
-    aux = torch.zeros(())
-    for i in range(cfg.n_layers):
-        lp = {k: v[i] for k, v in params["layers"].items()}
-        x, _, a = TT._layer(cfg, x, lp, sin, cos, mesh=m)
-        aux = aux + a
-    return aux / cfg.n_layers
+    return TT.forward(params, cfg, rows, mesh=m)[1]
 
 
 # ---------------------------------------------------------------- decode
